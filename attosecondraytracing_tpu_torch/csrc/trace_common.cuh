@@ -1,0 +1,545 @@
+// Device functions shared by the fused kernels K1 and K2 (fused_trace.cu).
+//
+// They are the per-ray arithmetic of the JAX package's ops/trace.py
+// (chained_step, premask_alive), ops/surfaces.py (the float32 branches of
+// intersect_with_normal_c) and ops/supports.py (include), and of the plain
+// PyTorch versions in ops/trace.py and ops/surfaces.py of this package.
+//
+// The chain is a table of records (ChainP) walked by a runtime loop with a
+// switch on the element kind; every thread of a warp runs the same element,
+// so the switch costs no divergence, and a new chain costs no rebuild.
+// Every constant in the records was formed in float64 on the host and
+// rounded to float32 once (ops/fused_trace.py: chain_table, pack_chain);
+// the struct layouts below are mirrored there as numpy dtypes and checked
+// against sizeof at load time.
+//
+// Rounding notes. Compiled without --use_fast_math: division and sqrtf are
+// IEEE-rounded. Products and sums may contract to FMA, which moves hits by
+// ulps (inside the kernel-vs-plain envelopes). The two places where
+// contraction would change the algorithm are written with _rn intrinsics,
+// which are never contracted: the Kahan OPL step and the source law (so ray
+// k leaves the source exactly as in the plain version and the JAX package).
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+namespace art {
+
+constexpr int MAX_ELEMENTS = 8;
+constexpr int MAX_PREMASKS = 8;
+constexpr float T_EPS = 1e-9f;
+
+enum ElementKind : int {
+  ELEM_MASK = 0, ELEM_PLANE = 1, ELEM_TOROID = 2,
+  ELEM_PARABOLA = 3, ELEM_SPHERE = 4, ELEM_CYLINDER = 5, ELEM_ELLIPSOID = 6
+};
+enum SupportKind : int {
+  SUP_ROUND = 0, SUP_ROUND_HOLE = 1, SUP_RECT = 2, SUP_RECT_HOLE = 3, SUP_RECT_RECT_HOLE = 4
+};
+enum SourceKind : int { SRC_CONE = 0, SRC_DISK = 1, SRC_EXTENDED = 2, SRC_SQUARE = 3 };
+
+// p[]: Round {r^2}; RoundHole {R^2, rh^2, cx, cy}; Rect {|dx|/2, |dy|/2};
+// RectHole {|dx|/2, |dy|/2, rh^2, cx, cy}; RectRectHole {|dx|/2, |dy|/2, |hx|/2, |hy|/2, cx, cy}
+struct SupportP { int kind; float p[6]; };
+
+// a folded mask: support test in the frame reached by (M, b) from the incoming state
+struct PremaskP { SupportP sup; float M[9]; float b[3]; };
+
+// s[]: Plane {}; Toroid {R, r, R+r, 0.5/(R+r), 0.5/r, hit_tol};
+// quadrics {k0, k1, k2, k3, support offset x, hit_tol} with k = Parabola
+// {p, 2p, p^2}, Sphere and Cylinder {R, R^2, -1/R}, Ellipsoid {1/a^2, 1/b^2, a^2, b^2}
+struct ElementP {
+  int kind;
+  int pre_begin, pre_end;  // premasks [pre_begin, pre_end) of ChainP::pre
+  float M[9];              // incoming patch-relative frame -> surface frame
+  float b[3];
+  float cen[3];            // support centre on the surface (mirrors)
+  float s[8];
+  SupportP sup;
+};
+
+struct ChainP {
+  int n_elements;
+  int n_premasks;
+  ElementP el[MAX_ELEMENTS];
+  PremaskP pre[MAX_PREMASKS];
+  float RK[9];  // last element's lab->optic rotation; p_lab = RK^T x + posK
+  float posK[3];
+};
+
+struct SourceP {
+  int kind;
+  float radius;       // tan(divergence): cone, extended; beam radius [mm]: disk; side [mm]: square
+  float inv_n_total;  // radius law: 1 / total ray count (cone, disk), 1 / sub-sources (extended)
+  float rad2;         // Gaussian law denominator: radius^2 (square: radius^2 / 2)
+  float ln_edge;      // log of the Gaussian edge fraction
+  int weighted;
+  float g[3];         // frac(phi * 256^i), i = 0, 1, 2
+  int n_each;         // rays per sub-source (extended), grid side (square)
+  float inv_n_each;   // 1 / n_each (extended), 1 / (n_each - 1) (square)
+  float pos_radius;   // sub-source disk radius [mm] (extended)
+};
+
+// detector plane in the last element's patch-relative frame
+struct DetectorP {
+  float c[3], n[3], e1[3], e2[3];
+  float opl_ref;
+  float inv_dn_chief;
+  float centre_distance;
+};
+
+struct Ray {
+  float px, py, pz, dx, dy, dz;
+  float opl, opl_c, inc;
+  bool alive;
+};
+
+__device__ __forceinline__ float rsq(float x) { return 1.0f / sqrtf(x); }
+
+__device__ __forceinline__ void kahan_add(float& s, float& c, float x) {
+  const float y = __fsub_rn(x, c);
+  const float t = __fadd_rn(s, y);
+  c = __fsub_rn(__fsub_rn(t, s), y);
+  s = t;
+}
+
+__device__ __forceinline__ bool in_disk(float r2, float x, float y) { return x * x + y * y <= r2; }
+
+__device__ __forceinline__ bool in_rect(float hx, float hy, float x, float y) {
+  return fabsf(x) <= hx && fabsf(y) <= hy;
+}
+
+__device__ __forceinline__ bool include(const SupportP& s, float x, float y) {
+  switch (s.kind) {
+    case SUP_ROUND:
+      return in_disk(s.p[0], x, y);
+    case SUP_ROUND_HOLE:
+      return in_disk(s.p[0], x, y) && !in_disk(s.p[1], x - s.p[2], y - s.p[3]);
+    case SUP_RECT:
+      return in_rect(s.p[0], s.p[1], x, y);
+    case SUP_RECT_HOLE:
+      return in_rect(s.p[0], s.p[1], x, y) && !in_disk(s.p[2], x - s.p[3], y - s.p[4]);
+    case SUP_RECT_RECT_HOLE:
+      return in_rect(s.p[0], s.p[1], x, y) && !in_rect(s.p[2], s.p[3], x - s.p[4], y - s.p[5]);
+  }
+  return false;
+}
+
+__device__ __forceinline__ void affine(const float* M, const float* b, const Ray& s,
+                                       float& qx, float& qy, float& qz,
+                                       float& ux, float& uy, float& uz) {
+  qx = M[0] * s.px + M[1] * s.py + M[2] * s.pz + b[0];
+  qy = M[3] * s.px + M[4] * s.py + M[5] * s.pz + b[1];
+  qz = M[6] * s.px + M[7] * s.py + M[8] * s.pz + b[2];
+  ux = M[0] * s.dx + M[1] * s.dy + M[2] * s.dz;
+  uy = M[3] * s.dx + M[4] * s.dy + M[5] * s.dz;
+  uz = M[6] * s.dx + M[7] * s.dy + M[8] * s.dz;
+}
+
+__device__ __forceinline__ float plane_t(float qz, float uz) {
+  return -qz / (fabsf(uz) > 1e-30f ? uz : CUDART_INF_F);
+}
+
+// ---------------------------------------------------------------------------
+// surfaces (float32 branches of ops/surfaces.py)
+// ---------------------------------------------------------------------------
+
+struct Hit {
+  float t, x, y, z, nx, ny, nz;
+  bool hit;
+};
+
+__device__ __forceinline__ Hit plane_hit(const ElementP& el, float qx, float qy, float qz,
+                                         float ux, float uy, float uz, float t_eps) {
+  Hit h;
+  // intersect_c(Plane) returns t unmasked; the hit point follows from it
+  h.t = plane_t(qz, uz);
+  h.x = qx + h.t * ux;
+  h.y = qy + h.t * uy;
+  h.z = qz + h.t * uz;
+  h.hit = (h.t > t_eps) && include(el.sup, h.x, h.y);
+  h.nx = 0.0f;
+  h.ny = 0.0f;
+  h.nz = 1.0f;
+  return h;
+}
+
+__device__ __forceinline__ void toroid_residual(float R, float r, float x, float y, float z,
+                                                float ux, float uy, float uz, float& g, float& gp) {
+  const float rho2 = x * x + z * z;
+  const float inv_rho = rsq(fmaxf(rho2, 1e-30f));
+  const float w = rho2 * inv_rho - R;
+  const float s2 = w * w + y * y;
+  const float inv_s = rsq(fmaxf(s2, 1e-30f));
+  g = s2 * inv_s - r;
+  const float drho = (x * ux + z * uz) * inv_rho;
+  gp = (w * drho + y * uy) * inv_s;
+}
+
+// _toroid_fast_root + the fused normal of intersect_with_normal_c
+__device__ __forceinline__ Hit toroid_hit(const ElementP& el, float qx, float qy, float qz,
+                                          float ux, float uy, float uz, float t_eps) {
+  const float R = el.s[0], r = el.s[1], RpR = el.s[2], i2A = el.s[3], i2B = el.s[4], tol = el.s[5];
+  // osculating-paraboloid seed, nearer valid crossing picked in n/d form
+  const float a = -(ux * ux * i2A + uy * uy * i2B);
+  const float b = uz - 2.0f * (qx * ux * i2A + qy * uy * i2B);
+  const float c = qz + RpR - (qx * qx * i2A + qy * qy * i2B);
+  const float disc = b * b - 4.0f * a * c;
+  const bool ok = disc >= 0.0f;
+  const float sq = ok ? sqrtf(disc) : 0.0f;
+  const float qq = (b == 0.0f) ? -0.5f * sq : -0.5f * (b + (b > 0.0f ? sq : -sq));
+  const float n1 = qq, d1 = a, n2 = c, d2 = qq;
+  const bool v1 = ((n1 - t_eps * d1) * d1 > 0.0f) && (d1 * (qz * d1 + n1 * uz) < 0.0f);
+  const bool v2 = ((n2 - t_eps * d2) * d2 > 0.0f) && (d2 * (qz * d2 + n2 * uz) < 0.0f);
+  const bool t1_nearer = (n1 * d2 - n2 * d1) * (d1 * d2) <= 0.0f;
+  const bool pick1 = !v2 || (v1 && t1_nearer);
+  const float num = pick1 ? n1 : n2;
+  const float den = pick1 ? d1 : d2;
+  float t = ok ? (den != 0.0f ? num / den : 0.0f) : -1.0f;
+  // one Newton correction (the seed converges in one)
+  {
+    float g, gp;
+    toroid_residual(R, r, qx + t * ux, qy + t * uy, qz + t * uz, ux, uy, uz, g, gp);
+    t = t - g * (fabsf(gp) > 1e-12f ? 1.0f / gp : 0.0f);
+  }
+  // one shared evaluation: validity residual, hit point, normal
+  Hit h;
+  h.x = qx + t * ux;
+  h.y = qy + t * uy;
+  h.z = qz + t * uz;
+  const float rho2 = h.x * h.x + h.z * h.z;
+  const float inv_rho = rsq(fmaxf(rho2, 1e-30f));
+  const float w = rho2 * inv_rho - R;
+  const float s2 = w * w + h.y * h.y;
+  const float inv_s = rsq(fmaxf(s2, 1e-30f));
+  const float g_abs = fabsf(s2 * inv_s - r);
+  const float an = w * inv_rho * inv_s;
+  h.nx = -an * h.x;
+  h.ny = -h.y * inv_s;
+  h.nz = -an * h.z;
+  h.hit = (t > t_eps) && (g_abs < tol) && (h.z < -R) && include(el.sup, h.x, h.y);
+  h.t = h.hit ? t : 0.0f;
+  return h;
+}
+
+// The quadric surfaces (paraboloid, sphere, cylinder, ellipsoid) share the
+// generic path of intersect_c: closed-form quadratic seeds, 3 Newton steps on
+// a distance-like residual per candidate, the nearest valid root, and the
+// normal at the root (normal_at_root_c).
+
+// a t^2 + b t + c of the ray against the surface (ops/surfaces._quadratic_coeffs)
+__device__ __forceinline__ void quadric_coeffs(const ElementP& el, float x, float y, float z,
+                                               float ux, float uy, float uz,
+                                               float& a, float& b, float& c) {
+  const float* k = el.s;
+  switch (el.kind) {
+    case ELEM_PARABOLA:  // {p, 2p, p^2}
+      a = ux * ux + uy * uy;
+      b = 2.0f * (ux * x + uy * y) - k[1] * uz;
+      c = x * x + y * y - k[1] * z;
+      break;
+    case ELEM_SPHERE:  // {R, R^2, -1/R}
+      a = 1.0f;
+      b = 2.0f * (ux * x + uy * y + uz * z);
+      c = x * x + y * y + z * z - k[1];
+      break;
+    case ELEM_CYLINDER:  // {R, R^2, -1/R}
+      a = uy * uy + uz * uz;
+      b = 2.0f * (uy * y + uz * z);
+      c = y * y + z * z - k[1];
+      break;
+    default:  // ELEM_ELLIPSOID {1/a^2, 1/b^2, a^2, b^2}
+      a = (uy * uy + uz * uz) / k[3] + ux * ux / k[2];
+      b = 2.0f * ((uy * y + uz * z) / k[3] + ux * x / k[2]);
+      c = (y * y + z * z) / k[3] + x * x / k[2] - 1.0f;
+      break;
+  }
+}
+
+// distance-like residual g and dg/dt (ops/surfaces._residual_c)
+__device__ __forceinline__ void quadric_residual(const ElementP& el, float x, float y, float z,
+                                                 float ux, float uy, float uz,
+                                                 float& g, float& gp) {
+  const float* k = el.s;
+  switch (el.kind) {
+    case ELEM_PARABOLA: {
+      const float h = z - (x * x + y * y) / k[1];
+      const float hp = uz - (x * ux + y * uy) / k[0];
+      const float scale = k[0] * rsq(x * x + y * y + k[2]);
+      g = h * scale;
+      gp = hp * scale;
+      break;
+    }
+    case ELEM_SPHERE: {
+      const float rr = x * x + y * y + z * z;
+      const float inv_r = rsq(fmaxf(rr, 1e-30f));
+      g = rr * inv_r - k[0];
+      gp = (x * ux + y * uy + z * uz) * inv_r;
+      break;
+    }
+    case ELEM_CYLINDER: {
+      const float rr = y * y + z * z;
+      const float inv_r = rsq(fmaxf(rr, 1e-30f));
+      g = rr * inv_r - k[0];
+      gp = (y * uy + z * uz) * inv_r;
+      break;
+    }
+    default: {  // ELEM_ELLIPSOID
+      const float f = x * x * k[0] + (y * y + z * z) * k[1] - 1.0f;
+      const float fp = 2.0f * (x * ux * k[0] + (y * uy + z * uz) * k[1]);
+      const float ex = x * k[0], ey = y * k[1], ez = z * k[1];
+      const float scale = 0.5f * rsq(fmaxf(ex * ex + ey * ey + ez * ez, 1e-30f));
+      g = f * scale;
+      gp = fp * scale;
+      break;
+    }
+  }
+}
+
+// unit 'up' normal at a root (ops/surfaces.normal_at_root_c / normal_c)
+__device__ __forceinline__ void quadric_normal(const ElementP& el, Hit& h) {
+  const float* k = el.s;
+  float nx, ny, nz;
+  switch (el.kind) {
+    case ELEM_SPHERE:
+      h.nx = h.x * k[2];
+      h.ny = h.y * k[2];
+      h.nz = h.z * k[2];
+      return;
+    case ELEM_CYLINDER:
+      h.nx = 0.0f;
+      h.ny = h.y * k[2];
+      h.nz = h.z * k[2];
+      return;
+    case ELEM_PARABOLA:
+      nx = -h.x;
+      ny = -h.y;
+      nz = k[0];
+      break;
+    default:  // ELEM_ELLIPSOID
+      nx = -h.x * k[0];
+      ny = -h.y * k[1];
+      nz = -h.z * k[1];
+      break;
+  }
+  const float inv = rsq(nx * nx + ny * ny + nz * nz);
+  h.nx = nx * inv;
+  h.ny = ny * inv;
+  h.nz = nz * inv;
+}
+
+// citardauq quadratic roots; invalid roots are NaN (ops/surfaces._solve_quadratic)
+__device__ __forceinline__ void solve_quadratic(float a, float b, float c, float& t1, float& t2) {
+  const float disc = b * b - 4.0f * a * c;
+  const bool ok = disc >= 0.0f;
+  const float sq = ok ? sqrtf(disc) : 0.0f;
+  float qq = -0.5f * (b + (b > 0.0f ? sq : (b < 0.0f ? -sq : 0.0f)));
+  if (b == 0.0f) qq = -0.5f * sq;
+  const float tiny = 1e-30f;
+  const bool linear = fabsf(a) < tiny;
+  const float num1 = linear ? -c : qq;
+  const float den1 = linear ? (fabsf(b) > tiny ? b : CUDART_INF_F)
+                            : (fabsf(a) > tiny ? a : CUDART_INF_F);
+  t1 = num1 / den1;
+  t2 = linear ? CUDART_INF_F : c / (fabsf(qq) > tiny ? qq : CUDART_INF_F);
+  if (!ok) {
+    t1 = CUDART_NAN_F;
+    t2 = CUDART_NAN_F;
+  }
+}
+
+// s[4] = support offset x, s[5] = hit tolerance for every quadric
+__device__ __forceinline__ Hit quadric_hit(const ElementP& el, float qx, float qy, float qz,
+                                           float ux, float uy, float uz, float t_eps) {
+  const float ox = el.s[4], tol = el.s[5];
+  float a, b, c;
+  quadric_coeffs(el, qx, qy, qz, ux, uy, uz, a, b, c);
+  float cand[2];
+  solve_quadratic(a, b, c, cand[0], cand[1]);
+  float t_best = CUDART_INF_F;
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    float t = isfinite(cand[k]) ? cand[k] : -1.0f;
+    float g_abs = 0.0f;
+#pragma unroll
+    for (int it = 0; it < 3; ++it) {
+      float g, gp;
+      quadric_residual(el, qx + t * ux, qy + t * uy, qz + t * uz, ux, uy, uz, g, gp);
+      g_abs = fabsf(g);
+      t = t - g / (fabsf(gp) > 1e-12f ? gp : CUDART_INF_F);
+    }
+    const float x = qx + t * ux, y = qy + t * uy, z = qz + t * uz;
+    // branch filter: the paraboloid takes every root, the others z < 0
+    const bool branch = el.kind == ELEM_PARABOLA || z < 0.0f;
+    const bool valid = (t > t_eps) && (g_abs < tol) && branch && include(el.sup, x - ox, y);
+    t_best = fminf(t_best, valid ? t : CUDART_INF_F);
+  }
+  Hit h;
+  h.hit = isfinite(t_best);
+  h.t = h.hit ? t_best : 0.0f;
+  h.x = qx + h.t * ux;
+  h.y = qy + h.t * uy;
+  h.z = qz + h.t * uz;
+  quadric_normal(el, h);
+  return h;
+}
+
+// ---------------------------------------------------------------------------
+// source (ops/fused_trace.synth_source)
+// ---------------------------------------------------------------------------
+
+// sin(pi x), cos(pi x) on [-1, 1]: the source law's minimax polynomials
+// (ops/fused_trace._SIN_PI/_COS_PI), Horner form, unfused so ray k's
+// direction matches the plain version and the JAX package bit for bit
+__device__ __forceinline__ void sincos_pi_law(float x, float& sn, float& cs) {
+  const float x2 = __fmul_rn(x, x);
+  float s = 0.00039054382726498024f;
+  s = __fadd_rn(__fmul_rn(s, x2), -0.007259921822795766f);
+  s = __fadd_rn(__fmul_rn(s, x2), 0.08206264637303859f);
+  s = __fadd_rn(__fmul_rn(s, x2), -0.599230762176276f);
+  s = __fadd_rn(__fmul_rn(s, x2), 2.550156988459466f);
+  s = __fadd_rn(__fmul_rn(s, x2), -5.16771212974953f);
+  s = __fadd_rn(__fmul_rn(s, x2), 3.1415926362231827f);
+  sn = __fmul_rn(s, x);
+  float c = -8.869084444024393e-05f;
+  c = __fadd_rn(__fmul_rn(c, x2), 0.0019043286626063097f);
+  c = __fadd_rn(__fmul_rn(c, x2), -0.025785808393817295f);
+  c = __fadd_rn(__fmul_rn(c, x2), 0.2353208253010271f);
+  c = __fadd_rn(__fmul_rn(c, x2), -1.3352602860924583f);
+  c = __fadd_rn(__fmul_rn(c, x2), 4.058711817231867f);
+  c = __fadd_rn(__fmul_rn(c, x2), -4.934802185862838f);
+  c = __fadd_rn(__fmul_rn(c, x2), 0.999999999885547f);
+  cs = c;
+}
+
+// unit-radius Vogel point k (index < 2^24) of a spiral with radius law
+// sqrt(k * inv_n + k_frac), scaled by `scale`: (r cos theta, r sin theta)
+__device__ __forceinline__ void vogel_point(const SourceP& src, int k, float inv_n, float phase,
+                                            float k_frac, float scale, float& x, float& y) {
+  // frac(k * phi) over the base-256 digits of k, in the JAX package's order
+  const float a = (float)(k >> 16), b = (float)((k >> 8) & 255), c = (float)(k & 255);
+  const float tt = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(a, src.g[2]), __fmul_rn(b, src.g[1])),
+                                       __fmul_rn(c, src.g[0])), phase);
+  const float fr = __fsub_rn(tt, floorf(tt));
+  float sn, cs;
+  sincos_pi_law(__fsub_rn(__fmul_rn(2.0f, fr), 1.0f), sn, cs);
+  const float r = sqrtf(__fadd_rn(__fmul_rn((float)k, inv_n), k_frac));
+  x = __fmul_rn(-r * cs, scale);
+  y = __fmul_rn(-r * sn, scale);
+}
+
+// Source ray k (local index < 2^24): the canonical-frame ray and the
+// Gaussian law argument rr. cone/disk: ray k of the spiral (phase, k_frac:
+// the chunk's offsets). extended: cone ray j of sub-source i, (i, j) =
+// divmod(k, n_each), the chunk's offsets on the sub-source spiral. square:
+// grid point (row i, column j) = divmod(k, n_each), phase = the chunk's row
+// offset.
+__device__ __forceinline__ void synth_source(const SourceP& src, int k, float phase, float k_frac,
+                                             Ray& s, float& rr) {
+  const int i = (src.kind >= SRC_EXTENDED) ? k / src.n_each : 0;
+  const int j = k - i * src.n_each;
+  if (src.kind == SRC_SQUARE) {
+    const float x = __fmul_rn(__fsub_rn(__fmul_rn(__fadd_rn((float)i, phase), src.inv_n_each), 0.5f),
+                              src.radius);
+    const float y = __fmul_rn(__fsub_rn(__fmul_rn((float)j, src.inv_n_each), 0.5f), src.radius);
+    rr = __fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)) / src.rad2;
+    s.px = x; s.py = y; s.pz = 0.0f;
+    s.dx = 0.0f; s.dy = 0.0f; s.dz = 1.0f;
+  } else {
+    float cx, cy;
+    if (src.kind == SRC_EXTENDED) {
+      vogel_point(src, i, src.inv_n_total, phase, k_frac, src.pos_radius, s.px, s.py);
+      vogel_point(src, j, src.inv_n_each, 0.0f, 0.0f, src.radius, cx, cy);
+    } else {
+      vogel_point(src, k, src.inv_n_total, phase, k_frac, src.radius, cx, cy);
+      s.px = 0.0f; s.py = 0.0f;
+    }
+    s.pz = 0.0f;
+    const float rho2 = __fadd_rn(__fmul_rn(cx, cx), __fmul_rn(cy, cy));
+    rr = rho2 / src.rad2;
+    if (src.kind == SRC_DISK) {
+      s.px = cx; s.py = cy;
+      s.dx = 0.0f; s.dy = 0.0f; s.dz = 1.0f;
+    } else {
+      const float inv = rsq(__fadd_rn(rho2, 1.0f));
+      s.dx = cx * inv; s.dy = cy * inv; s.dz = inv;
+    }
+  }
+  s.opl = 0.0f;
+  s.opl_c = 0.0f;
+  s.inc = 0.0f;
+  s.alive = true;
+}
+
+// ---------------------------------------------------------------------------
+// the chain (ops/trace.chained_step with freeze_dead=False)
+// ---------------------------------------------------------------------------
+
+// Trace one ray through the chain; the state stays patch-relative to the
+// last element. Dead rays are not frozen at mirrors (their values are
+// unspecified and every consumer masks by alive); mask steps freeze.
+template <bool WANT_INCIDENCE>
+__device__ __forceinline__ void trace_chain(const ChainP& ch, Ray& s) {
+  for (int i = 0; i < ch.n_elements; ++i) {
+    const ElementP& el = ch.el[i];
+    const bool last = (i == ch.n_elements - 1);
+    float t_eps = T_EPS;
+    if (el.pre_end > el.pre_begin) {
+      // folded masks: alive-predicates; the furthest crossing is the next
+      // element's minimum ray parameter
+      float t_floor = 0.0f;
+      for (int k = el.pre_begin; k < el.pre_end; ++k) {
+        const PremaskP& pm = ch.pre[k];
+        float mx, my, mz, mux, muy, muz;
+        affine(pm.M, pm.b, s, mx, my, mz, mux, muy, muz);
+        const float t = plane_t(mz, muz);
+        const bool on = include(pm.sup, mx + t * mux, my + t * muy);
+        s.alive = s.alive && (t > t_floor + T_EPS) && !on;
+        t_floor = fmaxf(t_floor, t);
+      }
+      t_eps = t_floor + T_EPS;
+    }
+    float qx, qy, qz, ux, uy, uz;
+    affine(el.M, el.b, s, qx, qy, qz, ux, uy, uz);
+    if (el.kind == ELEM_MASK) {
+      const float t = plane_t(qz, uz);
+      const float x = qx + t * ux, y = qy + t * uy, z = qz + t * uz;
+      const bool upd = s.alive && (t > t_eps) && !include(el.sup, x, y);
+      if (WANT_INCIDENCE && last && upd) s.inc = acosf(fminf(fmaxf(uz, -1.0f), 1.0f));
+      kahan_add(s.opl, s.opl_c, upd ? t : 0.0f);
+      s.px = upd ? x : qx;
+      s.py = upd ? y : qy;
+      s.pz = upd ? z : qz;
+      s.dx = ux;
+      s.dy = uy;
+      s.dz = uz;
+      s.alive = upd;
+      continue;
+    }
+    Hit h;
+    switch (el.kind) {
+      case ELEM_TOROID:
+        h = toroid_hit(el, qx, qy, qz, ux, uy, uz, t_eps);
+        break;
+      case ELEM_PLANE:
+        h = plane_hit(el, qx, qy, qz, ux, uy, uz, t_eps);
+        break;
+      default:
+        h = quadric_hit(el, qx, qy, qz, ux, uy, uz, t_eps);
+        break;
+    }
+    const float dn = ux * h.nx + uy * h.ny + uz * h.nz;
+    if (WANT_INCIDENCE && last) s.inc = acosf(fminf(fmaxf(-dn, -1.0f), 1.0f));
+    kahan_add(s.opl, s.opl_c, h.t);
+    s.px = h.x - el.cen[0];
+    s.py = h.y - el.cen[1];
+    s.pz = h.z - el.cen[2];
+    s.dx = ux - 2.0f * dn * h.nx;
+    s.dy = uy - 2.0f * dn * h.ny;
+    s.dz = uz - 2.0f * dn * h.nz;
+    s.alive = s.alive && h.hit;
+  }
+}
+
+}  // namespace art

@@ -1,0 +1,384 @@
+"""CONFIG runner and CLI: run a CONFIG file end to end (counterpart of the JAX
+package's ``main.py``).
+
+Usage::
+
+    python -m attosecondraytracing_tpu_torch.main [--rays N] [--device cuda|cpu] CONFIG
+
+A CONFIG file is an executable Python module defining ``OpticalChain`` (or
+``OpticalChainList``), ``SourceProperties``, ``DetectorOptions`` and
+``AnalysisOptions``. The repository's ``examples/CONFIG_*.py`` import the
+JAX package's module names; :func:`run_config_file` points those names at
+this package while the file runs, so the same files drive both packages and
+JAX is never imported.
+
+``--device`` defaults to ``cuda`` and raises when no card is present;
+``cpu`` runs the kernels' plain PyTorch versions.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import importlib.util
+import os
+import sys
+
+import numpy as np
+import torch
+
+from . import default_options as defaults
+from .analysis import stats
+from .analysis.optimizer import FindOptimalDistance
+from .models.chain import OpticalChain
+from .models.detector import Detector
+from .ops.bundle import RayBundle
+from .ops.precision import resolve_device
+from .utils import log
+from .utils.io import save_compressed
+
+# True while run_config_file() drives a CONFIG from the CLI; mirrors the
+# reference's `__name__ != "__main__"` plot gating
+_CLI_ACTIVE = False
+
+
+def load_config(config):
+    """Pull the 4 config variables off an imported config module."""
+    if hasattr(config, "OpticalChainList"):
+        chains = config.OpticalChainList
+    elif hasattr(config, "OpticalChain"):
+        chains = config.OpticalChain
+    else:
+        raise ValueError(
+            "Could not import an optical-chain-object or list thereof with the "
+            "name OpticalChain or OpticalChainList."
+        )
+    source_props = getattr(config, "SourceProperties", {})
+    detector_opts = getattr(config, "DetectorOptions", {})
+    analysis_opts = getattr(config, "AnalysisOptions", {})
+    return chains, source_props, detector_opts, analysis_opts
+
+
+def complete_defaults(SourceProperties, DetectorOptions, AnalysisOptions):
+    """Merge user dicts over the defaults."""
+    sp = defaults.default_source_properties()
+    do = defaults.default_detector_options()
+    ao = defaults.default_analysis_options()
+    sp.update(SourceProperties or {})
+    do.update(DetectorOptions or {})
+    ao.update(AnalysisOptions or {})
+    return sp, do, ao
+
+
+def setup_detector(chain: OpticalChain, DetectorOptions: dict, bundle: RayBundle | None = None) -> Detector:
+    """Manual or automatic detector placement."""
+    ref_element = chain.optical_elements[DetectorOptions["ReflectionNumber"]]
+    if DetectorOptions["ManualDetector"]:
+        if DetectorOptions["DetectorCentre"] is None or DetectorOptions["DetectorNormal"] is None:
+            raise RuntimeError(
+                'Manual detector placement needs "DetectorCentre" and "DetectorNormal" '
+                'in the "DetectorOptions"-dictionary.'
+            )
+        return Detector(
+            ref_element.position,
+            DetectorOptions["DetectorCentre"],
+            DetectorOptions["DetectorNormal"],
+        )
+    if DetectorOptions["DistanceDetector"] is None:
+        raise RuntimeError(
+            'Automatic detector placement needs "DistanceDetector" in the '
+            '"DetectorOptions"-dictionary.'
+        )
+    if bundle is None:
+        raise RuntimeError("Automatic detector placement needs the analyzed ray bundle.")
+    det = Detector(ref_element.position)
+    det.autoplace(bundle, DetectorOptions["DistanceDetector"])
+    return det
+
+
+def _subsample(bundle: RayBundle, max_rays: int, generator: torch.Generator) -> RayBundle:
+    """Randomly subsample alive rays (the reference caps its optimizer at
+    ``max_rays`` for speed); draws from the explicit ``generator``."""
+    idx = torch.nonzero(bundle.alive).reshape(-1)
+    if len(idx) > max_rays:
+        pick = torch.randperm(len(idx), generator=generator, device=generator.device)[:max_rays]
+        idx = idx[pick.to(idx.device)]
+    return RayBundle(*[x[idx] if x.ndim else x for x in bundle])
+
+
+def optimize_detector(
+    bundle: RayBundle,
+    detector: Detector,
+    DetectorOptions: dict,
+    verbose: bool = True,
+    maxRaystoConsider: int = 1000,
+    IntensityWeighted: bool = False,
+    Amplitude=None,
+    Precision: int = 3,
+    generator: torch.Generator | None = None,
+):
+    """Shift the detector to the optimum of DetectorOptions['OptFor'] on a
+    subsample of ``maxRaystoConsider`` alive rays (``generator`` draws it;
+    a fresh CPU generator seeded with 0 when None)."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    sub = _subsample(bundle, maxRaystoConsider, generator)
+    det, spot, duration = FindOptimalDistance(
+        detector, sub, DetectorOptions["OptFor"], Amplitude, Precision, IntensityWeighted, verbose
+    )
+    if verbose:
+        _print_optimum(det, spot, duration, DetectorOptions["OptFor"], IntensityWeighted)
+    return det, spot, duration
+
+
+def _print_optimum(det, spot, duration, opt_for, weighted, suffix=""):
+    result = f"The optimal detector distance is {det.get_distance():.3f} mm, with"
+    if weighted:
+        result += " intensity-weighted"
+    if opt_for in ["intensity", "spotsize", "size"]:
+        result += f" spatial std of {spot * 1e3:.3g} μm"
+    if opt_for in ["intensity", "duration"]:
+        result += f" temporal std of {duration:.3g} fs."
+    print(result + suffix, flush=True)
+
+
+def _fused_optimizer_available(chain: OpticalChain) -> bool:
+    """True when the detector optimizer runs as one fused moment pass
+    (kernel K2 on CUDA, its plain version on the CPU): the fused trace
+    engine's rule, so what K2 lacks raises rather than dropping to the
+    subsampled host optimizer."""
+    return chain.fused_eligible()
+
+
+def optimize_detector_fused(chain: OpticalChain, detector: Detector,
+                            DetectorOptions: dict, verbose: bool = True):
+    """Detector-distance optimization through one fused source -> trace ->
+    moments pass over all rays (FindOptimalDistanceFused); the minimization
+    runs on the host in float64. Optional ``DetectorOptions`` knobs:
+    ``Amplitude``, ``Precision``, ``IntensityWeighted`` (False drops the
+    Gaussian source weights)."""
+    from .analysis.optimizer import FindOptimalDistanceFused
+
+    info = chain.source_spec
+    weighted = DetectorOptions.get("IntensityWeighted", True)
+    det, spot, duration = FindOptimalDistanceFused(
+        info.baked(),
+        chain.device_elements(torch.float64),
+        info.n_rays,
+        detector,
+        DetectorOptions["OptFor"],
+        Amplitude=DetectorOptions.get("Amplitude"),
+        Precision=DetectorOptions.get("Precision", 3),
+        gaussian_edge=info.gaussian_edge if weighted else None,
+        verbose=False,
+        device=chain.device,
+    )
+    if verbose:
+        _print_optimum(det, spot, duration, DetectorOptions["OptFor"], weighted,
+                       " [fused kernel scan over all rays]")
+    return det, spot, duration
+
+
+def get_result_summary(detector: Detector, bundle: RayBundle, verbose: bool = False):
+    """(spot SD, duration SD) + optional printed summary."""
+    spot, duration = detector.get_SpotAndDuration(bundle)
+    spot = float(spot)
+    duration = float(duration)
+    if verbose:
+        alive = bundle.alive.cpu().numpy()
+        xy = detector.get_PointList2DCentre(bundle).double().cpu().numpy()[alive]
+        delays = detector.get_Delays(bundle).double().cpu().numpy()[alive]
+        extent = max(np.ptp(xy[:, 0]), np.ptp(xy[:, 1])) if len(xy) else 0.0
+        print(
+            f"At the detector distance of {detector.get_distance():.3f} mm we get:\n"
+            f"Spatial std : {spot * 1e3:.3f} μm and min-max: {extent * 1e3:.3f} μm\n"
+            f"Temporal std : {duration:.3e} fs and min-max : {np.ptp(delays):.3e} fs"
+        )
+    return spot, duration
+
+
+def run_ART(
+    chain: OpticalChain,
+    SourceProperties,
+    DetectorOptions,
+    AnalysisOptions,
+    loop=False,
+    *,
+    device="cuda",
+):
+    """Trace one chain on ``device``, set up / optimize its detector and
+    summarize. Returns (chain, detector, transmission %, spot SD, duration
+    SD)."""
+    chain.to(device)
+    niceline = "_" * 99 + "\n"
+    A = AnalysisOptions
+    needs_history = A["plot_Render"] or any(
+        A[f"plot_{w}MirrorProjection"] for w in ("Delay", "Intensity", "Incidence")
+    )
+    is_final = DetectorOptions["ReflectionNumber"] in (-1, len(chain.optical_elements) - 1)
+    if is_final and not needs_history:
+        bundle = chain.trace_final()
+        if AnalysisOptions["verbose"] and chain.last_trace_engine != "trace":
+            print(f"[trace engine: {chain.last_trace_engine}]", flush=True)
+    else:
+        bundle = chain.get_output_rays()[DetectorOptions["ReflectionNumber"]]
+
+    etransmission = stats.energy_transmission(chain.source_rays, bundle)
+    if AnalysisOptions["verbose"]:
+        print(niceline[:-1], flush=True)
+        if isinstance(chain.description, str) and chain.description:
+            print("***" + chain.description + "*** :")
+        if chain.loop_variable_name is not None and chain.loop_variable_value is not None:
+            print(f"For {chain.loop_variable_name} = {chain.loop_variable_value:f}:\n")
+        print(f"The optical setup has an energy transmission of {etransmission:.1f}%.\n")
+
+    detector = setup_detector(chain, DetectorOptions, bundle)
+
+    if DetectorOptions["AutoDetectorDistance"]:
+        if _fused_optimizer_available(chain):
+            detector, spot_sd, duration_sd = optimize_detector_fused(
+                chain, detector, DetectorOptions, AnalysisOptions["verbose"])
+        else:
+            detector, spot_sd, duration_sd = optimize_detector(
+                bundle,
+                detector,
+                DetectorOptions,
+                AnalysisOptions["verbose"],
+                maxRaystoConsider=DetectorOptions.get("maxRaystoConsider", 1000),
+                IntensityWeighted=DetectorOptions.get("IntensityWeighted", True),
+                Amplitude=DetectorOptions.get("Amplitude"),
+                Precision=DetectorOptions.get("Precision", 3),
+            )
+    else:
+        spot_sd, duration_sd = get_result_summary(detector, bundle, AnalysisOptions["verbose"])
+
+    if AnalysisOptions["verbose"]:
+        print(niceline)
+
+    if not loop or not _CLI_ACTIVE:
+        if any(AnalysisOptions[k] for k in AnalysisOptions if k.startswith("plot_")):
+            print("[attosecondraytracing_tpu_torch] plots are not ported yet; "
+                  "the requested plot_* options were skipped.", file=sys.stderr, flush=True)
+
+    return chain, detector, etransmission, spot_sd, duration_sd
+
+
+def main(OpticalChainList, SourceProperties, DetectorOptions, AnalysisOptions,
+         save_file_name=None, *, device="cuda"):
+    """Loop over the chain(s) on ``device``, keep the results, optionally
+    save. A list of chains (a parameter scan) runs serially, each chain
+    through the fused kernels when it qualifies."""
+    SourceProperties, DetectorOptions, AnalysisOptions = complete_defaults(
+        SourceProperties, DetectorOptions, AnalysisOptions
+    )
+    keeper_names = ["OpticalChain", "Detector", "ETransmission", "SpotSizeSD", "DurationSD"]
+    kept_data = {name: [] for name in keeper_names}
+
+    if isinstance(OpticalChainList, OpticalChain):
+        OpticalChainList = [OpticalChainList]
+        loop = False
+    elif not isinstance(OpticalChainList, list):
+        raise ValueError(
+            "The supplied OpticalChain is neither an OpticalChain-object, nor a list of those."
+        )
+    else:
+        loop = True
+
+    for i, chain in enumerate(OpticalChainList):
+        print(f"Optical Chain {i}/{len(OpticalChainList)} ", end="", flush=True)
+        values = run_ART(chain, SourceProperties, DetectorOptions, AnalysisOptions, loop,
+                         device=device)
+        for name, value in zip(keeper_names, values):
+            kept_data[name].append(value)
+
+    if AnalysisOptions["save_results"]:
+        log.transient("...saving data...")
+        save_compressed(kept_data, save_file_name)
+        log.clear_line()
+    return kept_data
+
+
+#: short names the JAX package exports at its top level
+_SHORT_NAMES = {"mirrors": "models.mirrors", "supports": "models.supports",
+                "masks": "models.masks", "sources": "models.sources"}
+
+
+@contextlib.contextmanager
+def _config_aliases():
+    """Point the JAX package's module names (``attosecondraytracing_tpu`` and
+    every ``attosecondraytracing_tpu.<module>`` this package has) at this
+    package's modules in ``sys.modules`` while a CONFIG file runs, then
+    restore them. A module this package lacks fails to import by name."""
+    import pkgutil
+
+    port = importlib.import_module(__package__)
+    names = dict(_SHORT_NAMES)
+    for info in pkgutil.walk_packages(port.__path__, prefix=__package__ + "."):
+        rel = info.name[len(__package__) + 1:]
+        names[rel] = rel
+    aliases = {"attosecondraytracing_tpu": port}
+    for rel, target in names.items():
+        aliases["attosecondraytracing_tpu." + rel] = importlib.import_module(f"{__package__}.{target}")
+    saved = {name: sys.modules.get(name) for name in aliases}
+    try:
+        sys.modules.update(aliases)
+        yield
+    finally:
+        for name, module in saved.items():
+            if module is None:
+                sys.modules.pop(name, None)
+            else:
+                sys.modules[name] = module
+
+
+def run_config_file(path: str, n_rays: int | None = None, *, device="cuda"):
+    """Execute a CONFIG file and run :func:`main` on its contents on
+    ``device``. ``n_rays`` overrides the config's ray count by regenerating
+    each chain's source at that size (CLI ``--rays``)."""
+    global _CLI_ACTIVE
+    device = resolve_device(device)
+    log.print_banner()
+    filename = os.path.basename(path)
+    spec = importlib.util.spec_from_file_location(filename, path)
+    config_module = importlib.util.module_from_spec(spec)
+    _CLI_ACTIVE = True
+    try:
+        with _config_aliases():
+            spec.loader.exec_module(config_module)
+        chains, sp, do, ao = load_config(config_module)
+        if n_rays is not None:
+            sp = dict(sp, NumberRays=int(n_rays))
+            for chain in chains if isinstance(chains, list) else [chains]:
+                chain.resize_source(int(n_rays))
+        return main(chains, sp, do, ao, save_file_name=os.path.splitext(path)[0], device=device)
+    finally:
+        _CLI_ACTIVE = False
+
+
+_USAGE = ("Usage: python -m attosecondraytracing_tpu_torch.main "
+          "[--rays N] [--device cuda|cpu] CONFIG_FILE")
+
+
+def _pop_option(argv, flag):
+    if flag not in argv:
+        return None
+    i = argv.index(flag)
+    if i + 1 >= len(argv):
+        print(f"{flag} requires a value\n{_USAGE}")
+        sys.exit(1)
+    value = argv[i + 1]
+    del argv[i : i + 2]
+    return value
+
+
+def cli(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    rays = _pop_option(argv, "--rays")
+    device = _pop_option(argv, "--device") or "cuda"
+    if len(argv) != 1:
+        print(_USAGE)
+        sys.exit(1)
+    run_config_file(argv[0], n_rays=None if rays is None else int(float(rays)), device=device)
+
+
+if __name__ == "__main__":
+    cli()

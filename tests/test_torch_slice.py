@@ -1,0 +1,218 @@
+"""The slice end to end, PyTorch port vs the JAX package, on the CPU.
+
+* ``run_ART`` on the flagship (round mask + two grazing toroids) at 4096
+  rays with the detector-distance optimizer: both packages take their fused
+  engines (the JAX Pallas kernels in interpret mode, the port's K1/K2 plain
+  versions) once ``PALLAS_MIN_RAYS`` is lowered to 1024.
+* ``run_config_file`` on examples/CONFIG_singleparabola.py through both
+  CLIs: both take the streamed trace (below the threshold).
+
+tests/conftest.py runs JAX in float64; the port is asked for float64 the
+same way a user would (``ART_TPU_DTYPE=float64``, read by both packages)."""
+
+import sys
+
+# tests/reference_shims.py leaves stand-in modules (pyvista, colorcet, ...)
+# in sys.modules whose every attribute is a stub object. Importing torch runs
+# inspect.getmodule, which reads each module's __file__ and fails on them, so
+# they are set aside while torch imports.
+_stubs = {name: mod for name, mod in list(sys.modules.items())
+          if not isinstance(getattr(mod, "__file__", None), (str, type(None)))}
+for _name in _stubs:
+    del sys.modules[_name]
+import torch  # noqa: E402
+
+sys.modules.update(_stubs)
+
+import os
+
+import matplotlib
+
+matplotlib.use("Agg", force=True)
+
+import pytest  # noqa: E402
+
+from attosecondraytracing_tpu import main as jmain  # noqa: E402
+from attosecondraytracing_tpu.models import chain as jchain  # noqa: E402
+from attosecondraytracing_tpu_torch import main as tmain  # noqa: E402
+from attosecondraytracing_tpu_torch.models import chain as tchain  # noqa: E402
+from attosecondraytracing_tpu_torch.ops import fused_trace as ft  # noqa: E402
+
+torch.set_num_threads(1)
+
+EXAMPLES = os.path.join(os.path.dirname(__file__), "..", "examples")
+
+
+def _flagship(pkg, n_rays):
+    from importlib import import_module
+
+    mirrors = import_module(f"{pkg}.models.mirrors")
+    masks = import_module(f"{pkg}.models.masks")
+    supports = import_module(f"{pkg}.models.supports")
+    placement = import_module(f"{pkg}.models.placement")
+    R, r = mirrors.ReturnOptimalToroidalRadii(500.0, 80.0)
+    tor = mirrors.MirrorToroidal(R, r, supports.SupportRectangle(150, 32))
+    mask = masks.Mask(supports.SupportRoundHole(Radius=20, RadiusHole=7, CenterHoleX=0, CenterHoleY=0))
+    props = {"Divergence": 25e-3, "SourceSize": 0, "Wavelength": 80e-6, "DeltaFT": 0.5,
+             "NumberRays": n_rays}
+    return placement.OEPlacement(props, [mask, tor, tor], [400.0, 100.0, 500.0], [0.0, 80.0, -80.0],
+                                 [0.0, 0.0, 0.0], "flagship"), props
+
+
+@pytest.mark.parametrize("opt_for", ["intensity", "spotsize"])
+def test_run_art_flagship_matches_jax(monkeypatch, opt_for):
+    monkeypatch.setenv("ART_TPU_DTYPE", "float64")
+    monkeypatch.setattr(jchain, "PALLAS_MIN_RAYS", 1024)
+    monkeypatch.setattr(jchain.OpticalChain, "_pallas_eligible", lambda self, els: True)
+    monkeypatch.setattr(tchain, "PALLAS_MIN_RAYS", 1024)
+    do = {"AutoDetectorDistance": True, "DistanceDetector": 500.0, "OptFor": opt_for}
+    ao = {"verbose": False, "save_results": False}
+
+    jc, props = _flagship("attosecondraytracing_tpu", 4096)
+    _, jdet, jT, jspot, jdur = jmain.run_ART(jc, *jmain.complete_defaults(props, do, ao))
+    assert jc.last_trace_engine == "pallas-source"
+
+    tc, _ = _flagship("attosecondraytracing_tpu_torch", 4096)
+    ft.fused_source_trace.launches = ft.fused_source_moments.launches = 0
+    _, tdet, tT, tspot, tdur = tmain.run_ART(tc, *tmain.complete_defaults(props, do, ao), device="cpu")
+    assert tc.last_trace_engine == "torch-source"
+    assert ft.fused_source_trace.launches == 0 and ft.fused_source_moments.launches == 0
+
+    assert 0 < tT <= 100
+    assert tT == pytest.approx(jT, abs=0.1)
+    assert tdet.get_distance() == pytest.approx(jdet.get_distance(), abs=0.05)
+    assert tspot == pytest.approx(jspot, rel=5e-3)
+    assert abs(tdur - jdur) <= 0.025 * jdur or abs(tdur**2 - jdur**2) ** 0.5 <= 0.8, (tdur, jdur)
+
+
+def test_run_art_extended_source_matches_jax(monkeypatch):
+    """run_ART on an extended source through both packages' fused engines
+    (K1 and K2 plain versions against the Pallas kernels)."""
+    monkeypatch.setenv("ART_TPU_DTYPE", "float64")
+    monkeypatch.setattr(jchain, "PALLAS_MIN_RAYS", 1024)
+    monkeypatch.setattr(jchain.OpticalChain, "_pallas_eligible", lambda self, els: True)
+    monkeypatch.setattr(tchain, "PALLAS_MIN_RAYS", 1024)
+    do = {"AutoDetectorDistance": True, "DistanceDetector": 500.0, "OptFor": "spotsize"}
+    ao = {"verbose": False, "save_results": False}
+    jc, props = _extended("attosecondraytracing_tpu", 4000)
+    _, jdet, jT, jspot, _ = jmain.run_ART(jc, *jmain.complete_defaults(props, do, ao))
+    assert jc.last_trace_engine == "pallas-source"
+    tc, _ = _extended("attosecondraytracing_tpu_torch", 4000)
+    _, tdet, tT, tspot, _ = tmain.run_ART(tc, *tmain.complete_defaults(props, do, ao), device="cpu")
+    assert tc.last_trace_engine == "torch-source" and tc.source_spec.kind == "extended"
+    assert 0 < tT <= 100
+    assert tT == pytest.approx(jT, abs=0.1)
+    assert tdet.get_distance() == pytest.approx(jdet.get_distance(), abs=0.05)
+    assert tspot == pytest.approx(jspot, rel=5e-3)
+
+
+def test_engine_choice(monkeypatch):
+    monkeypatch.setenv("ART_TPU_DTYPE", "float64")
+    chain, _ = _flagship("attosecondraytracing_tpu_torch", 2048)
+    assert chain.device is None
+    with pytest.raises(RuntimeError):  # no hidden default device
+        chain.trace_final()
+    chain.to("cpu")
+    chain.trace_final()
+    assert chain.last_trace_engine == "trace"  # below PALLAS_MIN_RAYS
+    monkeypatch.setattr(tchain, "PALLAS_MIN_RAYS", 1024)
+    out = chain.trace_final()
+    assert chain.last_trace_engine == "torch-source" and out.p.dtype == torch.float32
+    chain.trace_final(engine="trace")
+    assert chain.last_trace_engine == "trace"
+    chain.source_rays = chain.source_rays  # a user bundle: no fused source
+    chain.trace_final()
+    assert chain.last_trace_engine == "trace"
+    with pytest.raises(ValueError):
+        chain.trace_final(engine="fused")
+    with pytest.raises(ValueError):
+        chain.trace_final(engine="pallas")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):  # no silent CPU fallback
+            chain.to("cuda")
+    history = chain.get_output_rays()
+    assert len(history) == 3 and chain.get_output_rays() is history  # hash-gated
+    chain.to("cpu:0")  # another device: the cached trace is dropped and redone
+    assert chain.device == torch.device("cpu", 0)
+    again = chain.get_output_rays()
+    assert again is not history and torch.equal(again[-1].p, history[-1].p)
+
+
+def _extended(pkg, n_rays):
+    """The flagship's optics behind an extended source (0.4 mm disk of
+    10 mrad cones)."""
+    chain, props = _flagship(pkg, n_rays)
+    props = dict(props, Divergence=10e-3, SourceSize=0.4)
+    placement = __import__(f"{pkg}.models.placement", fromlist=["OEPlacement"])
+    return placement.OEPlacement(props, [el.type for el in chain.optical_elements],
+                                 [400.0, 100.0, 500.0], [0.0, 80.0, -80.0], [0.0, 0.0, 0.0]), props
+
+
+def test_engine_rule_is_the_jax_one(monkeypatch):
+    """engine="auto" takes the fused engine for every factory source kind
+    at PALLAS_MIN_RAYS, whatever the chain; on a CUDA device a chain the
+    kernels do not take raises instead of running another engine."""
+    from attosecondraytracing_tpu_torch.models import masks, supports
+    from attosecondraytracing_tpu_torch.models.placement import OEPlacement
+
+    monkeypatch.setattr(tchain, "PALLAS_MIN_RAYS", 1024)
+    chain, _ = _extended("attosecondraytracing_tpu_torch", 4000)
+    assert chain.source_spec.kind == "extended" and chain.fused_eligible()
+    fused = chain.to("cpu").trace_final()
+    assert chain.last_trace_engine == "torch-source"
+    streamed = chain.trace_final(engine="trace")
+    both = fused.alive & streamed.alive
+    assert int(both.sum()) > 1000 and int((fused.alive != streamed.alive).sum()) <= 2
+    assert float((fused.p[both] - streamed.p[both].float()).abs().max()) < 5e-2
+    assert tmain._fused_optimizer_available(chain)
+
+    hole = supports.SupportRoundHole(Radius=30, RadiusHole=1, CenterHoleX=0, CenterHoleY=0)
+    props = {"Divergence": 5e-3, "SourceSize": 0, "Wavelength": 80e-6, "NumberRays": 2048}
+    long_chain = OEPlacement(props, [masks.Mask(hole) for _ in range(10)], [10.0] * 10, [0.0] * 10)
+    assert long_chain.fused_eligible()
+    long_chain.device = torch.device("cuda")  # a CUDA device, without touching a card
+    with pytest.raises(NotImplementedError):
+        long_chain.trace_final()
+    assert long_chain.last_trace_engine is None
+
+
+@pytest.mark.parametrize("name", ["CONFIG_singleparabola.py", "CONFIG_toroidal2f-2f_byhand.py"])
+def test_config_file_through_both_clis(monkeypatch, capsys, name):
+    """An example CONFIG (1000 rays, streamed trace) gives the same
+    transmission, spot SD and duration SD from both CLIs, and the port runs
+    it under the JAX package's module names without touching that package."""
+    import sys
+
+    monkeypatch.setenv("ART_TPU_DTYPE", "float64")
+    path = os.path.join(EXAMPLES, name)
+    jk = jmain.run_config_file(path)
+    import matplotlib.pyplot as plt
+
+    plt.close("all")
+    jax_modules = {k: v for k, v in sys.modules.items()
+                   if k.split(".")[0] == "attosecondraytracing_tpu"}
+    tk = tmain.run_config_file(path, device="cpu")
+    assert {k: v for k, v in sys.modules.items()
+            if k.split(".")[0] == "attosecondraytracing_tpu"} == jax_modules  # aliases restored
+    chain = tk["OpticalChain"][0]
+    assert type(chain).__module__ == "attosecondraytracing_tpu_torch.models.chain"
+    assert chain.last_trace_engine == "trace"
+    for key in ("ETransmission", "SpotSizeSD", "DurationSD"):
+        assert float(tk[key][0]) == pytest.approx(float(jk[key][0]), rel=1e-6), key
+    if name == "CONFIG_singleparabola.py":
+        assert "plots are not ported yet" in capsys.readouterr().err
+        # the ~94 % / ~77 um of the verify notes
+        assert 90 < tk["ETransmission"][0] < 97 and 0.07 < tk["SpotSizeSD"][0] < 0.085
+
+
+def test_cli_arguments(monkeypatch):
+    calls = []
+    monkeypatch.setattr(tmain, "run_config_file", lambda path, n_rays=None, device="cuda":
+                        calls.append((path, n_rays, device)))
+    tmain.cli(["--rays", "1e5", "--device", "cpu", "cfg.py"])
+    tmain.cli(["cfg.py"])
+    assert calls == [("cfg.py", 100000, "cpu"), ("cfg.py", None, "cuda")]
+    with pytest.raises(SystemExit):
+        tmain.cli([])
+    with pytest.raises(SystemExit):
+        tmain.cli(["cfg.py", "--rays"])
