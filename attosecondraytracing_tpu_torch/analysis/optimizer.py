@@ -5,9 +5,9 @@
   bundle: scan 2*Amplitude in 20 steps, keep the argmin of the fitness,
   shrink the window 10x, Precision+1 times. Fitness per OptFor: "spotsize"
   = spot SD, "duration" = delay SD, "intensity" = spotsize^2 * duration.
-* :func:`FindOptimalDistanceFused` — one pass of kernel K2 yields every
-  per-distance statistic as an exact quadratic in the scan distance, and the
-  fitness is minimized on the host in float64.
+* :func:`FindOptimalDistanceFused` — one pass of kernel K2 (of K5 in a
+  parameter scan) yields every per-distance statistic as an exact quadratic
+  in the scan distance, and the fitness is minimized on the host in float64.
 * :func:`_x64_refine_distance` — when the optimum's duration falls below
   the float32 noise floor, a float64 trace of a reference-semantics source
   and the grid refinement settle it.
@@ -162,6 +162,7 @@ def FindOptimalDistanceFused(
     verbose: bool = False,
     *,
     device,
+    moments_fn=None,
     last_moments: dict | None = None,
 ):
     """Detector-distance optimization from ONE pass of kernel K2 (its plain
@@ -175,8 +176,11 @@ def FindOptimalDistanceFused(
     ``Amplitude``, from spot and NA like the reference) and places the
     moment expansion point near the focus. When the optimal duration is
     below :data:`DURATION_F32_FLOOR_FS`, the float64 refinement
-    (:func:`_x64_refine_distance`) settles the distance. ``last_moments``
-    (a dict, if given) receives the moment record used.
+    (:func:`_x64_refine_distance`) settles the distance.
+    ``moments_fn(det_centre, det_normal, det_rot, gaussian_edge,
+    centre_distance)`` replaces the K2 pass as the moment provider (the scan
+    engine passes a closure over kernel K5, ``ops/fused_scan.make_moments_fn``).
+    ``last_moments`` (a dict, if given) receives the moment record used.
 
     Returns (optimal Detector copy, spot SD [mm], duration SD [fs])."""
     from ..ops.fused_trace import (
@@ -218,9 +222,13 @@ def FindOptimalDistanceFused(
     amplitude = float(Amplitude)
     d_centre = _probe_focus_estimate(out, det, amplitude, weights=probe_w)
 
-    mom = source_detector_moments(
-        spec, elements, n_rays, det.centre, det.normal, det._plane_rotation(),
-        device=device, gaussian_edge=gaussian_edge, centre_distance=d_centre)
+    if moments_fn is None:
+        mom = source_detector_moments(
+            spec, elements, n_rays, det.centre, det.normal, det._plane_rotation(),
+            device=device, gaussian_edge=gaussian_edge, centre_distance=d_centre)
+    else:
+        mom = moments_fn(det.centre, det.normal, det._plane_rotation(),
+                         gaussian_edge=gaussian_edge, centre_distance=d_centre)
     if last_moments is not None:
         last_moments.update(mom)
 

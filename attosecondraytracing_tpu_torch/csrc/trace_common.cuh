@@ -1,4 +1,5 @@
-// Device functions shared by the fused kernels K1 and K2 (fused_trace.cu).
+// Device functions shared by the kernels K1 and K2 (fused_trace.cu), K5
+// (fused_scan.cu), K3 and K4 (streamed_trace.cu).
 //
 // They are the per-ray arithmetic of the JAX package's ops/trace.py
 // (chained_step, premask_alive), ops/surfaces.py (the float32 branches of
@@ -539,6 +540,98 @@ __device__ __forceinline__ void trace_chain(const ChainP& ch, Ray& s) {
     s.dy = uy - 2.0f * dn * h.ny;
     s.dz = uz - 2.0f * dn * h.nz;
     s.alive = s.alive && h.hit;
+  }
+}
+
+// Write ray k of a traced state: patch-relative frame K -> lab,
+// p = RK^T x + posK, d = RK^T d (the outputs of K1, K3 and K4).
+__device__ __forceinline__ void store_lab(const ChainP& ch, const Ray& s, int k,
+                                          float* __restrict__ p, float* __restrict__ d,
+                                          float* __restrict__ opl, float* __restrict__ opl_c,
+                                          unsigned char* __restrict__ alive,
+                                          float* __restrict__ inc) {
+  const float* R = ch.RK;
+  p[3 * k + 0] = R[0] * s.px + R[3] * s.py + R[6] * s.pz + ch.posK[0];
+  p[3 * k + 1] = R[1] * s.px + R[4] * s.py + R[7] * s.pz + ch.posK[1];
+  p[3 * k + 2] = R[2] * s.px + R[5] * s.py + R[8] * s.pz + ch.posK[2];
+  d[3 * k + 0] = R[0] * s.dx + R[3] * s.dy + R[6] * s.dz;
+  d[3 * k + 1] = R[1] * s.dx + R[4] * s.dy + R[7] * s.dz;
+  d[3 * k + 2] = R[2] * s.dx + R[5] * s.dy + R[8] * s.dz;
+  opl[k] = s.opl;
+  opl_c[k] = s.opl_c;
+  alive[k] = s.alive ? 1 : 0;
+  inc[k] = s.inc;
+}
+
+// ---------------------------------------------------------------------------
+// detector moments (ops/fused_trace.moment_rows), shared by K2 and K5
+// ---------------------------------------------------------------------------
+
+constexpr int N_MOMENTS = 16;
+constexpr int MOMENT_THREADS = 256;
+constexpr int MOMENT_RAYS_PER_THREAD = 8;
+constexpr int MOMENT_RAYS_PER_BLOCK = MOMENT_THREADS * MOMENT_RAYS_PER_THREAD;
+
+// ops/fused_trace.moment_rows for one alive ray
+__device__ __forceinline__ void add_moments(const DetectorP& det, const Ray& s, float w,
+                                            float* acc) {
+  const float dn = s.dx * det.n[0] + s.dy * det.n[1] + s.dz * det.n[2];
+  const float inv_dn = 1.0f / (fabsf(dn) > 1e-30f ? dn : CUDART_INF_F);
+  const float b0 = (det.c[0] - s.px) * det.n[0] + (det.c[1] - s.py) * det.n[1] +
+                   (det.c[2] - s.pz) * det.n[2];
+  const float t0 = (b0 - det.centre_distance) * inv_dn;
+  const float rx = s.px - det.c[0], ry = s.py - det.c[1], rz = s.pz - det.c[2];
+  const float a1 = rx * det.e1[0] + ry * det.e1[1] + rz * det.e1[2];
+  const float a2 = rx * det.e2[0] + ry * det.e2[1] + rz * det.e2[2];
+  const float g1 = s.dx * det.e1[0] + s.dy * det.e1[1] + s.dz * det.e1[2];
+  const float g2 = s.dx * det.e2[0] + s.dy * det.e2[1] + s.dz * det.e2[2];
+  const float x0 = a1 + t0 * g1;
+  const float y0 = a2 + t0 * g2;
+  const float cx = inv_dn * g1;
+  const float cy = inv_dn * g2;
+  const float cd = inv_dn - det.inv_dn_chief;
+  // fs-scale delay: the same-magnitude subtractions stay unfused
+  const float d0 = __fadd_rn(__fadd_rn(__fsub_rn(__fsub_rn(s.opl, det.opl_ref), s.opl_c), t0),
+                             __fmul_rn(det.centre_distance, det.inv_dn_chief));
+  const float wx0 = w * x0, wy0 = w * y0, wd0 = w * d0;
+  const float wcx = w * cx, wcy = w * cy, wcd = w * cd;
+  acc[0] += w;
+  acc[1] += wx0;
+  acc[2] += wy0;
+  acc[3] += wd0;
+  acc[4] += wcx;
+  acc[5] += wcy;
+  acc[6] += wcd;
+  acc[7] += wx0 * x0;
+  acc[8] += wy0 * y0;
+  acc[9] += wd0 * d0;
+  acc[10] += wx0 * cx;
+  acc[11] += wy0 * cy;
+  acc[12] += wd0 * cd;
+  acc[13] += wcx * cx;
+  acc[14] += wcy * cy;
+  acc[15] += wcd * cd;
+}
+
+// Block reduction of the threads' float32 sums in float64: warp shuffles,
+// then one row per warp in shared memory, summed by the first warp; threads
+// m < N_MOMENTS write row[m]. No atomics, so the result is deterministic.
+__device__ __forceinline__ void reduce_moments_to_row(const float* acc, double* __restrict__ row) {
+  __shared__ double part[MOMENT_THREADS / 32][N_MOMENTS];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int m = 0; m < N_MOMENTS; ++m) {
+    double v = (double)acc[m];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+    if (lane == 0) part[warp][m] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < N_MOMENTS) {
+    double v = 0.0;
+#pragma unroll
+    for (int w = 0; w < MOMENT_THREADS / 32; ++w) v += part[w][threadIdx.x];
+    row[threadIdx.x] = v;
   }
 }
 

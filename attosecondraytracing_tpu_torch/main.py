@@ -3,7 +3,7 @@ package's ``main.py``).
 
 Usage::
 
-    python -m attosecondraytracing_tpu_torch.main [--rays N] [--device cuda|cpu] CONFIG
+    python -m attosecondraytracing_tpu_torch.main [--rays N] [--device cuda|cpu] [--profile DIR] CONFIG
 
 A CONFIG file is an executable Python module defining ``OpticalChain`` (or
 ``OpticalChainList``), ``SourceProperties``, ``DetectorOptions`` and
@@ -13,7 +13,8 @@ this package while the file runs, so the same files drive both packages and
 JAX is never imported.
 
 ``--device`` defaults to ``cuda`` and raises when no card is present;
-``cpu`` runs the kernels' plain PyTorch versions.
+``cpu`` runs the kernels' plain PyTorch versions. ``--profile DIR`` runs the
+CONFIG under ``torch.profiler`` (:func:`profiled`).
 """
 
 from __future__ import annotations
@@ -262,11 +263,115 @@ def run_ART(
     return chain, detector, etransmission, spot_sd, duration_sd
 
 
+SCAN_ENGINES = ("auto", "off")
+
+
+def _prepare_fused_scan(chains, AnalysisOptions):
+    """The shared :class:`~.ops.fused_scan.ScanSpec` of a parameter scan the
+    scan engine (kernel K5) takes, or None: at least 2 chains, every one a
+    factory source of the same kind and ray count at ``PALLAS_MIN_RAYS`` or
+    more, one pose-independent signature, and no plots requested in library
+    mode (they need per-ray bundles)."""
+    from .models import chain as mchain
+    from .ops.fused_scan import make_scan_spec, pose_independent_signature
+
+    if len(chains) < 2:
+        return None
+    specs = [c.source_spec for c in chains]
+    if any(s is None for s in specs):
+        return None
+    n_rays = specs[0].n_rays
+    if any(s.n_rays != n_rays or s.kind != specs[0].kind for s in specs):
+        return None
+    if n_rays < mchain.PALLAS_MIN_RAYS:
+        return None
+    if any(AnalysisOptions.get(k) for k in AnalysisOptions if k.startswith("plot_")) and not _CLI_ACTIVE:
+        return None
+    elements = [[e.to_device("cpu", torch.float64) for e in c.optical_elements] for c in chains]
+    if len({pose_independent_signature(els) for els in elements}) != 1:
+        return None
+    baked = specs[0].baked()
+    return make_scan_spec(specs[0].kind, elements[0], n_rays, n_each=baked.n_each,
+                          n_sources=baked.n_sources)
+
+
+def _run_ART_fused_scan(chain: OpticalChain, scan_spec, DetectorOptions, AnalysisOptions,
+                        *, device):
+    """One chain of a parameter scan through the scan engine: a probe trace
+    of ``min(n, 8192)`` source rays places the detector, one K5 pass (its
+    plain version on the CPU) feeds the detector optimizer or the summary,
+    and the transmission is the surviving weight over the source's
+    closed-form total weight, so no per-ray bundle is built."""
+    from .analysis.optimizer import FindOptimalDistanceFused
+    from .ops import fused_scan as fs
+    from .ops import fused_trace as ft
+    from .ops.precision import default_dtype
+
+    chain.to(device)
+    niceline = "_" * 99 + "\n"
+    info = chain.source_spec
+    baked = info.baked()
+    elements = chain.device_elements(torch.float64)
+    probe_out = ft.probe_trace(baked, elements, min(info.n_rays, 8192), device=chain.device,
+                               dtype=default_dtype())
+    detector = setup_detector(chain, DetectorOptions, probe_out)
+
+    fn = fs.make_moments_fn(scan_spec, elements, info, info.n_rays, device=chain.device)
+    weighted = DetectorOptions.get("IntensityWeighted", True)
+    edge = info.gaussian_edge if weighted else None
+    rec = {}
+    if DetectorOptions["AutoDetectorDistance"]:
+        detector, spot_sd, duration_sd = FindOptimalDistanceFused(
+            baked, elements, info.n_rays, detector, DetectorOptions["OptFor"],
+            Amplitude=DetectorOptions.get("Amplitude"),
+            Precision=DetectorOptions.get("Precision", 3),
+            gaussian_edge=edge, device=chain.device, moments_fn=fn, last_moments=rec)
+    else:
+        rec = fn(detector.centre, detector.normal, detector._plane_rotation(), gaussian_edge=edge)
+        sums = ft.moments_to_distance_sums(rec["moments"], (0.0,), rec["centre_distance"])
+        res = ft.sums_to_stats(sums, rec["opl_ref"], (0.0,))
+        spot_sd, duration_sd = float(res["spot_sd"][0]), float(res["duration_sd"][0])
+
+    # transmission numerator: the surviving source weight; the optimizer's
+    # pass carries it unless it ran unweighted
+    if edge != info.gaussian_edge:
+        rec = fn(detector.centre, detector.normal, detector._plane_rotation(),
+                 gaussian_edge=info.gaussian_edge)
+    etransmission = 100.0 * float(rec["moments"][0]) / fs.total_source_weight(
+        info.n_rays, info.gaussian_edge, n_each=baked.n_each, n_sources=baked.n_sources,
+        kind=baked.kind)
+    chain.last_trace_engine = "cuda-scan" if chain.device.type == "cuda" else "torch-scan"
+
+    if AnalysisOptions["verbose"]:
+        print(niceline[:-1], flush=True)
+        if isinstance(chain.description, str) and chain.description:
+            print("***" + chain.description + "*** :")
+        if chain.loop_variable_name is not None and chain.loop_variable_value is not None:
+            print(f"For {chain.loop_variable_name} = {chain.loop_variable_value:f}:\n")
+        print(f"The optical setup has an energy transmission of {etransmission:.1f}%.\n")
+        if DetectorOptions["AutoDetectorDistance"]:
+            _print_optimum(detector, spot_sd, duration_sd, DetectorOptions["OptFor"], weighted,
+                           f" [{chain.last_trace_engine}: fused scan kernel over all rays]")
+        else:
+            print(f"At the detector distance of {detector.get_distance():.3f} mm we get:\n"
+                  f"Spatial std : {spot_sd * 1e3:.3f} μm\n"
+                  f"Temporal std : {duration_sd:.3e} fs  "
+                  f"[{chain.last_trace_engine}: fused scan kernel over all rays]")
+        print(niceline)
+    return chain, detector, etransmission, spot_sd, duration_sd
+
+
 def main(OpticalChainList, SourceProperties, DetectorOptions, AnalysisOptions,
-         save_file_name=None, *, device="cuda"):
+         save_file_name=None, *, device="cuda", scan_engine="auto"):
     """Loop over the chain(s) on ``device``, keep the results, optionally
-    save. A list of chains (a parameter scan) runs serially, each chain
-    through the fused kernels when it qualifies."""
+    save. A parameter scan (a list of chains) analysed at its last element
+    runs through the scan engine (kernel K5, one packed record for every
+    chain, no per-ray bundles) when :func:`_prepare_fused_scan` takes it;
+    otherwise, or with ``scan_engine="off"``, the chains run serially
+    through :func:`run_ART`, each through the fused kernels when it
+    qualifies."""
+    if scan_engine not in SCAN_ENGINES:
+        raise ValueError(f"scan_engine must be one of {SCAN_ENGINES}, got {scan_engine!r}")
     SourceProperties, DetectorOptions, AnalysisOptions = complete_defaults(
         SourceProperties, DetectorOptions, AnalysisOptions
     )
@@ -283,10 +388,19 @@ def main(OpticalChainList, SourceProperties, DetectorOptions, AnalysisOptions,
     else:
         loop = True
 
+    scan_spec = None
+    last = len(OpticalChainList[0].optical_elements) - 1
+    if loop and scan_engine == "auto" and DetectorOptions["ReflectionNumber"] in (-1, last):
+        scan_spec = _prepare_fused_scan(OpticalChainList, AnalysisOptions)
+
     for i, chain in enumerate(OpticalChainList):
         print(f"Optical Chain {i}/{len(OpticalChainList)} ", end="", flush=True)
-        values = run_ART(chain, SourceProperties, DetectorOptions, AnalysisOptions, loop,
-                         device=device)
+        if scan_spec is not None:
+            values = _run_ART_fused_scan(chain, scan_spec, DetectorOptions, AnalysisOptions,
+                                         device=device)
+        else:
+            values = run_ART(chain, SourceProperties, DetectorOptions, AnalysisOptions, loop,
+                             device=device)
         for name, value in zip(keeper_names, values):
             kept_data[name].append(value)
 
@@ -330,10 +444,12 @@ def _config_aliases():
                 sys.modules[name] = module
 
 
-def run_config_file(path: str, n_rays: int | None = None, *, device="cuda"):
+def run_config_file(path: str, n_rays: int | None = None, *, device="cuda", scan_engine="auto"):
     """Execute a CONFIG file and run :func:`main` on its contents on
     ``device``. ``n_rays`` overrides the config's ray count by regenerating
-    each chain's source at that size (CLI ``--rays``)."""
+    each chain's source at that size (CLI ``--rays``); a chain whose source
+    the user built keeps its own bundle, with one printed line, as in the
+    JAX package's CLI. ``scan_engine`` as in :func:`main`."""
     global _CLI_ACTIVE
     device = resolve_device(device)
     log.print_banner()
@@ -348,14 +464,19 @@ def run_config_file(path: str, n_rays: int | None = None, *, device="cuda"):
         if n_rays is not None:
             sp = dict(sp, NumberRays=int(n_rays))
             for chain in chains if isinstance(chains, list) else [chains]:
-                chain.resize_source(int(n_rays))
-        return main(chains, sp, do, ao, save_file_name=os.path.splitext(path)[0], device=device)
+                try:
+                    chain.resize_source(int(n_rays))
+                except ValueError as exc:
+                    print(f"[attosecondraytracing_tpu_torch] --rays ignored for "
+                          f"'{chain.description}': {exc}", flush=True)
+        return main(chains, sp, do, ao, save_file_name=os.path.splitext(path)[0], device=device,
+                    scan_engine=scan_engine)
     finally:
         _CLI_ACTIVE = False
 
 
 _USAGE = ("Usage: python -m attosecondraytracing_tpu_torch.main "
-          "[--rays N] [--device cuda|cpu] CONFIG_FILE")
+          "[--rays N] [--device cuda|cpu] [--profile DIR] CONFIG_FILE")
 
 
 def _pop_option(argv, flag):
@@ -370,14 +491,60 @@ def _pop_option(argv, flag):
     return value
 
 
+def profiled(out_dir, fn):
+    """Run ``fn()`` under ``torch.profiler`` (host activity, and the card's
+    where one is present) and return its result; write the Chrome trace to
+    ``out_dir/trace.json.gz`` and print the wall time, the summed device
+    kernel time with its share of the wall, and the top device kernels."""
+    import gzip
+    import shutil
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(out_dir, exist_ok=True)
+    cuda = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    t0 = time.perf_counter()
+    with profile(activities=activities) as prof:
+        result = fn()
+        if cuda:
+            torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    trace = os.path.join(out_dir, "trace.json")
+    prof.export_chrome_trace(trace)
+    with open(trace, "rb") as src, gzip.open(trace + ".gz", "wb") as dst:
+        shutil.copyfileobj(src, dst)
+    os.remove(trace)
+    events = prof.key_averages()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+    key = "self_device_time_total"  # named self_cuda_time_total before torch 2.4
+    if kernels and not hasattr(kernels[0], key):
+        key = "self_cuda_time_total"
+    device_s = sum(getattr(e, key) for e in kernels) * 1e-6
+    n_kernels = sum(e.count for e in kernels)
+    print(f"[profile] wall {wall:.3f} s, device kernel time {device_s:.4f} s "
+          f"({100.0 * device_s / wall:.2f} % of the wall), {n_kernels} device kernel calls; "
+          f"trace {trace}.gz", flush=True)
+    if cuda:
+        print(events.table(sort_by=key, row_limit=12), flush=True)
+    return result
+
+
 def cli(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     rays = _pop_option(argv, "--rays")
     device = _pop_option(argv, "--device") or "cuda"
+    profile_dir = _pop_option(argv, "--profile")
     if len(argv) != 1:
         print(_USAGE)
         sys.exit(1)
-    run_config_file(argv[0], n_rays=None if rays is None else int(float(rays)), device=device)
+    n_rays = None if rays is None else int(float(rays))
+    if profile_dir is None:
+        run_config_file(argv[0], n_rays=n_rays, device=device)
+    else:
+        profiled(profile_dir, lambda: run_config_file(argv[0], n_rays=n_rays, device=device))
 
 
 if __name__ == "__main__":

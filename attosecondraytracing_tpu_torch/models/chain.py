@@ -5,8 +5,9 @@ JAX package's ``models/chain.py``.
 
 Scene construction is host-side (CPU tensors, float64); :meth:`OpticalChain.to`
 names the device the chain traces on. :meth:`OpticalChain.trace_final` picks
-the engine: the fused-source kernel K1 for production-size factory sources,
-the streamed plain trace otherwise.
+the engine: at production size the fused-source kernel K1 for factory
+sources and the streamed kernels K3/K4 for bundles the user built, the plain
+streamed trace below it.
 """
 
 from __future__ import annotations
@@ -87,8 +88,9 @@ class OpticalChain:
         self._output_rays = None
         self._last_source_hash = None
         self._last_elements_hash = None
-        #: engine used by the most recent trace_final call: "cuda-source",
-        #: "torch-source" or "trace" (None before the first trace)
+        #: engine used by the most recent trace_final call ("cuda-source",
+        #: "torch-source", "cuda-streamed", "torch-streamed", "trace"), or of
+        #: the scan engine ("cuda-scan", "torch-scan"); None before the first
         self.last_trace_engine = None
 
     def to(self, device) -> "OpticalChain":
@@ -194,25 +196,45 @@ class OpticalChain:
     def trace_final(self, engine: str = "auto") -> RayBundle:
         """Only the bundle after the last element — the production path.
 
-        ``engine``: "auto" routes the chains :meth:`fused_eligible` accepts
-        through the fused source engine (kernel K1 on CUDA, its plain
-        version on the CPU) and everything else through the streamed trace;
-        "fused" forces the fused engine; "trace" forces the streamed trace.
-        The engine used is recorded in ``self.last_trace_engine``."""
+        ``engine``: "auto" routes every bundle of at least
+        ``PALLAS_MIN_RAYS`` rays through a kernel engine and smaller ones
+        through the plain streamed trace (the JAX package's rule); "fused"
+        forces the kernel engine that fits the source: the fused source
+        engine (kernel K1) for a factory source, the streamed kernels (K4
+        for a bundle fresh from a factory, else K3) for a bundle the user
+        built; "trace" forces the plain streamed trace. On the CPU the
+        kernels' plain versions run. The engine used is recorded in
+        ``self.last_trace_engine``: "cuda-source"/"torch-source",
+        "cuda-streamed"/"torch-streamed" or "trace"."""
         if engine not in ENGINES:
             raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
-        if engine == "fused" or (engine == "auto" and self.fused_eligible()):
+        if engine == "fused" or (engine == "auto" and self.source_rays.n_rays >= PALLAS_MIN_RAYS):
+            if self._source_spec is None:
+                return self._trace_final_streamed()
             return self._trace_final_fused()
         self.last_trace_engine = "trace"
         source = self.source_rays.to(self._device(), default_dtype())
         return trace(source, self.device_elements(), keep_history=False)
 
+    def _trace_final_streamed(self) -> RayBundle:
+        from ..ops.fused_trace import chain_table, streamed_trace
+
+        device = self._device()
+        source = self.source_rays
+        table = chain_table(None, [e.to_device("cpu", torch.float64) for e in self.optical_elements])
+        out = streamed_trace(table, source, device=device)
+        self.last_trace_engine = "cuda-streamed" if device.type == "cuda" else "torch-streamed"
+        return RayBundle(
+            p=out.p, d=out.d, opl=out.opl, opl_c=out.opl_c, alive=out.alive,
+            intensity=source.intensity.to(device, torch.float32),
+            incidence=out.incidence,
+            wavelength=source.wavelength.to(device, torch.float32),
+        )
+
     def _trace_final_fused(self) -> RayBundle:
         from ..ops.fused_trace import chain_table, fused_source_trace
 
         info = self._source_spec
-        if info is None:
-            raise ValueError("the fused engine needs a factory source (source_spec is None)")
         device = self._device()
         spec = info.baked()
         # the chain table is formed on the host from float64 poses (rounded

@@ -1,8 +1,9 @@
 """Build and bind the hand-written CUDA kernels (``csrc/``).
 
-The sources are compiled by ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface at first use, keyed by a hash of the sources and
-flags, under ``build/kernels/`` of the checkout, and loaded with ``ctypes``.
+Each ``.cu`` source is compiled by its own ``nvcc`` for ``sm_90a`` (all
+started together), the objects are linked into one shared library with a
+plain C interface at first use, keyed by a hash of the sources and flags,
+under ``build/kernels/`` of the checkout, and loaded with ``ctypes``.
 ``--use_fast_math`` is deliberately absent: it would change division and
 square-root rounding and break the float32 accuracy gates.
 
@@ -25,12 +26,14 @@ from pathlib import Path
 import numpy as np
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("fused_trace.cu", "trace_common.cuh")
+#: compiled sources, one object each: K1 and K2, K5, K3 and K4
+UNITS = ("fused_trace.cu", "fused_scan.cu", "streamed_trace.cu")
+SOURCES = UNITS + ("trace_common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+#: flags of each source's compile (the link adds ``-shared``)
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-lineinfo", "-Xptxas", "-v",
-    "-shared", "-Xcompiler", "-fPIC",
+    *ARCH, "-std=c++17", "-O3", "-lineinfo", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
 )
 
 _lock = threading.Lock()
@@ -58,25 +61,46 @@ def _digest() -> str:
 
 
 def build_log_path() -> Path:
-    return BUILD_DIR / f"fused_trace_{_digest()}.log"
+    return BUILD_DIR / f"kernels_{_digest()}.log"
 
 
 def _build() -> Path:
     """Compile the library if this source hash has no build yet; returns its
-    path. The compiler's report (registers, spills) goes to the log file."""
+    path. The compilers' reports (registers, spills) go to the log file."""
     global build_seconds
-    out = BUILD_DIR / f"libfused_trace_{_digest()}.so"
+    digest = _digest()
+    out = BUILD_DIR / f"libkernels_{digest}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / "fused_trace.cu")]
+    nvcc = _nvcc()
+    tag = f"{digest}.{os.getpid()}"
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for unit in UNITS:
+        obj = BUILD_DIR / f"{Path(unit).stem}_{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / unit)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, _obj, proc in jobs:
+        text, _ = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + text)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} ({proc.returncode}):\n{text}")
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    if not failed:
+        cmd = [nvcc, *ARCH, "-shared", "-o", str(tmp), *(str(obj) for _c, obj, _p in jobs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append(f"link ({res.returncode}):\n{res.stdout}{res.stderr}")
     build_seconds = time.perf_counter() - t0
-    build_log_path().write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}")
+    build_log_path().write_text("\n".join(log))
+    for _c, obj, _p in jobs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, out)
     return out
 
@@ -91,8 +115,9 @@ def library() -> ctypes.CDLL:
 
 
 def load(path) -> ctypes.CDLL:
-    """Load a kernel library built from ``csrc/fused_trace.cu``, bind its C
-    interface and check its record layouts against the numpy records."""
+    """Load a kernel library built from ``csrc/``, bind its C interface and
+    check its record layouts against the numpy records."""
+    from .fused_scan import N_AUX
     from .fused_trace import CHAIN_T, DETECTOR_T, SOURCE_T
 
     lib = ctypes.CDLL(str(path))
@@ -101,8 +126,9 @@ def load(path) -> ctypes.CDLL:
                  "art_detector_params_size"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_size_t
-    lib.art_moment_rays_per_block.argtypes = []
-    lib.art_moment_rays_per_block.restype = ci
+    for name in ("art_moment_rays_per_block", "art_scan_aux_size"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ci
     lib.art_error_string.argtypes = [ci]
     lib.art_error_string.restype = ctypes.c_char_p
     lib.art_launch_fused_source_trace.argtypes = [
@@ -111,6 +137,10 @@ def load(path) -> ctypes.CDLL:
     lib.art_launch_fused_source_moments.argtypes = [
         vp, vp, vp, ci, ci, ci, vp, vp, ci, vp]
     lib.art_launch_fused_source_moments.restype = ci
+    lib.art_launch_scan_moments.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp, ci, vp]
+    lib.art_launch_scan_moments.restype = ci
+    lib.art_launch_streamed_trace.argtypes = [vp, ci, ci] + [vp] * 13
+    lib.art_launch_streamed_trace.restype = ci
     for name, dt in (("art_chain_params_size", CHAIN_T),
                      ("art_source_params_size", SOURCE_T),
                      ("art_detector_params_size", DETECTOR_T)):
@@ -118,6 +148,9 @@ def load(path) -> ctypes.CDLL:
         if size != dt.itemsize:
             raise RuntimeError(f"{name}: C struct is {size} B, numpy record is "
                                f"{dt.itemsize} B — layouts disagree")
+    if lib.art_scan_aux_size() != N_AUX:
+        raise RuntimeError(f"scan kernel takes {lib.art_scan_aux_size()} aux scalars, "
+                           f"ops/fused_scan.py packs {N_AUX}")
     return lib
 
 
@@ -131,6 +164,10 @@ def _record_ptr(rec: np.ndarray) -> int:
     if not rec.flags.c_contiguous:
         raise ValueError("kernel records must be contiguous")
     return rec.ctypes.data
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
 
 
 def moment_rays_per_block() -> int:
@@ -155,3 +192,23 @@ def launch_fused_source_moments(chain_rec, src_rec, det_rec, n_rays, chunk, n_ch
         int(n_rays), int(chunk), int(n_chunks), chunk_params.data_ptr(),
         rows.data_ptr(), int(blocks_per_chunk), stream)
     _check(lib, status, "fused_source_moments launch")
+
+
+def launch_scan_moments(chain_rec, src_rec, n_rays, chunk, n_chunks, svec, aux, rows,
+                        blocks_per_chunk, stream):
+    lib = library()
+    status = lib.art_launch_scan_moments(
+        _record_ptr(chain_rec), _record_ptr(src_rec), int(n_rays), int(chunk),
+        int(n_chunks), svec.data_ptr(), aux.data_ptr(), rows.data_ptr(),
+        int(blocks_per_chunk), stream)
+    _check(lib, status, "scan_moments launch")
+
+
+def launch_streamed_trace(chain_rec, n_rays, fresh, inputs, outputs, stream):
+    """``inputs``: (p, d, opl, opl_c, alive, incidence), the last four None
+    when ``fresh``; ``outputs``: (p, d, opl, opl_c, alive, incidence)."""
+    lib = library()
+    status = lib.art_launch_streamed_trace(
+        _record_ptr(chain_rec), int(n_rays), int(bool(fresh)),
+        *(_ptr(t) for t in inputs), *(t.data_ptr() for t in outputs), stream)
+    _check(lib, status, "streamed_trace launch")

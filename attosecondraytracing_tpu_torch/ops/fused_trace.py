@@ -1,8 +1,8 @@
-"""Fused source -> chain -> output kernels K1 and K2, their plain PyTorch
-versions, and the host-side baking they share.
+"""Chain-table kernels K1-K4, their plain PyTorch versions, and the
+host-side baking they share.
 
-Counterpart of the JAX package's ``ops/pallas_trace.py`` (the main-path half
-of it). Two CUDA kernels replace its two main-path Pallas kernels:
+Counterpart of the JAX package's ``ops/pallas_trace.py``. Four CUDA kernels
+replace its Pallas kernels:
 
 * **K1** :func:`fused_source_trace` (``csrc/fused_trace.cu``,
   ``fused_source_trace_kernel``) replaces ``_kernel_source``: the Vogel
@@ -13,6 +13,11 @@ of it). Two CUDA kernels replace its two main-path Pallas kernels:
   replaces ``_kernel_source_moments``: the same trace without incidence,
   the Gaussian weight ``exp(ln_edge * rr)``, and the 16 weighted detector
   moments of :data:`MOMENT_FIELDS`, reduced to one row per block.
+* **K3** / **K4** :func:`streamed_trace` (``csrc/streamed_trace.cu``)
+  replace ``_kernel`` and ``_kernel_fresh``: a bundle the user built is read
+  ray by ray (K4, for a bundle fresh from a factory, reads p and d only) and
+  traced through the lab-frame table (:func:`chain_table` with
+  ``spec=None``).
 
 Each wrapper takes its plain version (``*_ref``) only for CPU tensors; for
 CUDA tensors it launches the kernel or raises. Each counts its launches in
@@ -39,12 +44,13 @@ import torch
 from .bundle import RayBundle
 from .trace import (
     MaskElement,
-    MirrorElement,
     TraceState,
     bake,
     chained_step,
     compose_chain,
     fold_premasks,
+    fold_source,
+    run_chain_chained,
     to_lab_c,
     trace,
 )
@@ -295,21 +301,17 @@ class ChainTable(NamedTuple):
     premasks: tuple   # per element: tuple of (support, M, b)
 
 
-def chain_table(spec: BakedSource, elements) -> ChainTable:
+def chain_table(spec: BakedSource | None, elements) -> ChainTable:
     """Chain maps whose first map takes canonical source-frame coordinates
     straight into element 0's surface frame (the source rotation and origin
-    folded in), then :func:`~.trace.fold_premasks`. Host float64; elements
-    may live on any device and dtype (their poses are read as float64)."""
+    folded in), then :func:`~.trace.fold_premasks`. With ``spec=None`` the
+    first map takes lab coordinates into element 0's frame (the streamed
+    kernels' table: the JAX package's ``_static_chain``). Host float64;
+    elements may live on any device and dtype (their poses are read as
+    float64)."""
     maps, final = compose_chain(elements)
-    M0, _ = maps[0]
-    Rs = np.asarray(spec.rot, dtype=np.float64)
-    el0 = elements[0]
-    pos0 = np.asarray(bake(el0.position), dtype=np.float64)
-    cen0 = (np.asarray(bake(el0.centre), dtype=np.float64)
-            if isinstance(el0, MirrorElement) else np.zeros(3))
-    M = M0 @ Rs
-    b = M0 @ (np.asarray(spec.origin, dtype=np.float64) - pos0) + cen0
-    maps = [(M, b)] + list(maps[1:])
+    if spec is not None:
+        maps = fold_source(maps, elements, spec.rot, spec.origin)
     folded, maps, premasks = fold_premasks(elements, maps)
     return ChainTable(
         elements=tuple(folded),
@@ -588,6 +590,129 @@ def fused_source_trace(table: ChainTable, spec: BakedSource, n_rays: int, *,
 
 
 fused_source_trace.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3 / K4: streamed trace of a bundle the user built
+# ---------------------------------------------------------------------------
+
+
+def _is_fresh(bundle: RayBundle) -> bool:
+    """True if the bundle is straight out of a source factory: every ray
+    alive, zero opl, compensation and incidence. The reductions run where
+    the bundle lives; one bool crosses to the host."""
+    fresh = (bundle.alive.all() & ~(bundle.opl != 0).any() & ~(bundle.opl_c != 0).any()
+             & ~(bundle.incidence != 0).any())
+    return bool(fresh)
+
+
+def _check_streamed_args(n_rays):
+    if not 0 < n_rays or 3 * n_rays >= 1 << 31:
+        raise ValueError(f"streamed trace takes 0 < n_rays < 2^31 / 3 per call, got {n_rays}")
+
+
+def streamed_trace_ref(table: ChainTable, bundle: RayBundle, *, fresh: bool,
+                       device) -> TraceOutputs:
+    """Plain PyTorch version of K3 (``fresh=False``: every field of the
+    bundle is read) and K4 (``fresh=True``: p and d only; opl, opl_c and
+    incidence start at 0, every ray alive): the float32 chained trace of the
+    lab-frame ``table`` (:func:`chain_table` with ``spec=None``) with dead
+    rays not frozen at mirrors, and the final to-lab map."""
+    _check_streamed_args(bundle.n_rays)
+    f32 = torch.float32
+    p = bundle.p.to(device=device, dtype=f32)
+    d = bundle.d.to(device=device, dtype=f32)
+    if fresh:
+        zeros = torch.zeros((bundle.n_rays,), dtype=f32, device=p.device)
+        opl, opl_c, inc = zeros, zeros, zeros
+        alive = torch.ones((bundle.n_rays,), dtype=torch.bool, device=p.device)
+    else:
+        opl, opl_c, inc = (x.to(device=device, dtype=f32)
+                           for x in (bundle.opl, bundle.opl_c, bundle.incidence))
+        alive = bundle.alive.to(device=device)
+    s = TraceState(p[:, 0], p[:, 1], p[:, 2], d[:, 0], d[:, 1], d[:, 2], opl, opl_c, alive, inc)
+    s = run_chain_chained(s, table.elements, table.maps, table.final, table.premasks,
+                          freeze_dead=False)
+    return TraceOutputs(
+        p=torch.stack([s.px, s.py, s.pz], dim=-1),
+        d=torch.stack([s.dx, s.dy, s.dz], dim=-1),
+        opl=s.opl, opl_c=s.opl_c, alive=s.alive, incidence=s.incidence,
+    )
+
+
+def prepare_streamed_trace(table: ChainTable, bundle: RayBundle, *, fresh: bool, device):
+    """K3/K4's host work for a CUDA ``device``: pack the chain record
+    (raising on what the kernels do not take, before anything is copied or
+    allocated), move the inputs the kernel reads to the device as contiguous
+    float32 (alive as bytes), and allocate the outputs. Returns ``(outputs,
+    launch)``; each ``launch()`` runs K4 (``fresh``) or K3 once and counts it
+    in ``streamed_trace.fresh_launches`` or ``streamed_trace.launches``."""
+    n_rays = bundle.n_rays
+    _check_streamed_args(n_rays)
+    device = _cuda_device(device, "streamed_trace")
+    chain_rec = pack_chain(table)
+    f32 = torch.float32
+
+    def move(x, dtype=f32):
+        return x.to(device=device, dtype=dtype).contiguous()
+
+    inputs = [move(bundle.p), move(bundle.d)]
+    if fresh:
+        inputs += [None] * 4
+    else:
+        inputs += [move(bundle.opl), move(bundle.opl_c), move(bundle.alive, torch.bool),
+                   move(bundle.incidence)]
+    device = inputs[0].device
+    for name, x, shape, dtype in zip(("p", "d", "opl", "opl_c", "alive", "incidence"), inputs,
+                                     ((n_rays, 3), (n_rays, 3)) + ((n_rays,),) * 4,
+                                     (f32, f32, f32, f32, torch.bool, f32)):
+        if x is not None:
+            _check_out(name, x, dtype, device)
+            if tuple(x.shape) != shape:
+                raise ValueError(f"{name}: kernel needs shape {shape}, got {tuple(x.shape)}")
+    outs = TraceOutputs(
+        p=torch.empty((n_rays, 3), dtype=f32, device=device),
+        d=torch.empty((n_rays, 3), dtype=f32, device=device),
+        opl=torch.empty((n_rays,), dtype=f32, device=device),
+        opl_c=torch.empty((n_rays,), dtype=f32, device=device),
+        alive=torch.empty((n_rays,), dtype=torch.bool, device=device),
+        incidence=torch.empty((n_rays,), dtype=f32, device=device),
+    )
+    from . import _cuda
+
+    def launch():
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            _cuda.launch_streamed_trace(chain_rec, n_rays, fresh, inputs, outs, stream)
+        if fresh:
+            streamed_trace.fresh_launches += 1
+        else:
+            streamed_trace.launches += 1
+
+    return outs, launch
+
+
+def streamed_trace(table: ChainTable, bundle: RayBundle, *, device,
+                   fresh: bool | None = None) -> TraceOutputs:
+    """K3 and K4 (replace ``ops/pallas_trace.py::_kernel`` and
+    ``_kernel_fresh`` of the JAX package): trace a bundle the user built
+    through the lab-frame ``table``. ``fresh=None`` decides by
+    :func:`_is_fresh`; a fresh bundle takes K4, which reads p and d only.
+    The outputs are allocated on ``device``; CPU outputs come from
+    :func:`streamed_trace_ref`, CUDA outputs from the kernels."""
+    if fresh is None:
+        fresh = _is_fresh(bundle)
+    if torch.device(device).type == "cpu":
+        return streamed_trace_ref(table, bundle, fresh=fresh, device=device)
+    outs, launch = prepare_streamed_trace(table, bundle, fresh=fresh, device=device)
+    launch()
+    return outs
+
+
+#: K3 launches
+streamed_trace.launches = 0
+#: K4 launches
+streamed_trace.fresh_launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -245,6 +245,19 @@ def compose_chain(elements):
     return maps, final
 
 
+def fold_source(maps, elements, source_rot, source_origin):
+    """:func:`compose_chain`'s maps with the source frame folded into the
+    first: it takes canonical source-frame coordinates (a source rotated by
+    ``source_rot`` and placed at ``source_origin`` in the lab) straight into
+    element 0's surface frame. Host float64."""
+    el0 = elements[0]
+    cen0 = _host64(el0.centre) if isinstance(el0, MirrorElement) else np.zeros(3)
+    M0, _ = maps[0]
+    M = M0 @ np.asarray(source_rot, np.float64)
+    b = M0 @ (np.asarray(source_origin, np.float64) - _host64(el0.position)) + cen0
+    return [(M, b)] + list(maps[1:])
+
+
 def _host64(x):
     if torch.is_tensor(x):
         return x.detach().to("cpu", torch.float64).numpy()

@@ -6,18 +6,33 @@
 Run from the root of a checkout. It builds the CUDA kernels from ``csrc/``,
 holds each kernel against its plain PyTorch version on the card (every
 surface and all four source kinds the fused engines synthesize), drives the
-port's main path (``main.main`` on the flagship chain at 1e7 rays with the
-detector-distance optimizer) and its CLI path (``run_config_file`` on
-``examples/CONFIG_singleparabola.py``), and checks the results. It exits
-nonzero, printing no result, when there is no CUDA card, when the package is
-missing beside it, or when any phase fails.
+port's paths through the entry points a user calls, and checks the results:
+
+* the main path: ``main.main`` on the flagship chain at 1e7 rays with the
+  detector-distance optimizer (kernels K1, K2);
+* the parameter scan: ``run_config_file`` on
+  ``examples/CONFIG_2toroidals_f-x-f.py`` at 1e7 rays (11 chains, kernel K5),
+  against the serial K1 + K2 path;
+* user-built bundles: ``main.main`` on ``examples/CONFIG_toroidal2f-2f_byhand.py``
+  with a 1e7-ray PointSource (kernel K4) and on a traced bundle fed through a
+  second chain (kernel K3), against the plain streamed trace;
+* the CLI path on ``examples/CONFIG_singleparabola.py``.
+
+Each path runs with the launch counts set to 0 just before it and read just
+after. It exits nonzero, printing no result, when there is no CUDA card,
+when the package is missing beside it, or when any phase fails.
 
 Output: the card's name and power limit, per-phase lines, then one JSON line
-with each kernel's launches on the main path, its error against the plain
-version and both times, and as the last line ``{"ok": true, "device":
-{...}}``. A kernel's ``ms`` is its launch alone (records packed and outputs
-allocated beforehand), ``plain_ms`` the plain version's whole call; both are
-medians of 5 CUDA-event windows of 5 back-to-back calls each.
+with each kernel's launches on its path, its error against the plain
+version, its time, the plain version's time and its bound, and as the last
+line ``{"ok": true, "device": {...}}``. A kernel's ``ms`` is its launch alone
+(records packed, inputs copied and outputs allocated beforehand),
+``plain_ms`` the plain version's whole call; both are medians of 5
+CUDA-event windows of 5 back-to-back calls each, at 1e7 rays: K1, K2 and K5
+on the flagship, K4 and K3 on their own paths' chains and bundles.
+``bound_ms`` is the larger of the bytes the kernel must move over 3.35 TB/s
+and its float32 operations over 67 TFLOP/s (H100 SXM data sheet), counted
+for the same inputs.
 """
 
 from __future__ import annotations
@@ -32,8 +47,29 @@ ROOT = Path(__file__).resolve().parent
 N_CHECK = 1 << 20        # rays per kernel-vs-plain comparison
 N_TIME = 10_000_000      # rays per timed call (the main path's size)
 N_SLICE = 10_000_000     # rays of the main-path run
+N_SCAN = 10_000_000      # rays per chain of the scan run
+N_STREAMED = 10_000_000  # rays of the user-built bundles
 N_CLI = 1_000_000        # rays of the CLI run
-K1_SOURCE = "attosecondraytracing_tpu_torch/csrc/fused_trace.cu"
+CSRC = "attosecondraytracing_tpu_torch/csrc/"
+
+#: H100 SXM data sheet: HBM rate and float32 rate outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+#: float32 operations per ray of the device code (csrc/trace_common.cuh),
+#: counted from the source for the parts the timed (flagship) chains use:
+#: add, subtract, multiply 1 each, a fused multiply-add 2, a divide, square
+#: root, reciprocal square root, exp or arccos 1 each; comparisons and
+#: selects 0
+OPS = {
+    "cone_source": 55,   # base-256 golden angle, sin/cos polynomials, radius law, direction
+    "affine": 33,        # the composed map of a step or a folded mask
+    "premask": 15,       # a folded mask's plane crossing and round-hole test
+    "mask": 19,          # an unfolded mask step (K5)
+    "toroid": 121,       # seed, one Newton step, validity, normal, reflection, Kahan OPL
+    "store": 34,         # the to-lab map of p and d, the incidence arccos
+    "weight": 2,         # exp(ln edge * rr)
+    "moments": 78,       # the 16 moment terms of an alive ray
+}
 
 
 def _fail(msg):
@@ -64,6 +100,31 @@ def _time_ms(fn, torch, reps=5, inner=5):
         stop.synchronize()
         times.append(start.elapsed_time(stop) / inner)
     return sorted(times)[len(times) // 2]
+
+
+def _bound(n_bytes, n_ops):
+    """{"bound_ms", "bound_by"}: the larger of the memory and the
+    arithmetic time of the work at the data sheet's peak rates."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _trace_ops(table, source: bool) -> int:
+    """Per-ray operations of the source (if synthesized) and the chain walk
+    of a chain table whose mirrors are toroids (the flagship's)."""
+    from attosecondraytracing_tpu_torch.ops import surfaces as srf
+    from attosecondraytracing_tpu_torch.ops.trace import MaskElement
+
+    ops = OPS["cone_source"] if source else 0
+    for el, pre in zip(table.elements, table.premasks):
+        ops += len(pre) * (OPS["affine"] + OPS["premask"]) + OPS["affine"]
+        if isinstance(el, MaskElement):
+            ops += OPS["mask"]
+        else:
+            _check(isinstance(el.surface, srf.Toroid), "operation counts cover toroids only")
+            ops += OPS["toroid"]
+    return ops
 
 
 def _flagship(n_rays):
@@ -136,6 +197,93 @@ def _quadrics(n_rays):
     return OEPlacement(props, [sph, cyl, ell], [300, 200, 300], [5.0, 10.0, 75.0], [0, 90, 0])
 
 
+def _flagship_source(n_rays):
+    """The flagship's cone source (25 mrad along +x from the origin)."""
+    import numpy as np
+
+    from attosecondraytracing_tpu_torch.ops import fused_trace as ft
+
+    return ft.make_source_spec("cone", np.zeros(3), np.array([1.0, 0.0, 0.0]), 25e-3, n_rays=n_rays)
+
+
+def _load_config(name):
+    """(chains, SourceProperties, DetectorOptions, AnalysisOptions, module)
+    of an example CONFIG, run under the port's module names."""
+    import importlib.util
+
+    from attosecondraytracing_tpu_torch import main as art
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / name)
+    module = importlib.util.module_from_spec(spec)
+    with art._config_aliases():
+        spec.loader.exec_module(module)
+    return (*art.load_config(module), module)
+
+
+def _reset_launches():
+    from attosecondraytracing_tpu_torch.ops import fused_scan as fs
+    from attosecondraytracing_tpu_torch.ops import fused_trace as ft
+
+    ft.fused_source_trace.launches = 0
+    ft.fused_source_moments.launches = 0
+    ft.streamed_trace.launches = 0
+    ft.streamed_trace.fresh_launches = 0
+    fs.fused_scan_moments.launches = 0
+
+
+def _launches():
+    from attosecondraytracing_tpu_torch.ops import fused_scan as fs
+    from attosecondraytracing_tpu_torch.ops import fused_trace as ft
+
+    return {"K1": ft.fused_source_trace.launches, "K2": ft.fused_source_moments.launches,
+            "K3": ft.streamed_trace.launches, "K4": ft.streamed_trace.fresh_launches,
+            "K5": fs.fused_scan_moments.launches}
+
+
+def _check_bundles(tag, ker, ref, torch):
+    """Kernel vs plain outputs: alive masks and the tests/test_pallas.py
+    envelopes on rays alive in both. Returns the largest |dp| [mm]."""
+    mismatch = float((ker.alive != ref.alive).double().mean())
+    both = ker.alive & ref.alive
+    dp = (ker.p[both] - ref.p[both]).abs()
+    dopl = ((ker.opl - ker.opl_c)[both] - (ref.opl - ref.opl_c)[both]).abs()
+    dinc = (ker.incidence[both] - ref.incidence[both]).abs()
+    med, mx = float(dp.median()), float(dp.max())
+    print(f"{tag}: {int(ker.alive.sum())}/{ker.alive.numel()} alive, alive mismatch {mismatch:.3g}, "
+          f"|dp| median {med:.3g} max {mx:.3g} mm, |d opl| max {float(dopl.max()):.3g} mm, "
+          f"|d incidence| max {float(dinc.max()):.3g} rad", flush=True)
+    _check(int(both.sum()) > 0, f"{tag}: no ray alive")
+    _check(mismatch <= 1e-4, f"{tag}: alive masks differ on {mismatch} of rays")
+    _check(med <= 1e-3 and mx <= 5e-2, f"{tag}: position envelope {med}/{mx} mm")
+    _check(float(dopl.max()) <= 0.1, f"{tag}: optical path differs by {float(dopl.max())} mm")
+    _check(float(dinc.max()) <= 1e-4, f"{tag}: incidence differs by {float(dinc.max())} rad")
+    return mx
+
+
+def _check_stats(tag, ker, ref, opl_ref, w_rtol, spot_rtol, dur_rel, dur_abs):
+    """Two moment vectors: the sum of weights and the spot and duration SDs
+    at 5 distances. Returns the largest spot SD difference [mm]."""
+    from attosecondraytracing_tpu_torch.ops import fused_trace as ft
+
+    rel_w = abs(ker[0] - ref[0]) / abs(ref[0])
+    distances = (-20.0, -5.0, 0.0, 5.0, 20.0)
+    sk = ft.sums_to_stats(ft.moments_to_distance_sums(ker, distances), opl_ref, distances)
+    sr = ft.sums_to_stats(ft.moments_to_distance_sums(ref, distances), opl_ref, distances)
+    print(f"{tag}: sum w {ker[0]:.9g} vs {ref[0]:.9g} (rel {rel_w:.3g})", flush=True)
+    _check(rel_w <= w_rtol, f"{tag}: sum of weights differs by {rel_w} (rel)")
+    spot_err = 0.0
+    for j, dist in enumerate(distances):
+        s_k, s_r = sk["spot_sd"][j], sr["spot_sd"][j]
+        d_k, d_r = sk["duration_sd"][j], sr["duration_sd"][j]
+        print(f"{tag} d={dist:+.0f} mm: spot {s_k:.6g} vs {s_r:.6g} mm, "
+              f"duration {d_k:.6g} vs {d_r:.6g} fs", flush=True)
+        _check(abs(s_k - s_r) <= spot_rtol * abs(s_r) + 1e-6, f"{tag}: spot SD at {dist} mm: {s_k} vs {s_r}")
+        _check(abs(d_k - d_r) <= dur_rel * d_r or abs(d_k**2 - d_r**2) ** 0.5 <= dur_abs,
+               f"{tag}: duration SD at {dist} mm: {d_k} vs {d_r}")
+        spot_err = max(spot_err, abs(s_k - s_r))
+    return spot_err
+
+
 def phase_k1(torch, dev):
     """K1 against its plain version on the card, on chains that take every
     surface and source kind of the kernels: alive masks and the
@@ -153,110 +301,187 @@ def phase_k1(torch, dev):
         ker = ft.fused_source_trace(table, spec, n, device=dev)
         torch.cuda.synchronize()
         ref = ft.fused_source_trace_ref(table, spec, n, device=dev)
-        mismatch = float((ker.alive != ref.alive).double().mean())
-        both = ker.alive & ref.alive
-        dp = (ker.p[both] - ref.p[both]).abs()
-        dopl = ((ker.opl - ker.opl_c)[both] - (ref.opl - ref.opl_c)[both]).abs()
-        dinc = (ker.incidence[both] - ref.incidence[both]).abs()
-        med, mx = float(dp.median()), float(dp.max())
-        print(f"K1 {name} ({spec.kind} source): {int(ker.alive.sum())}/{n} alive, alive mismatch {mismatch:.3g}, "
-              f"|dp| median {med:.3g} max {mx:.3g} mm, |d opl| max {float(dopl.max()):.3g} mm, "
-              f"|d incidence| max {float(dinc.max()):.3g} rad", flush=True)
-        _check(int(both.sum()) > 0, f"K1 {name}: no ray alive")
-        _check(mismatch <= 1e-4, f"K1 {name}: alive masks differ on {mismatch} of rays")
-        _check(med <= 1e-3 and mx <= 5e-2, f"K1 {name}: position envelope {med}/{mx} mm")
-        _check(float(dopl.max()) <= 0.1, f"K1 {name}: optical path differs by {float(dopl.max())} mm")
-        _check(float(dinc.max()) <= 1e-4, f"K1 {name}: incidence differs by {float(dinc.max())} rad")
-        errs[name] = mx
+        errs[name] = _check_bundles(f"K1 {name} ({spec.kind} source)", ker, ref, torch)
         if name == "flagship":
-            flagship_table, flagship_spec = table, spec
-    _, launch = ft.prepare_fused_source_trace(flagship_table, flagship_spec, N_TIME, device=dev)
+            flagship_table = table
+    spec = _flagship_source(N_TIME)
+    outs, launch = ft.prepare_fused_source_trace(flagship_table, spec, N_TIME, device=dev)
     ms = _time_ms(launch, torch)
-    wrapper_ms = _time_ms(lambda: ft.fused_source_trace(flagship_table, flagship_spec, N_TIME, device=dev),
-                          torch)
-    plain_ms = _time_ms(lambda: ft.fused_source_trace_ref(flagship_table, flagship_spec, N_TIME, device=dev),
-                        torch)
+    n_alive = int(outs.alive.sum())
+    wrapper_ms = _time_ms(lambda: ft.fused_source_trace(flagship_table, spec, N_TIME, device=dev), torch)
+    plain_ms = _time_ms(lambda: ft.fused_source_trace_ref(flagship_table, spec, N_TIME, device=dev), torch)
+    bound = _bound(37 * N_TIME, (_trace_ops(flagship_table, True) + OPS["store"]) * N_TIME)
     print(f"K1 flagship at {N_TIME} rays: kernel launch {ms:.4f} ms, whole wrapper {wrapper_ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms", flush=True)
-    return {"max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms}
+          f"plain {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}), "
+          f"{n_alive} rays alive", flush=True)
+    return {"max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms, **bound}, n_alive
 
 
-def phase_k2(torch, dev):
-    """K2 against its plain version on the card at 1e7 rays, on the flagship
-    (cone source, 2 chunks of 2^23 rays) and on an extended source (chunks
-    on whole sub-sources): sum of weights and the tests/test_stats_kernel.py
-    tolerances on the statistics at 5 distances."""
+def _k2_setup(torch, dev, chain, n_time):
+    """(spec, elements, detector, chief-ray refs, chunks, n) of a chain's
+    source at ``n_time`` rays, described without building its bundle, with
+    the detector autoplaced 490 mm behind its K1 trace at N_CHECK rays."""
     import numpy as np
 
     from attosecondraytracing_tpu_torch.models.detector import Detector
     from attosecondraytracing_tpu_torch.ops import fused_trace as ft
 
+    chain.to(dev)
+    info = chain.source_spec
+    elements = chain.device_elements(torch.float64)
+    det = Detector(np.zeros(3))
+    det.autoplace(chain.trace_final(engine="fused"), 490.0)
+    spec = ft.make_source_spec(info.kind, info.origin, info.axis, info.param,
+                               diameter=info.diameter, n_rays=n_time)
+    n = spec.n_sources * spec.n_each if info.kind == "extended" else n_time
+    refs = ft.chief_ray_refs(spec, elements, det.centre, det.normal, device=dev, dtype=torch.float32)
+    chunks = ft.source_chunks(spec.kind, n, n, n_each=spec.n_each, n_sources=spec.n_sources)
+    return spec, elements, det, refs, chunks, n
+
+
+def phase_k2(torch, dev, n_alive):
+    """K2 against its plain version on the card at 1e7 rays, on the flagship
+    (cone source, 2 chunks of 2^23 rays) and on an extended source (chunks
+    on whole sub-sources): sum of weights and the tests/test_stats_kernel.py
+    tolerances on the statistics at 5 distances."""
+    from attosecondraytracing_tpu_torch.ops import fused_trace as ft
+
     spot_err = 0.0
     for name, chain in (("flagship", _flagship(N_CHECK)[0]), ("extended", _extended(N_CHECK))):
-        chain.to(dev)
-        info = chain.source_spec
-        elements = chain.device_elements(torch.float64)
-        out = chain.trace_final(engine="fused")
-        det = Detector(np.zeros(3))
-        det.autoplace(out, 490.0)
-        # the same source at 1e7 rays, described without building its bundle
-        spec = ft.make_source_spec(info.kind, info.origin, info.axis, info.param,
-                                   diameter=info.diameter, n_rays=N_TIME)
-        n = spec.n_sources * spec.n_each if info.kind == "extended" else N_TIME
+        spec, elements, det, (opl_ref, inv_dn), chunks, n = _k2_setup(torch, dev, chain, N_TIME)
         table = ft.chain_table(spec, elements)
-        opl_ref, inv_dn = ft.chief_ray_refs(spec, elements, det.centre, det.normal,
-                                            device=dev, dtype=torch.float32)
         bdet = ft.bake_detector(elements, det.centre, det.normal, det._plane_rotation(),
                                 opl_ref=opl_ref, inv_dn_chief=inv_dn)
-        chunks = ft.source_chunks(spec.kind, n, n, n_each=spec.n_each, n_sources=spec.n_sources)
         _check(len(chunks) == 2, f"K2 {name}: expected 2 chunks at {n} rays, got {len(chunks)}")
-        kw = dict(device=dev, gaussian_edge=info.gaussian_edge, centre_distance=0.0)
-
+        kw = dict(device=dev, gaussian_edge=chain.source_spec.gaussian_edge, centre_distance=0.0)
         ker = ft.fused_source_moments(table, spec, bdet, chunks, n, **kw)
         ref = ft.fused_source_moments_ref(table, spec, bdet, chunks, n, **kw)
-        rel_w = abs(ker[0] - ref[0]) / abs(ref[0])
-        distances = (-20.0, -5.0, 0.0, 5.0, 20.0)
-        sk = ft.sums_to_stats(ft.moments_to_distance_sums(ker, distances), opl_ref, distances)
-        sr = ft.sums_to_stats(ft.moments_to_distance_sums(ref, distances), opl_ref, distances)
-        print(f"K2 {name} ({spec.kind} source) {n} rays in chunks of {[c[0] for c in chunks]}: "
-              f"sum w {ker[0]:.9g} vs {ref[0]:.9g} (rel {rel_w:.3g})", flush=True)
-        _check(rel_w <= 1e-5, f"K2 {name}: sum of weights differs by {rel_w} (rel)")
-        for j, dist in enumerate(distances):
-            s_k, s_r = sk["spot_sd"][j], sr["spot_sd"][j]
-            d_k, d_r = sk["duration_sd"][j], sr["duration_sd"][j]
-            print(f"K2 {name} d={dist:+.0f} mm: spot {s_k:.6g} vs {s_r:.6g} mm, "
-                  f"duration {d_k:.6g} vs {d_r:.6g} fs", flush=True)
-            _check(abs(s_k - s_r) <= 2e-3 * abs(s_r) + 1e-6, f"K2 {name}: spot SD at {dist} mm: {s_k} vs {s_r}")
-            _check(abs(d_k - d_r) <= 0.025 * d_r or abs(d_k**2 - d_r**2) ** 0.5 <= 0.8,
-                   f"K2 {name}: duration SD at {dist} mm: {d_k} vs {d_r}")
-            spot_err = max(spot_err, abs(s_k - s_r))
+        tag = f"K2 {name} ({spec.kind} source) {n} rays in chunks of {[c[0] for c in chunks]}"
+        spot_err = max(spot_err, _check_stats(tag, ker, ref, opl_ref, 1e-5, 2e-3, 0.025, 0.8))
         if name == "flagship":
-            _, launch = ft.prepare_fused_source_moments(table, spec, bdet, chunks, n, **kw)
+            rows, launch = ft.prepare_fused_source_moments(table, spec, bdet, chunks, n, **kw)
             ms = _time_ms(launch, torch)
             wrapper_ms = _time_ms(lambda: ft.fused_source_moments(table, spec, bdet, chunks, n, **kw), torch)
             plain_ms = _time_ms(lambda: ft.fused_source_moments_ref(table, spec, bdet, chunks, n, **kw), torch)
+            ops = (_trace_ops(table, True) + OPS["weight"]) * n + OPS["moments"] * n_alive
+            bound = _bound(rows.numel() * 8 + 8 * len(chunks), ops)
             print(f"K2 flagship at {n} rays: kernel launch {ms:.4f} ms, whole wrapper {wrapper_ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms", flush=True)
-    return {"max_abs_err": spot_err, "ms": ms, "plain_ms": plain_ms}
+                  f"plain {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})",
+                  flush=True)
+    return {"max_abs_err": spot_err, "ms": ms, "plain_ms": plain_ms, **bound}
+
+
+def phase_k5(torch, dev, n_alive):
+    """K5 against its plain version on the card at 1e7 rays (2 chunks), on
+    the flagship, the flagship with its first toroid rolled 0.3 deg, and an
+    extended source: the K2 phase's tolerances on the moments; and K5
+    against K2 on the same chain within the scan tests' envelope
+    (tests/test_scan_kernel.py:49-55)."""
+    from attosecondraytracing_tpu_torch.ops import fused_scan as fs
+    from attosecondraytracing_tpu_torch.ops import fused_trace as ft
+
+    flagship = _flagship(N_CHECK)[0]
+    spot_err = 0.0
+    for name, chain in (("flagship", flagship), ("rolled", flagship.get_OE_loop_list(1, "roll", [0.3])[0]),
+                        ("extended", _extended(N_CHECK))):
+        spec, elements, det, (opl_ref, inv_dn), chunks, n = _k2_setup(torch, dev, chain, N_TIME)
+        _check(len(chunks) == 2, f"K5 {name}: expected 2 chunks at {n} rays, got {len(chunks)}")
+        edge = chain.source_spec.gaussian_edge
+        sspec = fs.make_scan_spec(spec.kind, elements, n, n_each=spec.n_each, n_sources=spec.n_sources)
+        svec = fs.scan_chain_scalars(elements, spec.rot, spec.origin, det.centre, det.normal,
+                                     det._plane_rotation())
+        aux = fs.scan_aux(chunks, opl_ref, inv_dn, 0.0, spec.radius, edge, spec.pos_radius)
+        ker = fs.fused_scan_moments(sspec, svec, aux, chunks, device=dev)
+        ref = fs.scan_moments_ref(sspec, svec, aux, chunks, device=dev)
+        tag = f"K5 {name} ({spec.kind} source) {n} rays"
+        spot_err = max(spot_err, _check_stats(tag, ker, ref, opl_ref, 1e-5, 2e-3, 0.025, 0.8))
+        bdet = ft.bake_detector(elements, det.centre, det.normal, det._plane_rotation(),
+                                opl_ref=opl_ref, inv_dn_chief=inv_dn)
+        k2 = ft.fused_source_moments(ft.chain_table(spec, elements), spec, bdet, chunks, n, device=dev,
+                                     gaussian_edge=edge)
+        _check_stats(f"K5 vs K2 {name}", ker, k2, opl_ref, 2e-3, 5e-3, 0.03, 0.9)
+        if name == "flagship":
+            rows, launch = fs.prepare_scan_moments(sspec, svec, aux, chunks, device=dev)
+            ms = _time_ms(launch, torch)
+            wrapper_ms = _time_ms(lambda: fs.fused_scan_moments(sspec, svec, aux, chunks, device=dev), torch)
+            plain_ms = _time_ms(lambda: fs.scan_moments_ref(sspec, svec, aux, chunks, device=dev), torch)
+            unfolded = ft.ChainTable(sspec.elements, (), (), ((),) * len(sspec.elements))
+            ops = (_trace_ops(unfolded, True) + OPS["weight"]) * n + OPS["moments"] * n_alive
+            bound = _bound(rows.numel() * 8 + 4 * (svec.size + aux.size), ops)
+            print(f"K5 flagship at {n} rays: kernel launch {ms:.4f} ms, whole wrapper {wrapper_ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})",
+                  flush=True)
+    return {"max_abs_err": spot_err, "ms": ms, "plain_ms": plain_ms, **bound}
+
+
+def _time_streamed(tag, table, bundle, fresh, torch, dev):
+    """K4 (``fresh``) or K3 on one table and bundle already on the card:
+    launch-only, whole-wrapper and plain times, and the bound (K4 reads p
+    and d, 24 B/ray, K3 every field, 37 B/ray; both write 37 B/ray)."""
+    from attosecondraytracing_tpu_torch.ops import fused_trace as ft
+
+    n = bundle.n_rays
+    _, launch = ft.prepare_streamed_trace(table, bundle, fresh=fresh, device=dev)
+    ms = _time_ms(launch, torch)
+    wrapper_ms = _time_ms(lambda: ft.streamed_trace(table, bundle, device=dev, fresh=fresh), torch)
+    plain_ms = _time_ms(lambda: ft.streamed_trace_ref(table, bundle, fresh=fresh, device=dev), torch)
+    bound = _bound((61 if fresh else 74) * n, (_trace_ops(table, False) + OPS["store"]) * n)
+    print(f"{tag} at {n} rays: kernel launch {ms:.4f} ms, whole wrapper {wrapper_ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, **bound}
+
+
+def phase_k34(torch, dev):
+    """K4 on a user-built PointSource bundle through the flagship optics at
+    2^20 rays, and K3 on a traced bundle (dead rays, nonzero optical paths)
+    fed through the rest of the chain, against their plain versions: alive
+    masks and K1's envelopes. Returns each kernel's largest |dp| [mm]; also
+    prints both kernels' times on the flagship at 1e7 rays, beside K1's."""
+    import numpy as np
+
+    from attosecondraytracing_tpu_torch.models import sources
+    from attosecondraytracing_tpu_torch.ops import fused_trace as ft
+    from attosecondraytracing_tpu_torch.ops.bundle import RayBundle
+
+    chain, _ = _flagship(16)
+    host = [e.to_device("cpu", torch.float64) for e in chain.optical_elements]
+    table = ft.chain_table(None, host)
+    bundle = sources.ApplyGaussianIntensityToRayList(
+        sources.PointSource(np.zeros(3), np.array([1.0, 0.0, 0.0]), 25e-3, N_CHECK, 80e-6), np.exp(-2.0))
+    _check(ft._is_fresh(bundle), "a factory PointSource bundle must be fresh")
+    err4 = _check_bundles("K4 flagship (user PointSource)", ft.streamed_trace(table, bundle, device=dev),
+                          ft.streamed_trace_ref(table, bundle, fresh=True, device=dev), torch)
+    first = ft.streamed_trace(ft.chain_table(None, host[:2]), bundle, device=dev)
+    mid = RayBundle(p=first.p, d=first.d, opl=first.opl, opl_c=first.opl_c, alive=first.alive,
+                    intensity=bundle.intensity.to(dev, torch.float32), incidence=first.incidence,
+                    wavelength=bundle.wavelength.to(dev, torch.float32))
+    _check(not ft._is_fresh(mid) and not bool(mid.alive.all()), "the traced bundle must not be fresh")
+    rest = ft.chain_table(None, host[2:])
+    err3 = _check_bundles("K3 flagship (traced bundle -> second toroid)",
+                          ft.streamed_trace(rest, mid, device=dev),
+                          ft.streamed_trace_ref(rest, mid, fresh=False, device=dev), torch)
+
+    big = ft.source_bundle(_flagship_source(N_TIME), N_TIME, device=dev)  # a fresh bundle on the card
+    for name, fresh in (("K4", True), ("K3", False)):
+        _time_streamed(f"{name} flagship", table, big, fresh, torch, dev)
+    return {"K4": err4, "K3": err3}
 
 
 def phase_slice(torch, dev):
     """The main path: main.main on the flagship at 1e7 rays with the
     detector-distance optimizer; both kernels must launch."""
     from attosecondraytracing_tpu_torch import main as art
-    from attosecondraytracing_tpu_torch.ops import fused_trace as ft
 
     chain, props = _flagship(N_SLICE)
     do = {"ReflectionNumber": -1, "DistanceDetector": 500.0, "AutoDetectorDistance": True,
           "OptFor": "intensity"}
     ao = {"verbose": True, "save_results": False}
-    ft.fused_source_trace.launches = 0
-    ft.fused_source_moments.launches = 0
+    _reset_launches()
     t0 = time.perf_counter()
     kept = art.main(chain, props, do, ao, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"K1": ft.fused_source_trace.launches, "K2": ft.fused_source_moments.launches}
+    launches = _launches()
     transmission = kept["ETransmission"][0]
     det = kept["Detector"][0]
     spot, duration = kept["SpotSizeSD"][0], kept["DurationSD"][0]
@@ -284,6 +509,156 @@ def phase_slice(torch, dev):
     return launches
 
 
+def phase_scan(torch, dev):
+    """The parameter scan: run_config_file on CONFIG_2toroidals_f-x-f.py at
+    1e7 rays per chain. Every chain must take the scan engine (K5, no K1 or
+    K2 launch) and agree chain by chain with the serial K1 + K2 path on the
+    card: transmission within 0.05 %, spot SD 1e-2 relative, distance 1 mm."""
+    from attosecondraytracing_tpu_torch import main as art
+
+    name = "CONFIG_2toroidals_f-x-f.py"
+    _reset_launches()
+    t0 = time.perf_counter()
+    kept = art.run_config_file(str(ROOT / "examples" / name), n_rays=N_SCAN, device=dev)
+    torch.cuda.synchronize()
+    wall_cli = time.perf_counter() - t0
+    launches = _launches()
+    chains = kept["OpticalChain"]
+    engines = [c.last_trace_engine for c in chains]
+    print(f"scan {name} at {N_SCAN} rays: {len(chains)} chains, engines {sorted(set(engines))}, "
+          f"launches {launches}, run_config_file wall {wall_cli:.3f} s", flush=True)
+    n = len(chains)
+    _check(n == 11 and all(e == "cuda-scan" for e in engines), f"scan engines {engines}")
+    _check(launches["K5"] == n and launches["K1"] == 0 and launches["K2"] == 0,
+           f"scan launches {launches}")
+
+    # the same chains (sources already at N_SCAN) through main.main: the
+    # scan engine again, then the serial K1 + K2 path; each run counted
+    _, sp, do, ao, _ = _load_config(name)
+    ao = dict(ao, verbose=False)
+    walls = {}
+    for engine, expect in (("auto", "cuda-scan"), ("off", "cuda-source")):
+        _reset_launches()
+        t0 = time.perf_counter()
+        res = art.main(chains, sp, do, ao, device=dev, scan_engine=engine)
+        torch.cuda.synchronize()
+        walls[engine] = time.perf_counter() - t0
+        rerun = _launches()
+        engines = [c.last_trace_engine for c in chains]
+        print(f"\nscan main.main scan_engine={engine!r}: engines {sorted(set(engines))}, launches {rerun}",
+              flush=True)
+        _check(all(e == expect for e in engines), f"scan_engine={engine!r}: engines {engines}")
+        if engine == "auto":
+            _check(rerun["K5"] == n and rerun["K1"] == 0 and rerun["K2"] == 0,
+                   f"scan_engine='auto': launches {rerun}")
+        else:
+            off = res
+            _check(rerun["K5"] == 0 and rerun["K1"] >= n and rerun["K2"] >= n,
+                   f"scan_engine='off': launches {rerun}")
+    for i in range(n):
+        t_s, t_o = kept["ETransmission"][i], off["ETransmission"][i]
+        s_s, s_o = kept["SpotSizeSD"][i], off["SpotSizeSD"][i]
+        d_s, d_o = kept["Detector"][i].get_distance(), off["Detector"][i].get_distance()
+        print(f"scan chain {i}: transmission {t_s:.6g} vs {t_o:.6g} %, spot SD {s_s:.6g} vs {s_o:.6g} mm, "
+              f"distance {d_s:.6g} vs {d_o:.6g} mm, duration SD {kept['DurationSD'][i]:.6g} vs "
+              f"{off['DurationSD'][i]:.6g} fs", flush=True)
+        _check(abs(t_s - t_o) <= 0.05, f"scan chain {i}: transmission {t_s} vs {t_o}")
+        _check(abs(s_s - s_o) <= 1e-2 * abs(s_o), f"scan chain {i}: spot SD {s_s} vs {s_o}")
+        _check(abs(d_s - d_o) <= 1.0, f"scan chain {i}: distance {d_s} vs {d_o}")
+    _check(abs(kept["Detector"][5].get_distance() - 500.0) <= 10.0, "mid-scan optimum not near 500 mm")
+    print(f"scan walls: main.main scan engine {walls['auto']:.3f} s, serial K1 + K2 path "
+          f"{walls['off']:.3f} s ({n} chains at {N_SCAN} rays)", flush=True)
+    return launches
+
+
+def phase_streamed(torch, dev):
+    """User-built bundles, each path run through main.main with the launch
+    counts set to 0 just before it: CONFIG_toroidal2f-2f_byhand.py with a
+    1e7-ray PointSource (K4 once, engine cuda-streamed), and a second chain
+    fed with the traced bundle of the flagship's first two elements (K3
+    once). On each path's own table and bundle: the kernel against its
+    plain version ray by ray (K1's envelopes), its times, and the summary
+    against the plain streamed trace on the card: transmission within
+    0.05 %, spot SD 1e-2 relative, duration SD 10 % relative (both traces
+    are float32 and these durations are a fraction of a femtosecond, where
+    float32 delays add noise of a few percent; the float64 trace is printed
+    beside them). Returns ({"K4": n, "K3": n}, {kernel: numbers})."""
+    import numpy as np
+
+    from attosecondraytracing_tpu_torch import main as art
+    from attosecondraytracing_tpu_torch.analysis import stats
+    from attosecondraytracing_tpu_torch.models import sources
+    from attosecondraytracing_tpu_torch.models.chain import OpticalChain
+    from attosecondraytracing_tpu_torch.ops import fused_trace as ft
+    from attosecondraytracing_tpu_torch.ops.trace import trace
+
+    chain, sp, do, ao, module = _load_config("CONFIG_toroidal2f-2f_byhand.py")
+    t0 = time.perf_counter()
+    src = sources.ApplyGaussianIntensityToRayList(
+        sources.PointSource(module.SourcePoint, -module.SourcePoint, sp["Divergence"], N_STREAMED,
+                            sp["Wavelength"]), 1 / np.e**2)
+    t_build = time.perf_counter() - t0
+    chain.source_rays = src
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    src.p.to(dev, torch.float32)
+    src.d.to(dev, torch.float32)
+    torch.cuda.synchronize()
+    t_copy = time.perf_counter() - t0
+    print(f"streamed: host PointSource of {N_STREAMED} rays built in {t_build:.3f} s; p and d to the "
+          f"card as float32 in {t_copy * 1e3:.3f} ms (pageable)", flush=True)
+    ao = dict(ao, verbose=True)
+
+    # the traced bundle (one K4 launch) is built before its path's run
+    flag, props = _flagship(16)
+    user = ft.source_bundle(_flagship_source(N_STREAMED), N_STREAMED, device=dev)
+    first = OpticalChain(user, flag.optical_elements[:2], "flagship: mask + first toroidal", device=dev)
+    second = OpticalChain(first.trace_final(), flag.optical_elements[2:],
+                          "the traced bundle through the second toroidal", device=dev)
+    do2 = {"ReflectionNumber": -1, "DistanceDetector": 500.0, "AutoDetectorDistance": False}
+
+    counts, timed = {}, {}
+    for key, tag, ch, sp_, do_, fresh in (("K4", "byhand", chain, sp, do, True),
+                                          ("K3", "traced bundle", second, props, do2, False)):
+        _reset_launches()
+        t0 = time.perf_counter()
+        res = art.main(ch, sp_, do_, ao, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launches()
+        print(f"streamed {tag}: engine {ch.last_trace_engine}, launches {launches}, "
+              f"main.main wall {wall:.3f} s", flush=True)
+        _check(ch.last_trace_engine == "cuda-streamed", f"streamed {tag}: engine {ch.last_trace_engine}")
+        other = "K3" if fresh else "K4"
+        _check(launches[key] == 1 and launches[other] == 0 and launches["K1"] == 0
+               and launches["K5"] == 0, f"streamed {tag}: launches {launches}")
+        counts[key] = launches[key]
+
+        table = ft.chain_table(None, [e.to_device("cpu", torch.float64) for e in ch.optical_elements])
+        bundle = ch.source_rays.to(dev, torch.float32)
+        _check(ft._is_fresh(bundle) == fresh, f"streamed {tag}: the bundle's freshness")
+        err = _check_bundles(f"{key} {tag} ({bundle.n_rays} rays)",
+                             ft.streamed_trace(table, bundle, device=dev, fresh=fresh),
+                             ft.streamed_trace_ref(table, bundle, fresh=fresh, device=dev), torch)
+        timed[key] = {"max_abs_err": err, **_time_streamed(f"{key} {tag}", table, bundle, fresh, torch, dev)}
+
+        det = res["Detector"][0]
+        ref = ch.trace_final(engine="trace")
+        spot, duration = (float(v) for v in det.get_SpotAndDuration(ref))
+        transmission = stats.energy_transmission(ch.source_rays, ref)
+        ref64 = trace(ch.source_rays.to(dev, torch.float64), ch.device_elements(torch.float64),
+                      keep_history=False)
+        spot64, duration64 = (float(v) for v in det.get_SpotAndDuration(ref64))
+        tg, sg, dg = res["ETransmission"][0], res["SpotSizeSD"][0], res["DurationSD"][0]
+        print(f"streamed {tag}: kernels T {tg:.6g} % spot {sg:.6g} mm duration {dg:.6g} fs; plain trace "
+              f"T {transmission:.6g} % spot {spot:.6g} mm duration {duration:.6g} fs; float64 trace "
+              f"spot {spot64:.6g} mm duration {duration64:.6g} fs", flush=True)
+        _check(abs(tg - transmission) <= 0.05, f"streamed {tag}: transmission {tg} vs {transmission}")
+        _check(abs(sg - spot) <= 1e-2 * abs(spot), f"streamed {tag}: spot SD {sg} vs {spot}")
+        _check(abs(dg - duration) <= 0.1 * duration, f"streamed {tag}: duration SD {dg} vs {duration}")
+    return counts, timed
+
+
 def phase_cli(torch):
     """run_config_file on CONFIG_singleparabola.py at 1e6 rays, on the card
     and on the CPU (plain versions) in this process."""
@@ -303,6 +678,8 @@ def phase_cli(torch):
 
 
 def main():
+    if len(sys.argv) != 1:
+        _fail("usage: python3 chip_smoke.py (no arguments)")
     try:
         import torch
     except ImportError:
@@ -318,6 +695,7 @@ def main():
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}",
           flush=True)
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
 
     from attosecondraytracing_tpu_torch.ops import _cuda
 
@@ -326,23 +704,41 @@ def main():
     print(f"kernel library ready in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {_cuda.build_seconds:.2f} s)", flush=True)
     for line in _cuda.build_log_path().read_text().splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if "Compiling entry" in line or "registers" in line or "spill" in line or "error" in line:
             print("ptxas:", line.strip(), flush=True)
 
-    k1 = phase_k1(torch, dev)
-    k2 = phase_k2(torch, dev)
-    launches = phase_slice(torch, dev)
-    phase_cli(torch)
-    _check("jax" not in sys.modules, "jax was imported")
+    def phase(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+        return out
 
-    kernels = [
-        {"name": "K1 fused_source_trace", "route": "cuda", "source": K1_SOURCE,
-         "replaces": "attosecondraytracing_tpu/ops/pallas_trace.py:476",
-         "launches": launches["K1"], **k1},
-        {"name": "K2 fused_source_moments", "route": "cuda", "source": K1_SOURCE,
-         "replaces": "attosecondraytracing_tpu/ops/pallas_trace.py:979",
-         "launches": launches["K2"], **k2},
-    ]
+    timed = {}
+    timed["K1"], n_alive = phase("k1", lambda: phase_k1(torch, dev))
+    timed["K2"] = phase("k2", lambda: phase_k2(torch, dev, n_alive))
+    timed["K5"] = phase("k5", lambda: phase_k5(torch, dev, n_alive))
+    k34_err = phase("k34", lambda: phase_k34(torch, dev))
+    slice_launches = phase("slice", lambda: phase_slice(torch, dev))
+    scan_launches = phase("scan", lambda: phase_scan(torch, dev))
+    launches, streamed = phase("streamed", lambda: phase_streamed(torch, dev))
+    phase("cli", lambda: phase_cli(torch))
+    launches.update(K1=slice_launches["K1"], K2=slice_launches["K2"], K5=scan_launches["K5"])
+    for key in ("K3", "K4"):
+        timed[key] = dict(streamed[key], max_abs_err=max(streamed[key]["max_abs_err"], k34_err[key]))
+    _check("jax" not in sys.modules, "jax was imported")
+    print(f"all phases: {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    rows = (
+        ("K1", "K1 fused_source_trace", "fused_trace.cu", "attosecondraytracing_tpu/ops/pallas_trace.py:476"),
+        ("K2", "K2 fused_source_moments", "fused_trace.cu", "attosecondraytracing_tpu/ops/pallas_trace.py:979"),
+        ("K3", "K3 streamed_trace", "streamed_trace.cu", "attosecondraytracing_tpu/ops/pallas_trace.py:182"),
+        ("K4", "K4 streamed_trace (fresh)", "streamed_trace.cu",
+         "attosecondraytracing_tpu/ops/pallas_trace.py:194"),
+        ("K5", "K5 fused_scan_moments", "fused_scan.cu", "attosecondraytracing_tpu/ops/pallas_scan.py:86"),
+    )
+    kernels = [{"name": name, "route": "cuda", "source": CSRC + src, "replaces": replaces,
+                "launches": launches[key], **timed[key], "library_ms": None}
+               for key, name, src, replaces in rows]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -122,9 +122,12 @@ def test_engine_choice(monkeypatch):
     assert chain.last_trace_engine == "trace"
     chain.source_rays = chain.source_rays  # a user bundle: no fused source
     chain.trace_final()
+    assert chain.last_trace_engine == "torch-streamed"  # the streamed kernels' engine
+    monkeypatch.setattr(tchain, "PALLAS_MIN_RAYS", 4096)
+    chain.trace_final()
     assert chain.last_trace_engine == "trace"
-    with pytest.raises(ValueError):
-        chain.trace_final(engine="fused")
+    chain.trace_final(engine="fused")  # forces the engine that fits the source
+    assert chain.last_trace_engine == "torch-streamed"
     with pytest.raises(ValueError):
         chain.trace_final(engine="pallas")
     if not torch.cuda.is_available():
@@ -205,13 +208,21 @@ def test_config_file_through_both_clis(monkeypatch, capsys, name):
         assert 90 < tk["ETransmission"][0] < 97 and 0.07 < tk["SpotSizeSD"][0] < 0.085
 
 
-def test_cli_arguments(monkeypatch):
+def test_cli_arguments(monkeypatch, tmp_path, capsys):
     calls = []
     monkeypatch.setattr(tmain, "run_config_file", lambda path, n_rays=None, device="cuda":
                         calls.append((path, n_rays, device)))
     tmain.cli(["--rays", "1e5", "--device", "cpu", "cfg.py"])
     tmain.cli(["cfg.py"])
-    assert calls == [("cfg.py", 100000, "cpu"), ("cfg.py", None, "cuda")]
+    # the profiler imports more of torch, which fails on the stub modules
+    # (see the top of this file): set them aside for the call
+    for name, mod in list(sys.modules.items()):
+        if not isinstance(getattr(mod, "__file__", None), (str, type(None))):
+            monkeypatch.delitem(sys.modules, name)
+    tmain.cli(["--device", "cpu", "--profile", str(tmp_path / "prof"), "cfg.py"])
+    assert calls == [("cfg.py", 100000, "cpu"), ("cfg.py", None, "cuda"), ("cfg.py", None, "cpu")]
+    assert (tmp_path / "prof" / "trace.json.gz").exists()
+    assert "[profile] wall" in capsys.readouterr().out
     with pytest.raises(SystemExit):
         tmain.cli([])
     with pytest.raises(SystemExit):
