@@ -1,0 +1,191 @@
+// Forward-mode dual numbers for the gradient kernel K6 (fused_grad.cu).
+//
+// Dual<G> carries a float32 value and G directional derivatives. The device
+// functions of trace_common.cuh are templated on their scalar type S, so K6
+// runs the same arithmetic as K1-K5 (S = float) on Dual<6>: every branch and
+// select decides on the value, and the tangent follows the chosen operand,
+// which is what JAX's linearize of the Pallas kernel does (jvp of where).
+//
+// The scalar overload sets below (sqrt_, fabs_, fmax_, fmin_, isfinite_,
+// val, add_rn, sub_rn, rsq) take float and Dual alike; their float forms are
+// the CUDA functions themselves, so the float instantiation compiles to the
+// code it compiled to before the templating. The _rn forms round the value
+// without contraction (Kahan step, delays) and take plain float arithmetic
+// on the tangents.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+namespace art {
+
+template <int G>
+struct Dual {
+  float v;
+  float t[G];
+  Dual() = default;
+  __host__ __device__ __forceinline__ Dual(float x) : v(x) {
+#pragma unroll
+    for (int i = 0; i < G; ++i) t[i] = 0.0f;
+  }
+};
+
+#define ART_DUAL template <int G> __device__ __forceinline__
+
+ART_DUAL Dual<G> operator-(const Dual<G>& a) {
+  Dual<G> r;
+  r.v = -a.v;
+#pragma unroll
+  for (int i = 0; i < G; ++i) r.t[i] = -a.t[i];
+  return r;
+}
+
+ART_DUAL Dual<G> operator+(const Dual<G>& a, const Dual<G>& b) {
+  Dual<G> r;
+  r.v = a.v + b.v;
+#pragma unroll
+  for (int i = 0; i < G; ++i) r.t[i] = a.t[i] + b.t[i];
+  return r;
+}
+ART_DUAL Dual<G> operator+(const Dual<G>& a, float b) {
+  Dual<G> r = a;
+  r.v = a.v + b;
+  return r;
+}
+ART_DUAL Dual<G> operator+(float a, const Dual<G>& b) { return b + a; }
+
+ART_DUAL Dual<G> operator-(const Dual<G>& a, const Dual<G>& b) {
+  Dual<G> r;
+  r.v = a.v - b.v;
+#pragma unroll
+  for (int i = 0; i < G; ++i) r.t[i] = a.t[i] - b.t[i];
+  return r;
+}
+ART_DUAL Dual<G> operator-(const Dual<G>& a, float b) {
+  Dual<G> r = a;
+  r.v = a.v - b;
+  return r;
+}
+ART_DUAL Dual<G> operator-(float a, const Dual<G>& b) {
+  Dual<G> r;
+  r.v = a - b.v;
+#pragma unroll
+  for (int i = 0; i < G; ++i) r.t[i] = -b.t[i];
+  return r;
+}
+
+ART_DUAL Dual<G> operator*(const Dual<G>& a, const Dual<G>& b) {
+  Dual<G> r;
+  r.v = a.v * b.v;
+#pragma unroll
+  for (int i = 0; i < G; ++i) r.t[i] = a.t[i] * b.v + a.v * b.t[i];
+  return r;
+}
+ART_DUAL Dual<G> operator*(const Dual<G>& a, float b) {
+  Dual<G> r;
+  r.v = a.v * b;
+#pragma unroll
+  for (int i = 0; i < G; ++i) r.t[i] = a.t[i] * b;
+  return r;
+}
+ART_DUAL Dual<G> operator*(float a, const Dual<G>& b) { return b * a; }
+
+// a / b with the tangent (a' - q b') / b, q = a / b: a divisor selected to
+// +-inf (a masked operand) gives q = 0 and a zero tangent, as in JAX
+ART_DUAL Dual<G> operator/(const Dual<G>& a, const Dual<G>& b) {
+  Dual<G> r;
+  r.v = a.v / b.v;
+  const float inv = 1.0f / b.v;
+#pragma unroll
+  for (int i = 0; i < G; ++i) r.t[i] = (a.t[i] - r.v * b.t[i]) * inv;
+  return r;
+}
+ART_DUAL Dual<G> operator/(const Dual<G>& a, float b) {
+  Dual<G> r;
+  r.v = a.v / b;
+  const float inv = 1.0f / b;
+#pragma unroll
+  for (int i = 0; i < G; ++i) r.t[i] = a.t[i] * inv;
+  return r;
+}
+ART_DUAL Dual<G> operator/(float a, const Dual<G>& b) {
+  Dual<G> r;
+  r.v = a / b.v;
+  const float inv = 1.0f / b.v;
+#pragma unroll
+  for (int i = 0; i < G; ++i) r.t[i] = -r.v * b.t[i] * inv;
+  return r;
+}
+
+// comparisons decide on the value
+#define ART_DUAL_CMP(op)                                                                   \
+  ART_DUAL bool operator op(const Dual<G>& a, const Dual<G>& b) { return a.v op b.v; }     \
+  ART_DUAL bool operator op(const Dual<G>& a, float b) { return a.v op b; }                \
+  ART_DUAL bool operator op(float a, const Dual<G>& b) { return a op b.v; }
+ART_DUAL_CMP(<)
+ART_DUAL_CMP(>)
+ART_DUAL_CMP(<=)
+ART_DUAL_CMP(>=)
+ART_DUAL_CMP(==)
+ART_DUAL_CMP(!=)
+#undef ART_DUAL_CMP
+
+// --- scalar overload sets: float forms are the CUDA functions ------------
+
+__device__ __forceinline__ float val(float x) { return x; }
+ART_DUAL float val(const Dual<G>& x) { return x.v; }
+
+__device__ __forceinline__ float sqrt_(float x) { return sqrtf(x); }
+ART_DUAL Dual<G> sqrt_(const Dual<G>& a) {
+  Dual<G> r;
+  r.v = sqrtf(a.v);
+  const float h = 0.5f / r.v;
+#pragma unroll
+  for (int i = 0; i < G; ++i) r.t[i] = a.t[i] * h;
+  return r;
+}
+
+__device__ __forceinline__ float rsq(float x) { return 1.0f / sqrtf(x); }
+ART_DUAL Dual<G> rsq(const Dual<G>& a) {
+  Dual<G> r;
+  r.v = 1.0f / sqrtf(a.v);
+  const float h = -0.5f * r.v / a.v;
+#pragma unroll
+  for (int i = 0; i < G; ++i) r.t[i] = a.t[i] * h;
+  return r;
+}
+
+__device__ __forceinline__ float fabs_(float x) { return fabsf(x); }
+ART_DUAL Dual<G> fabs_(const Dual<G>& a) { return a.v < 0.0f ? -a : a; }
+
+// fmaxf(x, c) against a constant: the constant (zero tangent) when it wins
+__device__ __forceinline__ float fmax_(float x, float c) { return fmaxf(x, c); }
+ART_DUAL Dual<G> fmax_(const Dual<G>& a, float c) { return a.v > c ? a : Dual<G>(c); }
+
+__device__ __forceinline__ float fmin_(float a, float b) { return fminf(a, b); }
+ART_DUAL Dual<G> fmin_(const Dual<G>& a, const Dual<G>& b) { return b.v < a.v ? b : a; }
+
+__device__ __forceinline__ bool isfinite_(float x) { return isfinite(x); }
+ART_DUAL bool isfinite_(const Dual<G>& a) { return isfinite(a.v); }
+
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+ART_DUAL Dual<G> add_rn(const Dual<G>& a, const Dual<G>& b) {
+  Dual<G> r = a + b;
+  r.v = __fadd_rn(a.v, b.v);
+  return r;
+}
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+ART_DUAL Dual<G> sub_rn(const Dual<G>& a, const Dual<G>& b) {
+  Dual<G> r = a - b;
+  r.v = __fsub_rn(a.v, b.v);
+  return r;
+}
+ART_DUAL Dual<G> sub_rn(const Dual<G>& a, float b) {
+  Dual<G> r = a;
+  r.v = __fsub_rn(a.v, b);
+  return r;
+}
+
+#undef ART_DUAL
+
+}  // namespace art

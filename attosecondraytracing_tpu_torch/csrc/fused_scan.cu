@@ -99,7 +99,7 @@ scan_moments_kernel(const __grid_constant__ ChainP shape, const __grid_constant_
     if (!s.alive) continue;
     add_moments(det, s, expf(src.ln_edge * rr), acc);
   }
-  reduce_moments_to_row(acc, rows + ((size_t)c * gridDim.x + blockIdx.x) * N_MOMENTS);
+  reduce_to_row<N_MOMENTS>(acc, rows + ((size_t)c * gridDim.x + blockIdx.x) * N_MOMENTS);
 }
 
 }  // namespace art

@@ -1,10 +1,11 @@
-// Device functions shared by the kernels K1 and K2 (fused_trace.cu), K5
-// (fused_scan.cu), K3 and K4 (streamed_trace.cu).
+// Device functions shared by the kernels K1, K2 and K8 (fused_trace.cu), K5
+// (fused_scan.cu), K3 and K4 (streamed_trace.cu), K6 and K7 (fused_grad.cu).
 //
 // They are the per-ray arithmetic of the JAX package's ops/trace.py
 // (chained_step, premask_alive), ops/surfaces.py (the float32 branches of
-// intersect_with_normal_c) and ops/supports.py (include), and of the plain
-// PyTorch versions in ops/trace.py and ops/surfaces.py of this package.
+// intersect_with_normal_c), ops/supports.py (include) and
+// ops/pallas_trace.py (stats_rows), and of the plain PyTorch versions in
+// ops/trace.py, ops/surfaces.py and ops/fused_trace.py of this package.
 //
 // The chain is a table of records (ChainP) walked by a runtime loop with a
 // switch on the element kind; every thread of a warp runs the same element,
@@ -13,6 +14,11 @@
 // rounded to float32 once (ops/fused_trace.py: chain_table, pack_chain);
 // the struct layouts below are mirrored there as numpy dtypes and checked
 // against sizeof at load time.
+//
+// The ray arithmetic is templated on its scalar type S: float for K1-K5, K7
+// and K8, Dual<6> (dual.cuh) for K6, which carries 6 tangents through the
+// same code. Predicates (hits, supports, the alive mask, the minimum ray
+// parameter) decide on values only.
 //
 // Rounding notes. Compiled without --use_fast_math: division and sqrtf are
 // IEEE-rounded. Products and sums may contract to FMA, which moves hits by
@@ -24,6 +30,8 @@
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include "dual.cuh"
 
 namespace art {
 
@@ -90,18 +98,33 @@ struct DetectorP {
   float centre_distance;
 };
 
-struct Ray {
-  float px, py, pz, dx, dy, dz;
-  float opl, opl_c, inc;
+template <typename S>
+struct RayT {
+  S px, py, pz, dx, dy, dz;
+  S opl, opl_c;
+  float inc;
   bool alive;
 };
+using Ray = RayT<float>;
 
-__device__ __forceinline__ float rsq(float x) { return 1.0f / sqrtf(x); }
+// a source ray (float) as a ray of scalar type S (zero tangents: the source
+// does not depend on the poses)
+template <typename S>
+__device__ __forceinline__ RayT<S> lift(const Ray& r) {
+  RayT<S> s;
+  s.px = r.px; s.py = r.py; s.pz = r.pz;
+  s.dx = r.dx; s.dy = r.dy; s.dz = r.dz;
+  s.opl = r.opl; s.opl_c = r.opl_c;
+  s.inc = r.inc;
+  s.alive = r.alive;
+  return s;
+}
 
-__device__ __forceinline__ void kahan_add(float& s, float& c, float x) {
-  const float y = __fsub_rn(x, c);
-  const float t = __fadd_rn(s, y);
-  c = __fsub_rn(__fsub_rn(t, s), y);
+template <typename S>
+__device__ __forceinline__ void kahan_add(S& s, S& c, S x) {
+  const S y = sub_rn(x, c);
+  const S t = add_rn(s, y);
+  c = sub_rn(sub_rn(t, s), y);
   s = t;
 }
 
@@ -127,9 +150,11 @@ __device__ __forceinline__ bool include(const SupportP& s, float x, float y) {
   return false;
 }
 
-__device__ __forceinline__ void affine(const float* M, const float* b, const Ray& s,
-                                       float& qx, float& qy, float& qz,
-                                       float& ux, float& uy, float& uz) {
+// (M, b) of type MT (float: a record's map; S: a runtime pose) applied to a
+// ray of scalar type S
+template <typename MT, typename S>
+__device__ __forceinline__ void affine(const MT* M, const MT* b, const RayT<S>& s,
+                                       S& qx, S& qy, S& qz, S& ux, S& uy, S& uz) {
   qx = M[0] * s.px + M[1] * s.py + M[2] * s.pz + b[0];
   qy = M[3] * s.px + M[4] * s.py + M[5] * s.pz + b[1];
   qz = M[6] * s.px + M[7] * s.py + M[8] * s.pz + b[2];
@@ -138,89 +163,95 @@ __device__ __forceinline__ void affine(const float* M, const float* b, const Ray
   uz = M[6] * s.dx + M[7] * s.dy + M[8] * s.dz;
 }
 
-__device__ __forceinline__ float plane_t(float qz, float uz) {
-  return -qz / (fabsf(uz) > 1e-30f ? uz : CUDART_INF_F);
+template <typename S>
+__device__ __forceinline__ S plane_t(S qz, S uz) {
+  return -qz / (fabs_(uz) > 1e-30f ? uz : S(CUDART_INF_F));
 }
 
 // ---------------------------------------------------------------------------
 // surfaces (float32 branches of ops/surfaces.py)
 // ---------------------------------------------------------------------------
 
-struct Hit {
-  float t, x, y, z, nx, ny, nz;
+template <typename S>
+struct HitT {
+  S t, x, y, z, nx, ny, nz;
   bool hit;
 };
 
-__device__ __forceinline__ Hit plane_hit(const ElementP& el, float qx, float qy, float qz,
-                                         float ux, float uy, float uz, float t_eps) {
-  Hit h;
+template <typename S>
+__device__ __forceinline__ HitT<S> plane_hit(const ElementP& el, S qx, S qy, S qz,
+                                             S ux, S uy, S uz, float t_eps) {
+  HitT<S> h;
   // intersect_c(Plane) returns t unmasked; the hit point follows from it
   h.t = plane_t(qz, uz);
   h.x = qx + h.t * ux;
   h.y = qy + h.t * uy;
   h.z = qz + h.t * uz;
-  h.hit = (h.t > t_eps) && include(el.sup, h.x, h.y);
-  h.nx = 0.0f;
-  h.ny = 0.0f;
-  h.nz = 1.0f;
+  h.hit = (h.t > t_eps) && include(el.sup, val(h.x), val(h.y));
+  h.nx = S(0.0f);
+  h.ny = S(0.0f);
+  h.nz = S(1.0f);
   return h;
 }
 
-__device__ __forceinline__ void toroid_residual(float R, float r, float x, float y, float z,
-                                                float ux, float uy, float uz, float& g, float& gp) {
-  const float rho2 = x * x + z * z;
-  const float inv_rho = rsq(fmaxf(rho2, 1e-30f));
-  const float w = rho2 * inv_rho - R;
-  const float s2 = w * w + y * y;
-  const float inv_s = rsq(fmaxf(s2, 1e-30f));
+template <typename S>
+__device__ __forceinline__ void toroid_residual(float R, float r, S x, S y, S z,
+                                                S ux, S uy, S uz, S& g, S& gp) {
+  const S rho2 = x * x + z * z;
+  const S inv_rho = rsq(fmax_(rho2, 1e-30f));
+  const S w = rho2 * inv_rho - R;
+  const S s2 = w * w + y * y;
+  const S inv_s = rsq(fmax_(s2, 1e-30f));
   g = s2 * inv_s - r;
-  const float drho = (x * ux + z * uz) * inv_rho;
+  const S drho = (x * ux + z * uz) * inv_rho;
   gp = (w * drho + y * uy) * inv_s;
 }
 
 // _toroid_fast_root + the fused normal of intersect_with_normal_c
-__device__ __forceinline__ Hit toroid_hit(const ElementP& el, float qx, float qy, float qz,
-                                          float ux, float uy, float uz, float t_eps) {
+template <typename S>
+__device__ __forceinline__ HitT<S> toroid_hit(const ElementP& el, S qx, S qy, S qz,
+                                              S ux, S uy, S uz, float t_eps) {
   const float R = el.s[0], r = el.s[1], RpR = el.s[2], i2A = el.s[3], i2B = el.s[4], tol = el.s[5];
   // osculating-paraboloid seed, nearer valid crossing picked in n/d form
-  const float a = -(ux * ux * i2A + uy * uy * i2B);
-  const float b = uz - 2.0f * (qx * ux * i2A + qy * uy * i2B);
-  const float c = qz + RpR - (qx * qx * i2A + qy * qy * i2B);
-  const float disc = b * b - 4.0f * a * c;
+  const S a = -(ux * ux * i2A + uy * uy * i2B);
+  const S b = uz - 2.0f * (qx * ux * i2A + qy * uy * i2B);
+  const S c = qz + RpR - (qx * qx * i2A + qy * qy * i2B);
+  const S disc = b * b - 4.0f * a * c;
   const bool ok = disc >= 0.0f;
-  const float sq = ok ? sqrtf(disc) : 0.0f;
-  const float qq = (b == 0.0f) ? -0.5f * sq : -0.5f * (b + (b > 0.0f ? sq : -sq));
-  const float n1 = qq, d1 = a, n2 = c, d2 = qq;
+  const S sq = ok ? sqrt_(disc) : S(0.0f);
+  const S qq = (b == 0.0f) ? -0.5f * sq : -0.5f * (b + (b > 0.0f ? sq : -sq));
+  const S n1 = qq, d1 = a, n2 = c, d2 = qq;
   const bool v1 = ((n1 - t_eps * d1) * d1 > 0.0f) && (d1 * (qz * d1 + n1 * uz) < 0.0f);
   const bool v2 = ((n2 - t_eps * d2) * d2 > 0.0f) && (d2 * (qz * d2 + n2 * uz) < 0.0f);
   const bool t1_nearer = (n1 * d2 - n2 * d1) * (d1 * d2) <= 0.0f;
   const bool pick1 = !v2 || (v1 && t1_nearer);
-  const float num = pick1 ? n1 : n2;
-  const float den = pick1 ? d1 : d2;
-  float t = ok ? (den != 0.0f ? num / den : 0.0f) : -1.0f;
-  // one Newton correction (the seed converges in one)
+  const S num = pick1 ? n1 : n2;
+  const S den = pick1 ? d1 : d2;
+  S t = ok ? (den != 0.0f ? num / den : S(0.0f)) : S(-1.0f);
+  // one Newton correction (the seed converges in one), differentiated
+  // through the step, as JAX differentiates the kernel
   {
-    float g, gp;
+    S g, gp;
     toroid_residual(R, r, qx + t * ux, qy + t * uy, qz + t * uz, ux, uy, uz, g, gp);
-    t = t - g * (fabsf(gp) > 1e-12f ? 1.0f / gp : 0.0f);
+    t = t - g * (fabs_(gp) > 1e-12f ? 1.0f / gp : S(0.0f));
   }
   // one shared evaluation: validity residual, hit point, normal
-  Hit h;
+  HitT<S> h;
   h.x = qx + t * ux;
   h.y = qy + t * uy;
   h.z = qz + t * uz;
-  const float rho2 = h.x * h.x + h.z * h.z;
-  const float inv_rho = rsq(fmaxf(rho2, 1e-30f));
-  const float w = rho2 * inv_rho - R;
-  const float s2 = w * w + h.y * h.y;
-  const float inv_s = rsq(fmaxf(s2, 1e-30f));
-  const float g_abs = fabsf(s2 * inv_s - r);
-  const float an = w * inv_rho * inv_s;
+  const S rho2 = h.x * h.x + h.z * h.z;
+  const S inv_rho = rsq(fmax_(rho2, 1e-30f));
+  const S w = rho2 * inv_rho - R;
+  const S s2 = w * w + h.y * h.y;
+  const S inv_s = rsq(fmax_(s2, 1e-30f));
+  const float g_abs = fabsf(val(s2 * inv_s - r));
+  const S an = w * inv_rho * inv_s;
   h.nx = -an * h.x;
   h.ny = -h.y * inv_s;
   h.nz = -an * h.z;
-  h.hit = (t > t_eps) && (g_abs < tol) && (h.z < -R) && include(el.sup, h.x, h.y);
-  h.t = h.hit ? t : 0.0f;
+  h.hit = (t > t_eps) && (g_abs < tol) && (h.z < -R) && include(el.sup, val(h.x), val(h.y));
+  h.t = h.hit ? t : S(0.0f);
   return h;
 }
 
@@ -230,9 +261,9 @@ __device__ __forceinline__ Hit toroid_hit(const ElementP& el, float qx, float qy
 // normal at the root (normal_at_root_c).
 
 // a t^2 + b t + c of the ray against the surface (ops/surfaces._quadratic_coeffs)
-__device__ __forceinline__ void quadric_coeffs(const ElementP& el, float x, float y, float z,
-                                               float ux, float uy, float uz,
-                                               float& a, float& b, float& c) {
+template <typename S>
+__device__ __forceinline__ void quadric_coeffs(const ElementP& el, S x, S y, S z,
+                                               S ux, S uy, S uz, S& a, S& b, S& c) {
   const float* k = el.s;
   switch (el.kind) {
     case ELEM_PARABOLA:  // {p, 2p, p^2}
@@ -241,7 +272,7 @@ __device__ __forceinline__ void quadric_coeffs(const ElementP& el, float x, floa
       c = x * x + y * y - k[1] * z;
       break;
     case ELEM_SPHERE:  // {R, R^2, -1/R}
-      a = 1.0f;
+      a = S(1.0f);
       b = 2.0f * (ux * x + uy * y + uz * z);
       c = x * x + y * y + z * z - k[1];
       break;
@@ -259,38 +290,38 @@ __device__ __forceinline__ void quadric_coeffs(const ElementP& el, float x, floa
 }
 
 // distance-like residual g and dg/dt (ops/surfaces._residual_c)
-__device__ __forceinline__ void quadric_residual(const ElementP& el, float x, float y, float z,
-                                                 float ux, float uy, float uz,
-                                                 float& g, float& gp) {
+template <typename S>
+__device__ __forceinline__ void quadric_residual(const ElementP& el, S x, S y, S z,
+                                                 S ux, S uy, S uz, S& g, S& gp) {
   const float* k = el.s;
   switch (el.kind) {
     case ELEM_PARABOLA: {
-      const float h = z - (x * x + y * y) / k[1];
-      const float hp = uz - (x * ux + y * uy) / k[0];
-      const float scale = k[0] * rsq(x * x + y * y + k[2]);
+      const S h = z - (x * x + y * y) / k[1];
+      const S hp = uz - (x * ux + y * uy) / k[0];
+      const S scale = k[0] * rsq(x * x + y * y + k[2]);
       g = h * scale;
       gp = hp * scale;
       break;
     }
     case ELEM_SPHERE: {
-      const float rr = x * x + y * y + z * z;
-      const float inv_r = rsq(fmaxf(rr, 1e-30f));
+      const S rr = x * x + y * y + z * z;
+      const S inv_r = rsq(fmax_(rr, 1e-30f));
       g = rr * inv_r - k[0];
       gp = (x * ux + y * uy + z * uz) * inv_r;
       break;
     }
     case ELEM_CYLINDER: {
-      const float rr = y * y + z * z;
-      const float inv_r = rsq(fmaxf(rr, 1e-30f));
+      const S rr = y * y + z * z;
+      const S inv_r = rsq(fmax_(rr, 1e-30f));
       g = rr * inv_r - k[0];
       gp = (y * uy + z * uz) * inv_r;
       break;
     }
     default: {  // ELEM_ELLIPSOID
-      const float f = x * x * k[0] + (y * y + z * z) * k[1] - 1.0f;
-      const float fp = 2.0f * (x * ux * k[0] + (y * uy + z * uz) * k[1]);
-      const float ex = x * k[0], ey = y * k[1], ez = z * k[1];
-      const float scale = 0.5f * rsq(fmaxf(ex * ex + ey * ey + ez * ez, 1e-30f));
+      const S f = x * x * k[0] + (y * y + z * z) * k[1] - 1.0f;
+      const S fp = 2.0f * (x * ux * k[0] + (y * uy + z * uz) * k[1]);
+      const S ex = x * k[0], ey = y * k[1], ez = z * k[1];
+      const S scale = 0.5f * rsq(fmax_(ex * ex + ey * ey + ez * ez, 1e-30f));
       g = f * scale;
       gp = fp * scale;
       break;
@@ -299,9 +330,10 @@ __device__ __forceinline__ void quadric_residual(const ElementP& el, float x, fl
 }
 
 // unit 'up' normal at a root (ops/surfaces.normal_at_root_c / normal_c)
-__device__ __forceinline__ void quadric_normal(const ElementP& el, Hit& h) {
+template <typename S>
+__device__ __forceinline__ void quadric_normal(const ElementP& el, HitT<S>& h) {
   const float* k = el.s;
-  float nx, ny, nz;
+  S nx, ny, nz;
   switch (el.kind) {
     case ELEM_SPHERE:
       h.nx = h.x * k[2];
@@ -309,14 +341,14 @@ __device__ __forceinline__ void quadric_normal(const ElementP& el, Hit& h) {
       h.nz = h.z * k[2];
       return;
     case ELEM_CYLINDER:
-      h.nx = 0.0f;
+      h.nx = S(0.0f);
       h.ny = h.y * k[2];
       h.nz = h.z * k[2];
       return;
     case ELEM_PARABOLA:
       nx = -h.x;
       ny = -h.y;
-      nz = k[0];
+      nz = S(k[0]);
       break;
     default:  // ELEM_ELLIPSOID
       nx = -h.x * k[0];
@@ -324,61 +356,63 @@ __device__ __forceinline__ void quadric_normal(const ElementP& el, Hit& h) {
       nz = -h.z * k[1];
       break;
   }
-  const float inv = rsq(nx * nx + ny * ny + nz * nz);
+  const S inv = rsq(nx * nx + ny * ny + nz * nz);
   h.nx = nx * inv;
   h.ny = ny * inv;
   h.nz = nz * inv;
 }
 
 // citardauq quadratic roots; invalid roots are NaN (ops/surfaces._solve_quadratic)
-__device__ __forceinline__ void solve_quadratic(float a, float b, float c, float& t1, float& t2) {
-  const float disc = b * b - 4.0f * a * c;
+template <typename S>
+__device__ __forceinline__ void solve_quadratic(S a, S b, S c, S& t1, S& t2) {
+  const S disc = b * b - 4.0f * a * c;
   const bool ok = disc >= 0.0f;
-  const float sq = ok ? sqrtf(disc) : 0.0f;
-  float qq = -0.5f * (b + (b > 0.0f ? sq : (b < 0.0f ? -sq : 0.0f)));
+  const S sq = ok ? sqrt_(disc) : S(0.0f);
+  S qq = -0.5f * (b + (b > 0.0f ? sq : (b < 0.0f ? -sq : S(0.0f))));
   if (b == 0.0f) qq = -0.5f * sq;
   const float tiny = 1e-30f;
-  const bool linear = fabsf(a) < tiny;
-  const float num1 = linear ? -c : qq;
-  const float den1 = linear ? (fabsf(b) > tiny ? b : CUDART_INF_F)
-                            : (fabsf(a) > tiny ? a : CUDART_INF_F);
+  const bool linear = fabs_(a) < tiny;
+  const S num1 = linear ? -c : qq;
+  const S den1 = linear ? (fabs_(b) > tiny ? b : S(CUDART_INF_F))
+                        : (fabs_(a) > tiny ? a : S(CUDART_INF_F));
   t1 = num1 / den1;
-  t2 = linear ? CUDART_INF_F : c / (fabsf(qq) > tiny ? qq : CUDART_INF_F);
+  t2 = linear ? S(CUDART_INF_F) : c / (fabs_(qq) > tiny ? qq : S(CUDART_INF_F));
   if (!ok) {
-    t1 = CUDART_NAN_F;
-    t2 = CUDART_NAN_F;
+    t1 = S(CUDART_NAN_F);
+    t2 = S(CUDART_NAN_F);
   }
 }
 
 // s[4] = support offset x, s[5] = hit tolerance for every quadric
-__device__ __forceinline__ Hit quadric_hit(const ElementP& el, float qx, float qy, float qz,
-                                           float ux, float uy, float uz, float t_eps) {
+template <typename S>
+__device__ __forceinline__ HitT<S> quadric_hit(const ElementP& el, S qx, S qy, S qz,
+                                               S ux, S uy, S uz, float t_eps) {
   const float ox = el.s[4], tol = el.s[5];
-  float a, b, c;
+  S a, b, c;
   quadric_coeffs(el, qx, qy, qz, ux, uy, uz, a, b, c);
-  float cand[2];
+  S cand[2];
   solve_quadratic(a, b, c, cand[0], cand[1]);
-  float t_best = CUDART_INF_F;
+  S t_best = S(CUDART_INF_F);
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
-    float t = isfinite(cand[k]) ? cand[k] : -1.0f;
+    S t = isfinite_(cand[k]) ? cand[k] : S(-1.0f);
     float g_abs = 0.0f;
 #pragma unroll
     for (int it = 0; it < 3; ++it) {
-      float g, gp;
+      S g, gp;
       quadric_residual(el, qx + t * ux, qy + t * uy, qz + t * uz, ux, uy, uz, g, gp);
-      g_abs = fabsf(g);
-      t = t - g / (fabsf(gp) > 1e-12f ? gp : CUDART_INF_F);
+      g_abs = fabsf(val(g));
+      t = t - g / (fabs_(gp) > 1e-12f ? gp : S(CUDART_INF_F));
     }
-    const float x = qx + t * ux, y = qy + t * uy, z = qz + t * uz;
+    const S x = qx + t * ux, y = qy + t * uy, z = qz + t * uz;
     // branch filter: the paraboloid takes every root, the others z < 0
     const bool branch = el.kind == ELEM_PARABOLA || z < 0.0f;
-    const bool valid = (t > t_eps) && (g_abs < tol) && branch && include(el.sup, x - ox, y);
-    t_best = fminf(t_best, valid ? t : CUDART_INF_F);
+    const bool valid = (t > t_eps) && (g_abs < tol) && branch && include(el.sup, val(x - ox), val(y));
+    t_best = fmin_(t_best, valid ? t : S(CUDART_INF_F));
   }
-  Hit h;
-  h.hit = isfinite(t_best);
-  h.t = h.hit ? t_best : 0.0f;
+  HitT<S> h;
+  h.hit = isfinite_(t_best);
+  h.t = h.hit ? t_best : S(0.0f);
   h.x = qx + h.t * ux;
   h.y = qy + h.t * uy;
   h.z = qz + h.t * uz;
@@ -473,15 +507,32 @@ __device__ __forceinline__ void synth_source(const SourceP& src, int k, float ph
   s.alive = true;
 }
 
+
 // ---------------------------------------------------------------------------
 // the chain (ops/trace.chained_step with freeze_dead=False)
 // ---------------------------------------------------------------------------
 
+// element maps read from the chain record itself (K1-K5, K8)
+struct TableMaps {
+  const ChainP& ch;
+  __device__ __forceinline__ const float* M(int i) const { return ch.el[i].M; }
+  __device__ __forceinline__ const float* b(int i) const { return ch.el[i].b; }
+};
+
+// element maps from a runtime pose vector of scalar type S, 12 per element
+// (M row-major, then b), as ops/fused_grad.chain_scalars_np lays it out (K6, K7)
+template <typename S>
+struct PoseMaps {
+  const S* pose;
+  __device__ __forceinline__ const S* M(int i) const { return pose + 12 * i; }
+  __device__ __forceinline__ const S* b(int i) const { return pose + 12 * i + 9; }
+};
+
 // Trace one ray through the chain; the state stays patch-relative to the
 // last element. Dead rays are not frozen at mirrors (their values are
 // unspecified and every consumer masks by alive); mask steps freeze.
-template <bool WANT_INCIDENCE>
-__device__ __forceinline__ void trace_chain(const ChainP& ch, Ray& s) {
+template <bool WANT_INCIDENCE, typename S, typename Maps>
+__device__ __forceinline__ void trace_chain_maps(const ChainP& ch, const Maps& maps, RayT<S>& s) {
   for (int i = 0; i < ch.n_elements; ++i) {
     const ElementP& el = ch.el[i];
     const bool last = (i == ch.n_elements - 1);
@@ -492,23 +543,23 @@ __device__ __forceinline__ void trace_chain(const ChainP& ch, Ray& s) {
       float t_floor = 0.0f;
       for (int k = el.pre_begin; k < el.pre_end; ++k) {
         const PremaskP& pm = ch.pre[k];
-        float mx, my, mz, mux, muy, muz;
+        S mx, my, mz, mux, muy, muz;
         affine(pm.M, pm.b, s, mx, my, mz, mux, muy, muz);
-        const float t = plane_t(mz, muz);
-        const bool on = include(pm.sup, mx + t * mux, my + t * muy);
+        const S t = plane_t(mz, muz);
+        const bool on = include(pm.sup, val(mx + t * mux), val(my + t * muy));
         s.alive = s.alive && (t > t_floor + T_EPS) && !on;
-        t_floor = fmaxf(t_floor, t);
+        t_floor = fmaxf(t_floor, val(t));
       }
       t_eps = t_floor + T_EPS;
     }
-    float qx, qy, qz, ux, uy, uz;
-    affine(el.M, el.b, s, qx, qy, qz, ux, uy, uz);
+    S qx, qy, qz, ux, uy, uz;
+    affine(maps.M(i), maps.b(i), s, qx, qy, qz, ux, uy, uz);
     if (el.kind == ELEM_MASK) {
-      const float t = plane_t(qz, uz);
-      const float x = qx + t * ux, y = qy + t * uy, z = qz + t * uz;
-      const bool upd = s.alive && (t > t_eps) && !include(el.sup, x, y);
-      if (WANT_INCIDENCE && last && upd) s.inc = acosf(fminf(fmaxf(uz, -1.0f), 1.0f));
-      kahan_add(s.opl, s.opl_c, upd ? t : 0.0f);
+      const S t = plane_t(qz, uz);
+      const S x = qx + t * ux, y = qy + t * uy, z = qz + t * uz;
+      const bool upd = s.alive && (t > t_eps) && !include(el.sup, val(x), val(y));
+      if (WANT_INCIDENCE && last && upd) s.inc = acosf(fminf(fmaxf(val(uz), -1.0f), 1.0f));
+      kahan_add(s.opl, s.opl_c, upd ? t : S(0.0f));
       s.px = upd ? x : qx;
       s.py = upd ? y : qy;
       s.pz = upd ? z : qz;
@@ -518,7 +569,7 @@ __device__ __forceinline__ void trace_chain(const ChainP& ch, Ray& s) {
       s.alive = upd;
       continue;
     }
-    Hit h;
+    HitT<S> h;
     switch (el.kind) {
       case ELEM_TOROID:
         h = toroid_hit(el, qx, qy, qz, ux, uy, uz, t_eps);
@@ -530,8 +581,8 @@ __device__ __forceinline__ void trace_chain(const ChainP& ch, Ray& s) {
         h = quadric_hit(el, qx, qy, qz, ux, uy, uz, t_eps);
         break;
     }
-    const float dn = ux * h.nx + uy * h.ny + uz * h.nz;
-    if (WANT_INCIDENCE && last) s.inc = acosf(fminf(fmaxf(-dn, -1.0f), 1.0f));
+    const S dn = ux * h.nx + uy * h.ny + uz * h.nz;
+    if (WANT_INCIDENCE && last) s.inc = acosf(fminf(fmaxf(-val(dn), -1.0f), 1.0f));
     kahan_add(s.opl, s.opl_c, h.t);
     s.px = h.x - el.cen[0];
     s.py = h.y - el.cen[1];
@@ -541,6 +592,12 @@ __device__ __forceinline__ void trace_chain(const ChainP& ch, Ray& s) {
     s.dz = uz - 2.0f * dn * h.nz;
     s.alive = s.alive && h.hit;
   }
+}
+
+// the chain walk with the maps of the chain record
+template <bool WANT_INCIDENCE>
+__device__ __forceinline__ void trace_chain(const ChainP& ch, Ray& s) {
+  trace_chain_maps<WANT_INCIDENCE>(ch, TableMaps{ch}, s);
 }
 
 // Write ray k of a traced state: patch-relative frame K -> lab,
@@ -613,21 +670,76 @@ __device__ __forceinline__ void add_moments(const DetectorP& det, const Ray& s, 
   acc[15] += wcd * cd;
 }
 
-// Block reduction of the threads' float32 sums in float64: warp shuffles,
-// then one row per warp in shared memory, summed by the first warp; threads
-// m < N_MOMENTS write row[m]. No atomics, so the result is deterministic.
-__device__ __forceinline__ void reduce_moments_to_row(const float* acc, double* __restrict__ row) {
-  __shared__ double part[MOMENT_THREADS / 32][N_MOMENTS];
+
+// ---------------------------------------------------------------------------
+// detector statistics at given distances (ops/fused_trace.stats_rows),
+// shared by K6, K7 and K8
+// ---------------------------------------------------------------------------
+
+constexpr int N_STATS = 7;  // w, wx, wy, wxx, wyy, wd, wdd
+
+// the distance-independent part of stats_rows for one ray: the detector
+// plane (centre c, normal n, axes e1, e2: entries of type D, float or S) in
+// the last element's frame
+template <typename S>
+struct StatsGeom {
+  S t0, inv_dn, a1, a2, g1, g2, dsmall;
+};
+
+template <typename S, typename D>
+__device__ __forceinline__ StatsGeom<S> stats_geometry(const D* c, const D* n, const D* e1,
+                                                       const D* e2, float opl_ref,
+                                                       const RayT<S>& s) {
+  StatsGeom<S> g;
+  const S dn = s.dx * n[0] + s.dy * n[1] + s.dz * n[2];
+  g.inv_dn = 1.0f / (fabs_(dn) > 1e-30f ? dn : S(CUDART_INF_F));
+  const S b0 = (c[0] - s.px) * n[0] + (c[1] - s.py) * n[1] + (c[2] - s.pz) * n[2];
+  g.t0 = b0 * g.inv_dn;
+  const S rx = s.px - c[0], ry = s.py - c[1], rz = s.pz - c[2];
+  g.a1 = rx * e1[0] + ry * e1[1] + rz * e1[2];
+  g.a2 = rx * e2[0] + ry * e2[1] + rz * e2[2];
+  g.g1 = s.dx * e1[0] + s.dy * e1[1] + s.dz * e1[2];
+  g.g2 = s.dx * e2[0] + s.dy * e2[1] + s.dz * e2[2];
+  // (opl - ref) is a same-magnitude subtraction, then the Kahan
+  // compensation at full significance: unfused
+  g.dsmall = sub_rn(sub_rn(s.opl, opl_ref), s.opl_c);
+  return g;
+}
+
+// the 7 stats terms of one alive ray at ray parameter tj = t0 - dist *
+// inv_dn and delay dj = (dsmall + tj) - offset, in STATS_FIELDS order
+template <typename S>
+__device__ __forceinline__ void stats_terms(const StatsGeom<S>& g, S tj, S dj, float w, S* out) {
+  const S xj = g.a1 + tj * g.g1;
+  const S yj = g.a2 + tj * g.g2;
+  const S wx = w * xj, wy = w * yj, wd = w * dj;
+  out[0] = S(w);
+  out[1] = wx;
+  out[2] = wy;
+  out[3] = wx * xj;
+  out[4] = wy * yj;
+  out[5] = wd;
+  out[6] = wd * dj;
+}
+
+// Block reduction of the threads' N float32 sums in float64: warp
+// shuffles, then one row per warp in shared memory, summed by the first
+// warp; threads m < N write row[m]. No atomics, so the result is
+// deterministic.
+template <int N>
+__device__ __forceinline__ void reduce_to_row(const float* acc, double* __restrict__ row) {
+  static_assert(N <= MOMENT_THREADS, "one thread per output column");
+  __shared__ double part[MOMENT_THREADS / 32][N];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
-  for (int m = 0; m < N_MOMENTS; ++m) {
+  for (int m = 0; m < N; ++m) {
     double v = (double)acc[m];
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
     if (lane == 0) part[warp][m] = v;
   }
   __syncthreads();
-  if (threadIdx.x < N_MOMENTS) {
+  if (threadIdx.x < N) {
     double v = 0.0;
 #pragma unroll
     for (int w = 0; w < MOMENT_THREADS / 32; ++w) v += part[w][threadIdx.x];

@@ -74,6 +74,15 @@ def bundle_from_numpy(bundle, *, device, dtype):
     })
 
 
+def alignment_params_from_numpy(params, *, device, dtype=torch.float32):
+    """``AlignmentParams`` (angles, shifts: (K, 3)) on ``device`` in
+    ``dtype``."""
+    from .analysis.alignment import AlignmentParams
+
+    return AlignmentParams(angles=_tensor(params.angles, device, dtype),
+                           shifts=_tensor(params.shifts, device, dtype))
+
+
 def source_spec_from_numpy(spec):
     """``FusedSourceInfo`` or ``BakedSource`` of this package."""
     name = type(spec).__name__

@@ -30,7 +30,7 @@ import torch
 from . import default_options as defaults
 from .analysis import stats
 from .analysis.optimizer import FindOptimalDistance
-from .models.chain import OpticalChain
+from .models.chain import OpticalChain, config_device
 from .models.detector import Detector
 from .ops.bundle import RayBundle
 from .ops.precision import resolve_device
@@ -458,7 +458,9 @@ def run_config_file(path: str, n_rays: int | None = None, *, device="cuda", scan
     config_module = importlib.util.module_from_spec(spec)
     _CLI_ACTIVE = True
     try:
-        with _config_aliases():
+        # a CONFIG may trace while it loads (examples/CONFIG_gradient_alignment.py
+        # aligns its chain at import time): its chains take the CLI's device
+        with _config_aliases(), config_device(device):
             spec.loader.exec_module(config_module)
         chains, sp, do, ao = load_config(config_module)
         if n_rays is not None:

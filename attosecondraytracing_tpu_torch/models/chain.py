@@ -12,6 +12,8 @@ streamed trace below it.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import copy
 import os
 from typing import NamedTuple
@@ -55,6 +57,22 @@ PALLAS_MIN_RAYS = int(os.environ.get("ART_TPU_PALLAS_MIN_RAYS", "200000"))
 
 ENGINES = ("auto", "fused", "trace")
 
+#: device taken by chains built without one while a CONFIG file runs
+#: (main.run_config_file); None everywhere else
+_CONFIG_DEVICE = contextvars.ContextVar("config_device", default=None)
+
+
+@contextlib.contextmanager
+def config_device(device):
+    """Within this scope every OpticalChain built without a device takes
+    ``device`` (a CONFIG that traces while it loads runs on the CLI's
+    device); the previous scope is restored on exit."""
+    token = _CONFIG_DEVICE.set(resolve_device(device))
+    try:
+        yield
+    finally:
+        _CONFIG_DEVICE.reset(token)
+
 
 def _bundle_hash(bundle: RayBundle) -> int:
     return hash(tuple(hash(leaf.detach().cpu().numpy().tobytes()) for leaf in bundle))
@@ -83,7 +101,10 @@ class OpticalChain:
         self.loop_variable_name = loop_variable_name
         self.loop_variable_value = loop_variable_value
         #: device the chain traces on: None until the caller names one
-        #: (``device=`` here, :meth:`to`, or ``run_ART(..., device=)``)
+        #: (``device=`` here, :meth:`to`, or ``run_ART(..., device=)``) or a
+        #: CONFIG file is run (:func:`config_device`)
+        if device is None:
+            device = _CONFIG_DEVICE.get()
         self.device = None if device is None else resolve_device(device)
         self._output_rays = None
         self._last_source_hash = None

@@ -26,9 +26,9 @@ from pathlib import Path
 import numpy as np
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-#: compiled sources, one object each: K1 and K2, K5, K3 and K4
-UNITS = ("fused_trace.cu", "fused_scan.cu", "streamed_trace.cu")
-SOURCES = UNITS + ("trace_common.cuh",)
+#: compiled sources, one object each: K1, K2 and K8; K5; K3 and K4; K6 and K7
+UNITS = ("fused_trace.cu", "fused_scan.cu", "streamed_trace.cu", "fused_grad.cu")
+SOURCES = UNITS + ("trace_common.cuh", "dual.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 #: flags of each source's compile (the link adds ``-shared``)
@@ -117,8 +117,9 @@ def library() -> ctypes.CDLL:
 def load(path) -> ctypes.CDLL:
     """Load a kernel library built from ``csrc/``, bind its C interface and
     check its record layouts against the numpy records."""
+    from .fused_grad import TANGENT_BATCH
     from .fused_scan import N_AUX
-    from .fused_trace import CHAIN_T, DETECTOR_T, SOURCE_T
+    from .fused_trace import CHAIN_T, DETECTOR_T, SOURCE_T, STATS_GROUP
 
     lib = ctypes.CDLL(str(path))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -126,7 +127,8 @@ def load(path) -> ctypes.CDLL:
                  "art_detector_params_size"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_size_t
-    for name in ("art_moment_rays_per_block", "art_scan_aux_size"):
+    for name in ("art_moment_rays_per_block", "art_scan_aux_size", "art_stats_group",
+                 "art_tangent_batch"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ci
     lib.art_error_string.argtypes = [ci]
@@ -141,6 +143,10 @@ def load(path) -> ctypes.CDLL:
     lib.art_launch_scan_moments.restype = ci
     lib.art_launch_streamed_trace.argtypes = [vp, ci, ci] + [vp] * 13
     lib.art_launch_streamed_trace.restype = ci
+    lib.art_launch_fused_source_stats.argtypes = [vp, vp, vp, ci, ci, ci, vp, vp, ci, vp, ci, vp]
+    lib.art_launch_fused_source_stats.restype = ci
+    lib.art_launch_stats_params.argtypes = [vp, vp, cf, ci, ci, ci, ci, vp, vp, vp, vp, ci, ci, vp]
+    lib.art_launch_stats_params.restype = ci
     for name, dt in (("art_chain_params_size", CHAIN_T),
                      ("art_source_params_size", SOURCE_T),
                      ("art_detector_params_size", DETECTOR_T)):
@@ -151,6 +157,10 @@ def load(path) -> ctypes.CDLL:
     if lib.art_scan_aux_size() != N_AUX:
         raise RuntimeError(f"scan kernel takes {lib.art_scan_aux_size()} aux scalars, "
                            f"ops/fused_scan.py packs {N_AUX}")
+    for name, value in (("art_stats_group", STATS_GROUP), ("art_tangent_batch", TANGENT_BATCH)):
+        if getattr(lib, name)() != value:
+            raise RuntimeError(f"{name}: the kernels take {getattr(lib, name)()}, the host "
+                               f"packs {value}")
     return lib
 
 
@@ -212,3 +222,25 @@ def launch_streamed_trace(chain_rec, n_rays, fresh, inputs, outputs, stream):
         _record_ptr(chain_rec), int(n_rays), int(bool(fresh)),
         *(_ptr(t) for t in inputs), *(t.data_ptr() for t in outputs), stream)
     _check(lib, status, "streamed_trace launch")
+
+
+def launch_fused_source_stats(chain_rec, src_rec, det_rec, n_rays, chunk, n_chunks, chunk_params,
+                              dist_params, n_dist, rows, blocks_per_chunk, stream):
+    lib = library()
+    status = lib.art_launch_fused_source_stats(
+        _record_ptr(chain_rec), _record_ptr(src_rec), _record_ptr(det_rec), int(n_rays),
+        int(chunk), int(n_chunks), chunk_params.data_ptr(), dist_params.data_ptr(), int(n_dist),
+        rows.data_ptr(), int(blocks_per_chunk), stream)
+    _check(lib, status, "fused_source_stats launch")
+
+
+def launch_stats_params(chain_rec, src_rec, opl_ref, n_rays, chunk, n_chunks, n_scal, svec,
+                        stangents, chunk_params, rows, blocks_per_chunk, n_tangents, stream):
+    """K6 (``n_tangents`` = 6, ``stangents`` a device tensor) or K7
+    (``n_tangents`` = 0, ``stangents`` None)."""
+    lib = library()
+    status = lib.art_launch_stats_params(
+        _record_ptr(chain_rec), _record_ptr(src_rec), float(opl_ref), int(n_rays), int(chunk),
+        int(n_chunks), int(n_scal), svec.data_ptr(), _ptr(stangents), chunk_params.data_ptr(),
+        rows.data_ptr(), int(blocks_per_chunk), int(n_tangents), stream)
+    _check(lib, status, "stats_params launch")

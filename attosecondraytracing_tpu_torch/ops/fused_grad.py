@@ -1,29 +1,54 @@
-"""Pose scalars of the runtime-scalar kernels (counterpart of the host side
-of the JAX package's ``ops/pallas_grad.py``).
+"""The fused alignment-gradient engine: kernels K6 and K7, their plain
+PyTorch version, and the host side (counterpart of the JAX package's
+``ops/pallas_grad.py``).
 
-The scan kernel K5 (``ops/fused_scan.py``) takes every pose-dependent
-constant of a chain as a runtime vector instead of a baked record: per
-element the composed chained-frame affine ``(M_k, b_k)`` (the first with the
-source frame folded in), then the detector plane in the final element's
-frame. :func:`chain_scalars_np` forms that vector; the gradient kernels K6
-and K7 of the JAX package read the same layout and land here when they are
-ported.
+The alignment loss (:func:`..analysis.alignment.focus_loss`) is a function
+of 7 weighted detector sums (:data:`~.fused_trace.STATS_FIELDS`). The
+runtime-pose kernels take every pose-dependent constant of a chain as one
+vector ``svec`` (:func:`chain_scalars_np`): per element the composed
+chained-frame affine ``(M_k, b_k)`` (the first with the source frame folded
+in), then the detector plane in the final element's frame.
 
-The composition runs in float64 NumPy on the host and the vector is rounded
-to float32 once. The JAX package records why (``pallas_grad.py:101-107``): a
-float32 (there: bfloat16-pass) composition displaced the traced geometry by
-~0.5 mm and corrupted the moments by tens of percent.
+* **K6** (``csrc/fused_grad.cu``, ``stats_params_kernel<6>``) replaces
+  ``_kernel_stats_jvp``: the 7 sums at one distance and their directional
+  derivatives along G = 6 tangent rows of ``svec``, from one trace on dual
+  numbers (the shared primal of ``jax.linearize``).
+* **K7** (``stats_params_kernel<0>``) replaces ``_kernel_stats_primal``:
+  the 7 sums alone.
+
+The tangent rows are the Jacobian of ``params -> svec``
+(:func:`chain_scalars`, float64, ``torch.func.jacfwd``), rounded to float32
+once; the loss gradient is one host contraction. The primal ``svec`` is
+composed in host float64 and rounded to float32 once: the JAX package
+records why (``pallas_grad.py:101-107``): a float32 (there: bfloat16-pass)
+composition displaced the traced geometry by ~0.5 mm and corrupted the
+moments by tens of percent.
+
+:func:`fused_stats_params` takes the plain version :func:`stats_params_ref`
+only for a CPU device; for a CUDA device it launches K6 or K7 or raises,
+counting K6 launches in ``fused_stats_params.launches`` and K7 launches in
+``fused_stats_params.primal_launches``.
 """
 
 from __future__ import annotations
 
-import numpy as np
+from typing import NamedTuple
 
-from .trace import compose_chain, fold_source
+import numpy as np
+import torch
+
+from .trace import MaskElement, TraceState, chained_step, compose_chain, fold_source
 
 #: scalars of the detector plane at the end of the vector: centre, normal,
 #: e1, e2 in the final element's frame
 N_DET_SCALARS = 12
+
+#: per-call ray chunk: local float indices stay < 2^23 for exactness
+GRAD_CHUNK = 1 << 23
+
+#: tangents per K6 launch (one element's full pose block); the last group
+#: of a pose vector is padded with zero rows
+TANGENT_BATCH = 6
 
 
 def n_scalars(n_elements: int) -> int:
@@ -38,7 +63,8 @@ def chain_scalars_np(elements, source_rot, source_origin, det_centre, det_normal
     ``b_k`` (3), element 0's map taking canonical source-frame coordinates
     (``source_rot``, ``source_origin``) straight into its surface frame;
     then the detector centre, normal, e1 and e2 in the final element's
-    frame. Element poses may be tensors on any device and dtype."""
+    frame. Element poses may be tensors on any device and dtype, or host
+    arrays."""
     maps, (R_K, pos_K) = compose_chain(elements)
     maps = fold_source(maps, elements, source_rot, source_origin)
     parts = []
@@ -51,10 +77,42 @@ def chain_scalars_np(elements, source_rot, source_origin, det_centre, det_normal
     return np.concatenate(parts).astype(np.float32)
 
 
+def chain_scalars(elements, source_rot, source_origin, det_centre, det_normal, det_rot):
+    """:func:`chain_scalars_np` as a differentiable float64 torch function
+    of the elements' ``rot``/``position`` tensors (same layout, not
+    rounded): the function whose Jacobian gives K6 its tangent rows."""
+    f64 = torch.float64
+
+    def t(x):
+        return torch.as_tensor(x, dtype=f64) if not torch.is_tensor(x) else x.to(dtype=f64)
+
+    rots = [t(el.rot) for el in elements]
+    poss = [t(el.position) for el in elements]
+    dev = rots[0].device
+    cens = [torch.zeros(3, dtype=f64, device=dev) if isinstance(el, MaskElement)
+            else t(el.centre).to(dev) for el in elements]
+    maps = []
+    for k, (R, pos, cen) in enumerate(zip(rots, poss, cens)):
+        if k == 0:
+            maps.append((R, -R @ pos + cen))
+        else:
+            maps.append((R @ rots[k - 1].T, R @ (poss[k - 1] - pos) + cen))
+    M0 = maps[0][0]
+    maps[0] = (M0 @ t(source_rot).to(dev), M0 @ (t(source_origin).to(dev) - poss[0]) + cens[0])
+    parts = []
+    for M, b in maps:
+        parts += [M.reshape(-1), b]
+    R_K, pos_K = rots[-1], poss[-1]
+    rot = t(det_rot).to(dev)
+    parts += [R_K @ (t(det_centre).to(dev) - pos_K), R_K @ t(det_normal).to(dev),
+              R_K @ rot[0], R_K @ rot[1]]
+    return torch.cat(parts)
+
+
 def _unpack_scalars(scal, n_elements: int):
     """Inverse of :func:`chain_scalars_np`: per-element ``(M, b)`` as nested
     tuples of the vector's entries, and the detector ``(centre, normal, e1,
-    e2)``."""
+    e2)``. Entries of a tensor stay 0-d tensors, so tangents reach them."""
     maps = []
     i = 0
     for _ in range(n_elements):
@@ -64,3 +122,359 @@ def _unpack_scalars(scal, n_elements: int):
         i += 12
     det = tuple(tuple(scal[i + 3 * g + c] for c in range(3)) for g in range(4))
     return maps, det
+
+
+def _apply_params_np(elements, params):
+    """Float64 host twin of :func:`..analysis.alignment.apply_params` (pose
+    perturbation by AlignmentParams): elements with host-array poses, for
+    :func:`chain_scalars_np`."""
+    from .host_geometry import rotation_around_axis as rot_axis
+    from .trace import _host64
+
+    angles = _host64(params.angles)
+    shifts = _host64(params.shifts)
+    out = []
+    for k, el in enumerate(elements):
+        rot = _host64(el.rot)
+        m, c, n = rot[0], rot[1], rot[2]
+        R_delta = (rot_axis(c, angles[k, 0]) @ rot_axis(m, angles[k, 1])
+                   @ rot_axis(n, angles[k, 2]))
+        new_pos = _host64(el.position) + shifts[k, 0] * n + shifts[k, 1] * m + shifts[k, 2] * c
+        out.append(el._replace(rot=rot @ R_delta.T, position=new_pos))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the loss description
+# ---------------------------------------------------------------------------
+
+
+class FusedLossSpec(NamedTuple):
+    """The pose-independent description of a fused loss: source law, chain
+    structure, the chief-ray reference path and the loss weights.
+    ``elements`` are host float64 element records whose poses are unused
+    (each evaluation's poses come from its ``svec``). Surface defects are
+    not ported, so there is no ``ignore_defects``."""
+
+    source_kind: str          # 'cone' | 'disk' | 'extended' | 'square'
+    source_radius: float      # tan(divergence), disk radius or square side [mm]
+    elements: tuple
+    opl_ref: float
+    gaussian_edge: float | None
+    n_rays: int
+    duration_weight: float
+    survival_weight: float
+    pos_radius: float = 0.0   # source-disk radius [mm] ('extended')
+    n_each: int = 0
+    n_sources: int = 0
+
+
+def make_loss_spec(source_spec, elements, det_centre, det_normal, duration_weight: float = 0.0,
+                   survival_weight: float = 1.0, *, device, dtype=None) -> FusedLossSpec:
+    """The FusedLossSpec of a chain's ``FusedSourceInfo``
+    (models/chain.py), its elements, and the fixed lab-frame detector
+    plane; the chief-ray probe traces on ``device`` in ``dtype`` (default:
+    the trace dtype)."""
+    from . import fused_trace as ft
+    from .precision import default_dtype
+
+    baked = source_spec.baked()
+    opl_ref, _ = ft.chief_ray_refs(baked, elements, det_centre, det_normal, device=device,
+                                   dtype=dtype or default_dtype())
+    return FusedLossSpec(
+        source_kind=source_spec.kind, source_radius=float(baked.radius),
+        elements=tuple(ft.elements_to(elements, "cpu", torch.float64)),
+        opl_ref=float(opl_ref), gaussian_edge=source_spec.gaussian_edge,
+        n_rays=int(source_spec.n_rays), duration_weight=float(duration_weight),
+        survival_weight=float(survival_weight), pos_radius=float(baked.pos_radius),
+        n_each=int(baked.n_each), n_sources=int(baked.n_sources))
+
+
+def _ray_chunks(spec: FusedLossSpec, chunk_size: int):
+    """[(n_local, phase, k_frac)] covering the global source (kind-aware:
+    extended sources chunk along sub-source boundaries)."""
+    from .fused_trace import source_chunks
+
+    return source_chunks(spec.source_kind, spec.n_rays, spec.n_rays, chunk_size,
+                         n_each=spec.n_each, n_sources=spec.n_sources)
+
+
+def _total_weight(spec: FusedLossSpec) -> float:
+    """Total source weight of the survival term (closed form)."""
+    from .fused_scan import total_source_weight
+
+    return total_source_weight(spec.n_rays, spec.gaussian_edge, n_each=spec.n_each,
+                               n_sources=spec.n_sources, kind=spec.source_kind)
+
+
+# ---------------------------------------------------------------------------
+# K6 / K7: plain version
+# ---------------------------------------------------------------------------
+
+
+def stats_of_scalars(scal, spec: FusedLossSpec, n_local: int, phase, k_frac, *, device):
+    """(7,) float64 sums of :data:`~.fused_trace.STATS_FIELDS` at the
+    detector plane as a function of the float32 pose vector ``scal`` (a
+    tensor on ``device``): the function K6 differentiates. ``n_local`` rays
+    of the global source from the chunk offsets (``phase``, ``k_frac``),
+    weight ``exp(ln edge * rr)``, the chained trace with masks as their own
+    steps and dead rays not frozen at mirrors, then the stats epilogue at
+    distance 0. Every pose is an entry of ``scal``, so ``torch.func.jvp``
+    reaches it; dead rays are selected out of every product."""
+    from . import fused_trace as ft
+
+    maps, det_rel = _unpack_scalars(scal, len(spec.elements))
+    k = torch.arange(n_local, dtype=torch.int64, device=device)
+    (px, py, pz), (dx, dy, dz), rr = ft.synth_source(
+        spec.source_kind, k, spec.n_rays, spec.source_radius, phase, k_frac,
+        pos_radius=spec.pos_radius, n_each=spec.n_each, n_sources=spec.n_sources)
+    if spec.gaussian_edge is None:
+        weights = torch.ones_like(rr)
+    else:
+        weights = torch.exp(float(np.log(spec.gaussian_edge)) * rr)
+    zeros = torch.zeros_like(rr)
+    s = TraceState(px, py, pz, dx, dy, dz, zeros, zeros, torch.ones_like(rr, dtype=torch.bool), zeros)
+    for el, (M, b) in zip(ft.elements_to(spec.elements, device, torch.float64), maps):
+        s = chained_step(el, M, b, s, want_incidence=False, freeze_dead=False)
+    det = ft.BakedDetector(centre=det_rel[0], normal=det_rel[1], e1=det_rel[2], e2=det_rel[3],
+                           opl_ref=spec.opl_ref)
+    return ft.stats_rows(s, det, weights)[:, 0]
+
+
+def _check_params_args(spec: FusedLossSpec, svec, stangents):
+    n = n_scalars(len(spec.elements))
+    svec = np.asarray(svec, np.float32)
+    stangents = np.zeros((0, n), np.float32) if stangents is None else np.asarray(stangents, np.float32)
+    if svec.shape != (n,) or stangents.ndim != 2 or stangents.shape[1] != n \
+            or stangents.shape[0] > TANGENT_BATCH:
+        raise ValueError(f"a {len(spec.elements)}-element chain takes svec ({n},) and at most "
+                         f"{TANGENT_BATCH} tangent rows of {n}, got {svec.shape} and "
+                         f"{stangents.shape}")
+    return svec, stangents
+
+
+def stats_params_ref(spec: FusedLossSpec, svec, stangents, chunks, *, device):
+    """Plain PyTorch version of K6 (``stangents`` (G, n) float32, G <= 6)
+    and K7 (G = 0 or ``stangents=None``), following the JAX package's
+    ``_kernel_stats_jvp``: per chunk, :func:`stats_of_scalars` and its JVP
+    along every tangent row with one shared primal (``torch.func.jvp``
+    batched over the rows by ``torch.func.vmap``), summed in float64.
+    Returns ``(primal (7,), tangents (G, 7))``."""
+    svec, stangents = _check_params_args(spec, svec, stangents)
+    G = stangents.shape[0]
+    p = torch.tensor(svec, device=device)
+    tang = torch.tensor(stangents, device=device)
+    primal = np.zeros(7, np.float64)
+    tangents = np.zeros((G, 7), np.float64)
+    for n_local, phase, k_frac in chunks:
+        def f(scal):
+            return stats_of_scalars(scal, spec, n_local, phase, k_frac, device=device)
+
+        if G == 0:
+            primal += f(p).cpu().numpy()
+            continue
+        outs, touts = torch.func.vmap(lambda t: torch.func.jvp(f, (p,), (t,)))(tang)
+        primal += outs[0].cpu().numpy()
+        tangents += touts.cpu().numpy()
+    return primal, tangents
+
+
+# ---------------------------------------------------------------------------
+# K6 / K7: kernel wrapper
+# ---------------------------------------------------------------------------
+
+
+def _scan_spec(spec: FusedLossSpec):
+    from .fused_scan import ScanSpec
+
+    return ScanSpec(source_kind=spec.source_kind, elements=spec.elements, n_total=spec.n_rays,
+                    n_each=spec.n_each, n_sources=spec.n_sources)
+
+
+def prepare_stats_params(spec: FusedLossSpec, svec, stangents, chunks, *, device):
+    """K6/K7's host work for a CUDA ``device``: pack the pose-independent
+    chain record (K5's, :func:`~.fused_scan.pack_scan_chain`) and the source
+    record (raising on what the kernels do not take), copy ``svec``, the
+    tangent rows (padded with zero rows to 6) and the chunk offsets to the
+    device, and allocate the per-block rows. Returns ``(rows, launch)``:
+    each ``launch()`` runs K6 (G > 0) or K7 (G = 0) once over every chunk,
+    writing per block one float64 row of the 7 sums and, for K6, their 6
+    tangents (``7 * (1 + 6)``), and counts it."""
+    from . import fused_scan as fs
+    from . import fused_trace as ft
+
+    sizes = ft._check_chunks(chunks)
+    device = ft._cuda_device(device, "fused_stats_params")
+    svec, stangents = _check_params_args(spec, svec, stangents)
+    G = stangents.shape[0]
+    chain_rec = fs.pack_scan_chain(_scan_spec(spec))
+    src = ft.BakedSource(kind=spec.source_kind, rot=((1.0, 0.0, 0.0),) * 3, origin=(0.0, 0.0, 0.0),
+                         radius=spec.source_radius, pos_radius=spec.pos_radius,
+                         n_each=spec.n_each, n_sources=spec.n_sources)
+    src_rec = ft.pack_source(src, spec.n_rays, spec.gaussian_edge)
+    from . import _cuda
+
+    n = svec.shape[0]
+    n_tang = TANGENT_BATCH if G else 0
+    padded = np.zeros((n_tang, n), np.float32)
+    padded[:G] = stangents
+    svec_t = torch.tensor(svec, device=device)
+    tang_t = torch.tensor(padded, device=svec_t.device)
+    params = torch.tensor([[c[1], c[2]] for c in chunks], dtype=torch.float32, device=svec_t.device)
+    n_rays, chunk = sum(sizes), sizes[0]
+    blocks_per_chunk = -(-chunk // _cuda.moment_rays_per_block())
+    rows = torch.empty((len(chunks) * blocks_per_chunk, 7 * (1 + n_tang)), dtype=torch.float64,
+                       device=svec_t.device)
+    for name, x, dtype in (("svec", svec_t, torch.float32), ("tangents", tang_t, torch.float32),
+                           ("chunk params", params, torch.float32), ("stats rows", rows, torch.float64)):
+        ft._check_out(name, x, dtype, svec_t.device)
+
+    def launch():
+        with torch.cuda.device(rows.device):
+            stream = torch.cuda.current_stream(rows.device).cuda_stream
+            _cuda.launch_stats_params(chain_rec, src_rec, spec.opl_ref, n_rays, chunk, len(chunks),
+                                      n, svec_t, tang_t if n_tang else None, params, rows,
+                                      blocks_per_chunk, n_tang, stream)
+        if n_tang:
+            fused_stats_params.launches += 1
+        else:
+            fused_stats_params.primal_launches += 1
+
+    return rows, launch
+
+
+def params_from_rows(rows, n_tangents: int):
+    """``(primal (7,), tangents (n_tangents, 7))`` float64 from K6/K7's rows."""
+    total = rows.sum(dim=0).cpu().numpy()
+    return total[:7], total[7:].reshape(-1, 7)[:n_tangents]
+
+
+def fused_stats_params(spec: FusedLossSpec, svec, stangents, chunks, *, device):
+    """K6 (``stangents`` (G, n), 0 < G <= 6; replaces
+    ``ops/pallas_grad.py::_kernel_stats_jvp`` of the JAX package) and K7
+    (G = 0 or None; replaces ``_kernel_stats_primal``): the 7 weighted sums
+    at the detector plane over every chunk's rays and, for K6, their
+    derivatives along each tangent row, summed in float64. All chunks go in
+    one launch (``blockIdx.y`` = chunk). CPU runs :func:`stats_params_ref`.
+    Returns ``(primal (7,), tangents (G, 7))``."""
+    from .fused_trace import _check_chunks
+
+    _check_chunks(chunks)
+    if torch.device(device).type == "cpu":
+        return stats_params_ref(spec, svec, stangents, chunks, device=device)
+    rows, launch = prepare_stats_params(spec, svec, stangents, chunks, device=device)
+    launch()
+    return params_from_rows(rows, 0 if stangents is None else len(stangents))
+
+
+#: K6 launches
+fused_stats_params.launches = 0
+#: K7 launches
+fused_stats_params.primal_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# loss value and gradient
+# ---------------------------------------------------------------------------
+
+
+def _stats_and_jacobian(sprimal, stangents, spec: FusedLossSpec, chunk_size: int, *, device):
+    """``(p_stats (7,), t_stats (P, 7))`` float64 over every ray of the
+    global source: ceil(P / 6) tangent groups, each one K6 launch over all
+    chunks (the first group's primal is kept); groups accumulate in
+    float64 on the host."""
+    chunks = _ray_chunks(spec, chunk_size)
+    P = stangents.shape[0]
+    p_stats = np.zeros(7, np.float64)
+    t_stats = np.zeros((P, 7), np.float64)
+    for g0 in range(0, P, TANGENT_BATCH):
+        g1 = min(g0 + TANGENT_BATCH, P)
+        p, t = fused_stats_params(spec, sprimal, stangents[g0:g1], chunks, device=device)
+        if g0 == 0:
+            p_stats = p
+        t_stats[g0:g1] = t
+    return p_stats, t_stats
+
+
+def _loss_from_stats(stats, spec: FusedLossSpec, total_weight: float):
+    """``(loss, dloss/dstats (7,))`` of the focus loss from the 7 weighted
+    sums (analysis/alignment.focus_loss semantics): spot variance +
+    duration_weight * delay variance [fs^2] + survival_weight * (1 -
+    transmission). Evaluated in float64 through ``torch.autograd``. The
+    JAX package evaluates it in float32 (``pallas_grad.py:571-575``), where
+    ``wxx/w - (wx/w)^2`` cancels at float32 resolution; float64 keeps the
+    sums' precision, so the two agree to that cancellation error."""
+    from .precision import LIGHT_SPEED_MM_S
+
+    st = torch.tensor(np.asarray(stats, np.float64), requires_grad=True)
+    w, wx, wy, wxx, wyy, wd, wdd = st
+    w = torch.clamp(w, min=1e-30)
+    loss = wxx / w - (wx / w) ** 2 + wyy / w - (wy / w) ** 2
+    if spec.duration_weight:
+        to_fs = 1e15 / LIGHT_SPEED_MM_S
+        loss = loss + spec.duration_weight * (wdd / w - (wd / w) ** 2) * to_fs**2
+    if spec.survival_weight:
+        loss = loss + spec.survival_weight * (1.0 - w / total_weight)
+    loss.backward()
+    return float(loss.detach()), st.grad.numpy()
+
+
+def _flat_params(params) -> torch.Tensor:
+    """Flat float64 (6K,) host vector: angles row-major, then shifts (the
+    JAX package's ``ravel_pytree`` order)."""
+    from .trace import _host64
+
+    return torch.as_tensor(np.concatenate([_host64(params.angles).reshape(-1),
+                                           _host64(params.shifts).reshape(-1)]))
+
+
+def scalar_tangents(elements, params, source_rot, source_origin, det_centre, det_normal,
+                    det_rot) -> np.ndarray:
+    """(P, n_scalars) float32 Jacobian rows d svec / d param: the float64
+    ``torch.func.jacfwd`` of ``params -> chain_scalars(apply_params(...))``
+    on the host, rounded to float32 once."""
+    from ..analysis.alignment import AlignmentParams, apply_params
+    from . import fused_trace as ft
+
+    host = ft.elements_to(elements, "cpu", torch.float64)
+    flat = _flat_params(params)
+    K = len(host)
+
+    def scal(fp):
+        p = AlignmentParams(angles=fp[:3 * K].reshape(K, 3), shifts=fp[3 * K:].reshape(K, 3))
+        return chain_scalars(apply_params(host, p), source_rot, source_origin, det_centre,
+                             det_normal, det_rot)
+
+    return torch.func.jacfwd(scal)(flat).T.contiguous().numpy().astype(np.float32)
+
+
+def fused_focus_value_and_grad(params, spec: FusedLossSpec, elements, source_rot, source_origin,
+                               det_centre, det_normal, det_rot, chunk_size: int = GRAD_CHUNK, *,
+                               device):
+    """``(loss, grads)`` of the focus loss w.r.t. the AlignmentParams
+    ``params``, through K6 on a CUDA ``device`` (its plain version on the
+    CPU). ``elements`` are the unperturbed elements; ``grads`` is an
+    AlignmentParams of float32 CPU tensors. Cost: ceil(6K / 6) K6 launches,
+    each over every chunk of ``chunk_size`` rays, and O(1) gradient memory
+    at any ray count."""
+    from ..analysis.alignment import AlignmentParams
+
+    sprimal = chain_scalars_np(_apply_params_np(elements, params), source_rot, source_origin,
+                               det_centre, det_normal, det_rot)
+    stangents = scalar_tangents(elements, params, source_rot, source_origin, det_centre,
+                                det_normal, det_rot)
+    p_stats, t_stats = _stats_and_jacobian(sprimal, stangents, spec, chunk_size, device=device)
+    loss, dloss = _loss_from_stats(p_stats, spec, _total_weight(spec))
+    grads = torch.as_tensor(t_stats @ dloss, dtype=torch.float32)
+    K = len(elements)
+    return loss, AlignmentParams(angles=grads[:3 * K].reshape(K, 3), shifts=grads[3 * K:].reshape(K, 3))
+
+
+def fused_focus_loss(params, spec: FusedLossSpec, elements, source_rot, source_origin, det_centre,
+                     det_normal, det_rot, chunk_size: int = GRAD_CHUNK, *, device) -> float:
+    """The focus loss alone, through one K7 launch over every chunk (for
+    line searches and evaluation)."""
+    sprimal = chain_scalars_np(_apply_params_np(elements, params), source_rot, source_origin,
+                               det_centre, det_normal, det_rot)
+    stats, _ = fused_stats_params(spec, sprimal, None, _ray_chunks(spec, chunk_size), device=device)
+    return _loss_from_stats(stats, spec, _total_weight(spec))[0]

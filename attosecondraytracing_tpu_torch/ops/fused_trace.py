@@ -1,7 +1,7 @@
-"""Chain-table kernels K1-K4, their plain PyTorch versions, and the
+"""Chain-table kernels K1-K4 and K8, their plain PyTorch versions, and the
 host-side baking they share.
 
-Counterpart of the JAX package's ``ops/pallas_trace.py``. Four CUDA kernels
+Counterpart of the JAX package's ``ops/pallas_trace.py``. Five CUDA kernels
 replace its Pallas kernels:
 
 * **K1** :func:`fused_source_trace` (``csrc/fused_trace.cu``,
@@ -18,6 +18,10 @@ replace its Pallas kernels:
   ray by ray (K4, for a bundle fresh from a factory, reads p and d only) and
   traced through the lab-frame table (:func:`chain_table` with
   ``spec=None``).
+* **K8** :func:`fused_source_stats` (``fused_source_stats_kernel``)
+  replaces ``_kernel_source_stats``: K2's trace with the stats epilogue
+  (:func:`stats_rows`, 7 weighted sums) at up to 128 distances, the
+  per-distance baseline that K2's distance-independent moments replaced.
 
 Each wrapper takes its plain version (``*_ref``) only for CPU tensors; for
 CUDA tensors it launches the kernel or raises. Each counts its launches in
@@ -724,7 +728,9 @@ class BakedDetector(NamedTuple):
     """Detector plane in the LAST element's patch-relative frame: ``centre``
     and ``normal`` the plane, ``e1``/``e2`` the in-plane axes, ``opl_ref`` a
     chief-ray reference path and ``inv_dn_chief`` the chief ray's 1/(d.n),
-    both subtracted in-kernel so float32 delay moments stay fs-scale."""
+    both subtracted in-kernel so float32 delay moments stay fs-scale.
+    ``distances`` (shifts along -normal, shiftByDistance convention) and
+    their ``delay_offsets`` are the stats epilogue's (:func:`stats_rows`)."""
 
     centre: tuple
     normal: tuple
@@ -732,22 +738,64 @@ class BakedDetector(NamedTuple):
     e2: tuple
     opl_ref: float
     inv_dn_chief: float = 0.0
+    distances: tuple = (0.0,)
+    delay_offsets: tuple = (0.0,)
 
 
 def bake_detector(elements, det_centre, det_normal, det_rot, opl_ref=0.0,
-                  inv_dn_chief=0.0) -> BakedDetector:
+                  inv_dn_chief=0.0, distances=(0.0,), delay_offsets=None) -> BakedDetector:
     """Express a lab-frame detector plane in the final element's
-    patch-relative frame (p_lab = R_K^T x_rel + pos_K)."""
+    patch-relative frame (p_lab = R_K^T x_rel + pos_K). ``delay_offsets``
+    default to 0 at every distance."""
     _, final = compose_chain(elements)
     R_K, pos_K = final
     c_rel = R_K @ (np.asarray(det_centre, np.float64) - pos_K)
     n_rel = R_K @ np.asarray(det_normal, np.float64)
     rot = np.asarray(det_rot, np.float64)
+    if delay_offsets is None:
+        delay_offsets = (0.0,) * len(distances)
     return BakedDetector(
         centre=bake(c_rel), normal=bake(n_rel), e1=bake(R_K @ rot[0]),
         e2=bake(R_K @ rot[1]), opl_ref=float(opl_ref),
         inv_dn_chief=float(inv_dn_chief),
+        distances=tuple(float(d) for d in distances),
+        delay_offsets=tuple(float(v) for v in delay_offsets),
     )
+
+
+#: per-distance weighted sums of the stats epilogue, in output order
+STATS_FIELDS = ("w", "wx", "wy", "wxx", "wyy", "wd", "wdd")
+
+
+def stats_rows(s: TraceState, det: BakedDetector, weights):
+    """(7, J) float64 sums of :data:`STATS_FIELDS` at each of the detector's
+    J distances (the JAX package's ``stats_rows``): per ray in the state's
+    dtype, dead rays selected out of every product (their values are
+    unspecified, and a tangent of theirs may be infinite), summed in
+    float64. Detector entries may be tensors, so tangents reach them."""
+    c, n = det.centre, det.normal
+    e1, e2 = det.e1, det.e2
+    dn = s.dx * n[0] + s.dy * n[1] + s.dz * n[2]
+    inv_dn = 1.0 / torch.where(torch.abs(dn) > 1e-30, dn, float("inf"))
+    b0 = (c[0] - s.px) * n[0] + (c[1] - s.py) * n[1] + (c[2] - s.pz) * n[2]
+    t0 = b0 * inv_dn
+    a1 = (s.px - c[0]) * e1[0] + (s.py - c[1]) * e1[1] + (s.pz - c[2]) * e1[2]
+    a2 = (s.px - c[0]) * e2[0] + (s.py - c[1]) * e2[1] + (s.pz - c[2]) * e2[2]
+    g1 = s.dx * e1[0] + s.dy * e1[1] + s.dz * e1[2]
+    g2 = s.dx * e2[0] + s.dy * e2[1] + s.dz * e2[2]
+    # (opl - ref) is a same-magnitude subtraction (exact), then the Kahan
+    # compensation applies at full significance
+    dsmall = (s.opl - det.opl_ref) - s.opl_c
+    w = torch.broadcast_to(weights, s.px.shape)
+    cols = []
+    for dist, offset in zip(det.distances, det.delay_offsets):
+        tj = t0 - dist * inv_dn
+        xj = a1 + tj * g1
+        yj = a2 + tj * g2
+        dj = (dsmall + tj) - offset
+        vals = torch.stack([w, w * xj, w * yj, w * xj * xj, w * yj * yj, w * dj, w * dj * dj])
+        cols.append(torch.where(s.alive, vals, 0.0).double().sum(dim=1))
+    return torch.stack(cols, dim=1)
 
 
 #: distance-independent weighted moments, in output order: per ray, with
@@ -972,6 +1020,114 @@ def fused_source_moments(table: ChainTable, spec: BakedSource, det: BakedDetecto
 
 
 fused_source_moments.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K8: fused source stats (the per-distance baseline K2 replaced)
+# ---------------------------------------------------------------------------
+
+#: most distances one stats pass takes (one lane each in the JAX kernel)
+MAX_STATS_DISTANCES = 128
+#: distances per block of K8 (csrc/fused_trace.cu STATS_GROUP): each group
+#: of distances retraces its rays
+STATS_GROUP = 8
+
+
+def _check_stats_distances(det: BakedDetector):
+    n = len(det.distances)
+    if not 0 < n <= MAX_STATS_DISTANCES or len(det.delay_offsets) != n:
+        raise ValueError(f"stats passes take 1..{MAX_STATS_DISTANCES} distances with one delay "
+                         f"offset each, got {n} and {len(det.delay_offsets)}")
+    return n
+
+
+def fused_source_stats_ref(table: ChainTable, spec: BakedSource, det: BakedDetector,
+                           chunks, n_total: int, *, device, gaussian_edge=None) -> np.ndarray:
+    """Plain PyTorch version of K8, following the JAX package's
+    ``_kernel_source_stats``: per chunk, K2's float32 source and chained
+    trace (folded premasks, dead rays not frozen at mirrors), the Gaussian
+    weight, and :func:`stats_rows` at every distance of ``det``, summed in
+    float64. Returns (7, J) in :data:`STATS_FIELDS` order."""
+    n_dist = _check_stats_distances(det)
+    total = torch.zeros((len(STATS_FIELDS), n_dist), dtype=torch.float64, device=device)
+    for n_local, phase_i, k_frac_i in chunks:
+        s, rr = _synth_traced_state(table, spec, n_local, n_total, phase_i, k_frac_i,
+                                    device=device, want_incidence=False)
+        if gaussian_edge is None:
+            w = torch.ones_like(rr)
+        else:
+            w = torch.exp(float(np.log(gaussian_edge)) * rr)
+        total += stats_rows(s, det, w)
+    return total.cpu().numpy()
+
+
+def prepare_fused_source_stats(table: ChainTable, spec: BakedSource, det: BakedDetector,
+                               chunks, n_total: int, *, device, gaussian_edge=None):
+    """K8's host work for a CUDA ``device``: pack the records (raising on
+    what the kernel does not take), copy the (distance, delay offset) pairs
+    and the chunk offsets to the device, and allocate the per-block rows.
+    Returns ``(rows, launch)``; each ``launch()`` runs the kernel once over
+    every chunk and group of :data:`STATS_GROUP` distances, writing per
+    block one float64 row of 7 sums per distance of its group, and counts it
+    in ``fused_source_stats.launches``."""
+    sizes = _check_chunks(chunks)
+    n_dist = _check_stats_distances(det)
+    device = _cuda_device(device, "fused_source_stats")
+    chain_rec = pack_chain(table)
+    src_rec = pack_source(spec, n_total, gaussian_edge)
+    det_rec = np.zeros((), dtype=DETECTOR_T)
+    det_rec["c"], det_rec["n"] = det.centre, det.normal
+    det_rec["e1"], det_rec["e2"] = det.e1, det.e2
+    det_rec["opl_ref"] = det.opl_ref
+    from . import _cuda
+
+    params = torch.tensor([[c[1], c[2]] for c in chunks], dtype=torch.float32, device=device)
+    dists = torch.tensor(list(zip(det.distances, det.delay_offsets)), dtype=torch.float32,
+                         device=params.device)
+    n_rays, chunk = sum(sizes), sizes[0]
+    n_groups = -(-n_dist // STATS_GROUP)
+    blocks_per_chunk = -(-chunk // _cuda.moment_rays_per_block())
+    rows = torch.empty((len(chunks) * blocks_per_chunk, n_groups * STATS_GROUP * len(STATS_FIELDS)),
+                       dtype=torch.float64, device=params.device)
+    for name, x, dtype in (("chunk params", params, torch.float32),
+                           ("distances", dists, torch.float32), ("stats rows", rows, torch.float64)):
+        _check_out(name, x, dtype, params.device)
+
+    def launch():
+        with torch.cuda.device(params.device):
+            stream = torch.cuda.current_stream(params.device).cuda_stream
+            _cuda.launch_fused_source_stats(chain_rec, src_rec, det_rec, n_rays, chunk, len(chunks),
+                                            params, dists, n_dist, rows, blocks_per_chunk, stream)
+        fused_source_stats.launches += 1
+
+    return rows, launch
+
+
+def stats_from_rows(rows, n_dist: int) -> np.ndarray:
+    """(7, J) float64 sums from K8's per-block rows."""
+    sums = rows.sum(dim=0).view(-1, len(STATS_FIELDS))[:n_dist]
+    return sums.t().cpu().numpy()
+
+
+def fused_source_stats(table: ChainTable, spec: BakedSource, det: BakedDetector, chunks,
+                       n_total: int, *, device, gaussian_edge=None) -> np.ndarray:
+    """K8 (replaces ``ops/pallas_trace.py::_kernel_source_stats`` of the
+    JAX package): the 7 weighted sums of :data:`STATS_FIELDS` at each of the
+    detector's J <= 128 distances over every chunk's rays, summed in
+    float64; (7, J). All chunks of equal nominal size go in one launch
+    (``blockIdx.y`` = chunk, ``blockIdx.z`` = group of distances). CPU runs
+    :func:`fused_source_stats_ref`."""
+    _check_chunks(chunks)
+    if torch.device(device).type == "cpu":
+        return fused_source_stats_ref(table, spec, det, chunks, n_total, device=device,
+                                      gaussian_edge=gaussian_edge)
+    rows, launch = prepare_fused_source_stats(table, spec, det, chunks, n_total, device=device,
+                                              gaussian_edge=gaussian_edge)
+    launch()
+    return stats_from_rows(rows, len(det.distances))
+
+
+fused_source_stats.launches = 0
 
 
 def source_detector_moments(spec: BakedSource, elements, n_rays: int, det_centre,

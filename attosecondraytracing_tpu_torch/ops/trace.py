@@ -301,8 +301,15 @@ def bake(x):
     return tuple(tuple(float(v) for v in row) for row in arr)
 
 
+def _map_entries(x):
+    """Entries of a map ``M`` (3x3) or ``b`` (3): host arrays are baked to
+    python floats; tensors and tuples are indexed as they are, so a tangent
+    or a gradient reaches the entries of a tensor map."""
+    return bake(x) if isinstance(x, np.ndarray) else x
+
+
 def _affine_c(M, b, px, py, pz, dx, dy, dz):
-    M, b = bake(M), bake(b)
+    M, b = _map_entries(M), _map_entries(b)
     qx = M[0][0] * px + M[0][1] * py + M[0][2] * pz + b[0]
     qy = M[1][0] * px + M[1][1] * py + M[1][2] * pz + b[1]
     qz = M[2][0] * px + M[2][1] * py + M[2][2] * pz + b[2]

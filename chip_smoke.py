@@ -16,7 +16,14 @@ port's paths through the entry points a user calls, and checks the results:
 * user-built bundles: ``main.main`` on ``examples/CONFIG_toroidal2f-2f_byhand.py``
   with a 1e7-ray PointSource (kernel K4) and on a traced bundle fed through a
   second chain (kernel K3), against the plain streamed trace;
-* the CLI path on ``examples/CONFIG_singleparabola.py``.
+* alignment by gradient descent: ``gradient_align`` on the flagship at 1e7
+  rays through the fused gradient engine (kernel K6), against the autograd
+  engine on the card, and ``fused_focus_loss`` (kernel K7);
+* the per-distance stats baseline (kernel K8) at 1 and 20 distances, against
+  K2's moments;
+* the CLI path on ``examples/CONFIG_singleparabola.py`` and
+  ``examples/CONFIG_gradient_alignment.py`` (a CONFIG that aligns its chain
+  while it loads).
 
 Each path runs with the launch counts set to 0 just before it and read just
 after. It exits nonzero, printing no result, when there is no CUDA card,
@@ -28,8 +35,10 @@ version, its time, the plain version's time and its bound, and as the last
 line ``{"ok": true, "device": {...}}``. A kernel's ``ms`` is its launch alone
 (records packed, inputs copied and outputs allocated beforehand),
 ``plain_ms`` the plain version's whole call; both are medians of 5
-CUDA-event windows of 5 back-to-back calls each, at 1e7 rays: K1, K2 and K5
-on the flagship, K4 and K3 on their own paths' chains and bundles.
+CUDA-event windows of 5 back-to-back calls each (the plain versions of K6,
+K7 and K8: 3 windows of one call), at 1e7 rays: K1, K2, K5, K6, K7 and K8
+(at 20 distances) on the flagship, K4 and K3 on their own paths' chains
+and bundles.
 ``bound_ms`` is the larger of the bytes the kernel must move over 3.35 TB/s
 and its float32 operations over 67 TFLOP/s (H100 SXM data sheet), counted
 for the same inputs.
@@ -50,6 +59,9 @@ N_SLICE = 10_000_000     # rays of the main-path run
 N_SCAN = 10_000_000      # rays per chain of the scan run
 N_STREAMED = 10_000_000  # rays of the user-built bundles
 N_CLI = 1_000_000        # rays of the CLI run
+N_GRAD = 10_000_000      # rays of the gradient-descent run
+GRAD_ITERS = 12          # Adam steps of the gradient-descent run
+N_GRAD_CHECK = 1 << 18   # rays of the fused-vs-autograd gradient check
 CSRC = "attosecondraytracing_tpu_torch/csrc/"
 
 #: H100 SXM data sheet: HBM rate and float32 rate outside the tensor cores
@@ -69,6 +81,21 @@ OPS = {
     "store": 34,         # the to-lab map of p and d, the incidence arccos
     "weight": 2,         # exp(ln edge * rr)
     "moments": 78,       # the 16 moment terms of an alive ray
+    "stats": 58,         # the 7 stats terms at one distance of an alive ray, accumulated
+    # K8's stats epilogue of an alive ray: the distance-independent geometry
+    # (once per group of distances) and each distance's 7 terms, accumulated
+    "stats_geometry": 40,
+    "stats_distance": 21,
+    # K6 on the flagship chain (mask and two toroids, unfolded), per ray:
+    # what its Dual<6> operators add to the primal trace, once (the
+    # reciprocals the tangents share) and per tangent; and per alive ray for
+    # the stats epilogue with its accumulation. A dual a*b adds 3 per
+    # tangent (a multiply and a fused multiply-add), a*c with c a float 1,
+    # a/b 3, a +- b 1, a +- c 0, sqrt and rsqrt 1; selects 0
+    "dual_trace_once": 23,
+    "dual_trace_tangent": 658,
+    "dual_stats_once": 1,
+    "dual_stats_tangent": 106,
 }
 
 
@@ -221,6 +248,7 @@ def _load_config(name):
 
 
 def _reset_launches():
+    from attosecondraytracing_tpu_torch.ops import fused_grad as fg
     from attosecondraytracing_tpu_torch.ops import fused_scan as fs
     from attosecondraytracing_tpu_torch.ops import fused_trace as ft
 
@@ -229,15 +257,20 @@ def _reset_launches():
     ft.streamed_trace.launches = 0
     ft.streamed_trace.fresh_launches = 0
     fs.fused_scan_moments.launches = 0
+    fg.fused_stats_params.launches = 0
+    fg.fused_stats_params.primal_launches = 0
+    ft.fused_source_stats.launches = 0
 
 
 def _launches():
+    from attosecondraytracing_tpu_torch.ops import fused_grad as fg
     from attosecondraytracing_tpu_torch.ops import fused_scan as fs
     from attosecondraytracing_tpu_torch.ops import fused_trace as ft
 
     return {"K1": ft.fused_source_trace.launches, "K2": ft.fused_source_moments.launches,
             "K3": ft.streamed_trace.launches, "K4": ft.streamed_trace.fresh_launches,
-            "K5": fs.fused_scan_moments.launches}
+            "K5": fs.fused_scan_moments.launches, "K6": fg.fused_stats_params.launches,
+            "K7": fg.fused_stats_params.primal_launches, "K8": ft.fused_source_stats.launches}
 
 
 def _check_bundles(tag, ker, ref, torch):
@@ -659,22 +692,404 @@ def phase_streamed(torch, dev):
     return counts, timed
 
 
+def _grad_problem(torch, dev, chain, n_rays, params_fn, distance=495.0, survival_weight=1.0):
+    """(spec, host elements, geometry, params) of a fused alignment loss:
+    the chain's factory source at ``n_rays`` rays with the Gaussian edge
+    exp(-2), a detector ``distance`` behind the last element, placed from a
+    4096-ray probe trace (scripts/bench_fused_grad.py), and the
+    misalignment ``params_fn`` gives."""
+    import numpy as np
+
+    from attosecondraytracing_tpu_torch.analysis import alignment as al
+    from attosecondraytracing_tpu_torch.models.detector import Detector
+    from attosecondraytracing_tpu_torch.ops import fused_grad as fg
+    from attosecondraytracing_tpu_torch.ops import fused_trace as ft
+
+    chain.to(dev)
+    info = chain.source_spec._replace(gaussian_edge=float(np.exp(-2.0)), n_rays=n_rays)
+    baked = info.baked()
+    elements = chain.device_elements()
+    det = Detector(chain.optical_elements[-1].position)
+    det.autoplace(ft.probe_trace(baked, elements, 4096, device=dev, dtype=torch.float32), distance)
+    spec = fg.make_loss_spec(info, elements, det.centre, det.normal, survival_weight=survival_weight,
+                             device=dev)
+    host = [e.to_device("cpu", torch.float64) for e in chain.optical_elements]
+    geo = (np.asarray(baked.rot, np.float64), np.asarray(info.origin, np.float64), det.centre,
+           det.normal, det._plane_rotation())
+    params = al.zero_params(len(host))
+    params_fn(params)
+    return spec, host, geo, params, det
+
+
+def _bench_misalignment(params):
+    """scripts/bench_fused_grad.py:50-53: the first toroid pitched 2e-4 rad
+    and shifted 0.05 mm along its normal."""
+    params.angles[1, 0] = 2e-4
+    params.shifts[1, 0] = 0.05
+
+
+def _check_grad_sums(tag, got, ref, opl_ref):
+    """K6/K7 sums against their plain version with the K2 phase's tolerances
+    on what they give: the sum of weights rel 1e-5, the spot SD rel 2e-3,
+    the duration SD within 2.5 % or 0.8 fs in quadrature (the spatial sums'
+    difference relative to their scales is printed: kernel and plain
+    version differ per ray as K1 does from its plain version)."""
+    import numpy as np
+
+    from attosecondraytracing_tpu_torch.ops import fused_trace as ft
+
+    w, _, _, wxx, wyy, _, _ = ref
+    scale = np.array([np.sqrt(w * wxx), np.sqrt(w * wyy), wxx, wyy])
+    spatial = float(np.max(np.abs(got[1:5] - ref[1:5]) / scale))
+    stats = [ft.sums_to_stats(dict(zip(ft.STATS_FIELDS, v[:, None])), opl_ref, (0.0,)) for v in (got, ref)]
+    (s_k, d_k), (s_r, d_r) = ((float(x["spot_sd"][0]), float(x["duration_sd"][0])) for x in stats)
+    print(f"{tag}: sum w {got[0]:.9g} vs {ref[0]:.9g}, spatial sums within {spatial:.3g} of scale, "
+          f"spot {s_k:.6g} vs {s_r:.6g} mm, duration {d_k:.6g} vs {d_r:.6g} fs", flush=True)
+    _check(abs(got[0] - w) <= 1e-5 * w, f"{tag}: sum of weights {got[0]} vs {w}")
+    _check(abs(s_k - s_r) <= 2e-3 * s_r, f"{tag}: spot SD {s_k} vs {s_r}")
+    _check(abs(d_k - d_r) <= 0.025 * d_r or abs(d_k**2 - d_r**2) ** 0.5 <= 0.8,
+           f"{tag}: duration SD {d_k} vs {d_r}")
+    return abs(s_k - s_r)
+
+
+def _grad_ref(fg, spec, svec, tangents, chunks, dev):
+    """(loss, gradient) from the plain version of K6 over every tangent
+    group, the host side of fused_focus_value_and_grad."""
+    import numpy as np
+
+    groups = [fg.stats_params_ref(spec, svec, tangents[g0:g0 + fg.TANGENT_BATCH], chunks, device=dev)
+              for g0 in range(0, len(tangents), fg.TANGENT_BATCH)]
+    p_stats, t_stats = groups[0][0], np.concatenate([t for _p, t in groups])
+    loss, dloss = fg._loss_from_stats(p_stats, spec, fg._total_weight(spec))
+    return loss, t_stats @ dloss
+
+
+def phase_k67(torch, dev):
+    """K6 and K7 against their plain version on the card at 2^20 rays, on
+    the flagship with scripts/bench_fused_grad.py's misalignment and on an
+    extended source: per tangent group the 7 sums (the CPU tests' envelopes)
+    and the tangents (within 2e-3 of each statistic's largest), K7's sums,
+    and the loss and gradient of fused_focus_value_and_grad (loss rel 2e-3,
+    gradient within 2e-2 of its largest entry). Then launch-only times at
+    1e7 rays (2 chunks, one launch) and the plain version's."""
+    import numpy as np
+
+    from attosecondraytracing_tpu_torch.ops import fused_grad as fg
+    from attosecondraytracing_tpu_torch.ops import fused_trace as ft
+
+    err6 = err7 = 0.0
+    for name, chain in (("flagship", _flagship(N_CHECK)[0]), ("extended", _extended(N_CHECK))):
+        spec, host, geo, params, _ = _grad_problem(torch, dev, chain, chain.source_spec.n_rays,
+                                                   _bench_misalignment)
+        svec = fg.chain_scalars_np(fg._apply_params_np(host, params), *geo)
+        tang = fg.scalar_tangents(host, params, *geo)
+        chunks = fg._ray_chunks(spec, fg.GRAD_CHUNK)
+        for g0 in range(0, len(tang), fg.TANGENT_BATCH):
+            group = tang[g0:g0 + fg.TANGENT_BATCH]
+            p_k, t_k = fg.fused_stats_params(spec, svec, group, chunks, device=dev)
+            p_r, t_r = fg.stats_params_ref(spec, svec, group, chunks, device=dev)
+            _check_grad_sums(f"K6 {name} group {g0 // 6} ({spec.source_kind}, {spec.n_rays} rays)", p_k,
+                             p_r, spec.opl_ref)
+            scale = np.maximum(np.abs(t_r).max(axis=0), 1e-12)
+            per_stat = (np.abs(t_k - t_r) / scale).max(axis=0)
+            rel = float(per_stat.max())
+            print(f"K6 {name} group {g0 // 6}: tangents within " + ", ".join(
+                f"{f} {v:.3g}" for f, v in zip(ft.STATS_FIELDS, per_stat))
+                + " of each statistic's largest", flush=True)
+            # the spatial sums' tangents to 2e-3 (the CPU tests' envelope); the
+            # delay sums' to 2e-2: they carry the float32 delay noise that
+            # makes the primal durations differ by several percent
+            _check(np.all(np.isfinite(t_k)) and per_stat[:5].max() <= 2e-3 and per_stat[5:].max() <= 2e-2,
+                   f"K6 {name}: tangents differ by {per_stat}")
+        p7, _ = fg.fused_stats_params(spec, svec, None, chunks, device=dev)
+        p7_r, _ = fg.stats_params_ref(spec, svec, None, chunks, device=dev)
+        _check_grad_sums(f"K7 {name}", p7, p7_r, spec.opl_ref)
+        _check_grad_sums(f"K7 vs K6 primal {name}", p7, p_k, spec.opl_ref)
+        loss_k, grads = fg.fused_focus_value_and_grad(params, spec, host, *geo, device=dev)
+        g_k = np.concatenate([grads.angles.reshape(-1).numpy(), grads.shifts.reshape(-1).numpy()])
+        loss_r, g_r = _grad_ref(fg, spec, svec, tang, chunks, dev)
+        print(f"K6 {name}: loss {loss_k:.9g} vs {loss_r:.9g}, gradient max |diff| "
+              f"{np.abs(g_k - g_r).max():.3g} of max |g| {np.abs(g_r).max():.3g}", flush=True)
+        _check(abs(loss_k - loss_r) <= 2e-3 * abs(loss_r), f"K6 {name}: loss {loss_k} vs {loss_r}")
+        _check(np.all(np.abs(g_k - g_r) <= 2e-2 * np.abs(g_r).max() + 2e-2 * np.abs(g_r)),
+               f"K6 {name}: gradient {g_k} vs {g_r}")
+        err6 = max(err6, float(np.abs(g_k - g_r).max()))
+        loss7 = fg._loss_from_stats(p7, spec, fg._total_weight(spec))[0]
+        loss7_r = fg._loss_from_stats(p7_r, spec, fg._total_weight(spec))[0]
+        err7 = max(err7, abs(loss7 - loss7_r))
+
+    # launch-only times at 1e7 rays of the flagship (2 chunks in one launch)
+    chain = _flagship(N_CHECK)[0]
+    spec, host, geo, params, _ = _grad_problem(torch, dev, chain, N_TIME, _bench_misalignment)
+    svec = fg.chain_scalars_np(fg._apply_params_np(host, params), *geo)
+    tang = fg.scalar_tangents(host, params, *geo)
+    chunks = fg._ray_chunks(spec, fg.GRAD_CHUNK)
+    _check(len(chunks) == 2, f"K6 timing: expected 2 chunks, got {len(chunks)}")
+    baked = chain.source_spec._replace(n_rays=N_TIME).baked()
+    table = ft.chain_table(baked, fg._apply_params_np(host, params))
+    n_alive = int(ft.fused_source_trace(table, baked, N_TIME, device=dev).alive.sum())
+    unfolded = ft.ChainTable(spec.elements, (), (), ((),) * len(spec.elements))
+    per_ray = _trace_ops(unfolded, True) + OPS["weight"]
+    out = {}
+    for key, group in (("K6", tang[:fg.TANGENT_BATCH]), ("K7", None)):
+        rows, launch = fg.prepare_stats_params(spec, svec, group, chunks, device=dev)
+        ms = _time_ms(launch, torch)
+        wrapper_ms = _time_ms(lambda: fg.fused_stats_params(spec, svec, group, chunks, device=dev), torch)
+        plain_ms = _time_ms(lambda: fg.stats_params_ref(spec, svec, group, chunks, device=dev), torch,
+                            reps=3, inner=1)
+        ops = per_ray * N_TIME + OPS["stats"] * n_alive
+        n_in = svec.size
+        if group is not None:
+            G = fg.TANGENT_BATCH
+            ops += (OPS["dual_trace_once"] + G * OPS["dual_trace_tangent"]) * N_TIME
+            ops += (OPS["dual_stats_once"] + G * OPS["dual_stats_tangent"]) * n_alive
+            n_in += group.size
+        bound = _bound(rows.numel() * 8 + 4 * n_in + 8 * len(chunks), ops)
+        print(f"{key} flagship at {N_TIME} rays ({n_alive} alive): kernel launch {ms:.4f} ms, whole "
+              f"wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']})", flush=True)
+        out[key] = {"max_abs_err": err6 if key == "K6" else err7, "ms": ms, "plain_ms": plain_ms, **bound}
+    return out
+
+
+def phase_grad(torch, dev):
+    """The gradient path at full width: gradient_align on the flagship at 1e7
+    rays, its first toroid rolled 0.3 deg (tests/test_gradients.py:212-219),
+    lr 2e-4, survival weight 0.1, 12 Adam steps, engine "auto", with the
+    launch counts set to 0 just before it: the engine must be cuda-grad, K6
+    launched 3 times per step and no other kernel, the loss must fall, and
+    its spot-variance part must fall below 0.9 of its first value (the
+    check of tests/test_gradients.py:219; there the whole loss is spot
+    variance, while on the flagship, ~72 % transmitted, the survival term
+    0.1 (1 - T) ~ 0.028 is a floor that the pose gradient leaves alone and
+    that holds the whole loss above ~0.89 of its first value). Then
+    fused_focus_loss (K7) on its own
+    counted run, the wall of a step's parts, and one step's loss and gradient
+    against the autograd engine on the card at 2^18 rays with the kernel-form
+    source (tests/test_gradients.py:173-192)."""
+    import numpy as np
+
+    from attosecondraytracing_tpu_torch.analysis import alignment as al
+    from attosecondraytracing_tpu_torch.models.detector import Detector
+    from attosecondraytracing_tpu_torch.ops import fused_grad as fg
+    from attosecondraytracing_tpu_torch.ops import fused_trace as ft
+
+    t0 = time.perf_counter()
+    chain, _ = _flagship(N_GRAD)
+    t_build = time.perf_counter() - t0
+    chain.to(dev)
+    chain.rotate_OE(1, "roll", 0.3)
+    det = Detector(chain.optical_elements[-1].position)
+    det.autoplace(chain.trace_final(), 500.0)
+    _check(chain.fused_eligible(), "the flagship at 1e7 rays must be fused-eligible")
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, history = al.gradient_align(chain, det, iters=GRAD_ITERS, lr=2e-4, survival_weight=0.1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    print(f"grad: host source of {N_GRAD} rays built in {t_build:.3f} s; gradient_align engine "
+          f"{al.gradient_align.last_engine}, launches {launches}, {GRAD_ITERS} steps in {wall:.3f} s "
+          f"({wall / GRAD_ITERS * 1e3:.3f} ms per step), loss {history[0]:.6g} -> {history[-1]:.6g}",
+          flush=True)
+    n_groups = -(-6 * len(chain.optical_elements) // fg.TANGENT_BATCH)
+    _check(al.gradient_align.last_engine == "cuda-grad", f"engine {al.gradient_align.last_engine}")
+    _check(launches["K6"] == n_groups * GRAD_ITERS and all(
+        v == 0 for k, v in launches.items() if k != "K6"), f"gradient_align launches {launches}")
+    _check(history[-1] < history[0], f"loss did not descend: {history}")
+
+    # the spot-variance part of the loss at the first and the last poses (K7)
+    spec = fg.make_loss_spec(chain.source_spec, chain.device_elements(), det.centre, det.normal,
+                             survival_weight=0.1, device=dev)
+    host = [e.to_device("cpu", torch.float64) for e in chain.optical_elements]
+    info = chain.source_spec
+    geo = (np.asarray(info.baked().rot, np.float64), np.asarray(info.origin, np.float64), det.centre,
+           det.normal, det._plane_rotation())
+
+    def spot_variance(p):
+        svec = fg.chain_scalars_np(fg._apply_params_np(host, p), *geo)
+        st, _ = fg.fused_stats_params(spec, svec, None, fg._ray_chunks(spec, fg.GRAD_CHUNK), device=dev)
+        w, wx, wy, wxx, wyy = st[:5]
+        return wxx / w - (wx / w) ** 2 + wyy / w - (wy / w) ** 2, 100.0 * w / fg._total_weight(spec)
+
+    (var0, t0_pct), (var1, t1_pct) = spot_variance(al.zero_params(len(host))), spot_variance(params)
+    print(f"grad: spot variance {var0:.6g} -> {var1:.6g} mm^2, transmission {t0_pct:.4f} -> {t1_pct:.4f} %",
+          flush=True)
+    _check(var1 < 0.9 * var0, f"spot variance did not fall below 0.9 of its first value: {var0} -> {var1}")
+
+    # a step's parts, and K7 on its own counted run
+    walls = {}
+    for key, fn in (("tangents (host jacfwd)", lambda: fg.scalar_tangents(host, params, *geo)),
+                    ("value_and_grad", lambda: fg.fused_focus_value_and_grad(params, spec, host, *geo,
+                                                                             device=dev)),
+                    ("fused_focus_loss (K7)", lambda: fg.fused_focus_loss(params, spec, host, *geo,
+                                                                         device=dev))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        walls[key] = (time.perf_counter() - t0) / 5 * 1e3
+    _reset_launches()
+    loss7 = fg.fused_focus_loss(params, spec, host, *geo, device=dev)
+    k7 = _launches()
+    print("grad step parts (ms, mean of 5 warm calls): " + ", ".join(f"{k} {v:.3f}" for k, v in walls.items())
+          + f"; fused_focus_loss {loss7:.6g} with launches {k7}", flush=True)
+    _check(k7["K7"] == 1 and all(v == 0 for k, v in k7.items() if k != "K7"), f"K7 launches {k7}")
+
+    # one step against the autograd engine on the card
+    def misalign(p):
+        p.angles[1, 0] = 2e-4
+        p.angles[2, 2] = -1e-4
+        p.shifts[1, 0] = 0.05
+
+    small = _flagship(16)[0]
+    spec, host, geo, params, det = _grad_problem(torch, dev, small, N_GRAD_CHECK, misalign, distance=495.0)
+    loss_f, grads_f = fg.fused_focus_value_and_grad(params, spec, host, *geo, device=dev)
+    info = small.source_spec._replace(n_rays=N_GRAD_CHECK)
+    src = ft.source_bundle(info.baked(), N_GRAD_CHECK, device=dev)
+    k = torch.arange(N_GRAD_CHECK, dtype=torch.float32, device=dev)
+    src = src._replace(intensity=torch.exp(float(np.log(np.exp(-2.0))) * k / N_GRAD_CHECK))
+    p = al.AlignmentParams(params.angles.to(dev).requires_grad_(True),
+                           params.shifts.to(dev).requires_grad_(True))
+    loss_x = al.focus_loss(p, src, small.device_elements(torch.float32), det.centre, det.normal,
+                           det._plane_rotation(), survival_weight=1.0)
+    loss_x.backward()
+    loss_x = float(loss_x.detach())
+    print(f"grad check at {N_GRAD_CHECK} rays: fused loss {loss_f:.9g} vs autograd {loss_x:.9g}", flush=True)
+    _check(abs(loss_f - loss_x) <= 2e-3 * abs(loss_x), "fused vs autograd loss")
+    for name, g_f, g_x in (("angles", grads_f.angles, p.angles.grad), ("shifts", grads_f.shifts, p.shifts.grad)):
+        g_f, g_x = g_f.numpy(), g_x.cpu().numpy()
+        scale = max(float(np.abs(g_x).max()), 1e-12)
+        print(f"grad check {name}: fused {np.array2string(g_f.ravel(), precision=4)} autograd "
+              f"{np.array2string(g_x.ravel(), precision=4)}", flush=True)
+        _check(np.all(np.isfinite(g_x)) and np.all(np.abs(g_f - g_x) <= 2e-2 * scale + 2e-2 * np.abs(g_x)),
+               f"fused vs autograd {name} gradient")
+    return launches, k7
+
+
+def phase_k8(torch, dev, n_alive):
+    """K8 against its plain version on the card at 2^20 rays for 1 and 20
+    distances (scripts/bench_stats_kernel.py:35-36, per-distance chief-ray
+    delay offsets), with the launch counts set to 0 just before those two
+    calls; the 20-distance statistics against K2's moments on the same
+    chain; then launch-only times at 1e7 rays for 1 and 20 distances."""
+    import numpy as np
+
+    from attosecondraytracing_tpu_torch.ops import fused_trace as ft
+
+    chain = _flagship(N_CHECK)[0]
+    edge = chain.source_spec.gaussian_edge
+    cases = {1: (0.0,), 20: tuple(float(d) for d in np.linspace(-10, 10, 20))}
+
+    def detector(elements, det, opl_ref, inv_dn, distances):
+        return ft.bake_detector(elements, det.centre, det.normal, det._plane_rotation(), opl_ref=opl_ref,
+                                inv_dn_chief=inv_dn, distances=distances,
+                                delay_offsets=tuple(-d * inv_dn for d in distances))
+
+    spec, elements, det, (opl_ref, inv_dn), chunks, n = _k2_setup(torch, dev, chain, N_CHECK)
+    table = ft.chain_table(spec, elements)
+    err, runs = 0.0, {}
+    _reset_launches()
+    for J, distances in cases.items():
+        runs[J] = ft.fused_source_stats(table, spec, detector(elements, det, opl_ref, inv_dn, distances),
+                                        chunks, n, device=dev, gaussian_edge=edge)
+    launches = _launches()
+    _check(launches["K8"] == 2 and sum(launches.values()) == 2, f"K8 launches {launches}")
+    for J, distances in cases.items():
+        ref = ft.fused_source_stats_ref(table, spec, detector(elements, det, opl_ref, inv_dn, distances),
+                                        chunks, n, device=dev, gaussian_edge=edge)
+        err = max(err, _check_sum_stats(f"K8 J={J} vs plain", runs[J], ref, opl_ref, distances))
+    mom = ft.fused_source_moments(table, spec, detector(elements, det, opl_ref, inv_dn, (0.0,)), chunks, n,
+                                  device=dev, gaussian_edge=edge)
+    k2 = ft.moments_to_distance_sums(mom, cases[20])
+    _check_sum_stats("K8 J=20 vs K2 moments", runs[20], np.stack([k2[f] for f in ft.STATS_FIELDS]),
+                     opl_ref, cases[20])
+
+    spec, elements, det, (opl_ref, inv_dn), chunks, n = _k2_setup(torch, dev, chain, N_TIME)
+    table = ft.chain_table(spec, elements)
+    _check(len(chunks) == 2, f"K8 timing: expected 2 chunks, got {len(chunks)}")
+    out = {}
+    for J, distances in cases.items():
+        bdet = detector(elements, det, opl_ref, inv_dn, distances)
+        rows, launch = ft.prepare_fused_source_stats(table, spec, bdet, chunks, n, device=dev,
+                                                     gaussian_edge=edge)
+        ms = _time_ms(launch, torch)
+        wrapper_ms = _time_ms(lambda: ft.fused_source_stats(table, spec, bdet, chunks, n, device=dev,
+                                                            gaussian_edge=edge), torch)
+        plain_ms = _time_ms(lambda: ft.fused_source_stats_ref(table, spec, bdet, chunks, n, device=dev,
+                                                              gaussian_edge=edge), torch, reps=3, inner=1)
+        groups = -(-J // ft.STATS_GROUP)
+        ops = (groups * (_trace_ops(table, True) + OPS["weight"]) * n
+               + n_alive * (groups * OPS["stats_geometry"] + J * OPS["stats_distance"]))
+        bound = _bound(rows.numel() * 8 + 8 * len(chunks) + 8 * J, ops)
+        print(f"K8 flagship J={J} at {n} rays: kernel launch {ms:.4f} ms, whole wrapper {wrapper_ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})", flush=True)
+        out[J] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound}
+    return out, launches["K8"]
+
+
+def _check_sum_stats(tag, ker, ref, opl_ref, distances):
+    """Two (7, J) sum arrays: the sum of weights rel 1e-5 and
+    tests/test_stats_kernel.py's envelopes on the statistics at every
+    distance. Returns the largest spot SD difference [mm]."""
+    import numpy as np
+
+    from attosecondraytracing_tpu_torch.ops import fused_trace as ft
+
+    sk, sr = (ft.sums_to_stats(dict(zip(ft.STATS_FIELDS, np.asarray(v))), opl_ref, distances)
+              for v in (ker, ref))
+    rel_w = float(np.max(np.abs(ker[0] - ref[0]) / np.abs(ref[0])))
+    spot = np.abs(sk["spot_sd"] - sr["spot_sd"])
+    print(f"{tag}: sum w rel {rel_w:.3g}, spot SD {sk['spot_sd'][0]:.6g} vs {sr['spot_sd'][0]:.6g} mm at "
+          f"{distances[0]:+.1f} mm (largest difference {spot.max():.3g} mm), duration "
+          f"{sk['duration_sd'][0]:.6g} vs {sr['duration_sd'][0]:.6g} fs", flush=True)
+    _check(rel_w <= 1e-5, f"{tag}: sum of weights differs by {rel_w} (rel)")
+    _check(np.all(spot <= 2e-3 * sr["spot_sd"] + 1e-6), f"{tag}: spot SDs {sk['spot_sd']} vs {sr['spot_sd']}")
+    for d_k, d_r in zip(sk["duration_sd"], sr["duration_sd"]):
+        _check(abs(d_k - d_r) <= 0.025 * d_r or abs(d_k**2 - d_r**2) ** 0.5 <= 0.8,
+               f"{tag}: duration SD {d_k} vs {d_r}")
+    return float(spot.max())
+
+
 def phase_cli(torch):
-    """run_config_file on CONFIG_singleparabola.py at 1e6 rays, on the card
-    and on the CPU (plain versions) in this process."""
+    """run_config_file on the card and on the CPU (plain versions) in this
+    process: CONFIG_singleparabola.py at 1e6 rays, and
+    CONFIG_gradient_alignment.py at its own 2000 rays (it aligns its chain
+    while it loads, through the autograd engine at that size), whose loss
+    must fall at least 10x on the card. Transmission within 0.05 %, spot SD
+    1e-3 relative, duration SD 1e-2 relative, or 10 % for the sub-fs
+    duration of the alignment CONFIG (float32 delay noise sets it: 0.44 fs
+    in float32 against 0.067 fs in float64, as in the user-bundle phase)."""
+    import contextlib
+    import io
+    import re
+
     from attosecondraytracing_tpu_torch.main import run_config_file
 
-    path = str(ROOT / "examples" / "CONFIG_singleparabola.py")
-    res = {}
-    for dev in ("cuda", "cpu"):
-        kept = run_config_file(path, n_rays=N_CLI, device=dev)
-        res[dev] = (kept["ETransmission"][0], kept["SpotSizeSD"][0], kept["DurationSD"][0])
-    (tg, sg, dg), (tc, sc, dc) = res["cuda"], res["cpu"]
-    print(f"CLI singleparabola {N_CLI} rays: cuda T {tg:.6g} % spot {sg:.6g} mm duration {dg:.6g} fs; "
-          f"cpu T {tc:.6g} % spot {sc:.6g} mm duration {dc:.6g} fs", flush=True)
-    _check(abs(tg - tc) <= 0.05, f"CLI transmission {tg} vs {tc}")
-    _check(abs(sg - sc) <= 1e-3 * abs(sc), f"CLI spot SD {sg} vs {sc}")
-    _check(abs(dg - dc) <= 1e-2 * abs(dc), f"CLI duration SD {dg} vs {dc}")
+    for name, n_rays, dur_rtol in (("CONFIG_singleparabola.py", N_CLI, 1e-2),
+                                   ("CONFIG_gradient_alignment.py", None, 0.1)):
+        path = str(ROOT / "examples" / name)
+        res = {}
+        for dev in ("cuda", "cpu"):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                kept = run_config_file(path, n_rays=n_rays, device=dev)
+            losses = re.findall(r"alignment loss: (\S+) -> (\S+)", out.getvalue())
+            res[dev] = (kept["ETransmission"][0], kept["SpotSizeSD"][0], kept["DurationSD"][0], losses)
+        (tg, sg, dg, lg), (tc, sc, dc, lc) = res["cuda"], res["cpu"]
+        print(f"CLI {name} {kept['OpticalChain'][0].source_rays.n_rays} rays: cuda T {tg:.6g} % spot "
+              f"{sg:.6g} mm duration {dg:.6g} fs{' loss ' + ' -> '.join(lg[0]) if lg else ''}; cpu T "
+              f"{tc:.6g} % spot {sc:.6g} mm duration {dc:.6g} fs{' loss ' + ' -> '.join(lc[0]) if lc else ''}",
+              flush=True)
+        _check(abs(tg - tc) <= 0.05, f"CLI {name}: transmission {tg} vs {tc}")
+        _check(abs(sg - sc) <= 1e-3 * abs(sc), f"CLI {name}: spot SD {sg} vs {sc}")
+        _check(abs(dg - dc) <= dur_rtol * abs(dc), f"CLI {name}: duration SD {dg} vs {dc}")
+        if n_rays is None:
+            _check(len(lg) == 1 and float(lg[0][1]) * 10 <= float(lg[0][0]),
+                   f"CLI {name}: the alignment loss must fall 10x on the card, got {lg}")
 
 
 def main():
@@ -721,8 +1136,13 @@ def main():
     slice_launches = phase("slice", lambda: phase_slice(torch, dev))
     scan_launches = phase("scan", lambda: phase_scan(torch, dev))
     launches, streamed = phase("streamed", lambda: phase_streamed(torch, dev))
+    timed.update(phase("k67", lambda: phase_k67(torch, dev)))
+    grad_launches, k7_launches = phase("grad", lambda: phase_grad(torch, dev))
+    k8, k8_launches = phase("k8", lambda: phase_k8(torch, dev, n_alive))
+    timed["K8"] = k8[20]
     phase("cli", lambda: phase_cli(torch))
-    launches.update(K1=slice_launches["K1"], K2=slice_launches["K2"], K5=scan_launches["K5"])
+    launches.update(K1=slice_launches["K1"], K2=slice_launches["K2"], K5=scan_launches["K5"],
+                    K6=grad_launches["K6"], K7=k7_launches["K7"], K8=k8_launches)
     for key in ("K3", "K4"):
         timed[key] = dict(streamed[key], max_abs_err=max(streamed[key]["max_abs_err"], k34_err[key]))
     _check("jax" not in sys.modules, "jax was imported")
@@ -735,6 +1155,12 @@ def main():
         ("K4", "K4 streamed_trace (fresh)", "streamed_trace.cu",
          "attosecondraytracing_tpu/ops/pallas_trace.py:194"),
         ("K5", "K5 fused_scan_moments", "fused_scan.cu", "attosecondraytracing_tpu/ops/pallas_scan.py:86"),
+        ("K6", "K6 fused_stats_params (6 tangents)", "fused_grad.cu",
+         "attosecondraytracing_tpu/ops/pallas_grad.py:266"),
+        ("K7", "K7 fused_stats_params (primal)", "fused_grad.cu",
+         "attosecondraytracing_tpu/ops/pallas_grad.py:293"),
+        ("K8", "K8 fused_source_stats (20 distances)", "fused_trace.cu",
+         "attosecondraytracing_tpu/ops/pallas_trace.py:931"),
     )
     kernels = [{"name": name, "route": "cuda", "source": CSRC + src, "replaces": replaces,
                 "launches": launches[key], **timed[key], "library_ms": None}

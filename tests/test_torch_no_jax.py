@@ -1,7 +1,8 @@
 """The port never imports JAX: in a fresh interpreter where ``import jax``
 fails, the package imports, builds the flagship chain, traces it on the CPU
-through the plain, fused-source and streamed engines, and runs a two-chain
-scan through the scan engine."""
+through the plain, fused-source and streamed engines, takes alignment steps
+through both gradient engines, runs the per-distance stats pass, and runs a
+two-chain scan through the scan engine."""
 
 import os
 import subprocess
@@ -27,8 +28,25 @@ fused = chain.trace_final(engine="fused")
 assert chain.last_trace_engine == "torch-source"
 a, b = int(streamed.alive.sum()), int(fused.alive.sum())
 assert 1000 < a and abs(a - b) <= 2, (a, b)
+# the gradient engines (K6's plain version and autograd) and K8's plain version
+from attosecondraytracing_tpu_torch.analysis import alignment
+from attosecondraytracing_tpu_torch.models.detector import Detector
+from attosecondraytracing_tpu_torch.ops import fused_trace as ft
+det = Detector(chain.optical_elements[-1].position)
+det.autoplace(streamed, 500.0)
+for engine, name in (("fused", "torch-grad"), ("autograd", "autograd")):
+    _, hist = alignment.gradient_align(chain, det, iters=2, lr=1e-5, engine=engine)
+    assert alignment.gradient_align.last_engine == name and hist[1] == hist[1], hist
+spec = chain.source_spec.baked()
+els = chain.device_elements(torch.float64)
+bdet = ft.bake_detector(els, det.centre, det.normal, det._plane_rotation(), opl_ref=900.0,
+                        distances=(-1.0, 0.0, 1.0))
+sums = ft.fused_source_stats(ft.chain_table(spec, els), spec, bdet, [(4096, 0.0, 0.0)], 4096,
+                             device="cpu")
+assert sums.shape == (7, 3) and sums[0, 0] == sums[0, 2] > 1000
 # the streamed kernels' and the scan kernel's plain versions
 from attosecondraytracing_tpu_torch.ops import fused_grad, fused_scan  # noqa: F401
+from attosecondraytracing_tpu_torch.utils import kernel_ab  # noqa: F401
 chain.source_rays = chain.source_rays  # a user bundle
 user = chain.trace_final(engine="fused")
 assert chain.last_trace_engine == "torch-streamed" and abs(int(user.alive.sum()) - a) <= 2

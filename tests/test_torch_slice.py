@@ -179,16 +179,33 @@ def test_engine_rule_is_the_jax_one(monkeypatch):
     assert long_chain.last_trace_engine is None
 
 
-@pytest.mark.parametrize("name", ["CONFIG_singleparabola.py", "CONFIG_toroidal2f-2f_byhand.py"])
+def _alignment_losses(text):
+    """(first, last) of the ``alignment loss: a -> b`` line, and the
+    first verbose ``align iter 0: loss x`` value."""
+    import re
+
+    first, last = re.findall(r"alignment loss: (\S+) -> (\S+)", text)[-1]
+    iter0 = re.findall(r"align iter 0: loss (\S+)", text)[-1]
+    return float(first), float(last), float(iter0)
+
+
+@pytest.mark.parametrize("name", ["CONFIG_singleparabola.py", "CONFIG_toroidal2f-2f_byhand.py",
+                                  "CONFIG_gradient_alignment.py"])
 def test_config_file_through_both_clis(monkeypatch, capsys, name):
-    """An example CONFIG (1000 rays, streamed trace) gives the same
+    """An example CONFIG (1000-2000 rays, streamed trace) gives the same
     transmission, spot SD and duration SD from both CLIs, and the port runs
-    it under the JAX package's module names without touching that package."""
+    it under the JAX package's module names without touching that package.
+    CONFIG_gradient_alignment.py traces and aligns its chain while it loads
+    (the chains a CONFIG builds take the CLI's device); both CLIs print its
+    loss history: the first loss agrees within 1e-6 relative, the last
+    within 5 % (float32 parameters, Adam wandering near its floor)."""
     import sys
 
     monkeypatch.setenv("ART_TPU_DTYPE", "float64")
     path = os.path.join(EXAMPLES, name)
+    capsys.readouterr()
     jk = jmain.run_config_file(path)
+    jout = capsys.readouterr().out
     import matplotlib.pyplot as plt
 
     plt.close("all")
@@ -202,6 +219,15 @@ def test_config_file_through_both_clis(monkeypatch, capsys, name):
     assert chain.last_trace_engine == "trace"
     for key in ("ETransmission", "SpotSizeSD", "DurationSD"):
         assert float(tk[key][0]) == pytest.approx(float(jk[key][0]), rel=1e-6), key
+    if name == "CONFIG_gradient_alignment.py":
+        j_first, j_last, j_iter0 = _alignment_losses(jout)
+        t_first, t_last, t_iter0 = _alignment_losses(capsys.readouterr().out)
+        assert t_iter0 == pytest.approx(j_iter0, rel=1e-6)
+        assert t_first == pytest.approx(j_first, rel=1e-6)
+        assert t_last == pytest.approx(j_last, rel=0.05)
+        assert t_last < 0.1 * t_first
+        # the descent leaves the chain the report traces as the CONFIG built it
+        assert tk["ETransmission"][0] == pytest.approx(100.0)
     if name == "CONFIG_singleparabola.py":
         assert "plots are not ported yet" in capsys.readouterr().err
         # the ~94 % / ~77 um of the verify notes
