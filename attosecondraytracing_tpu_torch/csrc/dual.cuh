@@ -2,7 +2,7 @@
 //
 // Dual<G> carries a float32 value and G directional derivatives. The device
 // functions of trace_common.cuh are templated on their scalar type S, so K6
-// runs the same arithmetic as K1-K5 (S = float) on Dual<6>: every branch and
+// runs the same arithmetic as K1-K5 (S = float) on Dual<G>: every branch and
 // select decides on the value, and the tangent follows the chosen operand,
 // which is what JAX's linearize of the Pallas kernel does (jvp of where).
 //
@@ -90,12 +90,19 @@ ART_DUAL Dual<G> operator*(const Dual<G>& a, float b) {
 }
 ART_DUAL Dual<G> operator*(float a, const Dual<G>& b) { return b * a; }
 
+// The factors only the tangents use come from the reciprocal unit
+// (tangent_rcp: MUFU.RCP, ~1 ulp) or from a product, never from a second
+// IEEE divide or square-root sequence: their error is far inside the
+// tangents' envelope (2e-3 of each statistic's largest), and the values stay
+// IEEE-rounded, as in the float instantiation. 1 / +-inf is 0.
+__device__ __forceinline__ float tangent_rcp(float b) { return __fdividef(1.0f, b); }
+
 // a / b with the tangent (a' - q b') / b, q = a / b: a divisor selected to
 // +-inf (a masked operand) gives q = 0 and a zero tangent, as in JAX
 ART_DUAL Dual<G> operator/(const Dual<G>& a, const Dual<G>& b) {
   Dual<G> r;
   r.v = a.v / b.v;
-  const float inv = 1.0f / b.v;
+  const float inv = tangent_rcp(b.v);
 #pragma unroll
   for (int i = 0; i < G; ++i) r.t[i] = (a.t[i] - r.v * b.t[i]) * inv;
   return r;
@@ -103,7 +110,7 @@ ART_DUAL Dual<G> operator/(const Dual<G>& a, const Dual<G>& b) {
 ART_DUAL Dual<G> operator/(const Dual<G>& a, float b) {
   Dual<G> r;
   r.v = a.v / b;
-  const float inv = 1.0f / b;
+  const float inv = tangent_rcp(b);
 #pragma unroll
   for (int i = 0; i < G; ++i) r.t[i] = a.t[i] * inv;
   return r;
@@ -111,7 +118,7 @@ ART_DUAL Dual<G> operator/(const Dual<G>& a, float b) {
 ART_DUAL Dual<G> operator/(float a, const Dual<G>& b) {
   Dual<G> r;
   r.v = a / b.v;
-  const float inv = 1.0f / b.v;
+  const float inv = tangent_rcp(b.v);
 #pragma unroll
   for (int i = 0; i < G; ++i) r.t[i] = -r.v * b.t[i] * inv;
   return r;
@@ -139,7 +146,7 @@ __device__ __forceinline__ float sqrt_(float x) { return sqrtf(x); }
 ART_DUAL Dual<G> sqrt_(const Dual<G>& a) {
   Dual<G> r;
   r.v = sqrtf(a.v);
-  const float h = 0.5f / r.v;
+  const float h = 0.5f * tangent_rcp(r.v);
 #pragma unroll
   for (int i = 0; i < G; ++i) r.t[i] = a.t[i] * h;
   return r;
@@ -149,7 +156,7 @@ __device__ __forceinline__ float rsq(float x) { return 1.0f / sqrtf(x); }
 ART_DUAL Dual<G> rsq(const Dual<G>& a) {
   Dual<G> r;
   r.v = 1.0f / sqrtf(a.v);
-  const float h = -0.5f * r.v / a.v;
+  const float h = -0.5f * r.v * r.v * r.v;  // d a^(-1/2) / da = -a^(-3/2) / 2
 #pragma unroll
   for (int i = 0; i < G; ++i) r.t[i] = a.t[i] * h;
   return r;

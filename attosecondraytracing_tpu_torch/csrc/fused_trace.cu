@@ -137,6 +137,12 @@ using namespace art;
 
 extern "C" {
 
+// Version of this C interface; ops/_cuda.py loads only its own. Version 2:
+// the runtime-pose kernels (K5-K7) take a grid sized to the rays and K6 all
+// tangent rows of a gradient step. Libraries without this entry point have
+// version 1's signatures (utils/kernel_ab.py binds them for A/B runs).
+int art_abi_version() { return 2; }
+
 size_t art_chain_params_size() { return sizeof(ChainP); }
 size_t art_source_params_size() { return sizeof(SourceP); }
 size_t art_detector_params_size() { return sizeof(DetectorP); }

@@ -16,7 +16,7 @@
 // against sizeof at load time.
 //
 // The ray arithmetic is templated on its scalar type S: float for K1-K5, K7
-// and K8, Dual<6> (dual.cuh) for K6, which carries 6 tangents through the
+// and K8, Dual<G> (dual.cuh) for K6, which carries G tangents through the
 // same code. Predicates (hits, supports, the alive mask, the minimum ray
 // parameter) decide on values only.
 //
@@ -512,7 +512,7 @@ __device__ __forceinline__ void synth_source(const SourceP& src, int k, float ph
 // the chain (ops/trace.chained_step with freeze_dead=False)
 // ---------------------------------------------------------------------------
 
-// element maps read from the chain record itself (K1-K5, K8)
+// element maps read from the chain record itself (K1-K4, K8)
 struct TableMaps {
   const ChainP& ch;
   __device__ __forceinline__ const float* M(int i) const { return ch.el[i].M; }
@@ -520,7 +520,7 @@ struct TableMaps {
 };
 
 // element maps from a runtime pose vector of scalar type S, 12 per element
-// (M row-major, then b), as ops/fused_grad.chain_scalars_np lays it out (K6, K7)
+// (M row-major, then b), as ops/fused_grad.chain_scalars_np lays it out (K5-K7)
 template <typename S>
 struct PoseMaps {
   const S* pose;
@@ -629,27 +629,29 @@ constexpr int MOMENT_THREADS = 256;
 constexpr int MOMENT_RAYS_PER_THREAD = 8;
 constexpr int MOMENT_RAYS_PER_BLOCK = MOMENT_THREADS * MOMENT_RAYS_PER_THREAD;
 
-// ops/fused_trace.moment_rows for one alive ray
-__device__ __forceinline__ void add_moments(const DetectorP& det, const Ray& s, float w,
+// ops/fused_trace.moment_rows for one alive ray, about the detector plane
+// (centre c, normal n, axes e1, e2) in the last element's frame
+__device__ __forceinline__ void add_moments(const float* c, const float* n, const float* e1,
+                                            const float* e2, float opl_ref, float inv_dn_chief,
+                                            float centre_distance, const Ray& s, float w,
                                             float* acc) {
-  const float dn = s.dx * det.n[0] + s.dy * det.n[1] + s.dz * det.n[2];
+  const float dn = s.dx * n[0] + s.dy * n[1] + s.dz * n[2];
   const float inv_dn = 1.0f / (fabsf(dn) > 1e-30f ? dn : CUDART_INF_F);
-  const float b0 = (det.c[0] - s.px) * det.n[0] + (det.c[1] - s.py) * det.n[1] +
-                   (det.c[2] - s.pz) * det.n[2];
-  const float t0 = (b0 - det.centre_distance) * inv_dn;
-  const float rx = s.px - det.c[0], ry = s.py - det.c[1], rz = s.pz - det.c[2];
-  const float a1 = rx * det.e1[0] + ry * det.e1[1] + rz * det.e1[2];
-  const float a2 = rx * det.e2[0] + ry * det.e2[1] + rz * det.e2[2];
-  const float g1 = s.dx * det.e1[0] + s.dy * det.e1[1] + s.dz * det.e1[2];
-  const float g2 = s.dx * det.e2[0] + s.dy * det.e2[1] + s.dz * det.e2[2];
+  const float b0 = (c[0] - s.px) * n[0] + (c[1] - s.py) * n[1] + (c[2] - s.pz) * n[2];
+  const float t0 = (b0 - centre_distance) * inv_dn;
+  const float rx = s.px - c[0], ry = s.py - c[1], rz = s.pz - c[2];
+  const float a1 = rx * e1[0] + ry * e1[1] + rz * e1[2];
+  const float a2 = rx * e2[0] + ry * e2[1] + rz * e2[2];
+  const float g1 = s.dx * e1[0] + s.dy * e1[1] + s.dz * e1[2];
+  const float g2 = s.dx * e2[0] + s.dy * e2[1] + s.dz * e2[2];
   const float x0 = a1 + t0 * g1;
   const float y0 = a2 + t0 * g2;
   const float cx = inv_dn * g1;
   const float cy = inv_dn * g2;
-  const float cd = inv_dn - det.inv_dn_chief;
+  const float cd = inv_dn - inv_dn_chief;
   // fs-scale delay: the same-magnitude subtractions stay unfused
-  const float d0 = __fadd_rn(__fadd_rn(__fsub_rn(__fsub_rn(s.opl, det.opl_ref), s.opl_c), t0),
-                             __fmul_rn(det.centre_distance, det.inv_dn_chief));
+  const float d0 = __fadd_rn(__fadd_rn(__fsub_rn(__fsub_rn(s.opl, opl_ref), s.opl_c), t0),
+                             __fmul_rn(centre_distance, inv_dn_chief));
   const float wx0 = w * x0, wy0 = w * y0, wd0 = w * d0;
   const float wcx = w * cx, wcy = w * cy, wcd = w * cd;
   acc[0] += w;
@@ -668,6 +670,12 @@ __device__ __forceinline__ void add_moments(const DetectorP& det, const Ray& s, 
   acc[13] += wcx * cx;
   acc[14] += wcy * cy;
   acc[15] += wcd * cd;
+}
+
+__device__ __forceinline__ void add_moments(const DetectorP& det, const Ray& s, float w,
+                                            float* acc) {
+  add_moments(det.c, det.n, det.e1, det.e2, det.opl_ref, det.inv_dn_chief, det.centre_distance,
+              s, w, acc);
 }
 
 
@@ -744,6 +752,50 @@ __device__ __forceinline__ void reduce_to_row(const float* acc, double* __restri
 #pragma unroll
     for (int w = 0; w < MOMENT_THREADS / 32; ++w) v += part[w][threadIdx.x];
     row[threadIdx.x] = v;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// runtime-pose kernels (K5, K6, K7): every pose a runtime value
+// ---------------------------------------------------------------------------
+
+// the pose vector svec: 12 scalars per element (M row-major, b), then the
+// detector centre, normal, e1, e2 in the last element's frame
+constexpr int MAX_SCALARS = 12 * MAX_ELEMENTS + 12;
+
+// A grid sized to the rays: blocks_per_chunk blocks for every full chunk and
+// only as many as the last chunk's rays fill, so no block starts empty.
+// Block b serves chunk b / blocks_per_chunk; this thread's first local ray
+// follows (ops/fused_trace.ray_grid sizes the grid).
+struct BlockRays {
+  int chunk;
+  int first;
+};
+__device__ __forceinline__ BlockRays block_rays(int blocks_per_chunk) {
+  const int b = blockIdx.x;
+  const int c = b / blocks_per_chunk;
+  return {c, (b - c * blocks_per_chunk) * MOMENT_RAYS_PER_BLOCK + (int)threadIdx.x};
+}
+
+// The body K5, K6 and K7 share: this thread's rays of one chunk, synthesized
+// from the source record, traced with the element maps of the block's pose
+// table (scalar type S: float, or Dual<G> for K6) and the rest of the chain
+// from the record, then epi(s, rr) for each alive ray.
+template <typename S, typename Epilogue>
+__device__ __forceinline__ void trace_runtime_pose(const ChainP& ch, const SourceP& src,
+                                                   const S* pose, int n_local, int first,
+                                                   float phase, float k_frac, Epilogue&& epi) {
+  const PoseMaps<S> maps{pose};
+  for (int r = 0; r < MOMENT_RAYS_PER_THREAD; ++r) {
+    const int k = first + r * MOMENT_THREADS;
+    if (k >= n_local) break;
+    Ray s0;
+    float rr;
+    synth_source(src, k, phase, k_frac, s0, rr);
+    RayT<S> s = lift<S>(s0);
+    trace_chain_maps<false>(ch, maps, s);
+    if (!s.alive) continue;
+    epi(s, rr);
   }
 }
 

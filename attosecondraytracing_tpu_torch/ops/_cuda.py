@@ -36,6 +36,9 @@ NVCC_FLAGS = (
     *ARCH, "-std=c++17", "-O3", "-lineinfo", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
 )
 
+#: version of the C interface these bindings take (``art_abi_version``)
+ABI_VERSION = 2
+
 _lock = threading.Lock()
 _lib = None
 #: wall seconds of the build this process ran (0.0 when the library was cached)
@@ -117,18 +120,19 @@ def library() -> ctypes.CDLL:
 def load(path) -> ctypes.CDLL:
     """Load a kernel library built from ``csrc/``, bind its C interface and
     check its record layouts against the numpy records."""
-    from .fused_grad import TANGENT_BATCH
     from .fused_scan import N_AUX
     from .fused_trace import CHAIN_T, DETECTOR_T, SOURCE_T, STATS_GROUP
 
     lib = ctypes.CDLL(str(path))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    if not hasattr(lib, "art_abi_version") or lib.art_abi_version() != ABI_VERSION:
+        raise RuntimeError(f"{path}: not a kernel library of C interface version {ABI_VERSION}")
     for name in ("art_chain_params_size", "art_source_params_size",
                  "art_detector_params_size"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_size_t
-    for name in ("art_moment_rays_per_block", "art_scan_aux_size", "art_stats_group",
-                 "art_tangent_batch"):
+    for name in ("art_abi_version", "art_moment_rays_per_block", "art_scan_aux_size",
+                 "art_stats_group", "art_tangent_batch"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ci
     lib.art_error_string.argtypes = [ci]
@@ -139,13 +143,13 @@ def load(path) -> ctypes.CDLL:
     lib.art_launch_fused_source_moments.argtypes = [
         vp, vp, vp, ci, ci, ci, vp, vp, ci, vp]
     lib.art_launch_fused_source_moments.restype = ci
-    lib.art_launch_scan_moments.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp, ci, vp]
+    lib.art_launch_scan_moments.argtypes = [vp, vp, ci, ci, ci, ci, vp, vp, vp, vp]
     lib.art_launch_scan_moments.restype = ci
     lib.art_launch_streamed_trace.argtypes = [vp, ci, ci] + [vp] * 13
     lib.art_launch_streamed_trace.restype = ci
     lib.art_launch_fused_source_stats.argtypes = [vp, vp, vp, ci, ci, ci, vp, vp, ci, vp, ci, vp]
     lib.art_launch_fused_source_stats.restype = ci
-    lib.art_launch_stats_params.argtypes = [vp, vp, cf, ci, ci, ci, ci, vp, vp, vp, vp, ci, ci, vp]
+    lib.art_launch_stats_params.argtypes = [vp, vp, cf, ci, ci, ci, ci, ci, vp, ci, vp, vp, vp, vp]
     lib.art_launch_stats_params.restype = ci
     for name, dt in (("art_chain_params_size", CHAIN_T),
                      ("art_source_params_size", SOURCE_T),
@@ -157,10 +161,9 @@ def load(path) -> ctypes.CDLL:
     if lib.art_scan_aux_size() != N_AUX:
         raise RuntimeError(f"scan kernel takes {lib.art_scan_aux_size()} aux scalars, "
                            f"ops/fused_scan.py packs {N_AUX}")
-    for name, value in (("art_stats_group", STATS_GROUP), ("art_tangent_batch", TANGENT_BATCH)):
-        if getattr(lib, name)() != value:
-            raise RuntimeError(f"{name}: the kernels take {getattr(lib, name)()}, the host "
-                               f"packs {value}")
+    if lib.art_stats_group() != STATS_GROUP:
+        raise RuntimeError(f"art_stats_group: the kernels take {lib.art_stats_group()}, the "
+                           f"host packs {STATS_GROUP}")
     return lib
 
 
@@ -184,6 +187,11 @@ def moment_rays_per_block() -> int:
     return library().art_moment_rays_per_block()
 
 
+def tangent_batch() -> int:
+    """G: the tangent rows each K6 block carries (a group of the step's rows)."""
+    return library().art_tangent_batch()
+
+
 def launch_fused_source_trace(chain_rec, src_rec, n_rays, phase, k_frac,
                               p, d, opl, opl_c, alive, inc, stream):
     lib = library()
@@ -204,13 +212,12 @@ def launch_fused_source_moments(chain_rec, src_rec, det_rec, n_rays, chunk, n_ch
     _check(lib, status, "fused_source_moments launch")
 
 
-def launch_scan_moments(chain_rec, src_rec, n_rays, chunk, n_chunks, svec, aux, rows,
-                        blocks_per_chunk, stream):
+def launch_scan_moments(chain_rec, src_rec, n_rays, chunk, grid, svec, aux, rows, stream):
+    """``grid``: (blocks_per_chunk, n_blocks) of :func:`.fused_trace.ray_grid`."""
     lib = library()
     status = lib.art_launch_scan_moments(
-        _record_ptr(chain_rec), _record_ptr(src_rec), int(n_rays), int(chunk),
-        int(n_chunks), svec.data_ptr(), aux.data_ptr(), rows.data_ptr(),
-        int(blocks_per_chunk), stream)
+        _record_ptr(chain_rec), _record_ptr(src_rec), int(n_rays), int(chunk), int(grid[0]),
+        int(grid[1]), svec.data_ptr(), aux.data_ptr(), rows.data_ptr(), stream)
     _check(lib, status, "scan_moments launch")
 
 
@@ -234,13 +241,15 @@ def launch_fused_source_stats(chain_rec, src_rec, det_rec, n_rays, chunk, n_chun
     _check(lib, status, "fused_source_stats launch")
 
 
-def launch_stats_params(chain_rec, src_rec, opl_ref, n_rays, chunk, n_chunks, n_scal, svec,
-                        stangents, chunk_params, rows, blocks_per_chunk, n_tangents, stream):
-    """K6 (``n_tangents`` = 6, ``stangents`` a device tensor) or K7
-    (``n_tangents`` = 0, ``stangents`` None)."""
+def launch_stats_params(chain_rec, src_rec, opl_ref, n_rays, chunk, grid, n_scal, svec,
+                        stangents, chunk_params, rows, stream):
+    """K6 (``stangents`` the step's (P, n_scal) tangent rows on the device)
+    or K7 (``stangents`` None); ``grid``: (blocks_per_chunk, n_blocks) of
+    :func:`.fused_trace.ray_grid`."""
     lib = library()
     status = lib.art_launch_stats_params(
         _record_ptr(chain_rec), _record_ptr(src_rec), float(opl_ref), int(n_rays), int(chunk),
-        int(n_chunks), int(n_scal), svec.data_ptr(), _ptr(stangents), chunk_params.data_ptr(),
-        rows.data_ptr(), int(blocks_per_chunk), int(n_tangents), stream)
+        int(grid[0]), int(grid[1]), int(n_scal), svec.data_ptr(),
+        0 if stangents is None else int(stangents.shape[0]), _ptr(stangents),
+        chunk_params.data_ptr(), rows.data_ptr(), stream)
     _check(lib, status, "stats_params launch")

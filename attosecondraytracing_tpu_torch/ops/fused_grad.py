@@ -9,10 +9,12 @@ vector ``svec`` (:func:`chain_scalars_np`): per element the composed
 chained-frame affine ``(M_k, b_k)`` (the first with the source frame folded
 in), then the detector plane in the final element's frame.
 
-* **K6** (``csrc/fused_grad.cu``, ``stats_params_kernel<6>``) replaces
+* **K6** (``csrc/fused_grad.cu``, ``stats_params_kernel<G>``) replaces
   ``_kernel_stats_jvp``: the 7 sums at one distance and their directional
-  derivatives along G = 6 tangent rows of ``svec``, from one trace on dual
-  numbers (the shared primal of ``jax.linearize``).
+  derivatives along all P tangent rows of ``svec`` (one row per pose
+  parameter), in one launch per gradient step; each block traces its rays
+  once on dual numbers for a group of G rows (the shared primal of
+  ``jax.linearize``).
 * **K7** (``stats_params_kernel<0>``) replaces ``_kernel_stats_primal``:
   the 7 sums alone.
 
@@ -46,14 +48,15 @@ N_DET_SCALARS = 12
 #: per-call ray chunk: local float indices stay < 2^23 for exactness
 GRAD_CHUNK = 1 << 23
 
-#: tangents per K6 launch (one element's full pose block); the last group
-#: of a pose vector is padded with zero rows
-TANGENT_BATCH = 6
-
-
 def n_scalars(n_elements: int) -> int:
     """Length of the pose vector of a chain of ``n_elements`` elements."""
     return 12 * n_elements + N_DET_SCALARS
+
+
+def n_params(n_elements: int) -> int:
+    """Pose parameters of a chain (3 angles and 3 shifts per element): the
+    most tangent rows one K6 launch takes."""
+    return 6 * n_elements
 
 
 def chain_scalars_np(elements, source_rot, source_origin, det_centre, det_normal,
@@ -245,21 +248,22 @@ def _check_params_args(spec: FusedLossSpec, svec, stangents):
     n = n_scalars(len(spec.elements))
     svec = np.asarray(svec, np.float32)
     stangents = np.zeros((0, n), np.float32) if stangents is None else np.asarray(stangents, np.float32)
+    P = n_params(len(spec.elements))
     if svec.shape != (n,) or stangents.ndim != 2 or stangents.shape[1] != n \
-            or stangents.shape[0] > TANGENT_BATCH:
+            or stangents.shape[0] > P:
         raise ValueError(f"a {len(spec.elements)}-element chain takes svec ({n},) and at most "
-                         f"{TANGENT_BATCH} tangent rows of {n}, got {svec.shape} and "
-                         f"{stangents.shape}")
+                         f"{P} tangent rows of {n}, got {svec.shape} and {stangents.shape}")
     return svec, stangents
 
 
 def stats_params_ref(spec: FusedLossSpec, svec, stangents, chunks, *, device):
-    """Plain PyTorch version of K6 (``stangents`` (G, n) float32, G <= 6)
-    and K7 (G = 0 or ``stangents=None``), following the JAX package's
-    ``_kernel_stats_jvp``: per chunk, :func:`stats_of_scalars` and its JVP
-    along every tangent row with one shared primal (``torch.func.jvp``
-    batched over the rows by ``torch.func.vmap``), summed in float64.
-    Returns ``(primal (7,), tangents (G, 7))``."""
+    """Plain PyTorch version of K6 (``stangents`` (P, n) float32, P up to
+    the chain's :func:`n_params`) and K7 (P = 0 or ``stangents=None``),
+    following the JAX package's ``_kernel_stats_jvp``: per chunk,
+    :func:`stats_of_scalars` and its JVP along every tangent row with one
+    shared primal (``torch.func.jvp`` batched over the rows by
+    ``torch.func.vmap``), summed in float64. Returns ``(primal (7,),
+    tangents (P, 7))``."""
     svec, stangents = _check_params_args(spec, svec, stangents)
     G = stangents.shape[0]
     p = torch.tensor(svec, device=device)
@@ -291,51 +295,59 @@ def _scan_spec(spec: FusedLossSpec):
                     n_each=spec.n_each, n_sources=spec.n_sources)
 
 
-def prepare_stats_params(spec: FusedLossSpec, svec, stangents, chunks, *, device):
-    """K6/K7's host work for a CUDA ``device``: pack the pose-independent
-    chain record (K5's, :func:`~.fused_scan.pack_scan_chain`) and the source
-    record (raising on what the kernels do not take), copy ``svec``, the
-    tangent rows (padded with zero rows to 6) and the chunk offsets to the
-    device, and allocate the per-block rows. Returns ``(rows, launch)``:
-    each ``launch()`` runs K6 (G > 0) or K7 (G = 0) once over every chunk,
-    writing per block one float64 row of the 7 sums and, for K6, their 6
-    tangents (``7 * (1 + 6)``), and counts it."""
+def pack_stats_records(spec: FusedLossSpec):
+    """K6/K7's ``(chain, source)`` records: the pose-independent chain
+    record (K5's, :func:`~.fused_scan.pack_scan_chain`) and the source law in
+    its canonical frame. Raises NotImplementedError on what the kernels do
+    not take."""
     from . import fused_scan as fs
+    from . import fused_trace as ft
+
+    src = ft.BakedSource(kind=spec.source_kind, rot=((1.0, 0.0, 0.0),) * 3, origin=(0.0, 0.0, 0.0),
+                         radius=spec.source_radius, pos_radius=spec.pos_radius,
+                         n_each=spec.n_each, n_sources=spec.n_sources)
+    return fs.pack_scan_chain(_scan_spec(spec)), ft.pack_source(src, spec.n_rays, spec.gaussian_edge)
+
+
+def prepare_stats_params(spec: FusedLossSpec, svec, stangents, chunks, *, device):
+    """K6/K7's host work for a CUDA ``device``: pack the records
+    (:func:`pack_stats_records`), copy ``svec``, the P
+    tangent rows and the chunk offsets to the device, and allocate the
+    per-block rows. Returns ``(rows, launch)``: each ``launch()`` runs K6
+    (P > 0) or K7 (P = 0) once over every chunk on a grid sized to the rays
+    (:func:`~.fused_trace.ray_grid`), and counts it. K6 takes the P rows in
+    ceil(P / G) groups of the kernel's G (``_cuda.tangent_batch``) and writes
+    ``rows`` (groups, blocks, 7 (1 + G)): per group and block one float64
+    row of the 7 sums and their G tangents; K7 writes (1, blocks, 7)."""
     from . import fused_trace as ft
 
     sizes = ft._check_chunks(chunks)
     device = ft._cuda_device(device, "fused_stats_params")
     svec, stangents = _check_params_args(spec, svec, stangents)
-    G = stangents.shape[0]
-    chain_rec = fs.pack_scan_chain(_scan_spec(spec))
-    src = ft.BakedSource(kind=spec.source_kind, rot=((1.0, 0.0, 0.0),) * 3, origin=(0.0, 0.0, 0.0),
-                         radius=spec.source_radius, pos_radius=spec.pos_radius,
-                         n_each=spec.n_each, n_sources=spec.n_sources)
-    src_rec = ft.pack_source(src, spec.n_rays, spec.gaussian_edge)
+    P = stangents.shape[0]
+    chain_rec, src_rec = pack_stats_records(spec)
     from . import _cuda
 
     n = svec.shape[0]
-    n_tang = TANGENT_BATCH if G else 0
-    padded = np.zeros((n_tang, n), np.float32)
-    padded[:G] = stangents
+    G = _cuda.tangent_batch() if P else 0
     svec_t = torch.tensor(svec, device=device)
-    tang_t = torch.tensor(padded, device=svec_t.device)
+    tang_t = torch.tensor(stangents, device=svec_t.device) if P else None
     params = torch.tensor([[c[1], c[2]] for c in chunks], dtype=torch.float32, device=svec_t.device)
     n_rays, chunk = sum(sizes), sizes[0]
-    blocks_per_chunk = -(-chunk // _cuda.moment_rays_per_block())
-    rows = torch.empty((len(chunks) * blocks_per_chunk, 7 * (1 + n_tang)), dtype=torch.float64,
+    grid = ft.ray_grid(sizes, _cuda.moment_rays_per_block())
+    rows = torch.empty((-(-P // G) if P else 1, grid[1], 7 * (1 + G)), dtype=torch.float64,
                        device=svec_t.device)
     for name, x, dtype in (("svec", svec_t, torch.float32), ("tangents", tang_t, torch.float32),
                            ("chunk params", params, torch.float32), ("stats rows", rows, torch.float64)):
-        ft._check_out(name, x, dtype, svec_t.device)
+        if x is not None:
+            ft._check_out(name, x, dtype, svec_t.device)
 
     def launch():
         with torch.cuda.device(rows.device):
             stream = torch.cuda.current_stream(rows.device).cuda_stream
-            _cuda.launch_stats_params(chain_rec, src_rec, spec.opl_ref, n_rays, chunk, len(chunks),
-                                      n, svec_t, tang_t if n_tang else None, params, rows,
-                                      blocks_per_chunk, n_tang, stream)
-        if n_tang:
+            _cuda.launch_stats_params(chain_rec, src_rec, spec.opl_ref, n_rays, chunk, grid, n,
+                                      svec_t, tang_t, params, rows, stream)
+        if P:
             fused_stats_params.launches += 1
         else:
             fused_stats_params.primal_launches += 1
@@ -344,19 +356,23 @@ def prepare_stats_params(spec: FusedLossSpec, svec, stangents, chunks, *, device
 
 
 def params_from_rows(rows, n_tangents: int):
-    """``(primal (7,), tangents (n_tangents, 7))`` float64 from K6/K7's rows."""
-    total = rows.sum(dim=0).cpu().numpy()
-    return total[:7], total[7:].reshape(-1, 7)[:n_tangents]
+    """``(primal (7,), tangents (n_tangents, 7))`` float64 from K6/K7's rows
+    ((groups, blocks, 7 (1 + G)), group-major as the kernel writes them; K7:
+    one group, G = 0): the blocks are summed once, the primal is group 0's
+    (every group retraces it), tangent row j sits in group j // G, slot
+    j % G; rows past ``n_tangents`` pad the last group."""
+    total = rows.sum(dim=1).cpu().numpy()
+    return total[0, :7], total[:, 7:].reshape(-1, 7)[:n_tangents]
 
 
 def fused_stats_params(spec: FusedLossSpec, svec, stangents, chunks, *, device):
-    """K6 (``stangents`` (G, n), 0 < G <= 6; replaces
-    ``ops/pallas_grad.py::_kernel_stats_jvp`` of the JAX package) and K7
-    (G = 0 or None; replaces ``_kernel_stats_primal``): the 7 weighted sums
-    at the detector plane over every chunk's rays and, for K6, their
-    derivatives along each tangent row, summed in float64. All chunks go in
-    one launch (``blockIdx.y`` = chunk). CPU runs :func:`stats_params_ref`.
-    Returns ``(primal (7,), tangents (G, 7))``."""
+    """K6 (``stangents`` (P, n), 0 < P <= the chain's :func:`n_params`;
+    replaces ``ops/pallas_grad.py::_kernel_stats_jvp`` of the JAX package)
+    and K7 (P = 0 or None; replaces ``_kernel_stats_primal``): the 7
+    weighted sums at the detector plane over every chunk's rays and, for K6,
+    their derivatives along each tangent row, summed in float64. One launch
+    covers every chunk and every tangent row. CPU runs
+    :func:`stats_params_ref`. Returns ``(primal (7,), tangents (P, 7))``."""
     from .fused_trace import _check_chunks
 
     _check_chunks(chunks)
@@ -380,20 +396,8 @@ fused_stats_params.primal_launches = 0
 
 def _stats_and_jacobian(sprimal, stangents, spec: FusedLossSpec, chunk_size: int, *, device):
     """``(p_stats (7,), t_stats (P, 7))`` float64 over every ray of the
-    global source: ceil(P / 6) tangent groups, each one K6 launch over all
-    chunks (the first group's primal is kept); groups accumulate in
-    float64 on the host."""
-    chunks = _ray_chunks(spec, chunk_size)
-    P = stangents.shape[0]
-    p_stats = np.zeros(7, np.float64)
-    t_stats = np.zeros((P, 7), np.float64)
-    for g0 in range(0, P, TANGENT_BATCH):
-        g1 = min(g0 + TANGENT_BATCH, P)
-        p, t = fused_stats_params(spec, sprimal, stangents[g0:g1], chunks, device=device)
-        if g0 == 0:
-            p_stats = p
-        t_stats[g0:g1] = t
-    return p_stats, t_stats
+    global source: all P tangent rows in one K6 launch over every chunk."""
+    return fused_stats_params(spec, sprimal, stangents, _ray_chunks(spec, chunk_size), device=device)
 
 
 def _loss_from_stats(stats, spec: FusedLossSpec, total_weight: float):
@@ -454,9 +458,9 @@ def fused_focus_value_and_grad(params, spec: FusedLossSpec, elements, source_rot
     """``(loss, grads)`` of the focus loss w.r.t. the AlignmentParams
     ``params``, through K6 on a CUDA ``device`` (its plain version on the
     CPU). ``elements`` are the unperturbed elements; ``grads`` is an
-    AlignmentParams of float32 CPU tensors. Cost: ceil(6K / 6) K6 launches,
-    each over every chunk of ``chunk_size`` rays, and O(1) gradient memory
-    at any ray count."""
+    AlignmentParams of float32 CPU tensors. Cost: one K6 launch over every
+    chunk of ``chunk_size`` rays and all 6K tangent rows, and O(1) gradient
+    memory at any ray count."""
     from ..analysis.alignment import AlignmentParams
 
     sprimal = chain_scalars_np(_apply_params_np(elements, params), source_rot, source_origin,

@@ -162,9 +162,9 @@ def prepare_scan_moments(spec: ScanSpec, svec, aux_rows, chunks, *, device):
     svec_t = torch.as_tensor(svec).to(device)
     aux_t = torch.as_tensor(aux_rows).to(device)
     n_rays, chunk = sum(sizes), sizes[0]
-    blocks_per_chunk = -(-chunk // _cuda.moment_rays_per_block())
-    rows = torch.empty((len(chunks) * blocks_per_chunk, len(ft.MOMENT_FIELDS)),
-                       dtype=torch.float64, device=svec_t.device)
+    grid = ft.ray_grid(sizes, _cuda.moment_rays_per_block())
+    rows = torch.empty((grid[1], len(ft.MOMENT_FIELDS)), dtype=torch.float64,
+                       device=svec_t.device)
     for name, x, dtype in (("svec", svec_t, torch.float32), ("aux", aux_t, torch.float32),
                            ("moment rows", rows, torch.float64)):
         ft._check_out(name, x, dtype, svec_t.device)
@@ -172,8 +172,8 @@ def prepare_scan_moments(spec: ScanSpec, svec, aux_rows, chunks, *, device):
     def launch():
         with torch.cuda.device(rows.device):
             stream = torch.cuda.current_stream(rows.device).cuda_stream
-            _cuda.launch_scan_moments(chain_rec, src_rec, n_rays, chunk, len(chunks), svec_t,
-                                      aux_t, rows, blocks_per_chunk, stream)
+            _cuda.launch_scan_moments(chain_rec, src_rec, n_rays, chunk, grid, svec_t, aux_t,
+                                      rows, stream)
         fused_scan_moments.launches += 1
 
     return rows, launch
@@ -182,8 +182,9 @@ def prepare_scan_moments(spec: ScanSpec, svec, aux_rows, chunks, *, device):
 def fused_scan_moments(spec: ScanSpec, svec, aux_rows, chunks, *, device) -> np.ndarray:
     """K5 (replaces ``ops/pallas_scan.py::_kernel_scan_moments`` of the JAX
     package): the 16 weighted detector moments of every chunk's rays, summed
-    in float64. All chunks of equal nominal size go in one launch
-    (``blockIdx.y`` = chunk). CPU runs :func:`scan_moments_ref`."""
+    in float64. All chunks of equal nominal size go in one launch, on a
+    grid sized to the rays (:func:`~.fused_trace.ray_grid`). CPU runs
+    :func:`scan_moments_ref`."""
     ft._check_chunks(chunks)
     if torch.device(device).type == "cpu":
         return scan_moments_ref(spec, svec, aux_rows, chunks, device=device)

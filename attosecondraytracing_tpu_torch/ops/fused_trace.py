@@ -962,6 +962,18 @@ def _check_chunks(chunks):
     return sizes
 
 
+def ray_grid(sizes, rays_per_block: int):
+    """``(blocks_per_chunk, n_blocks)`` of a grid sized to the rays of the
+    chunks ``sizes`` (all equal but the last, :func:`_check_chunks`): every
+    full chunk takes ``blocks_per_chunk`` blocks of ``rays_per_block`` rays,
+    the last chunk only as many as its rays fill, so no block starts
+    without rays (the runtime-pose kernels K5-K7; block b serves chunk
+    b // blocks_per_chunk, csrc/trace_common.cuh ``block_rays``)."""
+    bpc = -(-sizes[0] // rays_per_block)
+    return bpc, (len(sizes) - 1) * bpc + -(-sizes[-1] // rays_per_block)
+
+
+
 def prepare_fused_source_moments(table: ChainTable, spec: BakedSource, det: BakedDetector,
                                  chunks, n_total: int, *, device, gaussian_edge=None,
                                  centre_distance=0.0):

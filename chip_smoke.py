@@ -87,11 +87,14 @@ OPS = {
     "stats_geometry": 40,
     "stats_distance": 21,
     # K6 on the flagship chain (mask and two toroids, unfolded), per ray:
-    # what its Dual<6> operators add to the primal trace, once (the
+    # what its Dual<G> operators add to the primal trace, once (the
     # reciprocals the tangents share) and per tangent; and per alive ray for
     # the stats epilogue with its accumulation. A dual a*b adds 3 per
     # tangent (a multiply and a fused multiply-add), a*c with c a float 1,
-    # a/b 3, a +- b 1, a +- c 0, sqrt and rsqrt 1; selects 0
+    # a/b 3, a +- b 1, a +- c 0, sqrt and rsqrt 1; selects 0. The bound of
+    # a gradient step counts the primal and these once-per-ray factors once
+    # and the per-tangent parts once per tangent row, whatever the kernel's
+    # grouping G retraces
     "dual_trace_once": 23,
     "dual_trace_tangent": 658,
     "dual_stats_once": 1,
@@ -753,13 +756,9 @@ def _check_grad_sums(tag, got, ref, opl_ref):
 
 
 def _grad_ref(fg, spec, svec, tangents, chunks, dev):
-    """(loss, gradient) from the plain version of K6 over every tangent
-    group, the host side of fused_focus_value_and_grad."""
-    import numpy as np
-
-    groups = [fg.stats_params_ref(spec, svec, tangents[g0:g0 + fg.TANGENT_BATCH], chunks, device=dev)
-              for g0 in range(0, len(tangents), fg.TANGENT_BATCH)]
-    p_stats, t_stats = groups[0][0], np.concatenate([t for _p, t in groups])
+    """(loss, gradient) from the plain version of K6 over every tangent row,
+    the host side of fused_focus_value_and_grad."""
+    p_stats, t_stats = fg.stats_params_ref(spec, svec, tangents, chunks, device=dev)
     loss, dloss = fg._loss_from_stats(p_stats, spec, fg._total_weight(spec))
     return loss, t_stats @ dloss
 
@@ -767,11 +766,14 @@ def _grad_ref(fg, spec, svec, tangents, chunks, dev):
 def phase_k67(torch, dev):
     """K6 and K7 against their plain version on the card at 2^20 rays, on
     the flagship with scripts/bench_fused_grad.py's misalignment and on an
-    extended source: per tangent group the 7 sums (the CPU tests' envelopes)
-    and the tangents (within 2e-3 of each statistic's largest), K7's sums,
-    and the loss and gradient of fused_focus_value_and_grad (loss rel 2e-3,
-    gradient within 2e-2 of its largest entry). Then launch-only times at
-    1e7 rays (2 chunks, one launch) and the plain version's."""
+    extended source: all 18 tangent rows of a gradient step in one K6
+    launch, its 7 sums (the CPU tests' envelopes) and the tangents (the
+    spatial sums' within 2e-3 of each statistic's largest, the delay sums'
+    within 2e-2), K7's sums and K7 against K6's primal, and the loss and
+    gradient of fused_focus_value_and_grad (loss rel 2e-3, gradient within
+    2e-2 of its largest entry). Then launch-only times at 1e7 rays (2
+    chunks): K6 for the whole step's 18 rows in one launch, K7, and the
+    plain version's."""
     import numpy as np
 
     from attosecondraytracing_tpu_torch.ops import fused_grad as fg
@@ -784,23 +786,23 @@ def phase_k67(torch, dev):
         svec = fg.chain_scalars_np(fg._apply_params_np(host, params), *geo)
         tang = fg.scalar_tangents(host, params, *geo)
         chunks = fg._ray_chunks(spec, fg.GRAD_CHUNK)
-        for g0 in range(0, len(tang), fg.TANGENT_BATCH):
-            group = tang[g0:g0 + fg.TANGENT_BATCH]
-            p_k, t_k = fg.fused_stats_params(spec, svec, group, chunks, device=dev)
-            p_r, t_r = fg.stats_params_ref(spec, svec, group, chunks, device=dev)
-            _check_grad_sums(f"K6 {name} group {g0 // 6} ({spec.source_kind}, {spec.n_rays} rays)", p_k,
-                             p_r, spec.opl_ref)
-            scale = np.maximum(np.abs(t_r).max(axis=0), 1e-12)
-            per_stat = (np.abs(t_k - t_r) / scale).max(axis=0)
-            rel = float(per_stat.max())
-            print(f"K6 {name} group {g0 // 6}: tangents within " + ", ".join(
-                f"{f} {v:.3g}" for f, v in zip(ft.STATS_FIELDS, per_stat))
-                + " of each statistic's largest", flush=True)
-            # the spatial sums' tangents to 2e-3 (the CPU tests' envelope); the
-            # delay sums' to 2e-2: they carry the float32 delay noise that
-            # makes the primal durations differ by several percent
-            _check(np.all(np.isfinite(t_k)) and per_stat[:5].max() <= 2e-3 and per_stat[5:].max() <= 2e-2,
-                   f"K6 {name}: tangents differ by {per_stat}")
+        _check(tang.shape[0] == fg.n_params(len(host)) == 18, f"K6 {name}: {tang.shape[0]} tangent rows")
+        fg.fused_stats_params.launches = 0
+        p_k, t_k = fg.fused_stats_params(spec, svec, tang, chunks, device=dev)
+        _check(fg.fused_stats_params.launches == 1, f"K6 {name}: {fg.fused_stats_params.launches} launches")
+        p_r, t_r = fg.stats_params_ref(spec, svec, tang, chunks, device=dev)
+        _check_grad_sums(f"K6 {name} ({spec.source_kind}, {spec.n_rays} rays, 18 tangent rows in one launch)",
+                         p_k, p_r, spec.opl_ref)
+        scale = np.maximum(np.abs(t_r).max(axis=0), 1e-12)
+        per_stat = (np.abs(t_k - t_r) / scale).max(axis=0)
+        print(f"K6 {name}: the 18 tangent rows within " + ", ".join(
+            f"{f} {v:.3g}" for f, v in zip(ft.STATS_FIELDS, per_stat))
+            + " of each statistic's largest", flush=True)
+        # the spatial sums' tangents to 2e-3 (the CPU tests' envelope); the
+        # delay sums' to 2e-2: they carry the float32 delay noise that
+        # makes the primal durations differ by several percent
+        _check(t_k.shape == (18, 7) and np.all(np.isfinite(t_k)) and per_stat[:5].max() <= 2e-3
+               and per_stat[5:].max() <= 2e-2, f"K6 {name}: tangents differ by {per_stat}")
         p7, _ = fg.fused_stats_params(spec, svec, None, chunks, device=dev)
         p7_r, _ = fg.stats_params_ref(spec, svec, None, chunks, device=dev)
         _check_grad_sums(f"K7 {name}", p7, p7_r, spec.opl_ref)
@@ -831,7 +833,7 @@ def phase_k67(torch, dev):
     unfolded = ft.ChainTable(spec.elements, (), (), ((),) * len(spec.elements))
     per_ray = _trace_ops(unfolded, True) + OPS["weight"]
     out = {}
-    for key, group in (("K6", tang[:fg.TANGENT_BATCH]), ("K7", None)):
+    for key, group in (("K6", tang), ("K7", None)):
         rows, launch = fg.prepare_stats_params(spec, svec, group, chunks, device=dev)
         ms = _time_ms(launch, torch)
         wrapper_ms = _time_ms(lambda: fg.fused_stats_params(spec, svec, group, chunks, device=dev), torch)
@@ -839,10 +841,10 @@ def phase_k67(torch, dev):
                             reps=3, inner=1)
         ops = per_ray * N_TIME + OPS["stats"] * n_alive
         n_in = svec.size
-        if group is not None:
-            G = fg.TANGENT_BATCH
-            ops += (OPS["dual_trace_once"] + G * OPS["dual_trace_tangent"]) * N_TIME
-            ops += (OPS["dual_stats_once"] + G * OPS["dual_stats_tangent"]) * n_alive
+        if group is not None:  # one gradient step: the primal once, every tangent row once
+            P = len(group)
+            ops += (OPS["dual_trace_once"] + P * OPS["dual_trace_tangent"]) * N_TIME
+            ops += (OPS["dual_stats_once"] + P * OPS["dual_stats_tangent"]) * n_alive
             n_in += group.size
         bound = _bound(rows.numel() * 8 + 4 * n_in + 8 * len(chunks), ops)
         print(f"{key} flagship at {N_TIME} rays ({n_alive} alive): kernel launch {ms:.4f} ms, whole "
@@ -857,7 +859,7 @@ def phase_grad(torch, dev):
     rays, its first toroid rolled 0.3 deg (tests/test_gradients.py:212-219),
     lr 2e-4, survival weight 0.1, 12 Adam steps, engine "auto", with the
     launch counts set to 0 just before it: the engine must be cuda-grad, K6
-    launched 3 times per step and no other kernel, the loss must fall, and
+    launched once per step and no other kernel, the loss must fall, and
     its spot-variance part must fall below 0.9 of its first value (the
     check of tests/test_gradients.py:219; there the whole loss is spot
     variance, while on the flagship, ~72 % transmitted, the survival term
@@ -893,9 +895,8 @@ def phase_grad(torch, dev):
           f"{al.gradient_align.last_engine}, launches {launches}, {GRAD_ITERS} steps in {wall:.3f} s "
           f"({wall / GRAD_ITERS * 1e3:.3f} ms per step), loss {history[0]:.6g} -> {history[-1]:.6g}",
           flush=True)
-    n_groups = -(-6 * len(chain.optical_elements) // fg.TANGENT_BATCH)
     _check(al.gradient_align.last_engine == "cuda-grad", f"engine {al.gradient_align.last_engine}")
-    _check(launches["K6"] == n_groups * GRAD_ITERS and all(
+    _check(launches["K6"] == GRAD_ITERS and all(
         v == 0 for k, v in launches.items() if k != "K6"), f"gradient_align launches {launches}")
     _check(history[-1] < history[0], f"loss did not descend: {history}")
 
@@ -1155,7 +1156,7 @@ def main():
         ("K4", "K4 streamed_trace (fresh)", "streamed_trace.cu",
          "attosecondraytracing_tpu/ops/pallas_trace.py:194"),
         ("K5", "K5 fused_scan_moments", "fused_scan.cu", "attosecondraytracing_tpu/ops/pallas_scan.py:86"),
-        ("K6", "K6 fused_stats_params (6 tangents)", "fused_grad.cu",
+        ("K6", "K6 fused_stats_params (a gradient step: 18 tangent rows)", "fused_grad.cu",
          "attosecondraytracing_tpu/ops/pallas_grad.py:266"),
         ("K7", "K7 fused_stats_params (primal)", "fused_grad.cu",
          "attosecondraytracing_tpu/ops/pallas_grad.py:293"),

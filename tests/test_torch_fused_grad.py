@@ -88,25 +88,32 @@ def _port_args(args):
 @pytest.fixture(scope="module")
 def jax_grad():
     """JAX's fused gradient on the flagship (3 K6 passes in interpret mode,
-    each pass's inputs and output recorded), its primal-only pass, and the
+    each pass's inputs and output recorded, and the inputs and output of the
+    _stats_and_jacobian that groups them), its primal-only pass, and the
     port's arguments."""
     args = _grad_setup(N)
-    passes = []
-    kernel = jpg._stats_params_padded
+    passes, jacobians = [], []
+    kernel, grouped = jpg._stats_params_padded, jpg._stats_and_jacobian
 
     def spy(sprimal, stangents, chunk, *rest):
         out = kernel(sprimal, stangents, chunk, *rest)
         passes.append((np.asarray(sprimal), np.asarray(stangents), np.asarray(out, np.float64)))
         return out
 
-    jpg._stats_params_padded = spy
+    def spy_grouped(sprimal, stangents, *rest, **kw):
+        p_stats, t_stats = grouped(sprimal, stangents, *rest, **kw)
+        jacobians.append((np.asarray(sprimal), np.asarray(stangents), np.asarray(p_stats, np.float64),
+                          np.asarray(t_stats, np.float64)))
+        return p_stats, t_stats
+
+    jpg._stats_params_padded, jpg._stats_and_jacobian = spy, spy_grouped
     try:
         loss, grads = jpg.fused_focus_value_and_grad(*args)
         primal_loss = float(jpg.fused_focus_loss(*args))
     finally:
-        jpg._stats_params_padded = kernel
+        jpg._stats_params_padded, jpg._stats_and_jacobian = kernel, grouped
     return {"args": args, "port": _port_args(args), "loss": float(loss), "grads": grads,
-            "passes": passes, "primal_loss": primal_loss}
+            "passes": passes, "jacobians": jacobians, "primal_loss": primal_loss}
 
 
 def test_chain_scalars_and_tangents_match_jax(jax_grad):
@@ -177,10 +184,10 @@ def test_stats_params_ref_matches_pallas_k6(jax_grad, group):
     statistic's largest tangent."""
     _, tspec, *_ = jax_grad["port"]
     svec, tang, out = jax_grad["passes"][group]
-    assert tang.shape == (fg.TANGENT_BATCH, fg.n_scalars(3))
+    assert tang.shape == (jpg.TANGENT_BATCH, fg.n_scalars(3))
     p, t = fg.stats_params_ref(tspec, svec, tang, [(N, 0.0, 0.0)], device="cpu")
     _assert_sums_close(p, out[:7], tspec.opl_ref)
-    ref_t = out[7:].reshape(fg.TANGENT_BATCH, 7)
+    ref_t = out[7:].reshape(jpg.TANGENT_BATCH, 7)
     scale = np.maximum(np.abs(ref_t).max(axis=0), 1e-12)
     assert np.all(np.abs(t - ref_t) <= 2e-3 * scale), (t, ref_t)
     assert np.all(t[:, 0] == 0.0)  # the weights do not depend on the poses
@@ -237,19 +244,65 @@ def test_fused_grad_chunk_law(jax_grad):
 
 def test_stats_params_wrapper_refusals(jax_grad):
     """The wrapper runs the plain version on the CPU; what K6/K7 do not take
-    raises before anything is copied: too many tangent rows, a pose vector of
-    the wrong length, a chain past the kernels' table."""
+    raises before anything is copied: more tangent rows than the chain has
+    pose parameters (one launch takes all of them, 18 here), a pose vector
+    of the wrong length, a chain past the kernels' table."""
     _, tspec, *_ = jax_grad["port"]
     svec, tang, _ = jax_grad["passes"][0]
     chunks = [(N, 0.0, 0.0)]
+    assert fg.n_params(3) == 18
     with pytest.raises(ValueError):
-        fg.fused_stats_params(tspec, svec, np.zeros((7, svec.size), np.float32), chunks, device="cpu")
+        fg.fused_stats_params(tspec, svec, np.zeros((19, svec.size), np.float32), chunks, device="cpu")
     with pytest.raises(ValueError):
         fg.fused_stats_params(tspec, svec[:-1], tang, chunks, device="cpu")
     long_spec = tspec._replace(elements=tspec.elements * 3)
     with pytest.raises(NotImplementedError):
         fg.fused_stats_params(long_spec, np.zeros(fg.n_scalars(9), np.float32), None, chunks,
                               device="cuda")
+
+
+def test_all_tangent_rows_in_one_call_match_jax_stats_and_jacobian(jax_grad):
+    """All P = 18 tangent rows of the flagship step in one fused_stats_params
+    call (the plain version on the CPU, as one K6 launch takes them on the
+    card) against JAX's _stats_and_jacobian on the same float32 pose vector
+    and rows, grouped by its TANGENT_BATCH = 6 and run in interpret mode:
+    the primal sums within the module's tolerances, every tangent row within
+    2e-3 of its statistic's largest tangent."""
+    _, tspec, *_ = jax_grad["port"]
+    (sprimal, stangents, p_ref, t_ref), = jax_grad["jacobians"]
+    assert stangents.shape == (fg.n_params(3), fg.n_scalars(3)) and t_ref.shape == (18, 7)
+    assert len(jax_grad["passes"]) - 1 == -(-18 // jpg.TANGENT_BATCH)  # JAX: 3 passes, port: 1
+    p, t = fg.fused_stats_params(tspec, sprimal, stangents, fg._ray_chunks(tspec, fg.GRAD_CHUNK),
+                                 device="cpu")
+    assert t.shape == (18, 7)
+    _assert_sums_close(p, p_ref, tspec.opl_ref)
+    scale = np.maximum(np.abs(t_ref).max(axis=0), 1e-12)
+    assert np.all(np.abs(t - t_ref) <= 2e-3 * scale), (t, t_ref)
+
+
+@pytest.mark.parametrize("P,G", [(18, 3), (18, 6), (17, 3), (1, 2), (0, 0)])
+def test_grouped_rows_round_trip(P, G):
+    """K6's rows (groups, blocks, 7 (1 + G)), laid out as the kernel writes
+    them (group-major; each group's block rows carry a share of the primal
+    sums and of its G tangents' sums; the last group padded with zero
+    tangents), unpack through params_from_rows to the primal and the P
+    tangent rows. P = 0 is K7's one group of 7 columns."""
+    rng = np.random.default_rng(P * 10 + G)
+    n_blocks = 5
+    primal = rng.normal(size=7)
+    tangents = rng.normal(size=(P, 7))
+    groups = -(-P // G) if P else 1
+    padded = np.zeros((groups * G, 7))
+    padded[:P] = tangents
+    share = rng.dirichlet(np.ones(n_blocks))  # each block's part of the sums
+    rows = np.zeros((groups, n_blocks, 7 * (1 + G)))
+    for z in range(groups):
+        total = np.concatenate([primal, padded[z * G:(z + 1) * G].reshape(-1)])
+        rows[z] = share[:, None] * total[None, :]
+    p, t = fg.params_from_rows(torch.from_numpy(rows), P)
+    np.testing.assert_allclose(p, primal, rtol=1e-12, atol=1e-12)
+    assert t.shape == (P, 7)
+    np.testing.assert_allclose(t, tangents, rtol=1e-12, atol=1e-12)
 
 
 # ---------------------------------------------------------------------------

@@ -221,6 +221,51 @@ def test_scan_chunk_law_splits_in_halves():
     assert aux[0, fs.AUX_WCOEF] == np.float32(np.log(EDGE)) and aux[0, fs.AUX_CENTRE_D] == 2.5
 
 
+def _block_rays(sizes, rays_per_block):
+    """(n_blocks, 2) ``[start, stop)`` global ray ranges of the blocks of
+    ft.ray_grid, by the kernels' arithmetic (csrc/trace_common.cuh
+    ``block_rays``): block b serves chunk c = b // blocks_per_chunk from
+    local ray (b - c * blocks_per_chunk) * rays_per_block up to the chunk's
+    end."""
+    bpc, n_blocks = ft.ray_grid(sizes, rays_per_block)
+    b = np.arange(n_blocks, dtype=np.int64)
+    c = b // bpc
+    first = (b - c * bpc) * rays_per_block
+    offset = c * sizes[0]
+    return np.stack([offset + first,
+                     offset + np.minimum(first + rays_per_block, np.asarray(sizes, np.int64)[c])], axis=1)
+
+
+@pytest.mark.parametrize("kind,extra", [("cone", {"n": 10_000_000}),
+                                        ("extended", {"n_each": 333, "n_sources": 30011}),
+                                        ("square", {"n_each": 3163})])
+def test_ray_grid_covers_every_ray_once(kind, extra):
+    """The grid sized to the rays (K5-K7: ray_grid, and the blocks' rays by
+    the kernels' arithmetic) on each chunk law at ~1e7 rays, with the chunks of
+    2^23 rays the kernels take and with small chunks (many of them, a ragged
+    last one): every block starts with at least one ray, and the blocks in
+    order cover every ray of every chunk exactly once. At 1e7 cone rays it
+    launches 4883 blocks of 2048 rays where the (blocks per chunk, chunks)
+    grid launched 2 x 4096, 3309 of them without a ray."""
+    n_each, n_sources = extra.get("n_each", 0), extra.get("n_sources", 0)
+    n = {"cone": extra.get("n"), "extended": n_each * n_sources, "square": n_each * n_each}[kind]
+    for chunk in (ft.CHUNK, 5000):
+        sizes = [c[0] for c in ft.source_chunks(kind, n, n, chunk, n_each=n_each, n_sources=n_sources)]
+        assert sum(sizes) == n and sizes == ft._check_chunks([(s, 0.0, 0.0) for s in sizes])
+        for rpb in (2048, 1000):
+            bpc, n_blocks = ft.ray_grid(sizes, rpb)
+            ranges = _block_rays(sizes, rpb)
+            assert ranges.shape == (n_blocks, 2)
+            assert n_blocks == sum(-(-s // rpb) for s in sizes) <= len(sizes) * bpc
+            assert np.all(ranges[:, 1] > ranges[:, 0])  # no block starts without rays
+            assert np.all(ranges[:, 1] - ranges[:, 0] <= rpb)
+            assert ranges[0, 0] == 0 and ranges[-1, 1] == n
+            np.testing.assert_array_equal(ranges[1:, 0], ranges[:-1, 1])  # contiguous, no overlap
+    if kind == "cone":
+        sizes = [c[0] for c in ft.source_chunks(kind, n, n)]
+        assert sizes == [1 << 23, n - (1 << 23)] and ft.ray_grid(sizes, 2048) == (4096, 4883)
+
+
 @pytest.mark.parametrize("kind,extra", [("cone", {}), ("disk", {}),
                                         ("extended", {"n_each": 333, "n_sources": 61}),
                                         ("square", {"n_each": 127})])
