@@ -6,12 +6,23 @@
 // select decides on the value, and the tangent follows the chosen operand,
 // which is what JAX's linearize of the Pallas kernel does (jvp of where).
 //
-// The scalar overload sets below (sqrt_, fabs_, fmax_, fmin_, isfinite_,
-// val, add_rn, sub_rn, rsq) take float and Dual alike; their float forms are
-// the CUDA functions themselves, so the float instantiation compiles to the
-// code it compiled to before the templating. The _rn forms round the value
-// without contraction (Kahan step, delays) and take plain float arithmetic
-// on the tangents.
+// The scalar overload sets below (sqrt_, rsq, div_, fabs_, fmax_, fmin_,
+// isfinite_, val, add_rn, sub_rn) take float and Dual alike, and every Dual
+// form takes its value from the float form, so K6's primal is K7's bit for
+// bit. The _rn forms round the value without contraction (Kahan step,
+// delays) and take plain float arithmetic on the tangents.
+//
+// The special-function unit. An IEEE-rounded divide or square root is a
+// sequence of 8-20 issued operations with a slow-path check; the ray arithmetic
+// of trace_common.cuh takes its reciprocal square roots (rsq), the divides
+// inside the chain walk (div_) and the square roots of its quadratic seeds
+// (sqrt_) from the special-function unit instead (MUFU.RSQ, MUFU.RCP and a
+// multiply, MUFU.SQRT: at most 2 ulp), as the JAX kernels take theirs from
+// lax.rsqrt and a reciprocal of ~2-3 ulp (ops/surfaces._recip). Every one of
+// them feeds a Newton-polished root, a unit normal or a validity test, where
+// 2 ulp is far inside the kernel-vs-plain envelopes. The source law, the
+// Kahan optical path and the detector epilogue's 1 / (d.n) (fs-scale delays
+// hang on it) keep IEEE rounding: they use operator/ and sqrtf directly.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -91,10 +102,9 @@ ART_DUAL Dual<G> operator*(const Dual<G>& a, float b) {
 ART_DUAL Dual<G> operator*(float a, const Dual<G>& b) { return b * a; }
 
 // The factors only the tangents use come from the reciprocal unit
-// (tangent_rcp: MUFU.RCP, ~1 ulp) or from a product, never from a second
-// IEEE divide or square-root sequence: their error is far inside the
-// tangents' envelope (2e-3 of each statistic's largest), and the values stay
-// IEEE-rounded, as in the float instantiation. 1 / +-inf is 0.
+// (tangent_rcp: MUFU.RCP, ~1 ulp) or from a product, never from an IEEE
+// divide or square-root sequence: their error is far inside the tangents'
+// envelope (2e-3 of each statistic's largest). 1 / +-inf is 0.
 __device__ __forceinline__ float tangent_rcp(float b) { return __fdividef(1.0f, b); }
 
 // a / b with the tangent (a' - q b') / b, q = a / b: a divisor selected to
@@ -142,23 +152,56 @@ ART_DUAL_CMP(!=)
 __device__ __forceinline__ float val(float x) { return x; }
 ART_DUAL float val(const Dual<G>& x) { return x.v; }
 
-__device__ __forceinline__ float sqrt_(float x) { return sqrtf(x); }
+// square root of a quadratic seed's discriminant (a Newton step follows it)
+__device__ __forceinline__ float sqrt_(float x) {
+  float y;
+  asm("sqrt.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 ART_DUAL Dual<G> sqrt_(const Dual<G>& a) {
   Dual<G> r;
-  r.v = sqrtf(a.v);
+  r.v = sqrt_(a.v);
   const float h = 0.5f * tangent_rcp(r.v);
 #pragma unroll
   for (int i = 0; i < G; ++i) r.t[i] = a.t[i] * h;
   return r;
 }
 
-__device__ __forceinline__ float rsq(float x) { return 1.0f / sqrtf(x); }
+__device__ __forceinline__ float rsq(float x) { return rsqrtf(x); }
 ART_DUAL Dual<G> rsq(const Dual<G>& a) {
   Dual<G> r;
-  r.v = 1.0f / sqrtf(a.v);
+  r.v = rsq(a.v);
   const float h = -0.5f * r.v * r.v * r.v;  // d a^(-1/2) / da = -a^(-3/2) / 2
 #pragma unroll
   for (int i = 0; i < G; ++i) r.t[i] = a.t[i] * h;
+  return r;
+}
+
+// a / b inside the chain walk: a times the reciprocal unit's 1 / b. A divisor
+// selected to +-inf (a masked operand) gives 0 and a zero tangent, as in JAX.
+__device__ __forceinline__ float div_(float a, float b) { return __fdividef(a, b); }
+ART_DUAL Dual<G> div_(const Dual<G>& a, const Dual<G>& b) {
+  Dual<G> r;
+  r.v = div_(a.v, b.v);
+  const float inv = tangent_rcp(b.v);
+#pragma unroll
+  for (int i = 0; i < G; ++i) r.t[i] = (a.t[i] - r.v * b.t[i]) * inv;
+  return r;
+}
+ART_DUAL Dual<G> div_(const Dual<G>& a, float b) {
+  Dual<G> r;
+  r.v = div_(a.v, b);
+  const float inv = tangent_rcp(b);
+#pragma unroll
+  for (int i = 0; i < G; ++i) r.t[i] = a.t[i] * inv;
+  return r;
+}
+ART_DUAL Dual<G> div_(float a, const Dual<G>& b) {
+  Dual<G> r;
+  r.v = div_(a, b.v);
+  const float inv = tangent_rcp(b.v);
+#pragma unroll
+  for (int i = 0; i < G; ++i) r.t[i] = -r.v * b.t[i] * inv;
   return r;
 }
 

@@ -26,10 +26,11 @@
 // own (unfolded) steps and dead rays are not frozen at mirrors, as in the
 // JAX kernel; the source does not depend on the poses, so it enters with
 // zero tangents. Epilogue: stats_rows at distance 0 for alive rays (dead
-// rays are skipped, so no tangent of a dead ray reaches a sum). Each thread
-// sums 7 (1 + G) floats over its rays; the block reduces them in float64 to
-// one row, no atomics; the host sums the rows in float64. All chunks of 2^23
-// rays go in one launch, on a grid sized to the rays (block_rays).
+// rays are skipped, so no tangent of a dead ray reaches a sum; a warp of dead
+// rays leaves the chain early). Each thread sums 7 (1 + G) floats over its
+// rays; the block reduces them in float64 to one row (reduce_columns), no
+// atomics; the host sums the rows in float64. All chunks of 2^23 rays go in
+// one launch, on a grid sized to the rays (block_rays).
 //
 // Bound: pure arithmetic (K6 writes 7 (1 + G) doubles per 2048 rays and
 // group); its operation count is the primal's once per group plus, per
@@ -71,22 +72,33 @@ constexpr int MAX_TANGENTS = 6 * MAX_ELEMENTS;  // 3 angles and 3 shifts per ele
 // added to once per ray: volatile, so the compiler cannot hold the column in
 // registers across the ray loop, which frees them for the dual state. K7
 // keeps its 7 in registers.
+extern __shared__ float sums_smem[];  // K6: N x MOMENT_THREADS, one column per thread
+
 template <int N>
 struct RegisterSums {
   float v[N];
   __device__ __forceinline__ float& operator[](int m) { return v[m]; }
+  // the block's sums of every thread's N, one float64 row
+  __device__ __forceinline__ void reduce(double* __restrict__ row) const {
+    reduce_to_row<N>(v, row);
+  }
 };
+template <int N>
 struct SharedColumn {
   volatile float* col;
   __device__ __forceinline__ volatile float& operator[](int m) const {
     return col[m * MOMENT_THREADS];
   }
+  // the columns are the block reduction's input as they stand
+  __device__ __forceinline__ void reduce(double* __restrict__ row) const {
+    __syncthreads();
+    reduce_columns(sums_smem, N, row);
+  }
 };
 template <int N, bool SHARED>
 __device__ __forceinline__ auto thread_sums() {
   if constexpr (SHARED) {
-    extern __shared__ float sums_smem[];  // N x MOMENT_THREADS, one column per thread
-    return SharedColumn{sums_smem + threadIdx.x};
+    return SharedColumn<N>{sums_smem + threadIdx.x};
   } else {
     return RegisterSums<N>{};
   }
@@ -123,7 +135,7 @@ stats_params_kernel(const __grid_constant__ ChainP ch, const __grid_constant__ S
   }
   __syncthreads();
   const S* det = pose + 12 * ch.n_elements;  // centre, normal, e1, e2
-  const BlockRays br = block_rays(blocks_per_chunk);
+  const BlockRays br = block_rays<MOMENT_RAYS_PER_BLOCK>(blocks_per_chunk);
   const float2 cp = chunk_params[br.chunk];
   auto acc = thread_sums<N_OUT, (G > 0)>();
 #pragma unroll
@@ -144,10 +156,7 @@ stats_params_kernel(const __grid_constant__ ChainP ch, const __grid_constant__ S
       }
     }
   });
-  float sums[N_OUT];
-#pragma unroll
-  for (int m = 0; m < N_OUT; ++m) sums[m] = acc[m];
-  reduce_to_row<N_OUT>(sums, rows + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * N_OUT);
+  acc.reduce(rows + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * N_OUT);
 }
 
 template <int G>

@@ -17,8 +17,9 @@
 //     references, the Gaussian weight coefficient (0 gives weight 1) and the
 //     chunk's spiral offsets.
 //   Masks are their own (unfolded) steps, as in the JAX kernel; the weight is
-//   exp(aux[ln edge] * rr); dead rays are skipped; one float64 row of the 16
-//   moments per block, no atomics; the host sums rows in float64.
+//   exp(aux[ln edge] * rr); dead rays are skipped (a warp of dead rays leaves
+//   the chain early); one float64 row of the 16 moments per block, no
+//   atomics; the host sums rows in float64.
 //
 //   Bound: like K2 it reads 4 B per pose scalar per block and writes 128 B
 //   per 2048 rays, so the per-ray arithmetic bounds it (PERF.md works the
@@ -53,7 +54,7 @@ scan_moments_kernel(const __grid_constant__ ChainP ch, const __grid_constant__ S
   const int n_scal = 12 * ch.n_elements + 12;
   for (int i = threadIdx.x; i < n_scal; i += MOMENT_THREADS) pose[i] = svec[i];
   __syncthreads();
-  const BlockRays br = block_rays(blocks_per_chunk);
+  const BlockRays br = block_rays<MOMENT_RAYS_PER_BLOCK>(blocks_per_chunk);
   const float* a = aux + br.chunk * N_AUX;
   SourceP src = law;
   const float r = a[AUX_RADIUS];

@@ -8,32 +8,47 @@
 //   Bound: it reads nothing per ray and writes 37 B/ray (p, d: 24 B, opl,
 //   opl_c, incidence: 12 B, alive: 1 B); against that store stream stands the
 //   per-ray arithmetic (a grazing toroid takes a quadratic seed, a Newton
-//   step and ~5 IEEE divides/square roots), which PERF.md finds to be the
-//   bound on the H100. Design: the chain rides in the kernel's parameter space
+//   step, 4 reciprocal square roots and 2 divides), which PERF.md finds to be
+//   the bound on the H100. Design: the chain rides in the kernel's parameter space
 //   (__grid_constant__, constant-cache broadcasts, warp-uniform reads) and
 //   the state lives in registers; nothing is staged in memory.
 //
 // K2 fused_source_moments_kernel replaces
 //   ops/pallas_trace.py::_kernel_source_moments (pallas_call at :1015).
 //   The same trace without incidence, the Gaussian weight exp(ln_edge * rr)
-//   and the 16 weighted detector moments. Each thread accumulates its rays
-//   (MOMENT_RAYS_PER_THREAD, dead rays skipped by a branch) in float32; the
-//   block reduces in float64 (reduce_to_row) and writes one row of 16
-//   doubles; no atomics, so the result is deterministic. The host sums the
-//   rows in float64. Bound: pure arithmetic, it writes 128 B per 2048 rays.
-//   Chunks of 2^23 rays keep each local ray index float-exact; all chunks go
-//   in one launch (blockIdx.y = chunk).
+//   and the 16 weighted detector moments. Bound: pure arithmetic, it reads
+//   nothing per ray and writes 128 B per block, and on this card the
+//   arithmetic is bound by what an SM issues per ray (4 warp issue slots per
+//   clock), not by latency. The design takes as few slots as it can: reciprocal square roots, the chain's divides and seed square
+//   roots from the special-function unit (dual.cuh); a warp whose rays all
+//   died at the mask leaves the chain (trace_chain_maps WARP_EXIT); each
+//   thread accumulates K2_RAYS_PER_THREAD rays in float32 and the block
+//   reduces in float64 through shared columns (reduce_columns), so the
+//   epilogue costs per block; the grid is sized to the rays (block_rays), no
+//   block starts empty. One row of 16 doubles per block, no atomics, so the
+//   result is deterministic; the host sums the rows in float64. Chunks of
+//   2^23 rays keep each local ray index float-exact; all chunks go in one
+//   launch.
 //
 // K8 fused_source_stats_kernel replaces
 //   ops/pallas_trace.py::_kernel_source_stats (pallas_call at :968), the
-//   per-distance stats baseline that K2 replaced on the main path. K2's
+//   per-distance stats baseline that K2 replaced on the main path: K2's
 //   trace, then the stats epilogue (stats_rows) at J <= 128 runtime
-//   (distance, delay offset) pairs: 7 weighted sums per distance. 7 J
-//   accumulators do not fit in registers, so each block takes a group of
-//   STATS_GROUP = 8 distances (blockIdx.z) and every group retraces its rays:
-//   the cost grows with ceil(J / 8), the property for which K2 (J-independent
-//   moments) replaced this kernel. Bound: pure arithmetic, like K2; it writes
-//   448 B per 2048 rays and group.
+//   (distance, delay offset) pairs, 7 weighted sums per distance. Bound: pure
+//   arithmetic like K2, one trace per ray and 21 operations per alive ray and
+//   distance; it writes 56 J B per block. 7 J sums do not fit a thread's
+//   registers, so the kernel runs in two phases. Phase 1 traces each of the
+//   thread's K8_RAYS_PER_THREAD rays once, whatever J is, and keeps what the
+//   distances need of an alive ray, its StatsGeom and weight (8 floats), in
+//   the thread's column of dynamic shared memory (48 KB a block and 7 KB of
+//   reduction columns: 4 blocks, 32 warps per SM, as many as its 61
+//   registers allow; more rays per thread amortise phase 2's reductions
+//   further but cost phase 1 its warps). A block none of whose rays survived
+//   writes zeros and stops. Phase 2 walks the distances in tiles of K8_TILE:
+//   a tile's 7 K8_TILE sums over the thread's kept rays fit in registers
+//   (one shared-memory read of a ray serves the whole tile), and each
+//   distance's 7 columns go through the block reduction, which costs per
+//   block. Rows are (blocks, J, 7) doubles.
 //
 // This file also carries the library's shared C entry points (record sizes,
 // error strings).
@@ -56,79 +71,130 @@ fused_source_trace_kernel(const __grid_constant__ ChainP ch, const __grid_consta
   Ray s;
   float rr;
   synth_source(src, k, phase, k_frac, s, rr);
-  trace_chain<true>(ch, s);
+  trace_chain<true, false>(ch, s);
   store_lab(ch, s, k, p, d, opl, opl_c, alive, inc);
 }
+
+constexpr int K2_RAYS_PER_THREAD = 16;
+constexpr int K2_RAYS_PER_BLOCK = MOMENT_THREADS * K2_RAYS_PER_THREAD;
 
 __global__ void __launch_bounds__(MOMENT_THREADS)
 fused_source_moments_kernel(const __grid_constant__ ChainP ch, const __grid_constant__ SourceP src,
                             const __grid_constant__ DetectorP det, int n_rays, int chunk,
-                            const float2* __restrict__ chunk_params, double* __restrict__ rows) {
-  const int c = blockIdx.y;
-  const int n_local = min(chunk, n_rays - c * chunk);
-  const float2 cp = chunk_params[c];
+                            int blocks_per_chunk, const float2* __restrict__ chunk_params,
+                            double* __restrict__ rows) {
+  const BlockRays br = block_rays<K2_RAYS_PER_BLOCK>(blocks_per_chunk);
+  const float2 cp = chunk_params[br.chunk];
   float acc[N_MOMENTS];
 #pragma unroll
   for (int m = 0; m < N_MOMENTS; ++m) acc[m] = 0.0f;
-  const int base = blockIdx.x * MOMENT_RAYS_PER_BLOCK + threadIdx.x;
-  for (int j = 0; j < MOMENT_RAYS_PER_THREAD; ++j) {
-    const int k = base + j * MOMENT_THREADS;
-    if (k >= n_local) break;
-    Ray s;
-    float rr;
-    synth_source(src, k, cp.x, cp.y, s, rr);
-    trace_chain<false>(ch, s);
-    if (!s.alive) continue;
-    const float w = src.weighted ? expf(src.ln_edge * rr) : 1.0f;
-    add_moments(det, s, w, acc);
-  }
-  reduce_to_row<N_MOMENTS>(acc, rows + ((size_t)c * gridDim.x + blockIdx.x) * N_MOMENTS);
+  for_thread_rays<K2_RAYS_PER_THREAD>(
+      br.first, min(chunk, n_rays - br.chunk * chunk), [&](int k, bool in_range) {
+        Ray s;
+        float rr;
+        synth_source(src, k, cp.x, cp.y, s, rr);
+        s.alive = in_range;
+        trace_chain<false, true>(ch, s);
+        if (!s.alive) return;
+        const float w = src.weighted ? expf(src.ln_edge * rr) : 1.0f;
+        add_moments(det, s, w, acc);
+      });
+  reduce_to_row<N_MOMENTS>(acc, rows + (size_t)blockIdx.x * N_MOMENTS);
 }
 
-constexpr int STATS_GROUP = 8;
-constexpr int STATS_ROW = STATS_GROUP * N_STATS;
+constexpr int K8_RAYS_PER_THREAD = 6;
+constexpr int K8_RAYS_PER_BLOCK = MOMENT_THREADS * K8_RAYS_PER_THREAD;
+constexpr int K8_TILE = 4;   // distances per pass over a thread's kept rays
+constexpr int N_KEPT = 8;    // floats kept per alive ray: StatsGeom's 7 and the weight
+constexpr int MAX_STATS_DISTANCES = 128;
+// kept rays (K8_RAYS_PER_THREAD x N_KEPT columns), then one distance's 7 columns
+constexpr int K8_SMEM_FLOATS = (K8_RAYS_PER_THREAD * N_KEPT + N_STATS) * MOMENT_THREADS;
+
+extern __shared__ float stats_smem[];
 
 __global__ void __launch_bounds__(MOMENT_THREADS)
 fused_source_stats_kernel(const __grid_constant__ ChainP ch, const __grid_constant__ SourceP src,
-                          const __grid_constant__ DetectorP det, int n_rays, int chunk, int n_dist,
+                          const __grid_constant__ DetectorP det, int n_rays, int chunk,
+                          int blocks_per_chunk, int n_dist,
                           const float2* __restrict__ chunk_params,
                           const float2* __restrict__ dist_params, double* __restrict__ rows) {
-  const int c = blockIdx.y;
-  const int j0 = blockIdx.z * STATS_GROUP;
-  const int nj = min(STATS_GROUP, n_dist - j0);
-  const int n_local = min(chunk, n_rays - c * chunk);
-  const float2 cp = chunk_params[c];
-  float2 dp[STATS_GROUP];  // (distance, delay offset) of this block's group
+  float* kept = stats_smem + threadIdx.x;  // field f of kept ray i at kept[(i * N_KEPT + f) * MOMENT_THREADS]
+  float* cols = stats_smem + K8_RAYS_PER_THREAD * N_KEPT * MOMENT_THREADS;
+  const BlockRays br = block_rays<K8_RAYS_PER_BLOCK>(blocks_per_chunk);
+  const float2 cp = chunk_params[br.chunk];
+  // phase 1: one trace per ray; alive rays are kept in order, dead ones dropped
+  int n_kept = 0;
+  for_thread_rays<K8_RAYS_PER_THREAD>(
+      br.first, min(chunk, n_rays - br.chunk * chunk), [&](int k, bool in_range) {
+        Ray s;
+        float rr;
+        synth_source(src, k, cp.x, cp.y, s, rr);
+        s.alive = in_range;
+        trace_chain<false, true>(ch, s);
+        if (!s.alive) return;
+        const StatsGeom<float> g = stats_geometry(det.c, det.n, det.e1, det.e2, det.opl_ref, s);
+        float* ray = kept + n_kept * N_KEPT * MOMENT_THREADS;
+        ray[0 * MOMENT_THREADS] = g.t0;
+        ray[1 * MOMENT_THREADS] = g.inv_dn;
+        ray[2 * MOMENT_THREADS] = g.a1;
+        ray[3 * MOMENT_THREADS] = g.a2;
+        ray[4 * MOMENT_THREADS] = g.g1;
+        ray[5 * MOMENT_THREADS] = g.g2;
+        ray[6 * MOMENT_THREADS] = g.dsmall;
+        ray[7 * MOMENT_THREADS] = src.weighted ? expf(src.ln_edge * rr) : 1.0f;
+        ++n_kept;
+      });
+  double* row = rows + (size_t)blockIdx.x * n_dist * N_STATS;
+  // a block none of whose rays survived (a mask kills whole rings of the
+  // spiral, so whole blocks) writes its zeros without the distance loop
+  if (__syncthreads_or(n_kept) == 0) {
+    for (int m = threadIdx.x; m < n_dist * N_STATS; m += MOMENT_THREADS) row[m] = 0.0;
+    return;
+  }
+  // phase 2: the distances, a tile at a time
+  for (int j0 = 0; j0 < n_dist; j0 += K8_TILE) {
+    const int nt = min(K8_TILE, n_dist - j0);
+    float2 dp[K8_TILE];  // (distance, delay offset)
+    float acc[K8_TILE][N_STATS];
 #pragma unroll
-  for (int j = 0; j < STATS_GROUP; ++j)
-    dp[j] = j < nj ? dist_params[j0 + j] : make_float2(0.0f, 0.0f);
-  float acc[STATS_ROW];
+    for (int t = 0; t < K8_TILE; ++t) {
+      dp[t] = t < nt ? dist_params[j0 + t] : make_float2(0.0f, 0.0f);
 #pragma unroll
-  for (int m = 0; m < STATS_ROW; ++m) acc[m] = 0.0f;
-  const int base = blockIdx.x * MOMENT_RAYS_PER_BLOCK + threadIdx.x;
-  for (int r = 0; r < MOMENT_RAYS_PER_THREAD; ++r) {
-    const int k = base + r * MOMENT_THREADS;
-    if (k >= n_local) break;
-    Ray s;
-    float rr;
-    synth_source(src, k, cp.x, cp.y, s, rr);
-    trace_chain<false>(ch, s);
-    if (!s.alive) continue;
-    const float w = src.weighted ? expf(src.ln_edge * rr) : 1.0f;
-    const StatsGeom<float> g = stats_geometry(det.c, det.n, det.e1, det.e2, det.opl_ref, s);
+      for (int f = 0; f < N_STATS; ++f) acc[t][f] = 0.0f;
+    }
+    for (int i = 0; i < n_kept; ++i) {
+      const float* ray = kept + i * N_KEPT * MOMENT_THREADS;
+      StatsGeom<float> g;
+      g.t0 = ray[0 * MOMENT_THREADS];
+      g.inv_dn = ray[1 * MOMENT_THREADS];
+      g.a1 = ray[2 * MOMENT_THREADS];
+      g.a2 = ray[3 * MOMENT_THREADS];
+      g.g1 = ray[4 * MOMENT_THREADS];
+      g.g2 = ray[5 * MOMENT_THREADS];
+      g.dsmall = ray[6 * MOMENT_THREADS];
+      const float w = ray[7 * MOMENT_THREADS];
 #pragma unroll
-    for (int j = 0; j < STATS_GROUP; ++j) {
-      if (j < nj) {
-        const float tj = g.t0 - dp[j].x * g.inv_dn;
-        float terms[N_STATS];
-        stats_terms(g, tj, sub_rn(add_rn(g.dsmall, tj), dp[j].y), w, terms);
+      for (int t = 0; t < K8_TILE; ++t) {
+        if (t < nt) {
+          const float tj = g.t0 - dp[t].x * g.inv_dn;
+          float terms[N_STATS];
+          stats_terms(g, tj, sub_rn(add_rn(g.dsmall, tj), dp[t].y), w, terms);
 #pragma unroll
-        for (int f = 0; f < N_STATS; ++f) acc[j * N_STATS + f] += terms[f];
+          for (int f = 0; f < N_STATS; ++f) acc[t][f] += terms[f];
+        }
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < K8_TILE; ++t) {
+      if (t < nt) {  // block-uniform
+        __syncthreads();  // the distance before this one is reduced
+#pragma unroll
+        for (int f = 0; f < N_STATS; ++f) cols[f * MOMENT_THREADS + threadIdx.x] = acc[t][f];
+        __syncthreads();
+        reduce_columns(cols, N_STATS, row + (j0 + t) * N_STATS);
       }
     }
   }
-  const size_t row = ((size_t)c * gridDim.x + blockIdx.x) * gridDim.z + blockIdx.z;
-  reduce_to_row<STATS_ROW>(acc, rows + row * STATS_ROW);
 }
 
 }  // namespace art
@@ -137,17 +203,21 @@ using namespace art;
 
 extern "C" {
 
-// Version of this C interface; ops/_cuda.py loads only its own. Version 2:
-// the runtime-pose kernels (K5-K7) take a grid sized to the rays and K6 all
-// tangent rows of a gradient step. Libraries without this entry point have
-// version 1's signatures (utils/kernel_ab.py binds them for A/B runs).
-int art_abi_version() { return 2; }
+// Version of this C interface; ops/_cuda.py loads only its own. Version 3:
+// K2 and K8 take a grid sized to the rays with their own rays per block, and
+// K8 traces each ray once for all its distances (rows (blocks, J, 7)).
+// Version 2 gave K5-K7 the sized grid and K6 all tangent rows of a gradient
+// step; libraries without this entry point have version 1's signatures
+// (utils/kernel_ab.py binds both older versions for A/B runs).
+int art_abi_version() { return 3; }
 
 size_t art_chain_params_size() { return sizeof(ChainP); }
 size_t art_source_params_size() { return sizeof(SourceP); }
 size_t art_detector_params_size() { return sizeof(DetectorP); }
+// rays per block of K5-K7, of K2 and of K8 (ops/fused_trace.ray_grid)
 int art_moment_rays_per_block() { return MOMENT_RAYS_PER_BLOCK; }
-int art_stats_group() { return STATS_GROUP; }
+int art_source_moments_rays_per_block() { return K2_RAYS_PER_BLOCK; }
+int art_source_stats_rays_per_block() { return K8_RAYS_PER_BLOCK; }
 const char* art_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 // The records are host bytes laid out as the structs above (checked against
@@ -163,32 +233,39 @@ int art_launch_fused_source_trace(const void* chain, const void* source, int n_r
   return (int)cudaGetLastError();
 }
 
+// K2: chunk_params (n_chunks x 2) and rows (n_blocks x 16) are device
+// pointers; the grid is n_blocks blocks, blocks_per_chunk for each full chunk
+// (ops/fused_trace.ray_grid at art_source_moments_rays_per_block).
 int art_launch_fused_source_moments(const void* chain, const void* source, const void* detector,
-                                    int n_rays, int chunk, int n_chunks, const float* chunk_params,
-                                    double* rows, int blocks_per_chunk, void* stream) {
+                                    int n_rays, int chunk, int blocks_per_chunk, int n_blocks,
+                                    const float* chunk_params, double* rows, void* stream) {
   const ChainP ch = *static_cast<const ChainP*>(chain);
   const SourceP src = *static_cast<const SourceP*>(source);
   const DetectorP det = *static_cast<const DetectorP*>(detector);
-  const dim3 grid(blocks_per_chunk, n_chunks);
-  fused_source_moments_kernel<<<grid, MOMENT_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      ch, src, det, n_rays, chunk, reinterpret_cast<const float2*>(chunk_params), rows);
+  fused_source_moments_kernel<<<n_blocks, MOMENT_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      ch, src, det, n_rays, chunk, blocks_per_chunk,
+      reinterpret_cast<const float2*>(chunk_params), rows);
   return (int)cudaGetLastError();
 }
 
-// K8: rows hold, per block (chunk, block, group of distances), one row of
-// STATS_GROUP x 7 doubles; chunk_params (n_chunks x 2) and dist_params
-// (n_dist x 2: distance, delay offset) are device pointers.
+// K8: rows hold, per block, one row of n_dist x 7 doubles; chunk_params
+// (n_chunks x 2) and dist_params (n_dist x 2: distance, delay offset) are
+// device pointers; the grid as K2's, at art_source_stats_rays_per_block.
 int art_launch_fused_source_stats(const void* chain, const void* source, const void* detector,
-                                  int n_rays, int chunk, int n_chunks, const float* chunk_params,
-                                  const float* dist_params, int n_dist, double* rows,
-                                  int blocks_per_chunk, void* stream) {
-  if (n_dist < 1) return (int)cudaErrorInvalidValue;
+                                  int n_rays, int chunk, int blocks_per_chunk, int n_blocks,
+                                  const float* chunk_params, const float* dist_params, int n_dist,
+                                  double* rows, void* stream) {
+  if (n_dist < 1 || n_dist > MAX_STATS_DISTANCES) return (int)cudaErrorInvalidValue;
   const ChainP ch = *static_cast<const ChainP*>(chain);
   const SourceP src = *static_cast<const SourceP*>(source);
   const DetectorP det = *static_cast<const DetectorP*>(detector);
-  const dim3 grid(blocks_per_chunk, n_chunks, (n_dist + STATS_GROUP - 1) / STATS_GROUP);
-  fused_source_stats_kernel<<<grid, MOMENT_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      ch, src, det, n_rays, chunk, n_dist, reinterpret_cast<const float2*>(chunk_params),
+  constexpr int smem = K8_SMEM_FLOATS * (int)sizeof(float);
+  const cudaError_t status = cudaFuncSetAttribute(
+      fused_source_stats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (status != cudaSuccess) return (int)status;
+  fused_source_stats_kernel<<<n_blocks, MOMENT_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      ch, src, det, n_rays, chunk, blocks_per_chunk, n_dist,
+      reinterpret_cast<const float2*>(chunk_params),
       reinterpret_cast<const float2*>(dist_params), rows);
   return (int)cudaGetLastError();
 }

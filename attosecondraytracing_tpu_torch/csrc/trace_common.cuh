@@ -20,12 +20,17 @@
 // same code. Predicates (hits, supports, the alive mask, the minimum ray
 // parameter) decide on values only.
 //
-// Rounding notes. Compiled without --use_fast_math: division and sqrtf are
-// IEEE-rounded. Products and sums may contract to FMA, which moves hits by
-// ulps (inside the kernel-vs-plain envelopes). The two places where
-// contraction would change the algorithm are written with _rn intrinsics,
-// which are never contracted: the Kahan OPL step and the source law (so ray
-// k leaves the source exactly as in the plain version and the JAX package).
+// Rounding notes. Compiled without --use_fast_math: operator/ and sqrtf are
+// IEEE-rounded, and the source law and the detector epilogues use them. The
+// chain walk takes its reciprocal square roots, divides and seed square
+// roots from the special-function unit (rsq, div_, sqrt_ of dual.cuh, <= 2
+// ulp): an IEEE sequence costs 8-20 issue slots, and these kernels are
+// bound by the slots they take per ray. Products and sums may
+// contract to FMA, which moves hits by ulps (inside the kernel-vs-plain
+// envelopes). The two places where contraction would change the algorithm
+// are written with _rn intrinsics, which are never contracted: the Kahan OPL
+// step and the source law (so ray k leaves the source exactly as in the
+// plain version and the JAX package).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -128,6 +133,79 @@ __device__ __forceinline__ void kahan_add(S& s, S& c, S x) {
   s = t;
 }
 
+// ---------------------------------------------------------------------------
+// the summing kernels' blocks (K2, K5-K8): rays per block, the ray loop, the
+// block reduction
+// ---------------------------------------------------------------------------
+
+constexpr int MOMENT_THREADS = 256;
+// rays per thread of the runtime-pose kernels K5-K7
+constexpr int MOMENT_RAYS_PER_THREAD = 8;
+constexpr int MOMENT_RAYS_PER_BLOCK = MOMENT_THREADS * MOMENT_RAYS_PER_THREAD;
+
+// A grid sized to the rays: blocks_per_chunk blocks for every full chunk and
+// only as many as the last chunk's rays fill, so no block starts empty.
+// Block b serves chunk b / blocks_per_chunk; this thread's first local ray
+// follows (ops/fused_trace.ray_grid sizes the grid).
+struct BlockRays {
+  int chunk;
+  int first;
+};
+template <int RAYS_PER_BLOCK>
+__device__ __forceinline__ BlockRays block_rays(int blocks_per_chunk) {
+  const int b = blockIdx.x;
+  const int c = b / blocks_per_chunk;
+  return {c, (b - c * blocks_per_chunk) * RAYS_PER_BLOCK + (int)threadIdx.x};
+}
+
+// This thread's rays of its block: body(k, in_range) for the local rays k =
+// first + r * MOMENT_THREADS, r < RAYS_PER_THREAD. The loop is warp-uniform:
+// a warp's lanes hold consecutive rays and leave together once the warp's
+// first ray is past the chunk's n_local rays, so full-mask votes and shuffles
+// are safe inside body; a lane past the end runs body with in_range false
+// (its ray enters the chain dead).
+template <int RAYS_PER_THREAD, typename Body>
+__device__ __forceinline__ void for_thread_rays(int first, int n_local, Body&& body) {
+  const int lane = threadIdx.x & 31;
+  for (int r = 0; r < RAYS_PER_THREAD; ++r) {
+    const int k = first + r * MOMENT_THREADS;
+    if (k - lane >= n_local) break;
+    body(k, k < n_local);
+  }
+}
+
+// Block reduction of n_cols columns of per-thread float32 sums (cols: n_cols
+// x MOMENT_THREADS floats of shared memory, thread t's sum m at cols[m *
+// MOMENT_THREADS + t], written and __syncthreads()-ed by the caller) to one
+// row of float64. Each warp takes columns; each lane adds its 8 of a
+// column's 256 entries in float64, then one 5-step shuffle per column and
+// warp: the shuffles (64-bit: two shuffles each, one warp shuffle per
+// clock and SM) cost per block and column, not per thread and column. A
+// fixed order and no atomics, so the result is deterministic.
+__device__ __forceinline__ void reduce_columns(const float* cols, int n_cols,
+                                               double* __restrict__ row) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int m = warp; m < n_cols; m += MOMENT_THREADS / 32) {
+    const float* col = cols + m * MOMENT_THREADS + lane;
+    double v = 0.0;
+#pragma unroll
+    for (int i = 0; i < MOMENT_THREADS / 32; ++i) v += (double)col[32 * i];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+    if (lane == 0) row[m] = v;
+  }
+}
+
+// the same for N sums a thread holds in registers
+template <int N>
+__device__ __forceinline__ void reduce_to_row(const float* acc, double* __restrict__ row) {
+  __shared__ float cols[N * MOMENT_THREADS];
+#pragma unroll
+  for (int m = 0; m < N; ++m) cols[m * MOMENT_THREADS + threadIdx.x] = acc[m];
+  __syncthreads();
+  reduce_columns(cols, N, row);
+}
+
 __device__ __forceinline__ bool in_disk(float r2, float x, float y) { return x * x + y * y <= r2; }
 
 __device__ __forceinline__ bool in_rect(float hx, float hy, float x, float y) {
@@ -165,7 +243,7 @@ __device__ __forceinline__ void affine(const MT* M, const MT* b, const RayT<S>& 
 
 template <typename S>
 __device__ __forceinline__ S plane_t(S qz, S uz) {
-  return -qz / (fabs_(uz) > 1e-30f ? uz : S(CUDART_INF_F));
+  return div_(-qz, fabs_(uz) > 1e-30f ? uz : S(CUDART_INF_F));
 }
 
 // ---------------------------------------------------------------------------
@@ -227,13 +305,13 @@ __device__ __forceinline__ HitT<S> toroid_hit(const ElementP& el, S qx, S qy, S 
   const bool pick1 = !v2 || (v1 && t1_nearer);
   const S num = pick1 ? n1 : n2;
   const S den = pick1 ? d1 : d2;
-  S t = ok ? (den != 0.0f ? num / den : S(0.0f)) : S(-1.0f);
+  S t = ok ? (den != 0.0f ? div_(num, den) : S(0.0f)) : S(-1.0f);
   // one Newton correction (the seed converges in one), differentiated
   // through the step, as JAX differentiates the kernel
   {
     S g, gp;
     toroid_residual(R, r, qx + t * ux, qy + t * uy, qz + t * uz, ux, uy, uz, g, gp);
-    t = t - g * (fabs_(gp) > 1e-12f ? 1.0f / gp : S(0.0f));
+    t = t - g * (fabs_(gp) > 1e-12f ? div_(1.0f, gp) : S(0.0f));
   }
   // one shared evaluation: validity residual, hit point, normal
   HitT<S> h;
@@ -282,9 +360,9 @@ __device__ __forceinline__ void quadric_coeffs(const ElementP& el, S x, S y, S z
       c = y * y + z * z - k[1];
       break;
     default:  // ELEM_ELLIPSOID {1/a^2, 1/b^2, a^2, b^2}
-      a = (uy * uy + uz * uz) / k[3] + ux * ux / k[2];
-      b = 2.0f * ((uy * y + uz * z) / k[3] + ux * x / k[2]);
-      c = (y * y + z * z) / k[3] + x * x / k[2] - 1.0f;
+      a = div_(uy * uy + uz * uz, k[3]) + div_(ux * ux, k[2]);
+      b = 2.0f * (div_(uy * y + uz * z, k[3]) + div_(ux * x, k[2]));
+      c = div_(y * y + z * z, k[3]) + div_(x * x, k[2]) - 1.0f;
       break;
   }
 }
@@ -296,8 +374,8 @@ __device__ __forceinline__ void quadric_residual(const ElementP& el, S x, S y, S
   const float* k = el.s;
   switch (el.kind) {
     case ELEM_PARABOLA: {
-      const S h = z - (x * x + y * y) / k[1];
-      const S hp = uz - (x * ux + y * uy) / k[0];
+      const S h = z - div_(x * x + y * y, k[1]);
+      const S hp = uz - div_(x * ux + y * uy, k[0]);
       const S scale = k[0] * rsq(x * x + y * y + k[2]);
       g = h * scale;
       gp = hp * scale;
@@ -375,8 +453,8 @@ __device__ __forceinline__ void solve_quadratic(S a, S b, S c, S& t1, S& t2) {
   const S num1 = linear ? -c : qq;
   const S den1 = linear ? (fabs_(b) > tiny ? b : S(CUDART_INF_F))
                         : (fabs_(a) > tiny ? a : S(CUDART_INF_F));
-  t1 = num1 / den1;
-  t2 = linear ? S(CUDART_INF_F) : c / (fabs_(qq) > tiny ? qq : S(CUDART_INF_F));
+  t1 = div_(num1, den1);
+  t2 = linear ? S(CUDART_INF_F) : div_(c, fabs_(qq) > tiny ? qq : S(CUDART_INF_F));
   if (!ok) {
     t1 = S(CUDART_NAN_F);
     t2 = S(CUDART_NAN_F);
@@ -402,7 +480,7 @@ __device__ __forceinline__ HitT<S> quadric_hit(const ElementP& el, S qx, S qy, S
       S g, gp;
       quadric_residual(el, qx + t * ux, qy + t * uy, qz + t * uz, ux, uy, uz, g, gp);
       g_abs = fabsf(val(g));
-      t = t - g / (fabs_(gp) > 1e-12f ? gp : S(CUDART_INF_F));
+      t = t - div_(g, fabs_(gp) > 1e-12f ? gp : S(CUDART_INF_F));
     }
     const S x = qx + t * ux, y = qy + t * uy, z = qz + t * uz;
     // branch filter: the paraboloid takes every root, the others z < 0
@@ -531,7 +609,15 @@ struct PoseMaps {
 // Trace one ray through the chain; the state stays patch-relative to the
 // last element. Dead rays are not frozen at mirrors (their values are
 // unspecified and every consumer masks by alive); mask steps freeze.
-template <bool WANT_INCIDENCE, typename S, typename Maps>
+//
+// WARP_EXIT (the kernels that only sum alive rays: K2, K5-K8): a warp whose
+// 32 rays are all dead leaves the chain before the next element. A warp's
+// rays are consecutive points of the source's spiral, one thin ring, so a
+// round mask or hole keeps or kills them together (the flagship loses 51 %
+// of its rays, as whole warps at its mask, before its two toroids). The
+// caller's ray loop must be warp-uniform (for_thread_rays): the vote names
+// all 32 lanes.
+template <bool WANT_INCIDENCE, bool WARP_EXIT, typename S, typename Maps>
 __device__ __forceinline__ void trace_chain_maps(const ChainP& ch, const Maps& maps, RayT<S>& s) {
   for (int i = 0; i < ch.n_elements; ++i) {
     const ElementP& el = ch.el[i];
@@ -552,6 +638,7 @@ __device__ __forceinline__ void trace_chain_maps(const ChainP& ch, const Maps& m
       }
       t_eps = t_floor + T_EPS;
     }
+    if (WARP_EXIT && !__any_sync(0xffffffffu, s.alive)) return;
     S qx, qy, qz, ux, uy, uz;
     affine(maps.M(i), maps.b(i), s, qx, qy, qz, ux, uy, uz);
     if (el.kind == ELEM_MASK) {
@@ -595,9 +682,9 @@ __device__ __forceinline__ void trace_chain_maps(const ChainP& ch, const Maps& m
 }
 
 // the chain walk with the maps of the chain record
-template <bool WANT_INCIDENCE>
+template <bool WANT_INCIDENCE, bool WARP_EXIT>
 __device__ __forceinline__ void trace_chain(const ChainP& ch, Ray& s) {
-  trace_chain_maps<WANT_INCIDENCE>(ch, TableMaps{ch}, s);
+  trace_chain_maps<WANT_INCIDENCE, WARP_EXIT>(ch, TableMaps{ch}, s);
 }
 
 // Write ray k of a traced state: patch-relative frame K -> lab,
@@ -625,9 +712,6 @@ __device__ __forceinline__ void store_lab(const ChainP& ch, const Ray& s, int k,
 // ---------------------------------------------------------------------------
 
 constexpr int N_MOMENTS = 16;
-constexpr int MOMENT_THREADS = 256;
-constexpr int MOMENT_RAYS_PER_THREAD = 8;
-constexpr int MOMENT_RAYS_PER_BLOCK = MOMENT_THREADS * MOMENT_RAYS_PER_THREAD;
 
 // ops/fused_trace.moment_rows for one alive ray, about the detector plane
 // (centre c, normal n, axes e1, e2) in the last element's frame
@@ -730,31 +814,6 @@ __device__ __forceinline__ void stats_terms(const StatsGeom<S>& g, S tj, S dj, f
   out[6] = wd * dj;
 }
 
-// Block reduction of the threads' N float32 sums in float64: warp
-// shuffles, then one row per warp in shared memory, summed by the first
-// warp; threads m < N write row[m]. No atomics, so the result is
-// deterministic.
-template <int N>
-__device__ __forceinline__ void reduce_to_row(const float* acc, double* __restrict__ row) {
-  static_assert(N <= MOMENT_THREADS, "one thread per output column");
-  __shared__ double part[MOMENT_THREADS / 32][N];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int m = 0; m < N; ++m) {
-    double v = (double)acc[m];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-    if (lane == 0) part[warp][m] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x < N) {
-    double v = 0.0;
-#pragma unroll
-    for (int w = 0; w < MOMENT_THREADS / 32; ++w) v += part[w][threadIdx.x];
-    row[threadIdx.x] = v;
-  }
-}
-
 // ---------------------------------------------------------------------------
 // runtime-pose kernels (K5, K6, K7): every pose a runtime value
 // ---------------------------------------------------------------------------
@@ -762,20 +821,6 @@ __device__ __forceinline__ void reduce_to_row(const float* acc, double* __restri
 // the pose vector svec: 12 scalars per element (M row-major, b), then the
 // detector centre, normal, e1, e2 in the last element's frame
 constexpr int MAX_SCALARS = 12 * MAX_ELEMENTS + 12;
-
-// A grid sized to the rays: blocks_per_chunk blocks for every full chunk and
-// only as many as the last chunk's rays fill, so no block starts empty.
-// Block b serves chunk b / blocks_per_chunk; this thread's first local ray
-// follows (ops/fused_trace.ray_grid sizes the grid).
-struct BlockRays {
-  int chunk;
-  int first;
-};
-__device__ __forceinline__ BlockRays block_rays(int blocks_per_chunk) {
-  const int b = blockIdx.x;
-  const int c = b / blocks_per_chunk;
-  return {c, (b - c * blocks_per_chunk) * MOMENT_RAYS_PER_BLOCK + (int)threadIdx.x};
-}
 
 // The body K5, K6 and K7 share: this thread's rays of one chunk, synthesized
 // from the source record, traced with the element maps of the block's pose
@@ -786,17 +831,15 @@ __device__ __forceinline__ void trace_runtime_pose(const ChainP& ch, const Sourc
                                                    const S* pose, int n_local, int first,
                                                    float phase, float k_frac, Epilogue&& epi) {
   const PoseMaps<S> maps{pose};
-  for (int r = 0; r < MOMENT_RAYS_PER_THREAD; ++r) {
-    const int k = first + r * MOMENT_THREADS;
-    if (k >= n_local) break;
+  for_thread_rays<MOMENT_RAYS_PER_THREAD>(first, n_local, [&](int k, bool in_range) {
     Ray s0;
     float rr;
     synth_source(src, k, phase, k_frac, s0, rr);
+    s0.alive = in_range;
     RayT<S> s = lift<S>(s0);
-    trace_chain_maps<false>(ch, maps, s);
-    if (!s.alive) continue;
-    epi(s, rr);
-  }
+    trace_chain_maps<false, true>(ch, maps, s);
+    if (s.alive) epi(s, rr);
+  });
 }
 
 }  // namespace art

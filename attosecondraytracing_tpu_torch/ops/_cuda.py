@@ -37,7 +37,7 @@ NVCC_FLAGS = (
 )
 
 #: version of the C interface these bindings take (``art_abi_version``)
-ABI_VERSION = 2
+ABI_VERSION = 3
 
 _lock = threading.Lock()
 _lib = None
@@ -121,7 +121,7 @@ def load(path) -> ctypes.CDLL:
     """Load a kernel library built from ``csrc/``, bind its C interface and
     check its record layouts against the numpy records."""
     from .fused_scan import N_AUX
-    from .fused_trace import CHAIN_T, DETECTOR_T, SOURCE_T, STATS_GROUP
+    from .fused_trace import CHAIN_T, DETECTOR_T, SOURCE_T
 
     lib = ctypes.CDLL(str(path))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -131,8 +131,9 @@ def load(path) -> ctypes.CDLL:
                  "art_detector_params_size"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_size_t
-    for name in ("art_abi_version", "art_moment_rays_per_block", "art_scan_aux_size",
-                 "art_stats_group", "art_tangent_batch"):
+    for name in ("art_abi_version", "art_moment_rays_per_block",
+                 "art_source_moments_rays_per_block", "art_source_stats_rays_per_block",
+                 "art_scan_aux_size", "art_tangent_batch"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ci
     lib.art_error_string.argtypes = [ci]
@@ -141,13 +142,13 @@ def load(path) -> ctypes.CDLL:
         vp, vp, ci, cf, cf, vp, vp, vp, vp, vp, vp, vp]
     lib.art_launch_fused_source_trace.restype = ci
     lib.art_launch_fused_source_moments.argtypes = [
-        vp, vp, vp, ci, ci, ci, vp, vp, ci, vp]
+        vp, vp, vp, ci, ci, ci, ci, vp, vp, vp]
     lib.art_launch_fused_source_moments.restype = ci
     lib.art_launch_scan_moments.argtypes = [vp, vp, ci, ci, ci, ci, vp, vp, vp, vp]
     lib.art_launch_scan_moments.restype = ci
     lib.art_launch_streamed_trace.argtypes = [vp, ci, ci] + [vp] * 13
     lib.art_launch_streamed_trace.restype = ci
-    lib.art_launch_fused_source_stats.argtypes = [vp, vp, vp, ci, ci, ci, vp, vp, ci, vp, ci, vp]
+    lib.art_launch_fused_source_stats.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp, vp, ci, vp, vp]
     lib.art_launch_fused_source_stats.restype = ci
     lib.art_launch_stats_params.argtypes = [vp, vp, cf, ci, ci, ci, ci, ci, vp, ci, vp, vp, vp, vp]
     lib.art_launch_stats_params.restype = ci
@@ -161,9 +162,6 @@ def load(path) -> ctypes.CDLL:
     if lib.art_scan_aux_size() != N_AUX:
         raise RuntimeError(f"scan kernel takes {lib.art_scan_aux_size()} aux scalars, "
                            f"ops/fused_scan.py packs {N_AUX}")
-    if lib.art_stats_group() != STATS_GROUP:
-        raise RuntimeError(f"art_stats_group: the kernels take {lib.art_stats_group()}, the "
-                           f"host packs {STATS_GROUP}")
     return lib
 
 
@@ -184,7 +182,19 @@ def _ptr(t) -> int | None:
 
 
 def moment_rays_per_block() -> int:
+    """Rays per block of the runtime-pose kernels K5-K7."""
     return library().art_moment_rays_per_block()
+
+
+def source_moments_rays_per_block() -> int:
+    """Rays per block of K2."""
+    return library().art_source_moments_rays_per_block()
+
+
+def source_stats_rays_per_block() -> int:
+    """Rays per block of K8 (each traced once, kept in shared memory for
+    every distance)."""
+    return library().art_source_stats_rays_per_block()
 
 
 def tangent_batch() -> int:
@@ -202,13 +212,14 @@ def launch_fused_source_trace(chain_rec, src_rec, n_rays, phase, k_frac,
     _check(lib, status, "fused_source_trace launch")
 
 
-def launch_fused_source_moments(chain_rec, src_rec, det_rec, n_rays, chunk, n_chunks,
-                                chunk_params, rows, blocks_per_chunk, stream):
+def launch_fused_source_moments(chain_rec, src_rec, det_rec, n_rays, chunk, grid,
+                                chunk_params, rows, stream):
+    """``grid``: (blocks_per_chunk, n_blocks) of :func:`.fused_trace.ray_grid`."""
     lib = library()
     status = lib.art_launch_fused_source_moments(
         _record_ptr(chain_rec), _record_ptr(src_rec), _record_ptr(det_rec),
-        int(n_rays), int(chunk), int(n_chunks), chunk_params.data_ptr(),
-        rows.data_ptr(), int(blocks_per_chunk), stream)
+        int(n_rays), int(chunk), int(grid[0]), int(grid[1]), chunk_params.data_ptr(),
+        rows.data_ptr(), stream)
     _check(lib, status, "fused_source_moments launch")
 
 
@@ -231,13 +242,15 @@ def launch_streamed_trace(chain_rec, n_rays, fresh, inputs, outputs, stream):
     _check(lib, status, "streamed_trace launch")
 
 
-def launch_fused_source_stats(chain_rec, src_rec, det_rec, n_rays, chunk, n_chunks, chunk_params,
-                              dist_params, n_dist, rows, blocks_per_chunk, stream):
+def launch_fused_source_stats(chain_rec, src_rec, det_rec, n_rays, chunk, grid, chunk_params,
+                              dist_params, n_dist, rows, stream):
+    """``grid``: (blocks_per_chunk, n_blocks) of :func:`.fused_trace.ray_grid`;
+    ``rows``: (n_blocks, n_dist, 7) float64."""
     lib = library()
     status = lib.art_launch_fused_source_stats(
         _record_ptr(chain_rec), _record_ptr(src_rec), _record_ptr(det_rec), int(n_rays),
-        int(chunk), int(n_chunks), chunk_params.data_ptr(), dist_params.data_ptr(), int(n_dist),
-        rows.data_ptr(), int(blocks_per_chunk), stream)
+        int(chunk), int(grid[0]), int(grid[1]), chunk_params.data_ptr(), dist_params.data_ptr(),
+        int(n_dist), rows.data_ptr(), stream)
     _check(lib, status, "fused_source_stats launch")
 
 

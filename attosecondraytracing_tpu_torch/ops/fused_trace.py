@@ -480,6 +480,16 @@ def pack_source(spec: BakedSource, n_total: int, gaussian_edge=None) -> np.ndarr
 # ---------------------------------------------------------------------------
 
 
+def pack_detector(det: BakedDetector, centre_distance=0.0) -> np.ndarray:
+    """The detector record of K2 and K8 (csrc/trace_common.cuh DetectorP);
+    K8 reads the plane and ``opl_ref`` only."""
+    rec = np.zeros((), dtype=DETECTOR_T)
+    rec["c"], rec["n"], rec["e1"], rec["e2"] = det.centre, det.normal, det.e1, det.e2
+    rec["opl_ref"], rec["inv_dn_chief"] = det.opl_ref, det.inv_dn_chief
+    rec["centre_distance"] = centre_distance
+    return rec
+
+
 def _synth_traced_state(table: ChainTable, spec: BakedSource, n_local, n_total, phase,
                         k_frac, *, device, want_incidence):
     """The plain versions' shared body: synthesize ``n_local`` source rays
@@ -967,11 +977,11 @@ def ray_grid(sizes, rays_per_block: int):
     chunks ``sizes`` (all equal but the last, :func:`_check_chunks`): every
     full chunk takes ``blocks_per_chunk`` blocks of ``rays_per_block`` rays,
     the last chunk only as many as its rays fill, so no block starts
-    without rays (the runtime-pose kernels K5-K7; block b serves chunk
-    b // blocks_per_chunk, csrc/trace_common.cuh ``block_rays``)."""
+    without rays (K2 and K5-K8, each at its own rays per block; block b
+    serves chunk b // blocks_per_chunk, csrc/trace_common.cuh
+    ``block_rays``)."""
     bpc = -(-sizes[0] // rays_per_block)
     return bpc, (len(sizes) - 1) * bpc + -(-sizes[-1] // rays_per_block)
-
 
 
 def prepare_fused_source_moments(table: ChainTable, spec: BakedSource, det: BakedDetector,
@@ -986,18 +996,13 @@ def prepare_fused_source_moments(table: ChainTable, spec: BakedSource, det: Bake
     device = _cuda_device(device, "fused_source_moments")
     chain_rec = pack_chain(table)
     src_rec = pack_source(spec, n_total, gaussian_edge)
-    det_rec = np.zeros((), dtype=DETECTOR_T)
-    det_rec["c"], det_rec["n"] = det.centre, det.normal
-    det_rec["e1"], det_rec["e2"] = det.e1, det.e2
-    det_rec["opl_ref"], det_rec["inv_dn_chief"] = det.opl_ref, det.inv_dn_chief
-    det_rec["centre_distance"] = centre_distance
+    det_rec = pack_detector(det, centre_distance)
     from . import _cuda
 
     params = torch.tensor([[c[1], c[2]] for c in chunks], dtype=torch.float32, device=device)
     n_rays, chunk = sum(sizes), sizes[0]
-    blocks_per_chunk = -(-chunk // _cuda.moment_rays_per_block())
-    rows = torch.empty((len(chunks) * blocks_per_chunk, len(MOMENT_FIELDS)),
-                       dtype=torch.float64, device=params.device)
+    grid = ray_grid(sizes, _cuda.source_moments_rays_per_block())
+    rows = torch.empty((grid[1], len(MOMENT_FIELDS)), dtype=torch.float64, device=params.device)
     _check_out("chunk params", params, torch.float32, params.device)
     _check_out("moment rows", rows, torch.float64, params.device)
 
@@ -1005,8 +1010,7 @@ def prepare_fused_source_moments(table: ChainTable, spec: BakedSource, det: Bake
         with torch.cuda.device(params.device):
             stream = torch.cuda.current_stream(params.device).cuda_stream
             _cuda.launch_fused_source_moments(
-                chain_rec, src_rec, det_rec, n_rays, chunk, len(chunks), params, rows,
-                blocks_per_chunk, stream)
+                chain_rec, src_rec, det_rec, n_rays, chunk, grid, params, rows, stream)
         fused_source_moments.launches += 1
 
     return rows, launch
@@ -1017,8 +1021,9 @@ def fused_source_moments(table: ChainTable, spec: BakedSource, det: BakedDetecto
                          centre_distance=0.0) -> np.ndarray:
     """K2 (replaces ``ops/pallas_trace.py::_kernel_source_moments`` of the
     JAX package): the 16 weighted detector moments of every chunk's rays,
-    summed in float64. All chunks of equal nominal size go in one launch
-    (``blockIdx.y`` = chunk). CPU runs :func:`fused_source_moments_ref`."""
+    summed in float64. All chunks of equal nominal size go in one launch on
+    a grid sized to the rays (:func:`ray_grid`). CPU runs
+    :func:`fused_source_moments_ref`."""
     _check_chunks(chunks)
     if torch.device(device).type == "cpu":
         return fused_source_moments_ref(table, spec, det, chunks, n_total, device=device,
@@ -1040,9 +1045,6 @@ fused_source_moments.launches = 0
 
 #: most distances one stats pass takes (one lane each in the JAX kernel)
 MAX_STATS_DISTANCES = 128
-#: distances per block of K8 (csrc/fused_trace.cu STATS_GROUP): each group
-#: of distances retraces its rays
-STATS_GROUP = 8
 
 
 def _check_stats_distances(det: BakedDetector):
@@ -1079,28 +1081,24 @@ def prepare_fused_source_stats(table: ChainTable, spec: BakedSource, det: BakedD
     what the kernel does not take), copy the (distance, delay offset) pairs
     and the chunk offsets to the device, and allocate the per-block rows.
     Returns ``(rows, launch)``; each ``launch()`` runs the kernel once over
-    every chunk and group of :data:`STATS_GROUP` distances, writing per
-    block one float64 row of 7 sums per distance of its group, and counts it
-    in ``fused_source_stats.launches``."""
+    every chunk, tracing each ray once for all J distances, writing per
+    block one float64 row of 7 sums per distance into ``rows`` (blocks, J,
+    7), and counts it in ``fused_source_stats.launches``."""
     sizes = _check_chunks(chunks)
     n_dist = _check_stats_distances(det)
     device = _cuda_device(device, "fused_source_stats")
     chain_rec = pack_chain(table)
     src_rec = pack_source(spec, n_total, gaussian_edge)
-    det_rec = np.zeros((), dtype=DETECTOR_T)
-    det_rec["c"], det_rec["n"] = det.centre, det.normal
-    det_rec["e1"], det_rec["e2"] = det.e1, det.e2
-    det_rec["opl_ref"] = det.opl_ref
+    det_rec = pack_detector(det)
     from . import _cuda
 
     params = torch.tensor([[c[1], c[2]] for c in chunks], dtype=torch.float32, device=device)
     dists = torch.tensor(list(zip(det.distances, det.delay_offsets)), dtype=torch.float32,
                          device=params.device)
     n_rays, chunk = sum(sizes), sizes[0]
-    n_groups = -(-n_dist // STATS_GROUP)
-    blocks_per_chunk = -(-chunk // _cuda.moment_rays_per_block())
-    rows = torch.empty((len(chunks) * blocks_per_chunk, n_groups * STATS_GROUP * len(STATS_FIELDS)),
-                       dtype=torch.float64, device=params.device)
+    grid = ray_grid(sizes, _cuda.source_stats_rays_per_block())
+    rows = torch.empty((grid[1], n_dist, len(STATS_FIELDS)), dtype=torch.float64,
+                       device=params.device)
     for name, x, dtype in (("chunk params", params, torch.float32),
                            ("distances", dists, torch.float32), ("stats rows", rows, torch.float64)):
         _check_out(name, x, dtype, params.device)
@@ -1108,17 +1106,16 @@ def prepare_fused_source_stats(table: ChainTable, spec: BakedSource, det: BakedD
     def launch():
         with torch.cuda.device(params.device):
             stream = torch.cuda.current_stream(params.device).cuda_stream
-            _cuda.launch_fused_source_stats(chain_rec, src_rec, det_rec, n_rays, chunk, len(chunks),
-                                            params, dists, n_dist, rows, blocks_per_chunk, stream)
+            _cuda.launch_fused_source_stats(chain_rec, src_rec, det_rec, n_rays, chunk, grid,
+                                            params, dists, n_dist, rows, stream)
         fused_source_stats.launches += 1
 
     return rows, launch
 
 
-def stats_from_rows(rows, n_dist: int) -> np.ndarray:
-    """(7, J) float64 sums from K8's per-block rows."""
-    sums = rows.sum(dim=0).view(-1, len(STATS_FIELDS))[:n_dist]
-    return sums.t().cpu().numpy()
+def stats_from_rows(rows) -> np.ndarray:
+    """(7, J) float64 sums from K8's per-block rows (blocks, J, 7)."""
+    return rows.sum(dim=0).t().cpu().numpy()
 
 
 def fused_source_stats(table: ChainTable, spec: BakedSource, det: BakedDetector, chunks,
@@ -1126,9 +1123,9 @@ def fused_source_stats(table: ChainTable, spec: BakedSource, det: BakedDetector,
     """K8 (replaces ``ops/pallas_trace.py::_kernel_source_stats`` of the
     JAX package): the 7 weighted sums of :data:`STATS_FIELDS` at each of the
     detector's J <= 128 distances over every chunk's rays, summed in
-    float64; (7, J). All chunks of equal nominal size go in one launch
-    (``blockIdx.y`` = chunk, ``blockIdx.z`` = group of distances). CPU runs
-    :func:`fused_source_stats_ref`."""
+    float64; (7, J). All chunks of equal nominal size go in one launch on a
+    grid sized to the rays (:func:`ray_grid`), and each ray is traced once
+    whatever J is. CPU runs :func:`fused_source_stats_ref`."""
     _check_chunks(chunks)
     if torch.device(device).type == "cpu":
         return fused_source_stats_ref(table, spec, det, chunks, n_total, device=device,
@@ -1136,7 +1133,7 @@ def fused_source_stats(table: ChainTable, spec: BakedSource, det: BakedDetector,
     rows, launch = prepare_fused_source_stats(table, spec, det, chunks, n_total, device=device,
                                               gaussian_edge=gaussian_edge)
     launch()
-    return stats_from_rows(rows, len(det.distances))
+    return stats_from_rows(rows)
 
 
 fused_source_stats.launches = 0

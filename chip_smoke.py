@@ -19,8 +19,8 @@ port's paths through the entry points a user calls, and checks the results:
 * alignment by gradient descent: ``gradient_align`` on the flagship at 1e7
   rays through the fused gradient engine (kernel K6), against the autograd
   engine on the card, and ``fused_focus_loss`` (kernel K7);
-* the per-distance stats baseline (kernel K8) at 1 and 20 distances, against
-  K2's moments;
+* the per-distance stats baseline (kernel K8) at 1, 8, 9, 20 and 128
+  distances, and at 20 against K2's moments;
 * the CLI path on ``examples/CONFIG_singleparabola.py`` and
   ``examples/CONFIG_gradient_alignment.py`` (a CONFIG that aligns its chain
   while it loads).
@@ -83,7 +83,8 @@ OPS = {
     "moments": 78,       # the 16 moment terms of an alive ray
     "stats": 58,         # the 7 stats terms at one distance of an alive ray, accumulated
     # K8's stats epilogue of an alive ray: the distance-independent geometry
-    # (once per group of distances) and each distance's 7 terms, accumulated
+    # (once per ray, like the trace, whatever the kernel's tiling of the
+    # distances) and each distance's 7 terms, accumulated
     "stats_geometry": 40,
     "stats_distance": 21,
     # K6 on the flagship chain (mask and two toroids, unfolded), per ray:
@@ -971,19 +972,29 @@ def phase_grad(torch, dev):
     return launches, k7
 
 
+#: distances of K8's checks (8 and 9: an edge of its tiles of 4 distances
+#: and one past it; 128: the most a pass takes) and, among them, of its timed
+#: launches
+K8_CHECK = (1, 8, 9, 20, 128)
+K8_TIMED = (1, 20, 128)
+
+
 def phase_k8(torch, dev, n_alive):
-    """K8 against its plain version on the card at 2^20 rays for 1 and 20
-    distances (scripts/bench_stats_kernel.py:35-36, per-distance chief-ray
-    delay offsets), with the launch counts set to 0 just before those two
-    calls; the 20-distance statistics against K2's moments on the same
-    chain; then launch-only times at 1e7 rays for 1 and 20 distances."""
+    """K8 against its plain version on the card at 2^20 rays for 1, 8, 9, 20
+    and 128 distances (scripts/bench_stats_kernel.py:35-36: +-10 mm,
+    per-distance chief-ray delay offsets), with the launch counts set to 0
+    just before those calls: one launch per call; the 20-distance statistics
+    against K2's moments on the same chain; then launch-only times at 1e7
+    rays for 1, 20 and 128 distances. The bound counts one trace per ray and
+    one stats geometry per alive ray, then 21 operations per alive ray and
+    distance."""
     import numpy as np
 
     from attosecondraytracing_tpu_torch.ops import fused_trace as ft
 
     chain = _flagship(N_CHECK)[0]
     edge = chain.source_spec.gaussian_edge
-    cases = {1: (0.0,), 20: tuple(float(d) for d in np.linspace(-10, 10, 20))}
+    cases = {J: (0.0,) if J == 1 else tuple(float(d) for d in np.linspace(-10, 10, J)) for J in K8_CHECK}
 
     def detector(elements, det, opl_ref, inv_dn, distances):
         return ft.bake_detector(elements, det.centre, det.normal, det._plane_rotation(), opl_ref=opl_ref,
@@ -994,15 +1005,17 @@ def phase_k8(torch, dev, n_alive):
     table = ft.chain_table(spec, elements)
     err, runs = 0.0, {}
     _reset_launches()
-    for J, distances in cases.items():
-        runs[J] = ft.fused_source_stats(table, spec, detector(elements, det, opl_ref, inv_dn, distances),
+    for J in K8_CHECK:
+        runs[J] = ft.fused_source_stats(table, spec, detector(elements, det, opl_ref, inv_dn, cases[J]),
                                         chunks, n, device=dev, gaussian_edge=edge)
     launches = _launches()
-    _check(launches["K8"] == 2 and sum(launches.values()) == 2, f"K8 launches {launches}")
-    for J, distances in cases.items():
-        ref = ft.fused_source_stats_ref(table, spec, detector(elements, det, opl_ref, inv_dn, distances),
+    _check(launches["K8"] == len(K8_CHECK) and sum(launches.values()) == len(K8_CHECK),
+           f"K8 launches {launches}")
+    for J in K8_CHECK:
+        ref = ft.fused_source_stats_ref(table, spec, detector(elements, det, opl_ref, inv_dn, cases[J]),
                                         chunks, n, device=dev, gaussian_edge=edge)
-        err = max(err, _check_sum_stats(f"K8 J={J} vs plain", runs[J], ref, opl_ref, distances))
+        _check(runs[J].shape == ref.shape == (7, J), f"K8 J={J}: shapes {runs[J].shape} {ref.shape}")
+        err = max(err, _check_sum_stats(f"K8 J={J} vs plain", runs[J], ref, opl_ref, cases[J]))
     mom = ft.fused_source_moments(table, spec, detector(elements, det, opl_ref, inv_dn, (0.0,)), chunks, n,
                                   device=dev, gaussian_edge=edge)
     k2 = ft.moments_to_distance_sums(mom, cases[20])
@@ -1013,8 +1026,8 @@ def phase_k8(torch, dev, n_alive):
     table = ft.chain_table(spec, elements)
     _check(len(chunks) == 2, f"K8 timing: expected 2 chunks, got {len(chunks)}")
     out = {}
-    for J, distances in cases.items():
-        bdet = detector(elements, det, opl_ref, inv_dn, distances)
+    for J in K8_TIMED:
+        bdet = detector(elements, det, opl_ref, inv_dn, cases[J])
         rows, launch = ft.prepare_fused_source_stats(table, spec, bdet, chunks, n, device=dev,
                                                      gaussian_edge=edge)
         ms = _time_ms(launch, torch)
@@ -1022,9 +1035,8 @@ def phase_k8(torch, dev, n_alive):
                                                             gaussian_edge=edge), torch)
         plain_ms = _time_ms(lambda: ft.fused_source_stats_ref(table, spec, bdet, chunks, n, device=dev,
                                                               gaussian_edge=edge), torch, reps=3, inner=1)
-        groups = -(-J // ft.STATS_GROUP)
-        ops = (groups * (_trace_ops(table, True) + OPS["weight"]) * n
-               + n_alive * (groups * OPS["stats_geometry"] + J * OPS["stats_distance"]))
+        ops = ((_trace_ops(table, True) + OPS["weight"]) * n
+               + n_alive * (OPS["stats_geometry"] + J * OPS["stats_distance"]))
         bound = _bound(rows.numel() * 8 + 8 * len(chunks) + 8 * J, ops)
         print(f"K8 flagship J={J} at {n} rays: kernel launch {ms:.4f} ms, whole wrapper {wrapper_ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})", flush=True)
