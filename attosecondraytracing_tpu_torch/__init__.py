@@ -17,7 +17,7 @@ Quick start::
 __version__ = "0.1.0"
 
 from . import processing  # noqa: F401
-from .models import masks, mirrors, sources, supports  # noqa: F401
+from .models import defects, masks, mirrors, sources, supports  # noqa: F401
 from .models.chain import OpticalChain  # noqa: F401
 from .models.detector import Detector  # noqa: F401
 from .models.elements import OpticalElement  # noqa: F401

@@ -66,14 +66,17 @@ def apply_params(elements, params: AlignmentParams):
 
 
 def focus_loss(params: AlignmentParams, source: RayBundle, elements, det_centre, det_normal,
-               det_rot, duration_weight: float = 0.0, survival_weight: float = 1.0):
+               det_rot, duration_weight: float = 0.0, survival_weight: float = 1.0,
+               ignore_defects: bool = True):
     """Scalar figure of merit: spot variance (+ weighted duration variance)
     on a fixed detector plane, for the chain perturbed by ``params``.
     ``survival_weight`` penalizes lost energy [mm^2 per unit transmission
     loss]: a purely survivor-weighted variance would reward walking the beam
     off the optics. The bundle, the elements and the parameters share a
-    device; the bundle's dtype is the trace dtype."""
-    out = trace(source, apply_params(elements, params), keep_history=False)
+    device; the bundle's dtype is the trace dtype. ``ignore_defects`` as in
+    :func:`~..ops.trace.trace`."""
+    out = trace(source, apply_params(elements, params), ignore_defects=ignore_defects,
+                keep_history=False)
     w = out.alive.to(out.p.dtype) * out.intensity.to(out.p.dtype)
     xy = stats.detector_points_2d(out, det_centre, det_normal, det_rot)
     loss = stats.std_points(xy, w) ** 2
@@ -88,12 +91,13 @@ def focus_loss(params: AlignmentParams, source: RayBundle, elements, det_centre,
 
 def alignment_step(params: AlignmentParams, lr: float, source: RayBundle, elements, det_centre,
                    det_normal, det_rot, duration_weight: float = 0.0,
-                   survival_weight: float = 1.0):
+                   survival_weight: float = 1.0, ignore_defects: bool = True):
     """One SGD step on the alignment parameters through ``torch.autograd``.
     Returns (new_params, loss)."""
     p = AlignmentParams(*(x.detach().requires_grad_(True) for x in params))
     loss = focus_loss(p, source, elements, det_centre, det_normal, det_rot,
-                      duration_weight=duration_weight, survival_weight=survival_weight)
+                      duration_weight=duration_weight, survival_weight=survival_weight,
+                      ignore_defects=ignore_defects)
     loss.backward()
     new = AlignmentParams(*(x.detach() - lr * x.grad for x in p))
     return new, loss.detach()

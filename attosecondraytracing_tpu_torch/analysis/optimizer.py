@@ -271,6 +271,10 @@ def FindOptimalDistanceFused(
     return det, opt_spot, opt_duration
 
 
+#: the JAX package's name for :func:`FindOptimalDistanceFused`
+FindOptimalDistancePallas = FindOptimalDistanceFused
+
+
 def _x64_refine_distance(spec, elements, n_rays, det, OptFor, amplitude,
                          gaussian_edge, verbose, *, device, max_rays: int = 20000):
     """Float64 refinement for sub-noise-floor duration optima: rebuild the

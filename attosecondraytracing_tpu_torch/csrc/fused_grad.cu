@@ -113,7 +113,7 @@ struct ScalarOf<0> {
   using type = float;
 };
 
-template <int G>
+template <int G, bool DEFECTS>
 __global__ void __launch_bounds__(MOMENT_THREADS, G > 0 ? K6_MIN_BLOCKS : 1)
 stats_params_kernel(const __grid_constant__ ChainP ch, const __grid_constant__ SourceP src,
                     float opl_ref, int n_rays, int chunk, int blocks_per_chunk, int n_scal,
@@ -140,8 +140,8 @@ stats_params_kernel(const __grid_constant__ ChainP ch, const __grid_constant__ S
   auto acc = thread_sums<N_OUT, (G > 0)>();
 #pragma unroll
   for (int m = 0; m < N_OUT; ++m) acc[m] = 0.0f;
-  trace_runtime_pose(ch, src, pose, min(chunk, n_rays - br.chunk * chunk), br.first, cp.x, cp.y,
-                     [&](const RayT<S>& s, float rr) {
+  trace_runtime_pose<DEFECTS>(ch, src, pose, min(chunk, n_rays - br.chunk * chunk), br.first,
+                              cp.x, cp.y, [&](const RayT<S>& s, float rr) {
     const float w = src.weighted ? expf(src.ln_edge * rr) : 1.0f;
     const StatsGeom<S> geo = stats_geometry(det, det + 3, det + 6, det + 9, opl_ref, s);
     // distance 0, delay offset 0: tj = t0, dj = dsmall + t0
@@ -166,19 +166,22 @@ int launch_stats_params(const void* chain, const void* source, float opl_ref, in
                         const float* chunk_params, double* rows, void* stream) {
   const ChainP ch = *static_cast<const ChainP*>(chain);
   const SourceP src = *static_cast<const SourceP*>(source);
-  int n_groups = 1, smem = 0;
-  if constexpr (G > 0) {
-    n_groups = (n_tangents + G - 1) / G;
-    smem = N_STATS * (1 + G) * MOMENT_THREADS * (int)sizeof(float);  // the sums' columns
-    const cudaError_t status = cudaFuncSetAttribute(
-        stats_params_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (status != cudaSuccess) return (int)status;
-  }
-  const dim3 grid(n_blocks, n_groups);
-  stats_params_kernel<G><<<grid, MOMENT_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      ch, src, opl_ref, n_rays, chunk, blocks_per_chunk, n_scal, svec, n_tangents, stangents,
-      reinterpret_cast<const float2*>(chunk_params), rows);
-  return (int)cudaGetLastError();
+  return with_defects(ch, [&](auto defects) {
+    constexpr bool D = decltype(defects)::value;
+    int n_groups = 1, smem = 0;
+    if constexpr (G > 0) {
+      n_groups = (n_tangents + G - 1) / G;
+      smem = N_STATS * (1 + G) * MOMENT_THREADS * (int)sizeof(float);  // the sums' columns
+      const cudaError_t status = cudaFuncSetAttribute(
+          stats_params_kernel<G, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (status != cudaSuccess) return (int)status;
+    }
+    const dim3 grid(n_blocks, n_groups);
+    stats_params_kernel<G, D><<<grid, MOMENT_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+        ch, src, opl_ref, n_rays, chunk, blocks_per_chunk, n_scal, svec, n_tangents, stangents,
+        reinterpret_cast<const float2*>(chunk_params), rows);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace art

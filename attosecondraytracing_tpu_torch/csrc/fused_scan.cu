@@ -46,6 +46,7 @@ enum AuxSlot : int {
   AUX_WCOEF = 4, AUX_PHASE = 5, AUX_KFRAC = 6, AUX_POS_RADIUS = 7
 };
 
+template <bool DEFECTS>
 __global__ void __launch_bounds__(MOMENT_THREADS)
 scan_moments_kernel(const __grid_constant__ ChainP ch, const __grid_constant__ SourceP law,
                     int n_rays, int chunk, int blocks_per_chunk, const float* __restrict__ svec,
@@ -69,8 +70,8 @@ scan_moments_kernel(const __grid_constant__ ChainP ch, const __grid_constant__ S
   float acc[N_MOMENTS];
 #pragma unroll
   for (int m = 0; m < N_MOMENTS; ++m) acc[m] = 0.0f;
-  trace_runtime_pose(ch, src, pose, min(chunk, n_rays - br.chunk * chunk), br.first,
-                     a[AUX_PHASE], a[AUX_KFRAC], [&](const Ray& s, float rr) {
+  trace_runtime_pose<DEFECTS>(ch, src, pose, min(chunk, n_rays - br.chunk * chunk), br.first,
+                              a[AUX_PHASE], a[AUX_KFRAC], [&](const Ray& s, float rr) {
                        add_moments(det, det + 3, det + 6, det + 9, opl_ref, inv_dn_chief,
                                    centre_d, s, expf(src.ln_edge * rr), acc);
                      });
@@ -94,9 +95,12 @@ int art_launch_scan_moments(const void* chain, const void* source, int n_rays, i
                             const float* aux, double* rows, void* stream) {
   const ChainP ch = *static_cast<const ChainP*>(chain);
   const SourceP src = *static_cast<const SourceP*>(source);
-  scan_moments_kernel<<<n_blocks, MOMENT_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      ch, src, n_rays, chunk, blocks_per_chunk, svec, aux, rows);
-  return (int)cudaGetLastError();
+  return with_defects(ch, [&](auto defects) {
+    scan_moments_kernel<decltype(defects)::value>
+        <<<n_blocks, MOMENT_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+            ch, src, n_rays, chunk, blocks_per_chunk, svec, aux, rows);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // extern "C"

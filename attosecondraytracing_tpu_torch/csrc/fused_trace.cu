@@ -50,6 +50,10 @@
 //   distance's 7 columns go through the block reduction, which costs per
 //   block. Rows are (blocks, J, 7) doubles.
 //
+// Each kernel is instantiated on DEFECTS (trace_common.cuh): the launch
+// takes the Zernike branch's instantiation only for a chain with Zernike
+// tables (with_defects).
+//
 // This file also carries the library's shared C entry points (record sizes,
 // error strings).
 #include <cuda_runtime.h>
@@ -60,6 +64,7 @@ namespace art {
 
 constexpr int K1_THREADS = 256;
 
+template <bool DEFECTS>
 __global__ void __launch_bounds__(K1_THREADS)
 fused_source_trace_kernel(const __grid_constant__ ChainP ch, const __grid_constant__ SourceP src,
                           int n_rays, float phase, float k_frac,
@@ -71,13 +76,14 @@ fused_source_trace_kernel(const __grid_constant__ ChainP ch, const __grid_consta
   Ray s;
   float rr;
   synth_source(src, k, phase, k_frac, s, rr);
-  trace_chain<true, false>(ch, s);
+  trace_chain<true, false, DEFECTS>(ch, s);
   store_lab(ch, s, k, p, d, opl, opl_c, alive, inc);
 }
 
 constexpr int K2_RAYS_PER_THREAD = 16;
 constexpr int K2_RAYS_PER_BLOCK = MOMENT_THREADS * K2_RAYS_PER_THREAD;
 
+template <bool DEFECTS>
 __global__ void __launch_bounds__(MOMENT_THREADS)
 fused_source_moments_kernel(const __grid_constant__ ChainP ch, const __grid_constant__ SourceP src,
                             const __grid_constant__ DetectorP det, int n_rays, int chunk,
@@ -94,7 +100,7 @@ fused_source_moments_kernel(const __grid_constant__ ChainP ch, const __grid_cons
         float rr;
         synth_source(src, k, cp.x, cp.y, s, rr);
         s.alive = in_range;
-        trace_chain<false, true>(ch, s);
+        trace_chain<false, true, DEFECTS>(ch, s);
         if (!s.alive) return;
         const float w = src.weighted ? expf(src.ln_edge * rr) : 1.0f;
         add_moments(det, s, w, acc);
@@ -112,6 +118,7 @@ constexpr int K8_SMEM_FLOATS = (K8_RAYS_PER_THREAD * N_KEPT + N_STATS) * MOMENT_
 
 extern __shared__ float stats_smem[];
 
+template <bool DEFECTS>
 __global__ void __launch_bounds__(MOMENT_THREADS)
 fused_source_stats_kernel(const __grid_constant__ ChainP ch, const __grid_constant__ SourceP src,
                           const __grid_constant__ DetectorP det, int n_rays, int chunk,
@@ -130,7 +137,7 @@ fused_source_stats_kernel(const __grid_constant__ ChainP ch, const __grid_consta
         float rr;
         synth_source(src, k, cp.x, cp.y, s, rr);
         s.alive = in_range;
-        trace_chain<false, true>(ch, s);
+        trace_chain<false, true, DEFECTS>(ch, s);
         if (!s.alive) return;
         const StatsGeom<float> g = stats_geometry(det.c, det.n, det.e1, det.e2, det.opl_ref, s);
         float* ray = kept + n_kept * N_KEPT * MOMENT_THREADS;
@@ -203,13 +210,15 @@ using namespace art;
 
 extern "C" {
 
-// Version of this C interface; ops/_cuda.py loads only its own. Version 3:
-// K2 and K8 take a grid sized to the rays with their own rays per block, and
-// K8 traces each ray once for all its distances (rows (blocks, J, 7)).
-// Version 2 gave K5-K7 the sized grid and K6 all tangent rows of a gradient
-// step; libraries without this entry point have version 1's signatures
-// (utils/kernel_ab.py binds both older versions for A/B runs).
-int art_abi_version() { return 3; }
+// Version of this C interface; ops/_cuda.py loads only its own. Version 4:
+// the chain record carries Zernike tables and ignore_defects (ChainP grows
+// from 1720 to 2512 bytes; the entry points keep version 3's signatures).
+// Version 3 gave K2 and K8 a grid sized to the rays with their own rays per
+// block, and K8 one trace per ray for all its distances (rows (blocks, J,
+// 7)); version 2 gave K5-K7 the sized grid and K6 all tangent rows of a
+// gradient step; libraries without this entry point have version 1's
+// signatures (utils/kernel_ab.py binds every older version for A/B runs).
+int art_abi_version() { return 4; }
 
 size_t art_chain_params_size() { return sizeof(ChainP); }
 size_t art_source_params_size() { return sizeof(SourceP); }
@@ -228,9 +237,12 @@ int art_launch_fused_source_trace(const void* chain, const void* source, int n_r
   const ChainP ch = *static_cast<const ChainP*>(chain);
   const SourceP src = *static_cast<const SourceP*>(source);
   const int blocks = (n_rays + K1_THREADS - 1) / K1_THREADS;
-  fused_source_trace_kernel<<<blocks, K1_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      ch, src, n_rays, phase, k_frac, p, d, opl, opl_c, alive, inc);
-  return (int)cudaGetLastError();
+  return with_defects(ch, [&](auto defects) {
+    fused_source_trace_kernel<decltype(defects)::value>
+        <<<blocks, K1_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+            ch, src, n_rays, phase, k_frac, p, d, opl, opl_c, alive, inc);
+    return (int)cudaGetLastError();
+  });
 }
 
 // K2: chunk_params (n_chunks x 2) and rows (n_blocks x 16) are device
@@ -242,10 +254,13 @@ int art_launch_fused_source_moments(const void* chain, const void* source, const
   const ChainP ch = *static_cast<const ChainP*>(chain);
   const SourceP src = *static_cast<const SourceP*>(source);
   const DetectorP det = *static_cast<const DetectorP*>(detector);
-  fused_source_moments_kernel<<<n_blocks, MOMENT_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      ch, src, det, n_rays, chunk, blocks_per_chunk,
-      reinterpret_cast<const float2*>(chunk_params), rows);
-  return (int)cudaGetLastError();
+  return with_defects(ch, [&](auto defects) {
+    fused_source_moments_kernel<decltype(defects)::value>
+        <<<n_blocks, MOMENT_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+            ch, src, det, n_rays, chunk, blocks_per_chunk,
+            reinterpret_cast<const float2*>(chunk_params), rows);
+    return (int)cudaGetLastError();
+  });
 }
 
 // K8: rows hold, per block, one row of n_dist x 7 doubles; chunk_params
@@ -260,14 +275,18 @@ int art_launch_fused_source_stats(const void* chain, const void* source, const v
   const SourceP src = *static_cast<const SourceP*>(source);
   const DetectorP det = *static_cast<const DetectorP*>(detector);
   constexpr int smem = K8_SMEM_FLOATS * (int)sizeof(float);
-  const cudaError_t status = cudaFuncSetAttribute(
-      fused_source_stats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (status != cudaSuccess) return (int)status;
-  fused_source_stats_kernel<<<n_blocks, MOMENT_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      ch, src, det, n_rays, chunk, blocks_per_chunk, n_dist,
-      reinterpret_cast<const float2*>(chunk_params),
-      reinterpret_cast<const float2*>(dist_params), rows);
-  return (int)cudaGetLastError();
+  return with_defects(ch, [&](auto defects) {
+    constexpr bool D = decltype(defects)::value;
+    const cudaError_t status = cudaFuncSetAttribute(
+        fused_source_stats_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (status != cudaSuccess) return (int)status;
+    fused_source_stats_kernel<D><<<n_blocks, MOMENT_THREADS, smem,
+                                   static_cast<cudaStream_t>(stream)>>>(
+        ch, src, det, n_rays, chunk, blocks_per_chunk, n_dist,
+        reinterpret_cast<const float2*>(chunk_params),
+        reinterpret_cast<const float2*>(dist_params), rows);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // extern "C"

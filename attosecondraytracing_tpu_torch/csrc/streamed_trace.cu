@@ -29,6 +29,7 @@ namespace art {
 
 constexpr int K3_THREADS = 256;
 
+template <bool DEFECTS>
 __global__ void __launch_bounds__(K3_THREADS)
 streamed_trace_kernel(const __grid_constant__ ChainP ch, int n_rays,
                       const float* __restrict__ p_in, const float* __restrict__ d_in,
@@ -51,10 +52,11 @@ streamed_trace_kernel(const __grid_constant__ ChainP ch, int n_rays,
   s.opl_c = opl_c_in[k];
   s.inc = inc_in[k];
   s.alive = alive_in[k] != 0;
-  trace_chain<true, false>(ch, s);
+  trace_chain<true, false, DEFECTS>(ch, s);
   store_lab(ch, s, k, p, d, opl, opl_c, alive, inc);
 }
 
+template <bool DEFECTS>
 __global__ void __launch_bounds__(K3_THREADS)
 streamed_trace_fresh_kernel(const __grid_constant__ ChainP ch, int n_rays,
                             const float* __restrict__ p_in, const float* __restrict__ d_in,
@@ -74,7 +76,7 @@ streamed_trace_fresh_kernel(const __grid_constant__ ChainP ch, int n_rays,
   s.opl_c = 0.0f;
   s.inc = 0.0f;
   s.alive = true;
-  trace_chain<true, false>(ch, s);
+  trace_chain<true, false, DEFECTS>(ch, s);
   store_lab(ch, s, k, p, d, opl, opl_c, alive, inc);
 }
 
@@ -95,15 +97,18 @@ int art_launch_streamed_trace(const void* chain, int n_rays, int fresh, const fl
   const ChainP ch = *static_cast<const ChainP*>(chain);
   const int blocks = (n_rays + K3_THREADS - 1) / K3_THREADS;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (fresh) {
-    streamed_trace_fresh_kernel<<<blocks, K3_THREADS, 0, st>>>(ch, n_rays, p_in, d_in, p, d, opl,
-                                                               opl_c, alive, inc);
-  } else {
-    streamed_trace_kernel<<<blocks, K3_THREADS, 0, st>>>(ch, n_rays, p_in, d_in, opl_in, opl_c_in,
-                                                         alive_in, inc_in, p, d, opl, opl_c,
-                                                         alive, inc);
-  }
-  return (int)cudaGetLastError();
+  return with_defects(ch, [&](auto defects) {
+    constexpr bool D = decltype(defects)::value;
+    if (fresh) {
+      streamed_trace_fresh_kernel<D><<<blocks, K3_THREADS, 0, st>>>(ch, n_rays, p_in, d_in, p, d,
+                                                                    opl, opl_c, alive, inc);
+    } else {
+      streamed_trace_kernel<D><<<blocks, K3_THREADS, 0, st>>>(ch, n_rays, p_in, d_in, opl_in,
+                                                              opl_c_in, alive_in, inc_in, p, d,
+                                                              opl, opl_c, alive, inc);
+    }
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // extern "C"

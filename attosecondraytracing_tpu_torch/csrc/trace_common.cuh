@@ -20,6 +20,17 @@
 // same code. Predicates (hits, supports, the alive mask, the minimum ray
 // parameter) decide on values only.
 //
+// Surface defects (ops/trace.chained_step's defect branch). A mirror with
+// Zernike defects has a table in the chain record (ZernikeP: coefficients,
+// 1 / radius; ChainP::zk_of names it), and every kernel runs the branch once
+// per such mirror, on S: the base hit, the height error h from the Andersen
+// recurrence at the hit (zernike_sums), the hit shifted along the ray by
+// h / max(-u.n0, 1e-6), the base surface's normal there (surface_normal,
+// ops/surfaces.normal_c), and unless ignore_defects the defect slopes
+// composed into it. Each kernel is instantiated twice, on the template flag
+// DEFECTS, and the launch takes the instantiation the record asks for
+// (with_defects): a chain without defects runs the code it ran before.
+//
 // Rounding notes. Compiled without --use_fast_math: operator/ and sqrtf are
 // IEEE-rounded, and the source law and the detector epilogues use them. The
 // chain walk takes its reciprocal square roots, divides and seed square
@@ -36,12 +47,18 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include <type_traits>
+
 #include "dual.cuh"
 
 namespace art {
 
 constexpr int MAX_ELEMENTS = 8;
 constexpr int MAX_PREMASKS = 8;
+// Zernike tables per chain (one per deformed mirror) and their highest order
+constexpr int MAX_ZERNIKE = 4;
+constexpr int MAX_ZERNIKE_ORDER = 8;
+constexpr int N_ZERNIKE_TERMS = (MAX_ZERNIKE_ORDER + 1) * (MAX_ZERNIKE_ORDER + 2) / 2;
 constexpr float T_EPS = 1e-9f;
 
 enum ElementKind : int {
@@ -73,6 +90,14 @@ struct ElementP {
   SupportP sup;
 };
 
+// one mirror's Zernike defects: the coefficient of (n, m), 0 <= m <= n, at
+// c[n (n + 1) / 2 + m] (several defects of one radius summed on the host)
+struct ZernikeP {
+  int max_order;  // highest n with a coefficient, >= 2
+  float inv_r;    // 1 / the radius that normalizes the support coordinates
+  float c[N_ZERNIKE_TERMS];
+};
+
 struct ChainP {
   int n_elements;
   int n_premasks;
@@ -80,7 +105,18 @@ struct ChainP {
   PremaskP pre[MAX_PREMASKS];
   float RK[9];  // last element's lab->optic rotation; p_lab = RK^T x + posK
   float posK[3];
+  int ignore_defects;         // reflect deformed mirrors off their base normal
+  int n_zernike;
+  int zk_of[MAX_ELEMENTS];    // element i's Zernike table, or -1
+  ZernikeP zk[MAX_ZERNIKE];
 };
+
+// f(std::true_type) for a chain with Zernike tables, f(std::false_type)
+// otherwise: a launch picks its kernel's DEFECTS instantiation
+template <typename F>
+inline int with_defects(const ChainP& ch, F&& f) {
+  return ch.n_zernike > 0 ? f(std::true_type{}) : f(std::false_type{});
+}
 
 struct SourceP {
   int kind;
@@ -499,6 +535,167 @@ __device__ __forceinline__ HitT<S> quadric_hit(const ElementP& el, S qx, S qy, S
 }
 
 // ---------------------------------------------------------------------------
+// surface defects (ops/trace._deformed_hit, _defect_normal; ops/defects.py)
+// ---------------------------------------------------------------------------
+
+// unit 'up' normal at any point (ops/surfaces.normal_c); unlike the hit
+// functions' normals it does not assume the point is on the surface
+template <typename S>
+__device__ __forceinline__ void surface_normal(const ElementP& el, S x, S y, S z,
+                                               S& nx, S& ny, S& nz) {
+  const float* k = el.s;
+  switch (el.kind) {
+    case ELEM_PLANE:
+      nx = S(0.0f);
+      ny = S(0.0f);
+      nz = S(1.0f);
+      return;
+    case ELEM_TOROID: {  // {R, r, ...}: -grad of (rho - R)^2 + y^2
+      const S w = 1.0f - k[0] * rsq(fmax_(x * x + z * z, 1e-30f));
+      nx = -w * x;
+      ny = -y;
+      nz = -w * z;
+      break;
+    }
+    case ELEM_SPHERE:
+      nx = -x;
+      ny = -y;
+      nz = -z;
+      break;
+    case ELEM_CYLINDER:
+      nx = S(0.0f);
+      ny = -y;
+      nz = -z;
+      break;
+    case ELEM_PARABOLA:  // {p, ...}
+      nx = -x;
+      ny = -y;
+      nz = S(k[0]);
+      break;
+    default:  // ELEM_ELLIPSOID {1/a^2, 1/b^2, ...}
+      nx = -x * k[0];
+      ny = -y * k[1];
+      nz = -z * k[1];
+      break;
+  }
+  const S inv = rsq(nx * nx + ny * ny + nz * nz);
+  nx = nx * inv;
+  ny = ny * inv;
+  nz = nz * inv;
+}
+
+// The Zernike sums of a table at unit-disk coordinates (x, y): h = sum c Z
+// and, with SLOPES, gx = sum c dZ/dx, gy = sum c dZ/dy, by the recurrence of
+// ops/zernike.py (the JAX package's, Andersen 2018) row by row: row n reads
+// rows n - 1 and n - 2 only, so only those stay live, and the sums grow as
+// each term is formed. Unrolled to MAX_ZERNIKE_ORDER (every index is then a
+// constant and the rows live in registers); the loop leaves at the table's
+// order, the same for every ray of a launch.
+template <bool SLOPES, typename S>
+__device__ __forceinline__ void zernike_sums(const ZernikeP& zk, S x, S y, S& h, S& gx, S& gy) {
+  constexpr int W = MAX_ZERNIKE_ORDER + 1;
+  const float* c = zk.c;
+  S z1[W], z2[W], dx1[W], dx2[W], dy1[W], dy2[W];  // rows n - 1 and n - 2
+  z2[0] = S(1.0f);
+  z1[0] = y;
+  z1[1] = x;
+  h = c[0] + c[1] * y + c[2] * x;
+  if constexpr (SLOPES) {
+    dx2[0] = S(0.0f);
+    dy2[0] = S(0.0f);
+    dx1[0] = S(0.0f);
+    dx1[1] = S(1.0f);
+    dy1[0] = S(1.0f);
+    dy1[1] = S(0.0f);
+    gx = S(c[2]);
+    gy = S(c[1]);
+  }
+#pragma unroll
+  for (int n = 2; n <= MAX_ZERNIKE_ORDER; ++n) {
+    if (n > zk.max_order) break;
+    const float fn = (float)n;
+    S zn[W], dxn[W], dyn[W];
+#pragma unroll
+    for (int m = 0; m <= n; ++m) {
+      if (m == 0) {
+        zn[0] = x * z1[0] + y * z1[n - 1];
+        dxn[0] = fn * z1[0];
+        dyn[0] = fn * z1[n - 1];
+      } else if (m == n) {
+        zn[n] = x * z1[n - 1] - y * z1[0];
+        dxn[n] = fn * z1[n - 1];
+        dyn[n] = -fn * z1[0];
+      } else if (n % 2 != 0 && m == (n - 1) / 2) {
+        zn[m] = y * z1[n - 1 - m] + x * z1[m - 1] - y * z1[n - m] - z2[m - 1];
+        dxn[m] = fn * z1[m - 1] + dx2[m - 1];
+        dyn[m] = fn * z1[n - 1 - m] - fn * z1[n - m] + dy2[m - 1];
+      } else if (n % 2 != 0 && m == (n - 1) / 2 + 1) {
+        zn[m] = x * z1[m] + y * z1[n - 1 - m] + x * z1[m - 1] - z2[m - 1];
+        dxn[m] = fn * z1[m] + fn * z1[m - 1] + dx2[m - 1];
+        dyn[m] = fn * z1[n - 1 - m] + dy2[m - 1];
+      } else if (n % 2 == 0 && m == n / 2) {
+        zn[m] = 2.0f * x * z1[m] + 2.0f * y * z1[m - 1] - z2[m - 1];
+        dxn[m] = 2.0f * fn * z1[m] + dx2[m - 1];
+        dyn[m] = 2.0f * fn * z1[n - 1 - m] + dy2[m - 1];
+      } else {
+        zn[m] = x * z1[m] + y * z1[n - 1 - m] + x * z1[m - 1] - y * z1[n - m] - z2[m - 1];
+        dxn[m] = fn * z1[m] + fn * z1[m - 1] + dx2[m - 1];
+        dyn[m] = fn * z1[n - 1 - m] - fn * z1[n - m] + dy2[m - 1];
+      }
+      const float cm = c[n * (n + 1) / 2 + m];
+      h = h + cm * zn[m];
+      if constexpr (SLOPES) {
+        gx = gx + cm * dxn[m];
+        gy = gy + cm * dyn[m];
+      }
+    }
+#pragma unroll
+    for (int m = 0; m <= n; ++m) {
+      if (m < n) {
+        z2[m] = z1[m];
+        if constexpr (SLOPES) {
+          dx2[m] = dx1[m];
+          dy2[m] = dy1[m];
+        }
+      }
+      z1[m] = zn[m];
+      if constexpr (SLOPES) {
+        dx1[m] = dxn[m];
+        dy1[m] = dyn[m];
+      }
+    }
+  }
+}
+
+// The hit on a mirror with Zernike defects, from its base hit h (point and t
+// of the base root; alive stays the base hit's): t shifted along the ray by
+// the height error over max(-u.n0, 1e-6), the base normal at the shifted
+// point, and unless ignore_defects the defect slopes composed into it,
+// n = (-gx, -gy, 1) / |.|.
+template <typename S>
+__device__ __forceinline__ void deformed_hit(const ElementP& el, const ZernikeP& zk,
+                                             bool ignore_defects, S qx, S qy, S qz, S ux, S uy,
+                                             S uz, HitT<S>& h) {
+  S n0x, n0y, n0z, dh, gx, gy;
+  surface_normal(el, h.x, h.y, h.z, n0x, n0y, n0z);
+  zernike_sums<false>(zk, (h.x - el.cen[0]) * zk.inv_r, (h.y - el.cen[1]) * zk.inv_r, dh, gx, gy);
+  const S cos_alpha = fmax_(-(ux * n0x + uy * n0y + uz * n0z), 1e-6f);
+  h.t = h.t - div_(dh, cos_alpha);
+  h.x = qx + h.t * ux;
+  h.y = qy + h.t * uy;
+  h.z = qz + h.t * uz;
+  surface_normal(el, h.x, h.y, h.z, h.nx, h.ny, h.nz);
+  if (ignore_defects) return;
+  zernike_sums<true>(zk, (h.x - el.cen[0]) * zk.inv_r, (h.y - el.cen[1]) * zk.inv_r, dh, gx, gy);
+  gx = -div_(h.nx, h.nz) + gx * zk.inv_r;
+  gy = -div_(h.ny, h.nz) + gy * zk.inv_r;
+  const S inv = rsq(gx * gx + gy * gy + 1.0f);
+  h.nx = -gx * inv;
+  h.ny = -gy * inv;
+  h.nz = inv;
+}
+
+// ---------------------------------------------------------------------------
 // source (ops/fused_trace.synth_source)
 // ---------------------------------------------------------------------------
 
@@ -617,7 +814,10 @@ struct PoseMaps {
 // of its rays, as whole warps at its mask, before its two toroids). The
 // caller's ray loop must be warp-uniform (for_thread_rays): the vote names
 // all 32 lanes.
-template <bool WANT_INCIDENCE, bool WARP_EXIT, typename S, typename Maps>
+//
+// DEFECTS (the chain has Zernike tables): a mirror with a table takes the
+// deformed hit (deformed_hit).
+template <bool WANT_INCIDENCE, bool WARP_EXIT, bool DEFECTS, typename S, typename Maps>
 __device__ __forceinline__ void trace_chain_maps(const ChainP& ch, const Maps& maps, RayT<S>& s) {
   for (int i = 0; i < ch.n_elements; ++i) {
     const ElementP& el = ch.el[i];
@@ -668,6 +868,10 @@ __device__ __forceinline__ void trace_chain_maps(const ChainP& ch, const Maps& m
         h = quadric_hit(el, qx, qy, qz, ux, uy, uz, t_eps);
         break;
     }
+    if constexpr (DEFECTS) {
+      const int z = ch.zk_of[i];
+      if (z >= 0) deformed_hit(el, ch.zk[z], ch.ignore_defects != 0, qx, qy, qz, ux, uy, uz, h);
+    }
     const S dn = ux * h.nx + uy * h.ny + uz * h.nz;
     if (WANT_INCIDENCE && last) s.inc = acosf(fminf(fmaxf(-val(dn), -1.0f), 1.0f));
     kahan_add(s.opl, s.opl_c, h.t);
@@ -682,9 +886,9 @@ __device__ __forceinline__ void trace_chain_maps(const ChainP& ch, const Maps& m
 }
 
 // the chain walk with the maps of the chain record
-template <bool WANT_INCIDENCE, bool WARP_EXIT>
+template <bool WANT_INCIDENCE, bool WARP_EXIT, bool DEFECTS>
 __device__ __forceinline__ void trace_chain(const ChainP& ch, Ray& s) {
-  trace_chain_maps<WANT_INCIDENCE, WARP_EXIT>(ch, TableMaps{ch}, s);
+  trace_chain_maps<WANT_INCIDENCE, WARP_EXIT, DEFECTS>(ch, TableMaps{ch}, s);
 }
 
 // Write ray k of a traced state: patch-relative frame K -> lab,
@@ -826,7 +1030,7 @@ constexpr int MAX_SCALARS = 12 * MAX_ELEMENTS + 12;
 // from the source record, traced with the element maps of the block's pose
 // table (scalar type S: float, or Dual<G> for K6) and the rest of the chain
 // from the record, then epi(s, rr) for each alive ray.
-template <typename S, typename Epilogue>
+template <bool DEFECTS, typename S, typename Epilogue>
 __device__ __forceinline__ void trace_runtime_pose(const ChainP& ch, const SourceP& src,
                                                    const S* pose, int n_local, int first,
                                                    float phase, float k_frac, Epilogue&& epi) {
@@ -837,7 +1041,7 @@ __device__ __forceinline__ void trace_runtime_pose(const ChainP& ch, const Sourc
     synth_source(src, k, phase, k_frac, s0, rr);
     s0.alive = in_range;
     RayT<S> s = lift<S>(s0);
-    trace_chain_maps<false, true>(ch, maps, s);
+    trace_chain_maps<false, true, DEFECTS>(ch, maps, s);
     if (s.alive) epi(s, rr);
   });
 }

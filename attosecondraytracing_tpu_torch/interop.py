@@ -16,6 +16,7 @@ from .models.chain import FusedSourceInfo
 from .ops import supports as sup
 from .ops import surfaces as srf
 from .ops.bundle import RayBundle
+from .ops.defects import GridDefect, ZernikeDefect
 from .ops.fused_trace import BakedSource
 from .ops.trace import MaskElement, MirrorElement, bake
 
@@ -40,10 +41,27 @@ def _tensor(x, device, dtype):
     return torch.as_tensor(np.array(x, dtype=np.float64), dtype=dtype, device=device)
 
 
+def _defect(d, device, dtype):
+    """This package's defect record for a JAX-package ``ZernikeDefect``
+    (coefficients as floats) or ``GridDefect`` (maps as tensors on
+    ``device`` in ``dtype``)."""
+    name = type(d).__name__
+    if name == "ZernikeDefect":
+        items = d.coeffs.items() if isinstance(d.coeffs, dict) else d.coeffs
+        return ZernikeDefect(coeffs={(int(n), int(m)): float(np.asarray(c)) for (n, m), c in items},
+                             radius=float(np.asarray(d.radius)))
+    if name == "GridDefect":
+        return GridDefect(height=_tensor(d.height, device, dtype),
+                          slope_x=_tensor(d.slope_x, device, dtype),
+                          slope_y=_tensor(d.slope_y, device, dtype),
+                          **{f: float(np.asarray(getattr(d, f))) for f in ("x0", "y0", "dx", "dy")})
+    raise TypeError(f"no counterpart for defect {name}")
+
+
 def elements_from_numpy(elements, *, device, dtype):
     """Element records (``MirrorElement`` / ``MaskElement``) on ``device``
-    with poses in ``dtype``. Defects are not ported: a mirror carrying any
-    raises NotImplementedError."""
+    with poses in ``dtype``, a mirror's defects carried across
+    (:func:`_defect`)."""
     out = []
     for el in elements:
         name = type(el).__name__
@@ -52,13 +70,12 @@ def elements_from_numpy(elements, *, device, dtype):
                                    position=_tensor(el.position, device, dtype),
                                    support=_record(el.support, _SUPPORTS)))
         elif name == "MirrorElement":
-            if len(el.defects):
-                raise NotImplementedError("surface defects are not ported yet")
             out.append(MirrorElement(rot=_tensor(el.rot, device, dtype),
                                      position=_tensor(el.position, device, dtype),
                                      centre=_tensor(el.centre, device, dtype),
                                      surface=_record(el.surface, _SURFACES),
-                                     support=_record(el.support, _SUPPORTS)))
+                                     support=_record(el.support, _SUPPORTS),
+                                     defects=tuple(_defect(d, device, dtype) for d in el.defects)))
         else:
             raise TypeError(f"no counterpart for element {name}")
     return out

@@ -3,7 +3,7 @@ package's ``main.py``).
 
 Usage::
 
-    python -m attosecondraytracing_tpu_torch.main [--rays N] [--device cuda|cpu] [--profile DIR] CONFIG
+    python -m attosecondraytracing_tpu_torch.main [--rays N] [--device cuda|cpu] [--scan-engine auto|off] [--profile DIR] CONFIG
 
 A CONFIG file is an executable Python module defining ``OpticalChain`` (or
 ``OpticalChainList``), ``SourceProperties``, ``DetectorOptions`` and
@@ -13,8 +13,10 @@ this package while the file runs, so the same files drive both packages and
 JAX is never imported.
 
 ``--device`` defaults to ``cuda`` and raises when no card is present;
-``cpu`` runs the kernels' plain PyTorch versions. ``--profile DIR`` runs the
-CONFIG under ``torch.profiler`` (:func:`profiled`).
+``cpu`` runs the kernels' plain PyTorch versions. ``--scan-engine off`` (or
+``ART_TPU_SCAN_ENGINE=off``, the JAX package's variable) runs a parameter
+scan chain by chain instead of through the scan engine. ``--profile DIR``
+runs the CONFIG under ``torch.profiler`` (:func:`profiled`).
 """
 
 from __future__ import annotations
@@ -274,6 +276,7 @@ def _prepare_fused_scan(chains, AnalysisOptions):
     mode (they need per-ray bundles)."""
     from .models import chain as mchain
     from .ops.fused_scan import make_scan_spec, pose_independent_signature
+    from .ops.fused_trace import check_kernel_defects
 
     if len(chains) < 2:
         return None
@@ -288,6 +291,8 @@ def _prepare_fused_scan(chains, AnalysisOptions):
     if any(AnalysisOptions.get(k) for k in AnalysisOptions if k.startswith("plot_")) and not _CLI_ACTIVE:
         return None
     elements = [[e.to_device("cpu", torch.float64) for e in c.optical_elements] for c in chains]
+    for els in elements:
+        check_kernel_defects(els)
     if len({pose_independent_signature(els) for els in elements}) != 1:
         return None
     baked = specs[0].baked()
@@ -413,7 +418,8 @@ def main(OpticalChainList, SourceProperties, DetectorOptions, AnalysisOptions,
 
 #: short names the JAX package exports at its top level
 _SHORT_NAMES = {"mirrors": "models.mirrors", "supports": "models.supports",
-                "masks": "models.masks", "sources": "models.sources"}
+                "masks": "models.masks", "sources": "models.sources",
+                "defects": "models.defects"}
 
 
 @contextlib.contextmanager
@@ -456,6 +462,10 @@ def run_config_file(path: str, n_rays: int | None = None, *, device="cuda", scan
     filename = os.path.basename(path)
     spec = importlib.util.spec_from_file_location(filename, path)
     config_module = importlib.util.module_from_spec(spec)
+    # the CONFIG is importable by its file name while it runs, as in the JAX
+    # package's CLI (pickling, dataclasses and self-imports look it up there)
+    saved_module = sys.modules.get(filename)
+    sys.modules[filename] = config_module
     _CLI_ACTIVE = True
     try:
         # a CONFIG may trace while it loads (examples/CONFIG_gradient_alignment.py
@@ -475,10 +485,14 @@ def run_config_file(path: str, n_rays: int | None = None, *, device="cuda", scan
                     scan_engine=scan_engine)
     finally:
         _CLI_ACTIVE = False
+        if saved_module is None:
+            sys.modules.pop(filename, None)
+        else:
+            sys.modules[filename] = saved_module
 
 
 _USAGE = ("Usage: python -m attosecondraytracing_tpu_torch.main "
-          "[--rays N] [--device cuda|cpu] [--profile DIR] CONFIG_FILE")
+          "[--rays N] [--device cuda|cpu] [--scan-engine auto|off] [--profile DIR] CONFIG_FILE")
 
 
 def _pop_option(argv, flag):
@@ -538,15 +552,27 @@ def cli(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     rays = _pop_option(argv, "--rays")
     device = _pop_option(argv, "--device") or "cuda"
+    scan_engine = _pop_option(argv, "--scan-engine") or os.environ.get("ART_TPU_SCAN_ENGINE", "auto")
     profile_dir = _pop_option(argv, "--profile")
     if len(argv) != 1:
         print(_USAGE)
         sys.exit(1)
-    n_rays = None if rays is None else int(float(rays))
+    try:
+        n_rays = None if rays is None else int(float(rays))
+    except ValueError:
+        print("--rays requires a ray count (e.g. --rays 1e7)")
+        sys.exit(1)
+    if scan_engine not in SCAN_ENGINES:
+        print(f"--scan-engine takes one of {', '.join(SCAN_ENGINES)}, got {scan_engine!r}\n{_USAGE}")
+        sys.exit(1)
+
+    def run():
+        return run_config_file(argv[0], n_rays=n_rays, device=device, scan_engine=scan_engine)
+
     if profile_dir is None:
-        run_config_file(argv[0], n_rays=n_rays, device=device)
+        run()
     else:
-        profiled(profile_dir, lambda: run_config_file(argv[0], n_rays=n_rays, device=device))
+        profiled(profile_dir, run)
 
 
 if __name__ == "__main__":

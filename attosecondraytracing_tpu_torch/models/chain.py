@@ -56,6 +56,13 @@ class FusedSourceInfo(NamedTuple):
 PALLAS_MIN_RAYS = int(os.environ.get("ART_TPU_PALLAS_MIN_RAYS", "200000"))
 
 ENGINES = ("auto", "fused", "trace")
+#: the JAX package's engine names, taken as their counterparts here: its
+#: Pallas kernels and its in-jit fused source are the kernel engines, its
+#: XLA trace is the plain streamed trace
+ENGINE_ALIASES = {"pallas": "fused", "xla-source": "fused", "xla": "trace"}
+
+NO_DEVICE = ("this OpticalChain has no device yet: pass device= when building it "
+             "or call .to('cuda') / .to('cpu') before tracing")
 
 #: device taken by chains built without one while a CONFIG file runs
 #: (main.run_config_file); None everywhere else
@@ -125,9 +132,7 @@ class OpticalChain:
 
     def _device(self) -> torch.device:
         if self.device is None:
-            raise RuntimeError(
-                "this OpticalChain has no device yet: pass device= when building it "
-                "or call .to('cuda') / .to('cpu') before tracing")
+            raise RuntimeError(NO_DEVICE)
         return self.device
 
     # ------------------------------------------------------------------
@@ -193,14 +198,15 @@ class OpticalChain:
         """Element records on the chain's device (default: trace dtype)."""
         return [e.to_device(self._device(), dtype) for e in self.optical_elements]
 
-    def get_output_rays(self, force: bool = False):
+    def get_output_rays(self, ignore_defects: bool = True, force: bool = False):
         """List of bundles after each element (streamed trace, trace dtype);
         recomputed only when source or elements changed."""
         src_hash = _bundle_hash(self.source_rays)
         el_hash = hash(tuple(hash(e) for e in self.optical_elements))
         if force or src_hash != self._last_source_hash or el_hash != self._last_elements_hash:
             source = self.source_rays.to(self._device(), default_dtype())
-            self._output_rays = trace(source, self.device_elements(), keep_history=True)
+            self._output_rays = trace(source, self.device_elements(), ignore_defects,
+                                      keep_history=True)
             self._last_source_hash = src_hash
             self._last_elements_hash = el_hash
         return self._output_rays
@@ -209,41 +215,49 @@ class OpticalChain:
         """True when the fused-source engine takes this chain under
         engine="auto" (the JAX package's rule): a factory source (every
         factory kind) of at least ``PALLAS_MIN_RAYS`` rays. The chain's
-        length and element kinds do not enter: on a card, what the kernels
-        lack raises NotImplementedError from their wrappers instead of
-        falling back to another engine."""
+        length, element kinds and Zernike defects do not enter: on a card,
+        what the kernels lack raises NotImplementedError from their wrappers
+        instead of falling back to another engine, and a grid defect map
+        (no kernel form yet, ROADMAP queue 2 entry G) raises from
+        ``ops/fused_trace.chain_table`` on either device."""
         return self._source_spec is not None and self.source_rays.n_rays >= PALLAS_MIN_RAYS
 
-    def trace_final(self, engine: str = "auto") -> RayBundle:
+    def trace_final(self, ignore_defects: bool = True, engine: str | None = None) -> RayBundle:
         """Only the bundle after the last element — the production path.
 
-        ``engine``: "auto" routes every bundle of at least
-        ``PALLAS_MIN_RAYS`` rays through a kernel engine and smaller ones
-        through the plain streamed trace (the JAX package's rule); "fused"
-        forces the kernel engine that fits the source: the fused source
-        engine (kernel K1) for a factory source, the streamed kernels (K4
-        for a bundle fresh from a factory, else K3) for a bundle the user
-        built; "trace" forces the plain streamed trace. On the CPU the
-        kernels' plain versions run. The engine used is recorded in
+        ``engine`` (default: the ``ART_TPU_ENGINE`` variable, else "auto"):
+        "auto" routes every bundle of at least ``PALLAS_MIN_RAYS`` rays
+        through a kernel engine and smaller ones through the plain streamed
+        trace (the JAX package's rule); "fused" forces the kernel engine
+        that fits the source: the fused source engine (kernel K1) for a
+        factory source, the streamed kernels (K4 for a bundle fresh from a
+        factory, else K3) for a bundle the user built; "trace" forces the
+        plain streamed trace. The JAX package's names are taken as their
+        counterparts (:data:`ENGINE_ALIASES`). On the CPU the kernels' plain
+        versions run. The engine used is recorded in
         ``self.last_trace_engine``: "cuda-source"/"torch-source",
-        "cuda-streamed"/"torch-streamed" or "trace"."""
+        "cuda-streamed"/"torch-streamed" or "trace". ``ignore_defects`` as in
+        :func:`~..ops.trace.trace`."""
+        engine = engine or os.environ.get("ART_TPU_ENGINE", "auto")
+        engine = ENGINE_ALIASES.get(engine, engine)
         if engine not in ENGINES:
-            raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
+            raise ValueError(f"engine must be one of {ENGINES} or {tuple(ENGINE_ALIASES)}, "
+                             f"got {engine!r}")
         if engine == "fused" or (engine == "auto" and self.source_rays.n_rays >= PALLAS_MIN_RAYS):
             if self._source_spec is None:
-                return self._trace_final_streamed()
-            return self._trace_final_fused()
+                return self._trace_final_streamed(ignore_defects)
+            return self._trace_final_fused(ignore_defects)
         self.last_trace_engine = "trace"
         source = self.source_rays.to(self._device(), default_dtype())
-        return trace(source, self.device_elements(), keep_history=False)
+        return trace(source, self.device_elements(), ignore_defects, keep_history=False)
 
-    def _trace_final_streamed(self) -> RayBundle:
+    def _trace_final_streamed(self, ignore_defects: bool = True) -> RayBundle:
         from ..ops.fused_trace import chain_table, streamed_trace
 
         device = self._device()
         source = self.source_rays
         table = chain_table(None, [e.to_device("cpu", torch.float64) for e in self.optical_elements])
-        out = streamed_trace(table, source, device=device)
+        out = streamed_trace(table, source, device=device, ignore_defects=ignore_defects)
         self.last_trace_engine = "cuda-streamed" if device.type == "cuda" else "torch-streamed"
         return RayBundle(
             p=out.p, d=out.d, opl=out.opl, opl_c=out.opl_c, alive=out.alive,
@@ -252,7 +266,7 @@ class OpticalChain:
             wavelength=source.wavelength.to(device, torch.float32),
         )
 
-    def _trace_final_fused(self) -> RayBundle:
+    def _trace_final_fused(self, ignore_defects: bool = True) -> RayBundle:
         from ..ops.fused_trace import chain_table, fused_source_trace
 
         info = self._source_spec
@@ -261,7 +275,8 @@ class OpticalChain:
         # the chain table is formed on the host from float64 poses (rounded
         # to float32 once)
         table = chain_table(spec, [e.to_device("cpu", torch.float64) for e in self.optical_elements])
-        out = fused_source_trace(table, spec, info.n_rays, device=device)
+        out = fused_source_trace(table, spec, info.n_rays, device=device,
+                                 ignore_defects=ignore_defects)
         self.last_trace_engine = "cuda-source" if device.type == "cuda" else "torch-source"
         # ray i of the in-kernel spiral is ray i of the factory bundle, so the
         # source intensity profile rides along by index

@@ -16,9 +16,11 @@ import numpy as np
 import torch
 
 from ..ops import host_geometry as hg
+from ..ops.defects import GridDefect
 from ..ops.precision import default_dtype
 from ..ops.trace import MaskElement, MirrorElement
 from .masks import Mask
+from .mirrors import DeformedMirror
 
 
 class OpticalElement:
@@ -130,7 +132,8 @@ class OpticalElement:
         """The element record consumed by the trace: pose tensors (rotation,
         position, support centre) on ``device`` in ``dtype`` (default: the
         trace dtype), surface and support parameters as python floats, so
-        their derived constants round to the ray dtype once, at use."""
+        their derived constants round to the ray dtype once, at use; a
+        ``DeformedMirror``'s defects (``device_defects``) ride along."""
         dtype = dtype or default_dtype()
 
         def tensor(x):
@@ -141,10 +144,19 @@ class OpticalElement:
             return MaskElement(rot=tensor(self.frame_rotation()),
                                position=tensor(self._position), support=optic.support)
         surface = optic.surface_params()
+        defects = ()
+        if isinstance(optic, DeformedMirror):
+            # Zernike coefficients stay host floats; grid maps become
+            # tensors on the element's device
+            defects = tuple(
+                d._replace(height=tensor(d.height), slope_x=tensor(d.slope_x),
+                           slope_y=tensor(d.slope_y)) if isinstance(d, GridDefect) else d
+                for d in optic.device_defects())
         return MirrorElement(
             rot=tensor(self.frame_rotation()),
             position=tensor(self._position),
             centre=tensor(optic.get_centre()),
             surface=type(surface)(*(float(v) for v in surface)),
             support=optic.support,
+            defects=defects,
         )

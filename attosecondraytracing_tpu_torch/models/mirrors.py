@@ -7,8 +7,8 @@ class names, constructor signatures, attributes, ``get_centre``/``get_normal``
 Unlike the reference, these objects hold *no tracing logic for bundles*: they
 compile to surface descriptions (:meth:`surface_params`) consumed by the
 batched PyTorch trace (attosecondraytracing_tpu_torch.ops.surfaces / .trace)
-and the CUDA kernels. ``DeformedMirror`` (surface defects) is not ported yet.
-Each class
+and the CUDA kernels; ``DeformedMirror`` wraps any of them with surface
+defects (``models/defects``). Each class
 also provides a scalar float64 NumPy intersection (:meth:`_intersect_host`,
 ``np.roots``-based like the reference) that is used for the single
 alignment ray during auto-placement and as an independent test oracle for the
@@ -23,7 +23,7 @@ import numpy as np
 
 from ..ops import supports as sup
 from ..ops import surfaces as srf
-from ..ops.host_geometry import normalize
+from ..ops.host_geometry import angle_between, normalize
 
 
 def _real_positive_roots(coeffs, eps=1e-12):
@@ -431,3 +431,63 @@ class MirrorCylindrical(_MirrorBase):
 
     def _params_tuple(self):
         return (self.radius,)
+
+
+# %% ------------------------------------------------------------------------
+
+
+class DeformedMirror(_MirrorBase):
+    """A mirror with added surface-defect maps (ART/ModuleMirror.py:945-981).
+
+    The intersection is shifted along the ray by the local height error
+    h/cos(alpha); the normal composes the base normal with the defect slopes.
+    ``IgnoreDefects=True`` during tracing (the reference's default,
+    ART/ModuleProcessing.py:250) keeps the *offset* but reflects off the
+    undeformed normal.
+    """
+
+    def __init__(self, Mirror, DeformationList):
+        self.Mirror = Mirror
+        self.DeformationList = DeformationList
+        self.type = Mirror.type
+        self.support = Mirror.support
+
+    def surface_params(self):
+        return self.Mirror.surface_params()
+
+    def device_defects(self):
+        return tuple(d.device_defect() for d in self.DeformationList)
+
+    def get_centre(self):
+        return self.Mirror.get_centre()
+
+    def get_normal(self, Point):
+        n = self.Mirror.get_normal(Point)
+        centre = self.get_centre()
+        gx = -n[0] / n[2]
+        gy = -n[1] / n[2]
+        rel = np.asarray(Point, dtype=float) - centre
+        for defect in self.DeformationList:
+            dgx, dgy = defect.slopes_at(rel[0], rel[1])
+            gx += dgx
+            gy += dgy
+        return normalize(np.array([-gx, -gy, 1.0]))
+
+    def get_grid3D(self, NbPoint, **kwargs):
+        return self.Mirror.get_grid3D(NbPoint, **kwargs)
+
+    def _sag(self, x, y):
+        return self.Mirror._sag(x, y)
+
+    def _intersect_host(self, p, d):
+        q = self.Mirror._intersect_host(p, d)
+        if q is None:
+            return None
+        centre = self.get_centre()
+        rel = q - centre
+        h = sum(float(np.asarray(defect.offset_at(rel[0], rel[1]))) for defect in self.DeformationList)
+        alpha = angle_between(-d, self.Mirror.get_normal(q))
+        return q - d * h / np.cos(alpha)
+
+    def _params_tuple(self):
+        return (self.Mirror._params_tuple(), tuple(id(d) for d in self.DeformationList))

@@ -37,7 +37,7 @@ NVCC_FLAGS = (
 )
 
 #: version of the C interface these bindings take (``art_abi_version``)
-ABI_VERSION = 3
+ABI_VERSION = 4
 
 _lock = threading.Lock()
 _lib = None
@@ -120,13 +120,24 @@ def library() -> ctypes.CDLL:
 def load(path) -> ctypes.CDLL:
     """Load a kernel library built from ``csrc/``, bind its C interface and
     check its record layouts against the numpy records."""
-    from .fused_scan import N_AUX
-    from .fused_trace import CHAIN_T, DETECTOR_T, SOURCE_T
+    from .fused_trace import CHAIN_T
 
     lib = ctypes.CDLL(str(path))
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if not hasattr(lib, "art_abi_version") or lib.art_abi_version() != ABI_VERSION:
         raise RuntimeError(f"{path}: not a kernel library of C interface version {ABI_VERSION}")
+    return bind(lib, CHAIN_T.itemsize)
+
+
+def bind(lib, chain_bytes: int) -> ctypes.CDLL:
+    """Bind the C interface of versions 3 and 4 (the same entry points) to a
+    loaded library and check its record sizes: the chain record must be
+    ``chain_bytes`` long (this version's; version 3's is the prefix before
+    the defect fields, which such a library reads of this version's
+    records), the others as the numpy records."""
+    from .fused_scan import N_AUX
+    from .fused_trace import DETECTOR_T, SOURCE_T
+
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for name in ("art_chain_params_size", "art_source_params_size",
                  "art_detector_params_size"):
         getattr(lib, name).argtypes = []
@@ -152,13 +163,13 @@ def load(path) -> ctypes.CDLL:
     lib.art_launch_fused_source_stats.restype = ci
     lib.art_launch_stats_params.argtypes = [vp, vp, cf, ci, ci, ci, ci, ci, vp, ci, vp, vp, vp, vp]
     lib.art_launch_stats_params.restype = ci
-    for name, dt in (("art_chain_params_size", CHAIN_T),
-                     ("art_source_params_size", SOURCE_T),
-                     ("art_detector_params_size", DETECTOR_T)):
-        size = getattr(lib, name)()
-        if size != dt.itemsize:
-            raise RuntimeError(f"{name}: C struct is {size} B, numpy record is "
-                               f"{dt.itemsize} B — layouts disagree")
+    for name, size in (("art_chain_params_size", chain_bytes),
+                       ("art_source_params_size", SOURCE_T.itemsize),
+                       ("art_detector_params_size", DETECTOR_T.itemsize)):
+        got = getattr(lib, name)()
+        if got != size:
+            raise RuntimeError(f"{name}: C struct is {got} B, numpy record is "
+                               f"{size} B — layouts disagree")
     if lib.art_scan_aux_size() != N_AUX:
         raise RuntimeError(f"scan kernel takes {lib.art_scan_aux_size()} aux scalars, "
                            f"ops/fused_scan.py packs {N_AUX}")

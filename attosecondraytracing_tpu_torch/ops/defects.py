@@ -1,0 +1,133 @@
+"""Surface-defect evaluation inside the trace: height offsets and slopes
+(counterpart of the JAX package's ``ops/defects.py``).
+
+The reference wraps mirrors in a DeformedMirror whose intersection is shifted
+along the ray by the local height error, and whose normal is composed from the
+base normal and per-defect slope normals (ART/ModuleMirror.py:945-981,
+ART/ModuleGeometry.py:394-407). Host-side construction (PSD synthesis,
+measured-map ingestion) lives in
+:mod:`attosecondraytracing_tpu_torch.models.defects`; here are the batched
+lookups that run inside the trace, on tensors.
+
+Two representations:
+
+* :class:`GridDefect` — height + precomputed slope maps on a regular grid,
+  bilinearly interpolated (the reference's RegularGridInterpolator usage,
+  ART/ModuleDefects.py:34-146); the maps are tensors on the trace's device;
+* :class:`ZernikeDefect` — coefficients (python floats) evaluated exactly
+  through the Andersen recurrence (ART/ModuleDefects.py:149-181). The CUDA
+  kernels take these (``csrc/trace_common.cuh``, ``zernike_sums``); grid
+  maps run on the plain trace only.
+
+Note: the reference's Fourrier/MeasuredMap ``get_normal`` returns
+[+dX, +dY, ...] while its Zernike returns [-dX, -dY, 1]
+(ART/ModuleDefects.py:52-58 vs :156-166). For a height map h(x, y) the correct
+'up' normal is [-dh/dx, -dh/dy, 1]; we use that consistently for all defect
+types (divergence noted per SURVEY.md §7 "implement the intended behavior").
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .zernike import zernike_value_and_grad
+
+
+class GridDefect(NamedTuple):
+    """Regular-grid height/slope maps, indexed [ix, iy]."""
+
+    height: torch.Tensor   # (Nx, Ny)
+    slope_x: torch.Tensor  # (Nx, Ny) dh/dx
+    slope_y: torch.Tensor  # (Nx, Ny) dh/dy
+    x0: float              # grid origin
+    y0: float
+    dx: float              # grid spacing
+    dy: float
+
+
+class ZernikeDefect(NamedTuple):
+    """Zernike-sum height error over the circumscribed circle of radius R.
+
+    ``coeffs`` maps the Andersen (n, m) index to a coefficient [mm] (a dict,
+    or a tuple of ((n, m), value) pairs)."""
+
+    coeffs: dict
+    radius: float  # circumscribed-circle radius used to normalize
+
+
+def _coeff_items(coeffs):
+    return coeffs.items() if isinstance(coeffs, dict) else coeffs
+
+
+def _bilinear_multi(grids, x0, y0, dx, dy, x, y):
+    """Clamped bilinear interpolation of several SAME-SHAPE grids at physical
+    (x, y), sharing one index/weight computation. The grids are packed as
+    the columns of one flattened (nx*ny, K) view, so each corner is one
+    indexed read of a K-wide row. Returns a list of (N,) values, one per
+    grid."""
+    nx, ny = grids[0].shape
+    fx = (x - x0) / dx
+    fy = (y - y0) / dy
+    fx = torch.clamp(fx, 0.0, nx - 1.000001)
+    fy = torch.clamp(fy, 0.0, ny - 1.000001)
+    ix = torch.clamp(torch.floor(fx).to(torch.int64), 0, nx - 2)
+    iy = torch.clamp(torch.floor(fy).to(torch.int64), 0, ny - 2)
+    wx = fx - ix
+    wy = fy - iy
+    packed = torch.stack([g.reshape(-1) for g in grids], dim=-1)
+    base = ix * ny + iy
+    c00 = packed[base]
+    c10 = packed[base + ny]
+    c01 = packed[base + 1]
+    c11 = packed[base + ny + 1]
+    w00 = ((1 - wx) * (1 - wy))[..., None]
+    w10 = (wx * (1 - wy))[..., None]
+    w01 = ((1 - wx) * wy)[..., None]
+    w11 = (wx * wy)[..., None]
+    vals = c00 * w00 + c10 * w10 + c01 * w01 + c11 * w11
+    return [vals[..., k] for k in range(len(grids))]
+
+
+def _bilinear(grid, x0, y0, dx, dy, x, y):
+    """Clamped bilinear interpolation of one grid at physical (x, y)."""
+    return _bilinear_multi((grid,), x0, y0, dx, dy, x, y)[0]
+
+
+def defect_offset(defect, x, y):
+    """Height error h(x, y) [mm] at local support coordinates, batched."""
+    if isinstance(defect, GridDefect):
+        return _bilinear(defect.height, defect.x0, defect.y0, defect.dx, defect.dy, x, y)
+    if isinstance(defect, ZernikeDefect):
+        items = tuple(_coeff_items(defect.coeffs))
+        xn = x / defect.radius
+        yn = y / defect.radius
+        max_order = max(k[0] for k, _ in items)
+        Z, _, _ = zernike_value_and_grad(xn, yn, max_order)
+        h = torch.zeros_like(xn)
+        for k, c in items:
+            h = h + c * Z[k]
+        return h
+    raise TypeError(f"unknown defect type {type(defect)}")
+
+
+def defect_slopes(defect, x, y):
+    """(dh/dx, dh/dy) at local support coordinates, batched."""
+    if isinstance(defect, GridDefect):
+        gx, gy = _bilinear_multi((defect.slope_x, defect.slope_y),
+                                 defect.x0, defect.y0, defect.dx, defect.dy, x, y)
+        return gx, gy
+    if isinstance(defect, ZernikeDefect):
+        items = tuple(_coeff_items(defect.coeffs))
+        xn = x / defect.radius
+        yn = y / defect.radius
+        max_order = max(k[0] for k, _ in items)
+        _, DX, DY = zernike_value_and_grad(xn, yn, max_order)
+        gx = torch.zeros_like(xn)
+        gy = torch.zeros_like(xn)
+        for k, c in items:
+            gx = gx + c * DX[k]
+            gy = gy + c * DY[k]
+        return gx / defect.radius, gy / defect.radius
+    raise TypeError(f"unknown defect type {type(defect)}")

@@ -156,8 +156,8 @@ class FusedLossSpec(NamedTuple):
     """The pose-independent description of a fused loss: source law, chain
     structure, the chief-ray reference path and the loss weights.
     ``elements`` are host float64 element records whose poses are unused
-    (each evaluation's poses come from its ``svec``). Surface defects are
-    not ported, so there is no ``ignore_defects``."""
+    (each evaluation's poses come from its ``svec``). ``ignore_defects``
+    as in :func:`~.trace.trace`."""
 
     source_kind: str          # 'cone' | 'disk' | 'extended' | 'square'
     source_radius: float      # tan(divergence), disk radius or square side [mm]
@@ -167,20 +167,24 @@ class FusedLossSpec(NamedTuple):
     n_rays: int
     duration_weight: float
     survival_weight: float
+    ignore_defects: bool = True
     pos_radius: float = 0.0   # source-disk radius [mm] ('extended')
     n_each: int = 0
     n_sources: int = 0
 
 
 def make_loss_spec(source_spec, elements, det_centre, det_normal, duration_weight: float = 0.0,
-                   survival_weight: float = 1.0, *, device, dtype=None) -> FusedLossSpec:
+                   survival_weight: float = 1.0, ignore_defects: bool = True, *, device,
+                   dtype=None) -> FusedLossSpec:
     """The FusedLossSpec of a chain's ``FusedSourceInfo``
     (models/chain.py), its elements, and the fixed lab-frame detector
     plane; the chief-ray probe traces on ``device`` in ``dtype`` (default:
-    the trace dtype)."""
+    the trace dtype). Refuses grid defect maps
+    (:func:`~.fused_trace.check_kernel_defects`)."""
     from . import fused_trace as ft
     from .precision import default_dtype
 
+    ft.check_kernel_defects(elements)
     baked = source_spec.baked()
     opl_ref, _ = ft.chief_ray_refs(baked, elements, det_centre, det_normal, device=device,
                                    dtype=dtype or default_dtype())
@@ -189,7 +193,8 @@ def make_loss_spec(source_spec, elements, det_centre, det_normal, duration_weigh
         elements=tuple(ft.elements_to(elements, "cpu", torch.float64)),
         opl_ref=float(opl_ref), gaussian_edge=source_spec.gaussian_edge,
         n_rays=int(source_spec.n_rays), duration_weight=float(duration_weight),
-        survival_weight=float(survival_weight), pos_radius=float(baked.pos_radius),
+        survival_weight=float(survival_weight), ignore_defects=bool(ignore_defects),
+        pos_radius=float(baked.pos_radius),
         n_each=int(baked.n_each), n_sources=int(baked.n_sources))
 
 
@@ -238,7 +243,8 @@ def stats_of_scalars(scal, spec: FusedLossSpec, n_local: int, phase, k_frac, *, 
     zeros = torch.zeros_like(rr)
     s = TraceState(px, py, pz, dx, dy, dz, zeros, zeros, torch.ones_like(rr, dtype=torch.bool), zeros)
     for el, (M, b) in zip(ft.elements_to(spec.elements, device, torch.float64), maps):
-        s = chained_step(el, M, b, s, want_incidence=False, freeze_dead=False)
+        s = chained_step(el, M, b, s, want_incidence=False, ignore_defects=spec.ignore_defects,
+                         freeze_dead=False)
     det = ft.BakedDetector(centre=det_rel[0], normal=det_rel[1], e1=det_rel[2], e2=det_rel[3],
                            opl_ref=spec.opl_ref)
     return ft.stats_rows(s, det, weights)[:, 0]
@@ -292,7 +298,8 @@ def _scan_spec(spec: FusedLossSpec):
     from .fused_scan import ScanSpec
 
     return ScanSpec(source_kind=spec.source_kind, elements=spec.elements, n_total=spec.n_rays,
-                    n_each=spec.n_each, n_sources=spec.n_sources)
+                    ignore_defects=spec.ignore_defects, n_each=spec.n_each,
+                    n_sources=spec.n_sources)
 
 
 def pack_stats_records(spec: FusedLossSpec):

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from . import fused_trace as ft
+from .defects import ZernikeDefect, _coeff_items
 from .fused_grad import _unpack_scalars, chain_scalars_np, n_scalars
 from .trace import MaskElement, TraceState, bake, chained_step
 
@@ -50,27 +51,43 @@ class ScanSpec(NamedTuple):
     source_kind: str   # 'cone' | 'disk' | 'extended' | 'square'
     elements: tuple
     n_total: int       # global ray count (radius-law divisor)
+    ignore_defects: bool = True
     n_each: int = 0    # rays per sub-source ('extended'), grid side ('square')
     n_sources: int = 0
 
 
-def make_scan_spec(source_kind: str, elements, n_total: int, n_each: int = 0,
-                   n_sources: int = 0) -> ScanSpec:
+def make_scan_spec(source_kind: str, elements, n_total: int, ignore_defects: bool = True,
+                   n_each: int = 0, n_sources: int = 0) -> ScanSpec:
+    """The :class:`ScanSpec` of a scan whose chains share ``elements``'
+    pose-independent parts; refuses grid defect maps
+    (:func:`~.fused_trace.check_kernel_defects`)."""
+    ft.check_kernel_defects(elements)
     return ScanSpec(source_kind=source_kind,
                     elements=tuple(ft.elements_to(elements, "cpu", torch.float64)),
-                    n_total=int(n_total), n_each=int(n_each), n_sources=int(n_sources))
+                    n_total=int(n_total), ignore_defects=bool(ignore_defects),
+                    n_each=int(n_each), n_sources=int(n_sources))
+
+
+def _defect_key(defect):
+    """A hashable identity of a defect record: a Zernike table by value, a
+    grid map by its height map's identity."""
+    if isinstance(defect, ZernikeDefect):
+        return ("zernike", tuple(sorted((tuple(k), float(v)) for k, v in _coeff_items(defect.coeffs))),
+                float(defect.radius))
+    return ("grid", id(defect.height))
 
 
 def pose_independent_signature(elements):
     """Hashable signature of everything a :class:`ScanSpec` packs: element
-    kinds, surfaces, supports and support centres. Chains with equal
-    signatures share one record; their poses may differ freely."""
+    kinds, surfaces, supports, support centres and defects. Chains with
+    equal signatures share one record; their poses may differ freely."""
     sig = []
     for el in elements:
         if isinstance(el, MaskElement):
             sig.append(("mask", el.support))
         else:
-            sig.append(("mirror", bake(el.centre), el.surface, el.support, el.defects))
+            sig.append(("mirror", bake(el.centre), el.surface, el.support,
+                        tuple(_defect_key(d) for d in el.defects)))
     return tuple(sig)
 
 
@@ -103,7 +120,7 @@ def pack_scan_chain(spec: ScanSpec) -> np.ndarray:
     zero_map = (np.zeros((3, 3)), np.zeros(3))
     table = ft.ChainTable(elements=spec.elements, maps=(zero_map,) * n, final=zero_map,
                           premasks=((),) * n)
-    return ft.pack_chain(table)
+    return ft.pack_chain(table, spec.ignore_defects)
 
 
 def scan_moments_ref(spec: ScanSpec, svec, aux_rows, chunks, *, device) -> np.ndarray:
@@ -131,7 +148,8 @@ def scan_moments_ref(spec: ScanSpec, svec, aux_rows, chunks, *, device) -> np.nd
         s = TraceState(px, py, pz, dx, dy, dz, zeros, zeros,
                        torch.ones_like(rr, dtype=torch.bool), zeros)
         for el, (M, b) in zip(elements, maps):
-            s = chained_step(el, M, b, s, want_incidence=False, freeze_dead=False)
+            s = chained_step(el, M, b, s, want_incidence=False, ignore_defects=spec.ignore_defects,
+                             freeze_dead=False)
         det = ft.BakedDetector(centre=det_rel[0], normal=det_rel[1], e1=det_rel[2],
                                e2=det_rel[3], opl_ref=a[AUX_OPL_REF],
                                inv_dn_chief=a[AUX_INV_DN])

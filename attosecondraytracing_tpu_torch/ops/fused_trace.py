@@ -36,6 +36,14 @@ host float64 (:func:`chain_table`: ``compose_chain`` + the source frame +
 ``fold_premasks``) and rounded to float32 once, exactly like the constants
 the Pallas kernels bake, so kernel and plain version see identical
 constants.
+
+Mirrors with Zernike surface defects go through every kernel: their
+coefficients ride in the chain record as one small table per mirror
+(:func:`pack_chain`, up to :data:`MAX_ZERNIKE` tables of order
+:data:`MAX_ZERNIKE_ORDER`), and ``ignore_defects`` is a field of the record.
+Grid defect maps (``Fourrier``, ``MeasuredMap``) have no kernel form yet
+(ROADMAP queue 2 entry G): :func:`chain_table` refuses them, on the CPU and
+on the card alike, and they run on the plain streamed trace.
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ import numpy as np
 import torch
 
 from .bundle import RayBundle
+from .defects import GridDefect, ZernikeDefect, _coeff_items
 from .trace import (
     MaskElement,
     TraceState,
@@ -305,6 +314,20 @@ class ChainTable(NamedTuple):
     premasks: tuple   # per element: tuple of (support, M, b)
 
 
+def check_kernel_defects(elements):
+    """Raise NotImplementedError if a mirror carries a grid defect map: the
+    kernels evaluate Zernike defects only (grid gathers are ROADMAP queue 2
+    entry G). Runs on the host before anything is allocated, whatever the
+    device."""
+    for el in elements:
+        for defect in getattr(el, "defects", ()):
+            if isinstance(defect, GridDefect):
+                raise NotImplementedError(
+                    "grid defect maps (Fourrier, MeasuredMap) have no kernel form yet "
+                    "(ROADMAP queue 2 entry G): trace this chain below PALLAS_MIN_RAYS or "
+                    "with engine='trace'")
+
+
 def chain_table(spec: BakedSource | None, elements) -> ChainTable:
     """Chain maps whose first map takes canonical source-frame coordinates
     straight into element 0's surface frame (the source rotation and origin
@@ -312,7 +335,8 @@ def chain_table(spec: BakedSource | None, elements) -> ChainTable:
     first map takes lab coordinates into element 0's frame (the streamed
     kernels' table: the JAX package's ``_static_chain``). Host float64;
     elements may live on any device and dtype (their poses are read as
-    float64)."""
+    float64). Refuses grid defect maps (:func:`check_kernel_defects`)."""
+    check_kernel_defects(elements)
     maps, final = compose_chain(elements)
     if spec is not None:
         maps = fold_source(maps, elements, spec.rot, spec.origin)
@@ -330,6 +354,11 @@ def chain_table(spec: BakedSource | None, elements) -> ChainTable:
 
 MAX_ELEMENTS = 8
 MAX_PREMASKS = 8
+#: Zernike tables per chain (one per deformed mirror) and their highest order
+MAX_ZERNIKE = 4
+MAX_ZERNIKE_ORDER = 8
+#: coefficients of a table: (n, m) at n (n + 1) / 2 + m, 0 <= m <= n <= 8
+N_ZERNIKE_TERMS = (MAX_ZERNIKE_ORDER + 1) * (MAX_ZERNIKE_ORDER + 2) // 2
 
 _ELEM_KIND = {MaskElement: 0, srf.Plane: 1, srf.Toroid: 2, srf.Parabola: 3,
               srf.Sphere: 4, srf.Cylinder: 5, srf.Ellipsoid: 6}
@@ -342,10 +371,13 @@ _ELEMENT_T = np.dtype([
     ("M", "<f4", (9,)), ("b", "<f4", (3,)), ("cen", "<f4", (3,)),
     ("s", "<f4", (8,)), ("sup", _SUPPORT_T),
 ])
+_ZERNIKE_T = np.dtype([("max_order", "<i4"), ("inv_r", "<f4"), ("c", "<f4", (N_ZERNIKE_TERMS,))])
 CHAIN_T = np.dtype([
     ("n_elements", "<i4"), ("n_premasks", "<i4"),
     ("el", _ELEMENT_T, (MAX_ELEMENTS,)), ("pre", _PREMASK_T, (MAX_PREMASKS,)),
     ("RK", "<f4", (9,)), ("posK", "<f4", (3,)),
+    ("ignore_defects", "<i4"), ("n_zernike", "<i4"), ("zk_of", "<i4", (MAX_ELEMENTS,)),
+    ("zk", _ZERNIKE_T, (MAX_ZERNIKE,)),
 ])
 SOURCE_T = np.dtype([
     ("kind", "<i4"), ("radius", "<f4"), ("inv_n_total", "<f4"), ("rad2", "<f4"),
@@ -407,10 +439,38 @@ def _surface_constants(surface):
     return k + [ox, tol]
 
 
-def pack_chain(table: ChainTable) -> np.ndarray:
+def _pack_zernike(rec, defects):
+    """One mirror's Zernike table: its defects' coefficients summed in
+    float64 (they share one radius), rounded to float32 once."""
+    radii = {float(d.radius) for d in defects}
+    if len(radii) != 1:
+        raise NotImplementedError(
+            f"Zernike defects of one mirror with different radii {sorted(radii)} have no kernel "
+            "form (one table per mirror)")
+    c = np.zeros(N_ZERNIKE_TERMS, np.float64)
+    max_order = 2
+    for d in defects:
+        for (n, m), value in _coeff_items(d.coeffs):
+            n, m = int(n), int(m)
+            if not 0 <= m <= n:
+                raise ValueError(f"Zernike index (n, m) = ({n}, {m}) needs 0 <= m <= n")
+            if n > MAX_ZERNIKE_ORDER:
+                raise NotImplementedError(
+                    f"Zernike order {n} exceeds the kernels' cap of {MAX_ZERNIKE_ORDER}")
+            c[n * (n + 1) // 2 + m] += float(value)
+            max_order = max(max_order, n)
+    rec["max_order"] = max_order
+    rec["inv_r"] = 1.0 / radii.pop()
+    rec["c"] = c
+
+
+def pack_chain(table: ChainTable, ignore_defects: bool = True) -> np.ndarray:
     """The kernels' by-value chain record from a :class:`ChainTable`;
     raises NotImplementedError on a chain the kernels do not take (the
-    plain versions take any chain)."""
+    plain versions take any chain): more than :data:`MAX_ELEMENTS` elements
+    or :data:`MAX_PREMASKS` folded masks, a defect other than Zernike, more
+    than :data:`MAX_ZERNIKE` deformed mirrors, or a Zernike order above
+    :data:`MAX_ZERNIKE_ORDER`."""
     n = len(table.elements)
     n_pre = sum(len(p) for p in table.premasks)
     if n > MAX_ELEMENTS or n_pre > MAX_PREMASKS:
@@ -420,6 +480,8 @@ def pack_chain(table: ChainTable) -> np.ndarray:
     rec = np.zeros((), dtype=CHAIN_T)
     rec["n_elements"] = n
     rec["n_premasks"] = n_pre
+    rec["ignore_defects"] = bool(ignore_defects)
+    rec["zk_of"] = -1
     k = 0
     for i, (el, (M, b), pre) in enumerate(zip(table.elements, table.maps, table.premasks)):
         e = rec["el"][i]
@@ -427,7 +489,19 @@ def pack_chain(table: ChainTable) -> np.ndarray:
             e["kind"] = _ELEM_KIND[MaskElement]
         else:
             if el.defects:
-                raise NotImplementedError("surface defects have no kernel form yet")
+                if not all(isinstance(d, ZernikeDefect) for d in el.defects):
+                    kinds = sorted({type(d).__name__ for d in el.defects})
+                    raise NotImplementedError(
+                        f"defects {kinds} have no kernel form: the kernels take Zernike "
+                        "defects (grid maps: ROADMAP queue 2 entry G)")
+                z = int(rec["n_zernike"])
+                if z == MAX_ZERNIKE:
+                    raise NotImplementedError(
+                        f"more than {MAX_ZERNIKE} mirrors with Zernike defects exceed the "
+                        "kernels' Zernike tables")
+                _pack_zernike(rec["zk"][z], el.defects)
+                rec["zk_of"][i] = z
+                rec["n_zernike"] = z + 1
             consts = _surface_constants(el.surface)
             e["kind"] = _ELEM_KIND[type(el.surface)]
             e["cen"] = bake(el.centre)
@@ -491,7 +565,7 @@ def pack_detector(det: BakedDetector, centre_distance=0.0) -> np.ndarray:
 
 
 def _synth_traced_state(table: ChainTable, spec: BakedSource, n_local, n_total, phase,
-                        k_frac, *, device, want_incidence):
+                        k_frac, *, device, want_incidence, ignore_defects=True):
     """The plain versions' shared body: synthesize ``n_local`` source rays
     and run the chained trace with dead rays not frozen at mirrors (the
     state stays patch-relative to the last element). Returns (state, rr)."""
@@ -502,7 +576,7 @@ def _synth_traced_state(table: ChainTable, spec: BakedSource, n_local, n_total, 
     last = len(table.elements) - 1
     for i, (el, (M, b), pre) in enumerate(zip(table.elements, table.maps, table.premasks)):
         s = chained_step(el, M, b, s, want_incidence=want_incidence and i == last,
-                         premasks=pre, freeze_dead=False)
+                         ignore_defects=ignore_defects, premasks=pre, freeze_dead=False)
     return s, rr
 
 
@@ -526,12 +600,14 @@ def _check_trace_args(n_rays):
 
 
 def fused_source_trace_ref(table: ChainTable, spec: BakedSource, n_rays: int, *,
-                           device, phase=0.0, k_frac=0.0, n_total=None) -> TraceOutputs:
+                           device, phase=0.0, k_frac=0.0, n_total=None,
+                           ignore_defects=True) -> TraceOutputs:
     """Plain PyTorch version of K1: the same float32 source, the chained
     trace with dead rays not frozen at mirrors, the final to-lab map."""
     _check_trace_args(n_rays)
     s, _rr = _synth_traced_state(table, spec, n_rays, n_total or n_rays, phase, k_frac,
-                                 device=device, want_incidence=True)
+                                 device=device, want_incidence=True,
+                                 ignore_defects=ignore_defects)
     s = to_lab_c(table.final, s)
     return TraceOutputs(
         p=torch.stack([s.px, s.py, s.pz], dim=-1),
@@ -555,14 +631,14 @@ def _cuda_device(device, name):
 
 
 def prepare_fused_source_trace(table: ChainTable, spec: BakedSource, n_rays: int, *,
-                               device, phase=0.0, k_frac=0.0, n_total=None):
+                               device, phase=0.0, k_frac=0.0, n_total=None, ignore_defects=True):
     """K1's host work for a CUDA ``device``: pack the records (raising on
     what the kernel does not take) and allocate the outputs. Returns
     ``(outputs, launch)``; each ``launch()`` runs the kernel once into the
     outputs and counts it in ``fused_source_trace.launches``."""
     _check_trace_args(n_rays)
     device = _cuda_device(device, "fused_source_trace")
-    chain_rec = pack_chain(table)
+    chain_rec = pack_chain(table, ignore_defects)
     src_rec = pack_source(spec, n_total or n_rays)
     f32 = torch.float32
     outs = TraceOutputs(
@@ -589,16 +665,20 @@ def prepare_fused_source_trace(table: ChainTable, spec: BakedSource, n_rays: int
 
 
 def fused_source_trace(table: ChainTable, spec: BakedSource, n_rays: int, *,
-                       device, phase=0.0, k_frac=0.0, n_total=None) -> TraceOutputs:
+                       device, phase=0.0, k_frac=0.0, n_total=None,
+                       ignore_defects=True) -> TraceOutputs:
     """K1 (replaces ``ops/pallas_trace.py::_kernel_source`` of the JAX
     package): trace ``n_rays`` rays of the in-kernel source through the
     chain. The outputs are allocated on ``device``; CPU outputs come from
-    :func:`fused_source_trace_ref`, CUDA outputs from the kernel."""
+    :func:`fused_source_trace_ref`, CUDA outputs from the kernel.
+    ``ignore_defects`` as in :func:`~.trace.trace`."""
     if torch.device(device).type == "cpu":
-        return fused_source_trace_ref(table, spec, n_rays, device=device,
-                                      phase=phase, k_frac=k_frac, n_total=n_total)
+        return fused_source_trace_ref(table, spec, n_rays, device=device, phase=phase,
+                                      k_frac=k_frac, n_total=n_total,
+                                      ignore_defects=ignore_defects)
     outs, launch = prepare_fused_source_trace(table, spec, n_rays, device=device, phase=phase,
-                                              k_frac=k_frac, n_total=n_total)
+                                              k_frac=k_frac, n_total=n_total,
+                                              ignore_defects=ignore_defects)
     launch()
     return outs
 
@@ -626,7 +706,7 @@ def _check_streamed_args(n_rays):
 
 
 def streamed_trace_ref(table: ChainTable, bundle: RayBundle, *, fresh: bool,
-                       device) -> TraceOutputs:
+                       device, ignore_defects=True) -> TraceOutputs:
     """Plain PyTorch version of K3 (``fresh=False``: every field of the
     bundle is read) and K4 (``fresh=True``: p and d only; opl, opl_c and
     incidence start at 0, every ray alive): the float32 chained trace of the
@@ -645,8 +725,8 @@ def streamed_trace_ref(table: ChainTable, bundle: RayBundle, *, fresh: bool,
                            for x in (bundle.opl, bundle.opl_c, bundle.incidence))
         alive = bundle.alive.to(device=device)
     s = TraceState(p[:, 0], p[:, 1], p[:, 2], d[:, 0], d[:, 1], d[:, 2], opl, opl_c, alive, inc)
-    s = run_chain_chained(s, table.elements, table.maps, table.final, table.premasks,
-                          freeze_dead=False)
+    s = run_chain_chained(s, table.elements, table.maps, table.final, ignore_defects,
+                          table.premasks, freeze_dead=False)
     return TraceOutputs(
         p=torch.stack([s.px, s.py, s.pz], dim=-1),
         d=torch.stack([s.dx, s.dy, s.dz], dim=-1),
@@ -654,7 +734,8 @@ def streamed_trace_ref(table: ChainTable, bundle: RayBundle, *, fresh: bool,
     )
 
 
-def prepare_streamed_trace(table: ChainTable, bundle: RayBundle, *, fresh: bool, device):
+def prepare_streamed_trace(table: ChainTable, bundle: RayBundle, *, fresh: bool, device,
+                           ignore_defects=True):
     """K3/K4's host work for a CUDA ``device``: pack the chain record
     (raising on what the kernels do not take, before anything is copied or
     allocated), move the inputs the kernel reads to the device as contiguous
@@ -664,7 +745,7 @@ def prepare_streamed_trace(table: ChainTable, bundle: RayBundle, *, fresh: bool,
     n_rays = bundle.n_rays
     _check_streamed_args(n_rays)
     device = _cuda_device(device, "streamed_trace")
-    chain_rec = pack_chain(table)
+    chain_rec = pack_chain(table, ignore_defects)
     f32 = torch.float32
 
     def move(x, dtype=f32):
@@ -707,7 +788,7 @@ def prepare_streamed_trace(table: ChainTable, bundle: RayBundle, *, fresh: bool,
 
 
 def streamed_trace(table: ChainTable, bundle: RayBundle, *, device,
-                   fresh: bool | None = None) -> TraceOutputs:
+                   fresh: bool | None = None, ignore_defects=True) -> TraceOutputs:
     """K3 and K4 (replace ``ops/pallas_trace.py::_kernel`` and
     ``_kernel_fresh`` of the JAX package): trace a bundle the user built
     through the lab-frame ``table``. ``fresh=None`` decides by
@@ -717,8 +798,10 @@ def streamed_trace(table: ChainTable, bundle: RayBundle, *, device,
     if fresh is None:
         fresh = _is_fresh(bundle)
     if torch.device(device).type == "cpu":
-        return streamed_trace_ref(table, bundle, fresh=fresh, device=device)
-    outs, launch = prepare_streamed_trace(table, bundle, fresh=fresh, device=device)
+        return streamed_trace_ref(table, bundle, fresh=fresh, device=device,
+                                  ignore_defects=ignore_defects)
+    outs, launch = prepare_streamed_trace(table, bundle, fresh=fresh, device=device,
+                                          ignore_defects=ignore_defects)
     launch()
     return outs
 
@@ -891,9 +974,16 @@ def sums_to_stats(sums, opl_ref, distances):
 
 
 def elements_to(elements, device, dtype):
-    """Element records with their pose tensors on ``device`` in ``dtype``."""
+    """Element records with their pose tensors (and grid defect maps) on
+    ``device`` in ``dtype``."""
     def move(x):
         return torch.as_tensor(x).to(device=device, dtype=dtype)
+
+    def defect(d):
+        if isinstance(d, GridDefect):
+            return d._replace(height=move(d.height), slope_x=move(d.slope_x),
+                              slope_y=move(d.slope_y))
+        return d
 
     out = []
     for el in elements:
@@ -901,7 +991,8 @@ def elements_to(elements, device, dtype):
             out.append(el._replace(rot=move(el.rot), position=move(el.position)))
         else:
             out.append(el._replace(rot=move(el.rot), position=move(el.position),
-                                   centre=move(el.centre)))
+                                   centre=move(el.centre),
+                                   defects=tuple(defect(d) for d in el.defects)))
     return out
 
 
@@ -947,7 +1038,7 @@ def chief_ray_refs(spec: BakedSource, elements, det_centre, det_normal,
 
 def fused_source_moments_ref(table: ChainTable, spec: BakedSource, det: BakedDetector,
                              chunks, n_total: int, *, device, gaussian_edge=None,
-                             centre_distance=0.0) -> np.ndarray:
+                             centre_distance=0.0, ignore_defects=True) -> np.ndarray:
     """Plain PyTorch version of K2: per chunk, the float32 source and chained
     trace (no incidence, dead rays not frozen at mirrors), the Gaussian
     weight and the 16 moment terms, summed in float64. Returns (16,)."""
@@ -955,7 +1046,8 @@ def fused_source_moments_ref(table: ChainTable, spec: BakedSource, det: BakedDet
     cdist = _scalar32(centre_distance, device)
     for n_local, phase_i, k_frac_i in chunks:
         s, rr = _synth_traced_state(table, spec, n_local, n_total, phase_i, k_frac_i,
-                                    device=device, want_incidence=False)
+                                    device=device, want_incidence=False,
+                                    ignore_defects=ignore_defects)
         if gaussian_edge is None:
             w = torch.ones_like(rr)
         else:
@@ -986,7 +1078,7 @@ def ray_grid(sizes, rays_per_block: int):
 
 def prepare_fused_source_moments(table: ChainTable, spec: BakedSource, det: BakedDetector,
                                  chunks, n_total: int, *, device, gaussian_edge=None,
-                                 centre_distance=0.0):
+                                 centre_distance=0.0, ignore_defects=True):
     """K2's host work for a CUDA ``device``: pack the records (raising on
     what the kernel does not take) and allocate the per-block rows. Returns
     ``(rows, launch)``; each ``launch()`` runs the kernel once, writing one
@@ -994,7 +1086,7 @@ def prepare_fused_source_moments(table: ChainTable, spec: BakedSource, det: Bake
     ``fused_source_moments.launches``."""
     sizes = _check_chunks(chunks)
     device = _cuda_device(device, "fused_source_moments")
-    chain_rec = pack_chain(table)
+    chain_rec = pack_chain(table, ignore_defects)
     src_rec = pack_source(spec, n_total, gaussian_edge)
     det_rec = pack_detector(det, centre_distance)
     from . import _cuda
@@ -1018,7 +1110,7 @@ def prepare_fused_source_moments(table: ChainTable, spec: BakedSource, det: Bake
 
 def fused_source_moments(table: ChainTable, spec: BakedSource, det: BakedDetector,
                          chunks, n_total: int, *, device, gaussian_edge=None,
-                         centre_distance=0.0) -> np.ndarray:
+                         centre_distance=0.0, ignore_defects=True) -> np.ndarray:
     """K2 (replaces ``ops/pallas_trace.py::_kernel_source_moments`` of the
     JAX package): the 16 weighted detector moments of every chunk's rays,
     summed in float64. All chunks of equal nominal size go in one launch on
@@ -1028,10 +1120,11 @@ def fused_source_moments(table: ChainTable, spec: BakedSource, det: BakedDetecto
     if torch.device(device).type == "cpu":
         return fused_source_moments_ref(table, spec, det, chunks, n_total, device=device,
                                         gaussian_edge=gaussian_edge,
-                                        centre_distance=centre_distance)
+                                        centre_distance=centre_distance,
+                                        ignore_defects=ignore_defects)
     rows, launch = prepare_fused_source_moments(
         table, spec, det, chunks, n_total, device=device, gaussian_edge=gaussian_edge,
-        centre_distance=centre_distance)
+        centre_distance=centre_distance, ignore_defects=ignore_defects)
     launch()
     return rows.sum(dim=0).cpu().numpy()
 
@@ -1056,7 +1149,8 @@ def _check_stats_distances(det: BakedDetector):
 
 
 def fused_source_stats_ref(table: ChainTable, spec: BakedSource, det: BakedDetector,
-                           chunks, n_total: int, *, device, gaussian_edge=None) -> np.ndarray:
+                           chunks, n_total: int, *, device, gaussian_edge=None,
+                           ignore_defects=True) -> np.ndarray:
     """Plain PyTorch version of K8, following the JAX package's
     ``_kernel_source_stats``: per chunk, K2's float32 source and chained
     trace (folded premasks, dead rays not frozen at mirrors), the Gaussian
@@ -1066,7 +1160,8 @@ def fused_source_stats_ref(table: ChainTable, spec: BakedSource, det: BakedDetec
     total = torch.zeros((len(STATS_FIELDS), n_dist), dtype=torch.float64, device=device)
     for n_local, phase_i, k_frac_i in chunks:
         s, rr = _synth_traced_state(table, spec, n_local, n_total, phase_i, k_frac_i,
-                                    device=device, want_incidence=False)
+                                    device=device, want_incidence=False,
+                                    ignore_defects=ignore_defects)
         if gaussian_edge is None:
             w = torch.ones_like(rr)
         else:
@@ -1076,7 +1171,8 @@ def fused_source_stats_ref(table: ChainTable, spec: BakedSource, det: BakedDetec
 
 
 def prepare_fused_source_stats(table: ChainTable, spec: BakedSource, det: BakedDetector,
-                               chunks, n_total: int, *, device, gaussian_edge=None):
+                               chunks, n_total: int, *, device, gaussian_edge=None,
+                               ignore_defects=True):
     """K8's host work for a CUDA ``device``: pack the records (raising on
     what the kernel does not take), copy the (distance, delay offset) pairs
     and the chunk offsets to the device, and allocate the per-block rows.
@@ -1087,7 +1183,7 @@ def prepare_fused_source_stats(table: ChainTable, spec: BakedSource, det: BakedD
     sizes = _check_chunks(chunks)
     n_dist = _check_stats_distances(det)
     device = _cuda_device(device, "fused_source_stats")
-    chain_rec = pack_chain(table)
+    chain_rec = pack_chain(table, ignore_defects)
     src_rec = pack_source(spec, n_total, gaussian_edge)
     det_rec = pack_detector(det)
     from . import _cuda
@@ -1119,7 +1215,8 @@ def stats_from_rows(rows) -> np.ndarray:
 
 
 def fused_source_stats(table: ChainTable, spec: BakedSource, det: BakedDetector, chunks,
-                       n_total: int, *, device, gaussian_edge=None) -> np.ndarray:
+                       n_total: int, *, device, gaussian_edge=None,
+                       ignore_defects=True) -> np.ndarray:
     """K8 (replaces ``ops/pallas_trace.py::_kernel_source_stats`` of the
     JAX package): the 7 weighted sums of :data:`STATS_FIELDS` at each of the
     detector's J <= 128 distances over every chunk's rays, summed in
@@ -1129,9 +1226,11 @@ def fused_source_stats(table: ChainTable, spec: BakedSource, det: BakedDetector,
     _check_chunks(chunks)
     if torch.device(device).type == "cpu":
         return fused_source_stats_ref(table, spec, det, chunks, n_total, device=device,
-                                      gaussian_edge=gaussian_edge)
+                                      gaussian_edge=gaussian_edge,
+                                      ignore_defects=ignore_defects)
     rows, launch = prepare_fused_source_stats(table, spec, det, chunks, n_total, device=device,
-                                              gaussian_edge=gaussian_edge)
+                                              gaussian_edge=gaussian_edge,
+                                              ignore_defects=ignore_defects)
     launch()
     return stats_from_rows(rows)
 
@@ -1143,7 +1242,7 @@ def source_detector_moments(spec: BakedSource, elements, n_rays: int, det_centre
                             det_normal, det_rot, *, device, dtype=None,
                             opl_ref: float | None = None, gaussian_edge=None,
                             phase=0.0, k_frac=0.0, n_total: int | None = None,
-                            centre_distance: float = 0.0):
+                            ignore_defects: bool = True, centre_distance: float = 0.0):
     """The 16 moments (:data:`MOMENT_FIELDS`, float64) of the traced source
     on the detector plane, about the expansion point ``centre_distance``
     [mm, shiftByDistance convention, quantized to float32 and returned].
@@ -1166,6 +1265,7 @@ def source_detector_moments(spec: BakedSource, elements, n_rays: int, det_centre
                                n_each=spec.n_each, n_sources=spec.n_sources)
     moments = fused_source_moments(chain_table(spec, elements), spec, det, chunks,
                                    n_total, device=device, gaussian_edge=gaussian_edge,
-                                   centre_distance=centre_distance)
+                                   centre_distance=centre_distance,
+                                   ignore_defects=ignore_defects)
     return {"moments": moments, "opl_ref": opl_ref, "inv_dn_chief": inv_dn_chief,
             "centre_distance": centre_distance}

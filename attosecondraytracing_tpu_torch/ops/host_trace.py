@@ -29,10 +29,16 @@ class HostRay:
         self.incidence = incidence
 
 
-def trace_ray(ray: HostRay, elements) -> list:
+def trace_ray(ray: HostRay, elements, ignore_defects: bool = True) -> list:
     """Trace one ray through a list of OpticalElements; returns the list of
-    rays after each element (None once the ray is lost)."""
+    rays after each element (None once the ray is lost).
+
+    ``ignore_defects=True`` (the reference trace default,
+    ART/ModuleProcessing.py:250) keeps the deformed *intersection offset* but
+    reflects off the undeformed mirror normal
+    (ART/ModuleMirror.py:927-937)."""
     from ..models.masks import Mask
+    from ..models.mirrors import DeformedMirror
 
     out = []
     cur = ray
@@ -60,7 +66,10 @@ def trace_ray(ray: HostRay, elements) -> list:
             if q is None:
                 cur = None
             else:
-                n = optic.get_normal(q)
+                if isinstance(optic, DeformedMirror) and ignore_defects:
+                    n = optic.Mirror.get_normal(q)
+                else:
+                    n = optic.get_normal(q)
                 d_out = hg.reflect(d, n)
                 incidence = hg.angle_between(-d, n)
                 path = cur.path + np.linalg.norm(q - p)

@@ -497,3 +497,14 @@ def intersect_with_normal_c(surface, support, q, u, t_eps=T_EPS, tol=HIT_TOL):
     t, hit = intersect_c(surface, support, q, u, t_eps=t_eps, tol=tol)
     x, y, z = qx + t * ux, qy + t * uy, qz + t * uz
     return t, hit, normal_at_root_c(surface, x, y, z), (x, y, z)
+
+
+def slope_normal_add(n1, n2):
+    """Compose two 'up' normals (..., 3) by adding their surface slopes
+    (vectorized ART/ModuleGeometry.py:394-407). Returns an unnormalized
+    [-sum gx, -sum gy, 1] normal."""
+    g1x = -n1[..., 0] / n1[..., 2]
+    g1y = -n1[..., 1] / n1[..., 2]
+    g2x = -n2[..., 0] / n2[..., 2]
+    g2y = -n2[..., 1] / n2[..., 2]
+    return torch.stack([-(g1x + g2x), -(g1y + g2y), torch.ones_like(g1x)], dim=-1)

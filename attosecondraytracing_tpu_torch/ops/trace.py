@@ -17,6 +17,12 @@ Two forms:
 Element poses are tensors on the trace's device and dtype; surface and
 support parameters are python floats, so derived constants are formed in
 float64 and rounded to the ray dtype once.
+
+A mirror with surface defects (``MirrorElement.defects``: ``ops/defects``
+records) is hit where its *deformed* surface lies: the base hit is shifted
+along the ray by the local height error, and ``ignore_defects`` gates only
+the defect slopes composed into the reflecting normal (the reference's
+DeformedMirror, ART/ModuleMirror.py:925-981).
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import torch
 from . import supports as sup
 from . import surfaces as srf
 from .bundle import RayBundle
+from .defects import defect_offset, defect_slopes
 from .geometry import kahan_add
 from .precision import T_EPS
 
@@ -36,8 +43,10 @@ from .precision import T_EPS
 class MirrorElement(NamedTuple):
     """One placed mirror: ``rot`` the lab->optic rotation (3,3), ``position``
     the element centre in the lab, ``centre`` the support-centre point on the
-    surface in optic coordinates. ``defects`` must be empty: surface defects
-    are not ported yet."""
+    surface in optic coordinates, ``defects`` a tuple of
+    :class:`~.defects.ZernikeDefect` / :class:`~.defects.GridDefect` (grid
+    maps on the trace's device), evaluated at support coordinates (the hit
+    point minus ``centre``)."""
 
     rot: torch.Tensor
     position: torch.Tensor
@@ -72,12 +81,6 @@ class TraceState(NamedTuple):
 
 def _acos(x):
     return torch.acos(torch.clamp(x, -1.0, 1.0))
-
-
-def _check_no_defects(element):
-    if isinstance(element, MirrorElement) and element.defects:
-        raise NotImplementedError(
-            "surface defects are not ported to the PyTorch package yet")
 
 
 def bundle_to_state(b: RayBundle) -> TraceState:
@@ -132,11 +135,49 @@ def _to_lab_c(element, q, u):
     return (px, py, pz), (dx, dy, dz)
 
 
-def mirror_step_c(element: MirrorElement, s: TraceState, want_incidence: bool = True) -> TraceState:
-    _check_no_defects(element)
+def _deformed_hit(element, q, u, t, cen):
+    """The hit on a deformed mirror: the base hit ``t`` shifted along the
+    ray by the local height error h / clip(-u.n0, 1e-6) (n0 the base normal
+    at the base hit), and the base surface's normal at the shifted point
+    (ART/ModuleMirror.py:969-980). Returns ``(t, (x, y, z), (nx, ny, nz))``."""
+    (qx, qy, qz), (ux, uy, uz) = q, u
+    x0, y0, z0 = qx + t * ux, qy + t * uy, qz + t * uz
+    n0x, n0y, n0z = srf.normal_c(element.surface, x0, y0, z0)
+    h = torch.zeros_like(t)
+    for defect in element.defects:
+        h = h + defect_offset(defect, x0 - cen[0], y0 - cen[1])
+    cos_alpha = torch.clamp(-(ux * n0x + uy * n0y + uz * n0z), min=1e-6)
+    t = t - h / cos_alpha
+    x, y, z = qx + t * ux, qy + t * uy, qz + t * uz
+    return t, (x, y, z), srf.normal_c(element.surface, x, y, z)
+
+
+def _defect_normal(element, x, y, n, cen):
+    """The base normal ``n`` composed with every defect's slopes at (x, y)
+    (ART/ModuleGeometry.py:394-407), renormalized."""
+    nx, ny, nz = n
+    gx = -nx / nz
+    gy = -ny / nz
+    for defect in element.defects:
+        dgx, dgy = defect_slopes(defect, x - cen[0], y - cen[1])
+        gx = gx + dgx
+        gy = gy + dgy
+    inv = torch.rsqrt(gx * gx + gy * gy + 1.0)
+    return -gx * inv, -gy * inv, inv
+
+
+def mirror_step_c(element: MirrorElement, s: TraceState, ignore_defects: bool,
+                  want_incidence: bool = True) -> TraceState:
     (qx, qy, qz), (ux, uy, uz) = _to_local_c(element, s)
-    t, hit, (nx, ny, nz), (x, y, z) = srf.intersect_with_normal_c(
-        element.surface, element.support, (qx, qy, qz), (ux, uy, uz))
+    if element.defects:
+        t, hit = srf.intersect_c(element.surface, element.support, (qx, qy, qz), (ux, uy, uz))
+        t, (x, y, z), (nx, ny, nz) = _deformed_hit(element, (qx, qy, qz), (ux, uy, uz), t,
+                                                   element.centre)
+        if not ignore_defects:
+            nx, ny, nz = _defect_normal(element, x, y, (nx, ny, nz), element.centre)
+    else:
+        t, hit, (nx, ny, nz), (x, y, z) = srf.intersect_with_normal_c(
+            element.surface, element.support, (qx, qy, qz), (ux, uy, uz))
     dn = ux * nx + uy * ny + uz * nz
     rx, ry, rz = ux - 2.0 * dn * nx, uy - 2.0 * dn * ny, uz - 2.0 * dn * nz
     upd = s.alive & hit
@@ -182,24 +223,32 @@ def mask_step_c(element: MaskElement, s: TraceState, want_incidence: bool = True
     )
 
 
-def state_step(element, s: TraceState, want_incidence: bool = True) -> TraceState:
+def state_step(element, s: TraceState, ignore_defects: bool = True,
+               want_incidence: bool = True) -> TraceState:
     if isinstance(element, MirrorElement):
-        return mirror_step_c(element, s, want_incidence=want_incidence)
+        return mirror_step_c(element, s, ignore_defects, want_incidence=want_incidence)
     if isinstance(element, MaskElement):
         return mask_step_c(element, s, want_incidence=want_incidence)
     raise TypeError(f"unknown element type {type(element)}")
 
 
-def trace(source: RayBundle, elements: Sequence, keep_history: bool = True):
+def trace_step(element, bundle: RayBundle, ignore_defects: bool = True) -> RayBundle:
+    """Propagate a bundle through one element (mirror or mask)."""
+    return state_to_bundle(state_step(element, bundle_to_state(bundle), ignore_defects), bundle)
+
+
+def trace(source: RayBundle, elements: Sequence, ignore_defects: bool = True,
+          keep_history: bool = True):
     """Trace a bundle through a chain of elements: the list of bundles after
     each element (``keep_history=True``) or only the final bundle. The
     bundle and the elements must share a device; the bundle's dtype is the
-    trace dtype."""
+    trace dtype. ``ignore_defects`` (the reference's default True) reflects
+    deformed mirrors off their base normal, at the deformed hit."""
     history = []
     s = bundle_to_state(source)
     last = len(elements) - 1
     for i, element in enumerate(elements):
-        s = state_step(element, s, want_incidence=keep_history or i == last)
+        s = state_step(element, s, ignore_defects, want_incidence=keep_history or i == last)
         if keep_history:
             history.append(state_to_bundle(s, source))
     return history if keep_history else state_to_bundle(s, source)
@@ -336,16 +385,18 @@ def premask_alive(premasks, s: TraceState):
 
 
 def chained_step(element, M, b, s: TraceState, want_incidence: bool,
-                 premasks=(), freeze_dead: bool = True) -> TraceState:
+                 ignore_defects: bool = True, premasks=(),
+                 freeze_dead: bool = True) -> TraceState:
     """One element step in chained-frame mode: input patch-relative to the
     previous element (lab absolute for the first), output patch-relative to
-    this element.
+    this element. A deformed mirror is hit where its deformed surface lies;
+    ``ignore_defects`` gates only the slopes composed into its normal
+    (:func:`mirror_step_c`).
 
     ``freeze_dead=False`` skips the dead-ray freeze at mirrors: dead rays
     advance along whatever bounded path the mirror gives them, which is
     legal wherever every consumer masks by ``alive``. Mask steps always
     freeze, because their plane leg is unbounded for near-parallel rays."""
-    _check_no_defects(element)
     if premasks:
         alive, t_floor = premask_alive(premasks, s)
         s = s._replace(alive=alive)
@@ -361,6 +412,15 @@ def chained_step(element, M, b, s: TraceState, want_incidence: bool,
         valid = (t > t_eps) & ~on_support
         rx, ry, rz = ux, uy, uz
         dn = -uz  # mask incidence uses +u: acos(uz)
+    elif element.defects:
+        cen = element.centre
+        t, valid = srf.intersect_c(element.surface, element.support, (qx, qy, qz), (ux, uy, uz),
+                                   t_eps=t_eps)
+        t, (x, y, z), (nx, ny, nz) = _deformed_hit(element, (qx, qy, qz), (ux, uy, uz), t, cen)
+        if not ignore_defects:
+            nx, ny, nz = _defect_normal(element, x, y, (nx, ny, nz), cen)
+        dn = ux * nx + uy * ny + uz * nz
+        rx, ry, rz = ux - 2.0 * dn * nx, uy - 2.0 * dn * ny, uz - 2.0 * dn * nz
     else:
         cen = element.centre
         t, valid, (nx, ny, nz), (x, y, z) = srf.intersect_with_normal_c(
@@ -405,8 +465,8 @@ def to_lab_c(final, s: TraceState) -> TraceState:
     return s._replace(px=px, py=py, pz=pz, dx=dx, dy=dy, dz=dz)
 
 
-def run_chain_chained(s: TraceState, elements, maps, final, premasks=None,
-                      freeze_dead: bool = True) -> TraceState:
+def run_chain_chained(s: TraceState, elements, maps, final, ignore_defects: bool = True,
+                      premasks=None, freeze_dead: bool = True) -> TraceState:
     """Run a whole chain in chained-frame mode and restore lab coordinates
     (incidence computed only at the last element). ``maps``/``final`` come
     from :func:`compose_chain` (host float64, or python-float tuples rounded
@@ -415,6 +475,6 @@ def run_chain_chained(s: TraceState, elements, maps, final, premasks=None,
     if premasks is None:
         premasks = ((),) * len(elements)
     for i, (el, (M, b)) in enumerate(zip(elements, maps)):
-        s = chained_step(el, M, b, s, want_incidence=(i == last),
+        s = chained_step(el, M, b, s, want_incidence=(i == last), ignore_defects=ignore_defects,
                          premasks=premasks[i], freeze_dead=freeze_dead)
     return to_lab_c(final, s)

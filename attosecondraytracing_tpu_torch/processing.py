@@ -11,18 +11,27 @@ import torch
 
 from .analysis import stats as _stats
 from .analysis.optimizer import FindOptimalDistance  # noqa: F401
+from .models import chain as _chain
 from .models.placement import OEPlacement  # noqa: F401
 from .ops.bundle import RayBundle
 from .ops.trace import trace
 from .utils.io import load_compressed, save_compressed  # noqa: F401
 
 
-def RayTracingCalculation(source_rays: RayBundle, optical_elements, *, device, dtype=None):
+def RayTracingCalculation(source_rays: RayBundle, optical_elements, IgnoreDefects=True, *,
+                          device=None, dtype=None):
     """Trace a bundle through host OpticalElements on ``device``; returns the
-    list of bundles after each element."""
+    list of bundles after each element (ART/ModuleProcessing.py:250-313).
+    ``device=None`` takes the device of the CONFIG file being run
+    (``models/chain.config_device``) and raises outside one, as a chain with
+    no device does."""
+    if device is None:
+        device = _chain._CONFIG_DEVICE.get()
+        if device is None:
+            raise RuntimeError(_chain.NO_DEVICE)
     elements = [e.to_device(device, dtype) for e in optical_elements]
     source = source_rays.to(device, elements[0].rot.dtype)
-    return trace(source, elements, keep_history=True)
+    return trace(source, elements, ignore_defects=IgnoreDefects, keep_history=True)
 
 
 def FindCentralRay(bundle: RayBundle):

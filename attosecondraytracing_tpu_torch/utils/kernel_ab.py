@@ -1,7 +1,7 @@
 """A/B of builds of the kernel library in one process, on one card.
 
     python -m attosecondraytracing_tpu_torch.utils.kernel_ab OTHER_CSRC [OTHER_CSRC ...]
-        [--rays N] [--rounds R] [--kernels K1,K6,...]
+        [--rays N] [--rounds R] [--kernels K1,K6,...] [--zernike]
 
 Each ``OTHER_CSRC`` holds another version's ``csrc/`` sources: the parent
 commit's (unpacked with ``git archive`` into a directory that ``.gitignore``
@@ -19,16 +19,24 @@ between CUDA events.
   launch serves each library, picked up through ``ops/_cuda._lib``.
 * K2, K5-K7 and K8 (at 1, 20 and 128 distances: ``K8_J1``, ``K8_J20``,
   ``K8_J128``; ``K8`` names all three) are prepared per library. A build of
-  this C interface (version 3, ``art_abi_version``) goes through the
-  wrappers' own ``prepare_*``; a build of version 2 (K2 and K8 on a (blocks
-  per chunk, chunks) grid, K8 retracing each group of 8 distances) or of
-  version 1 (no ``art_abi_version``: besides, K5-K7 on that grid and K6 with
-  6 tangent rows per launch) through the adapters below. K6 is one gradient
-  step's work: all 18 tangent rows of the flagship's pose vector. Each
-  build's sums are compared with A's, relative to each statistic's scale.
+  this C interface (version 4, ``art_abi_version``) or of version 3 (the same
+  entry points; its chain record is version 4's without the defect fields
+  at its end, so it reads the prefix of this version's records) goes through
+  the wrappers' own ``prepare_*``; a build of version 2 (K2 and K8 on a
+  (blocks per chunk, chunks) grid, K8 retracing each group of 8 distances)
+  or of version 1 (no ``art_abi_version``: besides, K5-K7 on that grid and
+  K6 with 6 tangent rows per launch) through the adapters below. K6 is one
+  gradient step's work: all 18 tangent rows of the flagship's pose vector.
+  Each build's sums are compared with A's, relative to each statistic's
+  scale.
+* ``--zernike`` also times this checkout's K1-K8 on the deformed flagship
+  (its first toroid carrying the Zernike defects of ``chip_smoke.py``'s
+  phase zernike, ``ignore_defects`` True), A A per round beside the
+  undeformed flagship's launches, in the same process.
 
 Prints one line per kernel and build and a JSON line with each kernel's
-median per build and the ratio B/A, with the card's name and power limit.
+median per build and the ratio B/A (and with ``--zernike`` each kernel's
+deformed and undeformed medians), with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -93,9 +101,13 @@ def ptxas_summary(log: str) -> str:
 
 
 def _kernel_name(mangled: str) -> str:
-    """The kernel's name in a mangled entry (with K6/K7's template argument)."""
-    m = re.search(r"\d+((?:[a-z]+_)+kernel)(ILi(\d+)E)?", mangled)
-    return mangled if not m else m.group(1) + (f"<{m.group(3)}>" if m.group(2) else "")
+    """The kernel's name in a mangled entry, with its template arguments:
+    K6/K7's tangent batch and the DEFECTS flag (``<6, defects>``)."""
+    m = re.search(r"\d+((?:[a-z]+_)+kernel)(?:I(?:Li(\d+)E)?(?:Lb([01])E)?E)?", mangled)
+    if not m:
+        return mangled
+    args = ([m.group(2)] if m.group(2) else []) + (["defects"] if m.group(3) == "1" else [])
+    return m.group(1) + (f"<{', '.join(args)}>" if args else "")
 
 
 #: SASS opcodes counted apart: the special-function unit, the IEEE sequences'
@@ -136,7 +148,7 @@ def sass_summary(lib_path, kernels=("fused_source_moments_kernel", "fused_source
 
 def bind(path):
     """``(library, version)``: a library of this C interface through
-    ``_cuda.load`` (version 3), or an older one (version 2, or 1 without
+    ``_cuda.load`` (version 4), or an older one (version 3 or 2, or 1 without
     ``art_abi_version``) through :func:`bind_old`."""
     probe = ctypes.CDLL(str(path))
     version = 1
@@ -145,24 +157,38 @@ def bind(path):
         version = probe.art_abi_version()
     if version == _cuda.ABI_VERSION:
         return _cuda.load(path), version
-    if version not in (1, 2):
+    if version not in (1, 2, 3):
         raise RuntimeError(f"{path}: C interface version {version} has no adapter here")
     return bind_old(path, version), version
 
 
+def _chain_prefix_bytes() -> int:
+    """Bytes of the chain record of C interface versions 1-3: this version's
+    record up to its defect fields (appended at its end in version 4)."""
+    from ..ops.fused_trace import CHAIN_T
+
+    return CHAIN_T.fields["ignore_defects"][1]
+
+
 def bind_old(path, version: int) -> ctypes.CDLL:
-    """Bind a library of C interface version 1 or 2: K1, K3 and K4 as now;
-    K2 and K8 on a (blocks per chunk, chunks) grid; K5 and K6/K7 with the
-    version's signatures (version 1: that grid too, and K6 6 tangent rows per
-    launch; version 2: as now). Record sizes checked."""
-    from ..ops.fused_trace import CHAIN_T, DETECTOR_T, SOURCE_T
+    """Bind a library of C interface version 1, 2 or 3: version 3 as this
+    version (:func:`.._cuda.bind`); versions 1 and 2 with K1, K3 and K4 as
+    now, K2 and K8 on a (blocks per chunk, chunks) grid, K5 and K6/K7 with
+    the version's signatures (version 1: that grid too, and K6 6 tangent rows
+    per launch; version 2: as now). Every older library takes the chain
+    record's prefix (:func:`_chain_prefix_bytes`) of an undeformed chain.
+    Record sizes checked."""
+    from ..ops.fused_trace import DETECTOR_T, SOURCE_T
 
     lib = ctypes.CDLL(str(path))
+    if version == 3:
+        return _cuda.bind(lib, _chain_prefix_bytes())
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for name, dt in (("art_chain_params_size", CHAIN_T), ("art_source_params_size", SOURCE_T),
-                     ("art_detector_params_size", DETECTOR_T)):
+    for name, size in (("art_chain_params_size", _chain_prefix_bytes()),
+                       ("art_source_params_size", SOURCE_T.itemsize),
+                       ("art_detector_params_size", DETECTOR_T.itemsize)):
         getattr(lib, name).restype = ctypes.c_size_t
-        if getattr(lib, name)() != dt.itemsize:
+        if getattr(lib, name)() != size:
             raise RuntimeError(f"{path}: {name} disagrees with this checkout's records")
     lib.art_moment_rays_per_block.restype = ci
     lib.art_error_string.argtypes = [ci]
@@ -297,16 +323,22 @@ def _v1_stats_params(lib, spec, svec, tang, chunks, device):
     return launch, result
 
 
-def _problems(n_rays: int, device):
+#: the Zernike defects of the deformed flagship's first toroid (chip_smoke.py's
+#: phase zernike), over its 150 x 32 mm support
+ZERNIKE_COEFFS = {(2, 0): 2e-4, (3, 1): -1e-4, (4, 2): 5e-5, (6, 3): 2e-5}
+
+
+def _problems(n_rays: int, device, deformed: bool = False):
     """The flagship (round-hole mask and two grazing toroids in f-d-f, 25
-    mrad cone source) at ``n_rays`` rays: prepared launches of K1, K3 and K4
-    (any build), and ``per_lib(lib, version)`` giving each library's
+    mrad cone source; ``deformed``: its first toroid with the defects of
+    :data:`ZERNIKE_COEFFS`) at ``n_rays`` rays: prepared launches of K1, K3
+    and K4 (any build), and ``per_lib(lib, version)`` giving each library's
     ``{kernel: (launch, result)}`` of K2, K8 (1, 20 and 128 distances over
     +-10 mm, per-distance chief-ray delay offsets), K5, K6 (the step's 18
     tangent rows of scripts/bench_fused_grad.py's misalignment, Gaussian edge
     exp(-2)) and K7."""
     from ..analysis import alignment as al
-    from ..models import masks, mirrors, supports
+    from ..models import defects, masks, mirrors, supports
     from ..models.detector import Detector
     from ..models.placement import OEPlacement
     from ..ops import fused_grad as fg
@@ -315,9 +347,14 @@ def _problems(n_rays: int, device):
 
     R, r = mirrors.ReturnOptimalToroidalRadii(500.0, 80.0)
     tor = mirrors.MirrorToroidal(R, r, supports.SupportRectangle(150, 32))
+    first = tor
+    if deformed:
+        first = mirrors.DeformedMirror(tor, [defects.Zernike(supports.SupportRectangle(150, 32),
+                                                             ZERNIKE_COEFFS)])
     mask = masks.Mask(supports.SupportRoundHole(Radius=20, RadiusHole=7, CenterHoleX=0, CenterHoleY=0))
     props = {"Divergence": 25e-3, "SourceSize": 0, "Wavelength": 80e-6, "NumberRays": 16}
-    chain = OEPlacement(props, [mask, tor, tor], [400.0, 100.0, 500.0], [0.0, 80.0, -80.0], [0.0, 0.0, 0.0])
+    chain = OEPlacement(props, [mask, first, tor], [400.0, 100.0, 500.0], [0.0, 80.0, -80.0],
+                        [0.0, 0.0, 0.0])
     host = [e.to_device("cpu", torch.float64) for e in chain.optical_elements]
     edge = float(np.exp(-2.0))
     spec = ft.make_source_spec("cone", np.zeros(3), np.array([1.0, 0.0, 0.0]), 25e-3, n_rays=n_rays)
@@ -370,7 +407,7 @@ def _problems(n_rays: int, device):
                         "K7": _v1_stats_params(lib, lspec, gsvec, None, gchunks, device)})
             return out
         _cuda._lib = lib  # rows follow this library's rays per block and tangent batch
-        if version == 3:
+        if version >= 3:
             rows2, k2 = ft.prepare_fused_source_moments(table, spec, bdet, chunks, n_rays,
                                                         device=device, gaussian_edge=edge)
             out["K2"] = (k2, lambda: rows2.sum(dim=0).cpu().numpy())
@@ -449,6 +486,7 @@ def main(argv=None):
     parser.add_argument("--rays", type=float, default=1e7)
     parser.add_argument("--rounds", type=int, default=10)
     parser.add_argument("--kernels", default=",".join(KERNELS))
+    parser.add_argument("--zernike", action="store_true")
     args = parser.parse_args(argv)
     keys = []
     for k in args.kernels.split(","):
@@ -507,7 +545,34 @@ def main(argv=None):
             print(f"{key} vs {name}: this build {a:.4f} ms, other build {b:.4f} ms (B/A {b / a:.4f}; "
                   f"{2 * args.rounds} windows each of 5 launches at {int(args.rays)} rays){diff}",
                   flush=True)
-    print(json.dumps({"card": card, "rays": int(args.rays), "kernels": result}), flush=True)
+    zernike = _time_deformed(keys, shared, own["A"], args, device) if args.zernike else None
+    print(json.dumps({"card": card, "rays": int(args.rays), "kernels": result, "zernike": zernike}),
+          flush=True)
+
+
+def _time_deformed(keys, shared, own_a, args, device):
+    """This build's launch-only times of ``keys`` on the deformed flagship
+    beside the undeformed flagship's, in turns (undeformed, deformed,
+    deformed, undeformed) per round: ``{kernel: {"ms", "undeformed_ms",
+    "ratio"}}``."""
+    d_shared, d_per_lib = _problems(int(args.rays), device, deformed=True)
+    d_own = d_per_lib(_cuda.library(), _cuda.ABI_VERSION)
+    out = {}
+    for key in keys:
+        launch = {"flat": shared[key] if key in shared else own_a[key][0],
+                  "deformed": d_shared[key] if key in d_shared else d_own[key][0]}
+        times = {"flat": [], "deformed": []}
+        for which in launch:
+            launch[which]()
+        torch.cuda.synchronize()
+        for _ in range(args.rounds):
+            for which in ("flat", "deformed", "deformed", "flat"):
+                times[which].append(_window_ms(launch[which]))
+        flat, deformed = float(np.median(times["flat"])), float(np.median(times["deformed"]))
+        out[key] = {"ms": deformed, "undeformed_ms": flat, "ratio": deformed / flat}
+        print(f"{key} deformed flagship (Zernike, ignore_defects True): {deformed:.4f} ms, undeformed "
+              f"{flat:.4f} ms (ratio {deformed / flat:.4f}; {2 * args.rounds} windows each)", flush=True)
+    return out
 
 
 if __name__ == "__main__":

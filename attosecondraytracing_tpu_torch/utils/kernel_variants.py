@@ -202,8 +202,7 @@ def variants() -> dict:
         "ieee_all": [_RSQ_IEEE, _DIV_IEEE, _SQRT_IEEE],
         "no_warp_exit": [_lit("trace_common.cuh",
                               "    if (WARP_EXIT && !__any_sync(0xffffffffu, s.alive)) return;\n", "")],
-        "unrolled": [_UNROLLED, _lit("trace_common.cuh", '#include "dual.cuh"',
-                                     '#include <type_traits>\n\n#include "dual.cuh"')],
+        "unrolled": [_UNROLLED],
         "reduce_shuffle": [_REDUCE_SHUFFLE],
         "k8_all_blocks": [_lit("fused_trace.cu", "if (__syncthreads_or(n_kept) == 0) {",
                                "if (false) {")],

@@ -21,9 +21,15 @@ port's paths through the entry points a user calls, and checks the results:
   engine on the card, and ``fused_focus_loss`` (kernel K7);
 * the per-distance stats baseline (kernel K8) at 1, 8, 9, 20 and 128
   distances, and at 20 against K2's moments;
-* the CLI path on ``examples/CONFIG_singleparabola.py`` and
+* Zernike surface defects: ``main.main`` on the deformed flagship (its first
+  toroid a ``DeformedMirror`` with four Zernike terms) at 1e7 rays through
+  K1 and K2, and every kernel K1-K8 held against its plain version on the
+  deformed chain (K1 and K2 with ``ignore_defects`` True and False), with
+  each kernel's deformed-chain time beside its undeformed time;
+* the CLI path on ``examples/CONFIG_singleparabola.py``,
   ``examples/CONFIG_gradient_alignment.py`` (a CONFIG that aligns its chain
-  while it loads).
+  while it loads) and ``examples/CONFIG_deformed.py`` (a Fourier-PSD defect
+  map on the plain trace).
 
 Each path runs with the launch counts set to 0 just before it and read just
 after. It exits nonzero, printing no result, when there is no CUDA card,
@@ -41,7 +47,10 @@ K7 and K8: 3 windows of one call), at 1e7 rays: K1, K2, K5, K6, K7 and K8
 and bundles.
 ``bound_ms`` is the larger of the bytes the kernel must move over 3.35 TB/s
 and its float32 operations over 67 TFLOP/s (H100 SXM data sheet), counted
-for the same inputs.
+for the same inputs. Each entry also carries the phase zernike's numbers:
+``zernike_ms`` (the launch alone on the deformed flagship at 1e7 rays),
+``zernike_flat_ms`` (the undeformed flagship's, timed beside it),
+``zernike_bound_ms`` and ``zernike_bound_by``.
 """
 
 from __future__ import annotations
@@ -100,7 +109,26 @@ OPS = {
     "dual_trace_tangent": 658,
     "dual_stats_once": 1,
     "dual_stats_tangent": 106,
+    # a mirror with Zernike defects (trace_common.cuh deformed_hit, on a
+    # toroid): the two surface normals, the normalized coordinates, cos
+    # alpha, the shifted t and point, rows 0-1 of the values ("shift"); each
+    # further (n, m) term of the values pass, its row entry and the sum
+    # ("term"); with ignore_defects False each term of the slopes pass and
+    # the composed normal ("slope_term", "compose"). On Dual<G> (K6), per
+    # tangent: the shift's and each value term's linear parts, and once
+    # the reciprocals the tangents share
+    "zernike_shift": 55,
+    "zernike_term": 9,
+    "zernike_slope_term": 19,
+    "zernike_compose": 22,
+    "dual_zernike_once": 12,
+    "dual_zernike_shift_tangent": 114,
+    "dual_zernike_term_tangent": 18,
 }
+
+#: the Zernike defects of the deformed flagship's first toroid (the phase's
+#: chain: astigmatism, coma, a 4th- and a 6th-order term, in mm)
+ZERNIKE = {(2, 0): 2e-4, (3, 1): -1e-4, (4, 2): 5e-5, (6, 3): 2e-5}
 
 
 def _fail(msg):
@@ -141,9 +169,17 @@ def _bound(n_bytes, n_ops):
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def _trace_ops(table, source: bool) -> int:
+def _zernike_terms(el) -> int:
+    """(n, m) terms with n >= 2 of a deformed mirror's recurrence: every row
+    up to the highest order of its defects (the kernel's table order)."""
+    order = max([2] + [n for d in el.defects for (n, _m) in d.coeffs])
+    return sum(n + 1 for n in range(2, order + 1))
+
+
+def _trace_ops(table, source: bool, ignore_defects: bool = True) -> int:
     """Per-ray operations of the source (if synthesized) and the chain walk
-    of a chain table whose mirrors are toroids (the flagship's)."""
+    of a chain table whose mirrors are toroids (the flagship's), with the
+    Zernike branch of a deformed mirror."""
     from attosecondraytracing_tpu_torch.ops import surfaces as srf
     from attosecondraytracing_tpu_torch.ops.trace import MaskElement
 
@@ -155,6 +191,23 @@ def _trace_ops(table, source: bool) -> int:
         else:
             _check(isinstance(el.surface, srf.Toroid), "operation counts cover toroids only")
             ops += OPS["toroid"]
+            if el.defects:
+                terms = _zernike_terms(el)
+                ops += OPS["zernike_shift"] + terms * OPS["zernike_term"]
+                if not ignore_defects:
+                    ops += terms * OPS["zernike_slope_term"] + OPS["zernike_compose"]
+    return ops
+
+
+def _dual_zernike_ops(elements, n_tangents: int) -> int:
+    """Per-ray operations the Zernike branch adds on Dual<G> (K6) for a
+    gradient step of ``n_tangents`` rows, ignore_defects True: once, and
+    its linear parts per tangent."""
+    ops = 0
+    for el in elements:
+        if getattr(el, "defects", ()):
+            ops += OPS["dual_zernike_once"] + n_tangents * (
+                OPS["dual_zernike_shift_tangent"] + _zernike_terms(el) * OPS["dual_zernike_term_tangent"])
     return ops
 
 
@@ -171,6 +224,25 @@ def _flagship(n_rays):
              "NumberRays": n_rays}
     chain = OEPlacement(props, [mask, tor, tor], [400.0, 100.0, 500.0], [0.0, 80.0, -80.0],
                         [0.0, 0.0, 0.0], "flagship: mask + 2 toroidals f-d-f")
+    return chain, props
+
+
+def _deformed_flagship(n_rays, second_distance=500.0):
+    """The flagship with its first toroid carrying the Zernike defects
+    :data:`ZERNIKE` over its support; ``second_distance`` places the second
+    toroid (a list: one chain per value)."""
+    from attosecondraytracing_tpu_torch.models import defects, masks, mirrors, supports
+    from attosecondraytracing_tpu_torch.models.placement import OEPlacement
+
+    R, r = mirrors.ReturnOptimalToroidalRadii(500.0, 80.0)
+    tor = mirrors.MirrorToroidal(R, r, supports.SupportRectangle(150, 32))
+    deformed = mirrors.DeformedMirror(tor, [defects.Zernike(supports.SupportRectangle(150, 32), ZERNIKE)])
+    mask = masks.Mask(supports.SupportRoundHole(Radius=20, RadiusHole=7, CenterHoleX=0, CenterHoleY=0))
+    props = {"Divergence": 25e-3, "SourceSize": 0, "Wavelength": 80e-6, "DeltaFT": 0.5,
+             "NumberRays": n_rays}
+    chain = OEPlacement(props, [mask, deformed, tor], [400.0, 100.0, second_distance],
+                        [0.0, 80.0, -80.0], [0.0, 0.0, 0.0],
+                        "deformed flagship: mask + Zernike-deformed toroidal + toroidal f-d-f")
     return chain, props
 
 
@@ -1067,12 +1139,328 @@ def _check_sum_stats(tag, ker, ref, opl_ref, distances):
     return float(spot.max())
 
 
+def _zernike_main_path(torch, dev):
+    """The slice's path on the deformed flagship: main.main at 1e7 rays with
+    the detector-distance optimizer, the launch counts set to 0 just before
+    it: engine cuda-source, exactly one K1 and one K2 launch, no other
+    kernel."""
+    from attosecondraytracing_tpu_torch import main as art
+
+    chain, props = _deformed_flagship(N_SLICE)
+    do = {"ReflectionNumber": -1, "DistanceDetector": 500.0, "AutoDetectorDistance": True,
+          "OptFor": "intensity"}
+    ao = {"verbose": True, "save_results": False}
+    _reset_launches()
+    t0 = time.perf_counter()
+    kept = art.main(chain, props, do, ao, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    transmission, det = kept["ETransmission"][0], kept["Detector"][0]
+    spot, duration = kept["SpotSizeSD"][0], kept["DurationSD"][0]
+    print(f"zernike main path: engine {chain.last_trace_engine}, launches {launches}, transmission "
+          f"{transmission:.6g} %, distance {det.get_distance():.6g} mm, spot SD {spot:.6g} mm, "
+          f"duration SD {duration:.6g} fs, main.main wall {wall:.3f} s", flush=True)
+    _check(chain.last_trace_engine == "cuda-source", f"zernike: trace engine {chain.last_trace_engine}")
+    _check(launches["K1"] == 1 and launches["K2"] == 1
+           and all(v == 0 for k, v in launches.items() if k not in ("K1", "K2")),
+           f"zernike main path launches {launches}")
+    _check(0 < transmission <= 100, f"zernike: transmission {transmission}")
+    _check(abs(det.get_distance() - 500.0) <= 25.0, f"zernike: optimal distance {det.get_distance()}")
+    _check(spot < 0.5, f"zernike: spot SD {spot} mm")
+    return launches
+
+
+def _zernike_k12(torch, dev):
+    """K1 and K2 against their plain versions on the deformed flagship at 1e7
+    rays, with ignore_defects True and False (phase k1's and k2's
+    tolerances), and the defect's effect on K1's directions. Returns the
+    largest |dp| [mm] of K1 and spot SD difference [mm] of K2."""
+    from attosecondraytracing_tpu_torch.ops import fused_trace as ft
+
+    chain, _ = _deformed_flagship(N_CHECK)
+    spec, elements, det, (opl_ref, inv_dn), chunks, n = _k2_setup(torch, dev, chain, N_TIME)
+    table = ft.chain_table(spec, elements)
+    bdet = ft.bake_detector(elements, det.centre, det.normal, det._plane_rotation(),
+                            opl_ref=opl_ref, inv_dn_chief=inv_dn)
+    err1 = err2 = 0.0
+    dirs, spots = {}, {}
+    for ignore in (True, False):
+        ker = ft.fused_source_trace(table, spec, n, device=dev, ignore_defects=ignore)
+        torch.cuda.synchronize()
+        ref = ft.fused_source_trace_ref(table, spec, n, device=dev, ignore_defects=ignore)
+        err1 = max(err1, _check_bundles(f"K1 deformed flagship ignore_defects={ignore}", ker, ref, torch))
+        dirs[ignore] = (ker, ref)
+        kw = dict(device=dev, gaussian_edge=chain.source_spec.gaussian_edge, ignore_defects=ignore)
+        k2 = ft.fused_source_moments(table, spec, bdet, chunks, n, **kw)
+        r2 = ft.fused_source_moments_ref(table, spec, bdet, chunks, n, **kw)
+        err2 = max(err2, _check_stats(f"K2 deformed flagship ignore_defects={ignore} ({n} rays)", k2, r2,
+                                      opl_ref, 1e-5, 2e-3, 0.025, 0.8))
+        spots[ignore] = [float(ft.sums_to_stats(ft.moments_to_distance_sums(m, (0.0,)), opl_ref, (0.0,))
+                               ["spot_sd"][0]) for m in (k2, r2)]
+    # The defect slopes must change what the kernels compute, by more than
+    # their float32 error. These coefficients' slopes over the support's
+    # 76.7 mm radius are ~1e-6 (the Pallas test's 20 mm parabola at normal
+    # incidence reaches 1e-5), so directions move by up to ~2e-6 and by a
+    # float32 ulp on most rays, where the kernel's own per-ray error is of
+    # that size: the check asks for a move of more than 1e-6 and holds K2's
+    # move of the spot SD to 100 times its error against the plain version.
+    both = dirs[True][0].alive & dirs[False][0].alive & dirs[True][1].alive & dirs[False][1].alive
+    effect_k = dirs[False][0].d[both] - dirs[True][0].d[both]
+    effect_r = dirs[False][1].d[both] - dirs[True][1].d[both]
+    effect = float(effect_k.abs().max())
+    effect_err = float((effect_k - effect_r).abs().median())
+    spot_move = abs(spots[False][0] - spots[True][0])
+    spot_err = max(abs(spots[v][0] - spots[v][1]) for v in (True, False))
+    print(f"zernike: the defect slopes (ignore_defects=False) move K1's directions by up to {effect:.3g} "
+          f"(median {float(effect_k.abs().median()):.3g}) on alive rays, the kernel's move against the plain "
+          f"version's within {effect_err:.3g} (median); K2's spot SD at the detector {spots[True][0]:.6g} -> "
+          f"{spots[False][0]:.6g} mm (kernel vs plain within {spot_err:.3g} mm)", flush=True)
+    _check(effect > 1e-6 and spot_move > 100.0 * spot_err,
+           f"zernike: the defect slopes' effect {effect} / spot {spot_move} against the kernel's error "
+           f"{effect_err} / {spot_err}")
+    return err1, err2
+
+
+def _zernike_k34(torch, dev):
+    """K4 on a user-built 2^20-ray PointSource bundle through the deformed
+    flagship, and K3 on that bundle traced through the mask, then through the
+    deformed toroid (ignore_defects False) and the second toroid, against
+    their plain versions (K1's envelopes). Returns each kernel's largest
+    |dp| [mm]."""
+    import numpy as np
+
+    from attosecondraytracing_tpu_torch.models import sources
+    from attosecondraytracing_tpu_torch.ops import fused_trace as ft
+    from attosecondraytracing_tpu_torch.ops.bundle import RayBundle
+
+    chain, _ = _deformed_flagship(16)
+    host = [e.to_device("cpu", torch.float64) for e in chain.optical_elements]
+    bundle = sources.ApplyGaussianIntensityToRayList(
+        sources.PointSource(np.zeros(3), np.array([1.0, 0.0, 0.0]), 25e-3, N_CHECK, 80e-6), np.exp(-2.0))
+    table = ft.chain_table(None, host)
+    err4 = _check_bundles("K4 deformed flagship (user PointSource)", ft.streamed_trace(table, bundle, device=dev),
+                          ft.streamed_trace_ref(table, bundle, fresh=True, device=dev), torch)
+    first = ft.streamed_trace(ft.chain_table(None, host[:1]), bundle, device=dev)
+    mid = RayBundle(p=first.p, d=first.d, opl=first.opl, opl_c=first.opl_c, alive=first.alive,
+                    intensity=bundle.intensity.to(dev, torch.float32), incidence=first.incidence,
+                    wavelength=bundle.wavelength.to(dev, torch.float32))
+    _check(not ft._is_fresh(mid), "the masked bundle must not be fresh")
+    rest = ft.chain_table(None, host[1:])
+    err3 = _check_bundles("K3 deformed flagship (masked bundle -> deformed toroid -> toroid)",
+                          ft.streamed_trace(rest, mid, device=dev, ignore_defects=False),
+                          ft.streamed_trace_ref(rest, mid, fresh=False, device=dev, ignore_defects=False),
+                          torch)
+    return err3, err4
+
+
+def _zernike_k5(torch, dev):
+    """A 5-chain scan of the deformed flagship (second toroid at 490-510 mm)
+    at 2^20 rays per chain: main.main takes the scan engine (K5 once per
+    chain, no K1 or K2), and each chain's K5 against its plain version
+    (phase k5's tolerances). Returns the largest spot SD difference [mm]."""
+    from attosecondraytracing_tpu_torch import main as art
+    from attosecondraytracing_tpu_torch.ops import fused_scan as fs
+
+    chains, props = _deformed_flagship(N_CHECK, [490.0, 495.0, 500.0, 505.0, 510.0])
+    do = {"ReflectionNumber": -1, "DistanceDetector": 500.0, "AutoDetectorDistance": True,
+          "OptFor": "spotsize"}
+    _reset_launches()
+    kept = art.main(chains, props, do, {"verbose": False, "save_results": False}, device=dev)
+    launches = _launches()
+    engines = [c.last_trace_engine for c in chains]
+    print(f"zernike scan of {len(chains)} chains at {N_CHECK} rays: engines {sorted(set(engines))}, "
+          f"launches {launches}, optimal distances "
+          f"{[round(d.get_distance(), 3) for d in kept['Detector']]} mm", flush=True)
+    _check(all(e == "cuda-scan" for e in engines) and launches["K5"] == len(chains)
+           and launches["K1"] == 0 and launches["K2"] == 0, f"zernike scan: {engines} {launches}")
+    spot_err = 0.0
+    for i, chain in enumerate(chains):
+        spec, elements, det, (opl_ref, inv_dn), chunks, n = _k2_setup(torch, dev, chain, N_CHECK)
+        sspec = fs.make_scan_spec(spec.kind, elements, n)
+        svec = fs.scan_chain_scalars(elements, spec.rot, spec.origin, det.centre, det.normal,
+                                     det._plane_rotation())
+        aux = fs.scan_aux(chunks, opl_ref, inv_dn, 0.0, spec.radius, chain.source_spec.gaussian_edge)
+        ker = fs.fused_scan_moments(sspec, svec, aux, chunks, device=dev)
+        ref = fs.scan_moments_ref(sspec, svec, aux, chunks, device=dev)
+        spot_err = max(spot_err, _check_stats(f"K5 deformed scan chain {i}", ker, ref, opl_ref,
+                                              1e-5, 2e-3, 0.025, 0.8))
+    return spot_err
+
+
+def _zernike_k678(torch, dev):
+    """K6's 18 tangent rows of one launch against stats_params_ref, K7
+    against its plain version and equal to K6's primal, and K8 at 20
+    distances against its plain version and against K2's moments, all on
+    the deformed flagship at 2^20 rays (phases k67's and k8's tolerances).
+    Returns the (K6 gradient, K7 loss, K8 spot SD) differences."""
+    import numpy as np
+
+    from attosecondraytracing_tpu_torch.ops import fused_grad as fg
+    from attosecondraytracing_tpu_torch.ops import fused_trace as ft
+
+    chain, _ = _deformed_flagship(N_CHECK)
+    spec, host, geo, params, _ = _grad_problem(torch, dev, chain, N_CHECK, _bench_misalignment)
+    svec = fg.chain_scalars_np(fg._apply_params_np(host, params), *geo)
+    tang = fg.scalar_tangents(host, params, *geo)
+    chunks = fg._ray_chunks(spec, fg.GRAD_CHUNK)
+    _reset_launches()
+    p_k, t_k = fg.fused_stats_params(spec, svec, tang, chunks, device=dev)
+    _check(_launches()["K6"] == 1 and tang.shape[0] == 18, f"K6 deformed: {_launches()}, {tang.shape}")
+    p_r, t_r = fg.stats_params_ref(spec, svec, tang, chunks, device=dev)
+    _check_grad_sums("K6 deformed flagship (18 tangent rows in one launch)", p_k, p_r, spec.opl_ref)
+    scale = np.maximum(np.abs(t_r).max(axis=0), 1e-12)
+    per_stat = (np.abs(t_k - t_r) / scale).max(axis=0)
+    print("K6 deformed: the 18 tangent rows within " + ", ".join(
+        f"{f} {v:.3g}" for f, v in zip(ft.STATS_FIELDS, per_stat)) + " of each statistic's largest",
+        flush=True)
+    _check(np.all(np.isfinite(t_k)) and per_stat[:5].max() <= 2e-3 and per_stat[5:].max() <= 2e-2,
+           f"K6 deformed: tangents differ by {per_stat}")
+    p7, _ = fg.fused_stats_params(spec, svec, None, chunks, device=dev)
+    p7_r, _ = fg.stats_params_ref(spec, svec, None, chunks, device=dev)
+    _check_grad_sums("K7 deformed flagship", p7, p7_r, spec.opl_ref)
+    _check_grad_sums("K7 vs K6 primal deformed flagship", p7, p_k, spec.opl_ref)
+    loss_k, dloss = fg._loss_from_stats(p_k, spec, fg._total_weight(spec))
+    loss_r, dloss_r = fg._loss_from_stats(p_r, spec, fg._total_weight(spec))
+    g_k, g_r = t_k @ dloss, t_r @ dloss_r
+    print(f"K6 deformed: loss {loss_k:.9g} vs {loss_r:.9g}, gradient max |diff| "
+          f"{np.abs(g_k - g_r).max():.3g} of max |g| {np.abs(g_r).max():.3g}", flush=True)
+    _check(abs(loss_k - loss_r) <= 2e-3 * abs(loss_r), f"K6 deformed: loss {loss_k} vs {loss_r}")
+    _check(np.all(np.abs(g_k - g_r) <= 2e-2 * np.abs(g_r).max() + 2e-2 * np.abs(g_r)),
+           f"K6 deformed: gradient {g_k} vs {g_r}")
+    loss7 = fg._loss_from_stats(p7, spec, fg._total_weight(spec))[0]
+    loss7_r = fg._loss_from_stats(p7_r, spec, fg._total_weight(spec))[0]
+
+    spec8, elements, det, (opl_ref, inv_dn), chunks8, n = _k2_setup(torch, dev, chain, N_CHECK)
+    table = ft.chain_table(spec8, elements)
+    distances = tuple(float(d) for d in np.linspace(-10, 10, 20))
+    bdet = ft.bake_detector(elements, det.centre, det.normal, det._plane_rotation(), opl_ref=opl_ref,
+                            inv_dn_chief=inv_dn, distances=distances,
+                            delay_offsets=tuple(-d * inv_dn for d in distances))
+    edge = chain.source_spec.gaussian_edge
+    _reset_launches()
+    k8 = ft.fused_source_stats(table, spec8, bdet, chunks8, n, device=dev, gaussian_edge=edge)
+    _check(_launches()["K8"] == 1, f"K8 deformed: {_launches()}")
+    r8 = ft.fused_source_stats_ref(table, spec8, bdet, chunks8, n, device=dev, gaussian_edge=edge)
+    err8 = _check_sum_stats("K8 J=20 deformed flagship vs plain", k8, r8, opl_ref, distances)
+    mom = ft.fused_source_moments(table, spec8, bdet._replace(distances=(0.0,), delay_offsets=(0.0,)),
+                                  chunks8, n, device=dev, gaussian_edge=edge)
+    k2 = ft.moments_to_distance_sums(mom, distances)
+    _check_sum_stats("K8 J=20 deformed flagship vs K2 moments", k8,
+                     np.stack([k2[f] for f in ft.STATS_FIELDS]), opl_ref, distances)
+    return float(np.abs(g_k - g_r).max()), abs(loss7 - loss7_r), err8
+
+
+def _zernike_launches(torch, dev, chain):
+    """Prepared launch-only calls of K1-K8 on ``chain`` (the flagship or its
+    deformed twin) at 1e7 rays, each with its bound: {kernel: (launch,
+    bound)}. K1, K2, K5, K7 and K8 (20 distances) as their phases prepare
+    them on the flagship; K6 one gradient step (18 rows); K4 and K3 on a
+    fresh 1e7-ray bundle of the flagship's source through the chain's
+    lab-frame table."""
+    import numpy as np
+
+    from attosecondraytracing_tpu_torch.ops import fused_grad as fg
+    from attosecondraytracing_tpu_torch.ops import fused_scan as fs
+    from attosecondraytracing_tpu_torch.ops import fused_trace as ft
+
+    spec, elements, det, (opl_ref, inv_dn), chunks, n = _k2_setup(torch, dev, chain, N_TIME)
+    edge = chain.source_spec.gaussian_edge
+    table = ft.chain_table(spec, elements)
+    outs, k1 = ft.prepare_fused_source_trace(table, spec, n, device=dev)
+    k1()
+    n_alive = int(outs.alive.sum())
+    trace_ops = _trace_ops(table, True)
+    out = {"K1": (k1, _bound(37 * n, (trace_ops + OPS["store"]) * n))}
+    bdet = ft.bake_detector(elements, det.centre, det.normal, det._plane_rotation(), opl_ref=opl_ref,
+                            inv_dn_chief=inv_dn)
+    rows, k2 = ft.prepare_fused_source_moments(table, spec, bdet, chunks, n, device=dev, gaussian_edge=edge)
+    out["K2"] = (k2, _bound(rows.numel() * 8 + 8 * len(chunks),
+                            (trace_ops + OPS["weight"]) * n + OPS["moments"] * n_alive))
+    host = [e.to_device("cpu", torch.float64) for e in chain.optical_elements]
+    lab = ft.chain_table(None, host)
+    bundle = ft.source_bundle(spec, n, device=dev)
+    for key, fresh in (("K4", True), ("K3", False)):
+        _, launch = ft.prepare_streamed_trace(lab, bundle, fresh=fresh, device=dev)
+        out[key] = (launch, _bound((61 if fresh else 74) * n, (_trace_ops(lab, False) + OPS["store"]) * n))
+    sspec = fs.make_scan_spec(spec.kind, elements, n)
+    svec = fs.scan_chain_scalars(elements, spec.rot, spec.origin, det.centre, det.normal,
+                                 det._plane_rotation())
+    aux = fs.scan_aux(chunks, opl_ref, inv_dn, 0.0, spec.radius, edge)
+    rows, k5 = fs.prepare_scan_moments(sspec, svec, aux, chunks, device=dev)
+    unfolded = ft.ChainTable(sspec.elements, (), (), ((),) * len(sspec.elements))
+    per_ray = _trace_ops(unfolded, True) + OPS["weight"]
+    out["K5"] = (k5, _bound(rows.numel() * 8 + 4 * (svec.size + aux.size),
+                            per_ray * n + OPS["moments"] * n_alive))
+    lspec, lhost, geo, params, _ = _grad_problem(torch, dev, chain, n, _bench_misalignment)
+    gsvec = fg.chain_scalars_np(fg._apply_params_np(lhost, params), *geo)
+    tang = fg.scalar_tangents(lhost, params, *geo)
+    gchunks = fg._ray_chunks(lspec, fg.GRAD_CHUNK)
+    for key, group in (("K6", tang), ("K7", None)):
+        rows, launch = fg.prepare_stats_params(lspec, gsvec, group, gchunks, device=dev)
+        ops = per_ray * n + OPS["stats"] * n_alive
+        n_in = gsvec.size
+        if group is not None:
+            P = len(group)
+            ops += (OPS["dual_trace_once"] + P * OPS["dual_trace_tangent"]
+                    + _dual_zernike_ops(lspec.elements, P)) * n
+            ops += (OPS["dual_stats_once"] + P * OPS["dual_stats_tangent"]) * n_alive
+            n_in += group.size
+        out[key] = (launch, _bound(rows.numel() * 8 + 4 * n_in + 8 * len(gchunks), ops))
+    distances = tuple(float(d) for d in np.linspace(-10, 10, 20))
+    bdet20 = ft.bake_detector(elements, det.centre, det.normal, det._plane_rotation(), opl_ref=opl_ref,
+                              inv_dn_chief=inv_dn, distances=distances,
+                              delay_offsets=tuple(-d * inv_dn for d in distances))
+    rows, k8 = ft.prepare_fused_source_stats(table, spec, bdet20, chunks, n, device=dev, gaussian_edge=edge)
+    out["K8"] = (k8, _bound(rows.numel() * 8 + 8 * len(chunks) + 8 * 20,
+                            (trace_ops + OPS["weight"]) * n
+                            + n_alive * (OPS["stats_geometry"] + 20 * OPS["stats_distance"])))
+    return out
+
+
+def phase_zernike(torch, dev):
+    """Zernike surface defects through the slice's path and every kernel:
+    the main path on the deformed flagship (:func:`_zernike_main_path`),
+    each kernel against its plain version on the deformed chain
+    (:func:`_zernike_k12`, :func:`_zernike_k34`, :func:`_zernike_k5`,
+    :func:`_zernike_k678`), then each kernel's launch-only time on the
+    deformed flagship at 1e7 rays beside the undeformed flagship's, in turns
+    (flagship, deformed, deformed, flagship). Returns ({kernel: the
+    phase's numbers}, the main path's launches)."""
+    launches = _zernike_main_path(torch, dev)
+    err1, err2 = _zernike_k12(torch, dev)
+    err3, err4 = _zernike_k34(torch, dev)
+    err5 = _zernike_k5(torch, dev)
+    err6, err7, err8 = _zernike_k678(torch, dev)
+    errs = {"K1": err1, "K2": err2, "K3": err3, "K4": err4, "K5": err5, "K6": err6, "K7": err7, "K8": err8}
+    flat = _zernike_launches(torch, dev, _flagship(N_CHECK)[0])
+    deformed = _zernike_launches(torch, dev, _deformed_flagship(N_CHECK)[0])
+    out = {}
+    for key in sorted(errs):
+        reps, inner = (3, 3) if key == "K6" else (5, 5)
+        t_flat = _time_ms(flat[key][0], torch, reps=reps, inner=inner)
+        t_def = _time_ms(deformed[key][0], torch, reps=reps, inner=inner)
+        t_def2 = _time_ms(deformed[key][0], torch, reps=reps, inner=inner)
+        t_flat2 = _time_ms(flat[key][0], torch, reps=reps, inner=inner)
+        ms, flat_ms = (t_def + t_def2) / 2, (t_flat + t_flat2) / 2
+        bound = deformed[key][1]
+        print(f"{key} at {N_TIME} rays: deformed flagship {ms:.4f} ms, flagship {flat_ms:.4f} ms "
+              f"(ratio {ms / flat_ms:.4f}); deformed bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']}), flagship bound {flat[key][1]['bound_ms']:.4f} ms; kernel vs plain "
+              f"on the deformed chain {errs[key]:.3g}", flush=True)
+        out[key] = {"zernike_ms": ms, "zernike_flat_ms": flat_ms, "zernike_bound_ms": bound["bound_ms"],
+                    "zernike_bound_by": bound["bound_by"], "zernike_max_abs_err": errs[key]}
+    return out, launches
+
+
 def phase_cli(torch):
     """run_config_file on the card and on the CPU (plain versions) in this
-    process: CONFIG_singleparabola.py at 1e6 rays, and
+    process: CONFIG_singleparabola.py at 1e6 rays,
     CONFIG_gradient_alignment.py at its own 2000 rays (it aligns its chain
     while it loads, through the autograd engine at that size), whose loss
-    must fall at least 10x on the card. Transmission within 0.05 %, spot SD
+    must fall at least 10x on the card, and CONFIG_deformed.py at its own
+    1000 rays (a Fourier-PSD defect map: the plain trace, no kernel, on
+    both devices). Transmission within 0.05 %, spot SD
     1e-3 relative, duration SD 1e-2 relative, or 10 % for the sub-fs
     duration of the alignment CONFIG (float32 delay noise sets it: 0.44 fs
     in float32 against 0.067 fs in float64, as in the user-bundle phase)."""
@@ -1083,7 +1471,8 @@ def phase_cli(torch):
     from attosecondraytracing_tpu_torch.main import run_config_file
 
     for name, n_rays, dur_rtol in (("CONFIG_singleparabola.py", N_CLI, 1e-2),
-                                   ("CONFIG_gradient_alignment.py", None, 0.1)):
+                                   ("CONFIG_gradient_alignment.py", None, 0.1),
+                                   ("CONFIG_deformed.py", None, 1e-2)):
         path = str(ROOT / "examples" / name)
         res = {}
         for dev in ("cuda", "cpu"):
@@ -1100,7 +1489,7 @@ def phase_cli(torch):
         _check(abs(tg - tc) <= 0.05, f"CLI {name}: transmission {tg} vs {tc}")
         _check(abs(sg - sc) <= 1e-3 * abs(sc), f"CLI {name}: spot SD {sg} vs {sc}")
         _check(abs(dg - dc) <= dur_rtol * abs(dc), f"CLI {name}: duration SD {dg} vs {dc}")
-        if n_rays is None:
+        if name == "CONFIG_gradient_alignment.py":
             _check(len(lg) == 1 and float(lg[0][1]) * 10 <= float(lg[0][0]),
                    f"CLI {name}: the alignment loss must fall 10x on the card, got {lg}")
 
@@ -1153,6 +1542,7 @@ def main():
     grad_launches, k7_launches = phase("grad", lambda: phase_grad(torch, dev))
     k8, k8_launches = phase("k8", lambda: phase_k8(torch, dev, n_alive))
     timed["K8"] = k8[20]
+    zernike, zernike_launches = phase("zernike", lambda: phase_zernike(torch, dev))
     phase("cli", lambda: phase_cli(torch))
     launches.update(K1=slice_launches["K1"], K2=slice_launches["K2"], K5=scan_launches["K5"],
                     K6=grad_launches["K6"], K7=k7_launches["K7"], K8=k8_launches)
@@ -1176,7 +1566,7 @@ def main():
          "attosecondraytracing_tpu/ops/pallas_trace.py:931"),
     )
     kernels = [{"name": name, "route": "cuda", "source": CSRC + src, "replaces": replaces,
-                "launches": launches[key], **timed[key], "library_ms": None}
+                "launches": launches[key], **timed[key], "library_ms": None, **zernike[key]}
                for key, name, src, replaces in rows]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,8 @@
 fails, the package imports, builds the flagship chain, traces it on the CPU
 through the plain, fused-source and streamed engines, takes alignment steps
 through both gradient engines, runs the per-distance stats pass, and runs a
-two-chain scan through the scan engine."""
+two-chain scan through the scan engine, and traces a Zernike-deformed chain
+(``models/defects``, ``ops/defects``, ``ops/zernike``)."""
 
 import os
 import subprocess
@@ -15,6 +16,8 @@ import torch
 torch.set_num_threads(1)
 import attosecondraytracing_tpu_torch as art
 from attosecondraytracing_tpu_torch import main, interop  # noqa: F401
+from attosecondraytracing_tpu_torch.models import defects
+from attosecondraytracing_tpu_torch.ops import defects as op_defects, zernike  # noqa: F401
 from attosecondraytracing_tpu_torch.models import masks, mirrors, supports
 from attosecondraytracing_tpu_torch.models import chain as mchain
 
@@ -57,6 +60,16 @@ kept = main.main(scan, props, {"DistanceDetector": 500.0, "AutoDetectorDistance"
                  device="cpu")
 assert [c.last_trace_engine for c in kept["OpticalChain"]] == ["torch-scan"] * 2
 assert 0 < kept["ETransmission"][0] <= 100
+# a Zernike-deformed flagship through the fused engine and the plain trace
+zdef = defects.Zernike(supports.SupportRectangle(150, 32), {(2, 0): 2e-4, (4, 2): 5e-5})
+bent = art.OEPlacement(props, [mask, mirrors.DeformedMirror(tor, [zdef]), tor], [400, 100, 500],
+                       [0, 80, -80], [0, 0, 0]).to("cpu")
+mchain.PALLAS_MIN_RAYS = 1024
+z_fused = bent.trace_final(False)
+assert bent.last_trace_engine == "torch-source"
+z_plain = bent.trace_final(False, engine="trace")
+assert abs(int(z_fused.alive.sum()) - int(z_plain.alive.sum())) <= 2
+assert art.defects is defects
 assert not any(name == "jax" or name.startswith(("jax.", "jaxlib", "attosecondraytracing_tpu."))
                for name, mod in sys.modules.items() if mod is not None)
 print("\nOK", a, b)

@@ -4,8 +4,12 @@
   rays with the detector-distance optimizer: both packages take their fused
   engines (the JAX Pallas kernels in interpret mode, the port's K1/K2 plain
   versions) once ``PALLAS_MIN_RAYS`` is lowered to 1024.
-* ``run_config_file`` on examples/CONFIG_singleparabola.py through both
-  CLIs: both take the streamed trace (below the threshold).
+* ``run_config_file`` on example CONFIGs through both CLIs: both take the
+  streamed trace (below the threshold).
+* The port's API faults against the JAX package's, repaired (F1-F6): the
+  signatures of ``RayTracingCalculation``, ``get_output_rays`` and
+  ``trace_final``, the JAX engine names, ``FindOptimalDistancePallas``, the
+  CONFIG module's registration and the CLI's ``--rays`` / ``--scan-engine``.
 
 tests/conftest.py runs JAX in float64; the port is asked for float64 the
 same way a user would (``ART_TPU_DTYPE=float64``, read by both packages)."""
@@ -129,7 +133,7 @@ def test_engine_choice(monkeypatch):
     chain.trace_final(engine="fused")  # forces the engine that fits the source
     assert chain.last_trace_engine == "torch-streamed"
     with pytest.raises(ValueError):
-        chain.trace_final(engine="pallas")
+        chain.trace_final(engine="mosaic")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):  # no silent CPU fallback
             chain.to("cuda")
@@ -190,7 +194,7 @@ def _alignment_losses(text):
 
 
 @pytest.mark.parametrize("name", ["CONFIG_singleparabola.py", "CONFIG_toroidal2f-2f_byhand.py",
-                                  "CONFIG_gradient_alignment.py"])
+                                  "CONFIG_gradient_alignment.py", "CONFIG_deformed.py"])
 def test_config_file_through_both_clis(monkeypatch, capsys, name):
     """An example CONFIG (1000-2000 rays, streamed trace) gives the same
     transmission, spot SD and duration SD from both CLIs, and the port runs
@@ -228,6 +232,11 @@ def test_config_file_through_both_clis(monkeypatch, capsys, name):
         assert t_last < 0.1 * t_first
         # the descent leaves the chain the report traces as the CONFIG built it
         assert tk["ETransmission"][0] == pytest.approx(100.0)
+    if name == "CONFIG_deformed.py":
+        # a Fourier-PSD defect map (RMS 0.1 mm) on a parabola, traced below
+        # PALLAS_MIN_RAYS on the plain trace: ~38 % transmission, a mm-scale
+        # spot, as the JAX CLI reports for this CONFIG
+        assert 37 < tk["ETransmission"][0] < 39 and 1.0 < tk["SpotSizeSD"][0] < 3.0
     if name == "CONFIG_singleparabola.py":
         assert "plots are not ported yet" in capsys.readouterr().err
         # the ~94 % / ~77 um of the verify notes
@@ -236,8 +245,9 @@ def test_config_file_through_both_clis(monkeypatch, capsys, name):
 
 def test_cli_arguments(monkeypatch, tmp_path, capsys):
     calls = []
-    monkeypatch.setattr(tmain, "run_config_file", lambda path, n_rays=None, device="cuda":
-                        calls.append((path, n_rays, device)))
+    monkeypatch.setattr(tmain, "run_config_file", lambda path, n_rays=None, device="cuda",
+                        scan_engine="auto": calls.append((path, n_rays, device)))
+    monkeypatch.delenv("ART_TPU_SCAN_ENGINE", raising=False)
     tmain.cli(["--rays", "1e5", "--device", "cpu", "cfg.py"])
     tmain.cli(["cfg.py"])
     # the profiler imports more of torch, which fails on the stub modules
@@ -253,3 +263,135 @@ def test_cli_arguments(monkeypatch, tmp_path, capsys):
         tmain.cli([])
     with pytest.raises(SystemExit):
         tmain.cli(["cfg.py", "--rays"])
+
+
+# ---------------------------------------------------------------------------
+# the port's API faults against the JAX package (ROADMAP queue 3, F1-F6)
+# ---------------------------------------------------------------------------
+
+
+def _deformed_parabola(n_rays=512):
+    """A parabola at normal incidence with Zernike defects (the chain of
+    tests/test_pallas.py:77-120), built with the port's names."""
+    from attosecondraytracing_tpu_torch.models import defects, mirrors, supports
+    from attosecondraytracing_tpu_torch.models.placement import OEPlacement
+
+    support = supports.SupportRound(20)
+    deformed = mirrors.DeformedMirror(mirrors.MirrorParabolic(100, 90, support),
+                                      [defects.Zernike(support, {(2, 0): 2e-4, (3, 1): -1e-4})])
+    props = {"Divergence": 0, "SourceSize": 30, "Wavelength": 50e-6, "NumberRays": n_rays}
+    return OEPlacement(props, [deformed], [200.0], [0.0])
+
+
+def test_f1_ray_tracing_calculation_signature():
+    """F1: RayTracingCalculation(source_rays, optical_elements,
+    IgnoreDefects=True, *, device=None, dtype=None), as the JAX package's:
+    IgnoreDefects reaches the trace, and device=None takes the device of the
+    CONFIG being run, and raises the chain's error outside one."""
+    from attosecondraytracing_tpu_torch import processing
+
+    chain = _deformed_parabola()
+    src, els = chain.source_rays, chain.optical_elements
+    with pytest.raises(RuntimeError, match="no device yet"):
+        processing.RayTracingCalculation(src, els)
+    with tchain.config_device("cpu"):
+        base = processing.RayTracingCalculation(src, els)
+        sloped = processing.RayTracingCalculation(src, els, False)
+    ref = processing.RayTracingCalculation(src, els, IgnoreDefects=False, device="cpu")
+    assert len(base) == len(sloped) == 1 and base[0].p.device.type == "cpu"
+    assert torch.equal(sloped[0].d, ref[0].d)
+    both = base[0].alive & sloped[0].alive
+    assert int(both.sum()) > 200 and float((base[0].d[both] - sloped[0].d[both]).abs().max()) > 1e-5
+
+
+def test_f2_trace_signatures_and_engine_names(monkeypatch):
+    """F2: get_output_rays(ignore_defects, force) and
+    trace_final(ignore_defects, engine) in the JAX order; the JAX engine
+    names ("pallas", "xla-source": the kernel engine, "xla": the plain
+    trace) are accepted, and ART_TPU_ENGINE is read when no engine is
+    given."""
+    monkeypatch.delenv("ART_TPU_ENGINE", raising=False)
+    chain = _deformed_parabola(2048).to("cpu")
+    hist = chain.get_output_rays(False)
+    assert chain.get_output_rays(False, False) is hist and chain.get_output_rays(False, True) is not hist
+    monkeypatch.setattr(tchain, "PALLAS_MIN_RAYS", 1024)
+    sloped = chain.trace_final(False)
+    assert chain.last_trace_engine == "torch-source"
+    flat = chain.trace_final(True, "pallas")
+    assert chain.last_trace_engine == "torch-source"
+    both = sloped.alive & flat.alive
+    assert float((sloped.d[both] - flat.d[both]).abs().max()) > 1e-5
+    chain.trace_final(engine="xla-source")
+    assert chain.last_trace_engine == "torch-source"
+    chain.trace_final(engine="xla")
+    assert chain.last_trace_engine == "trace"
+    monkeypatch.setenv("ART_TPU_ENGINE", "xla")
+    chain.trace_final()
+    assert chain.last_trace_engine == "trace"
+    monkeypatch.setenv("ART_TPU_ENGINE", "pallas")
+    chain.trace_final()
+    assert chain.last_trace_engine == "torch-source"
+
+
+def test_f3_find_optimal_distance_pallas_alias():
+    """F3: analysis/optimizer.FindOptimalDistancePallas, the JAX package's
+    name, is FindOptimalDistanceFused."""
+    from attosecondraytracing_tpu.analysis import optimizer as jopt
+    from attosecondraytracing_tpu_torch.analysis import optimizer as topt
+
+    assert callable(jopt.FindOptimalDistancePallas)
+    assert topt.FindOptimalDistancePallas is topt.FindOptimalDistanceFused
+
+
+_SELF_IMPORTING_CONFIG = """
+import sys
+from attosecondraytracing_tpu import mirrors, supports, processing as mp
+
+# the CLI registers this module under its file name while it runs
+assert sys.modules["{name}"].__dict__ is globals()
+OpticalChain = mp.OEPlacement(
+    {{"Divergence": 0, "SourceSize": 10, "Wavelength": 800e-6, "NumberRays": 64}},
+    [mirrors.MirrorPlane(supports.SupportRound(20))], [100], [10])
+DetectorOptions = {{"DistanceDetector": 50.0, "AutoDetectorDistance": False}}
+AnalysisOptions = {{"verbose": False, "save_results": False}}
+"""
+
+
+def test_f4_config_module_registered_while_it_runs(tmp_path):
+    """F4: run_config_file registers the CONFIG module in
+    sys.modules[filename] while it runs (the JAX CLI does, main.py:679),
+    and restores sys.modules afterwards."""
+    name = "cfg_self_import.py"
+    path = tmp_path / name
+    path.write_text(_SELF_IMPORTING_CONFIG.format(name=name))
+    assert name not in sys.modules
+    kept = tmain.run_config_file(str(path), device="cpu")
+    assert name not in sys.modules
+    assert 0 < kept["ETransmission"][0] <= 100
+
+
+def test_f5_rays_needs_a_count(capsys):
+    """F5: --rays with no number prints the JAX CLI's message and exits 1."""
+    with pytest.raises(SystemExit) as exc:
+        tmain.cli(["--rays", "abc", "cfg.py"])
+    assert exc.value.code == 1
+    assert "--rays requires a ray count" in capsys.readouterr().out
+
+
+def test_f6_scan_engine_option(monkeypatch, capsys):
+    """F6: the CLI reads --scan-engine auto|off and ART_TPU_SCAN_ENGINE (the
+    JAX package's variable) and passes them to run_config_file."""
+    calls = []
+    monkeypatch.setattr(tmain, "run_config_file",
+                        lambda path, n_rays=None, device="cuda", scan_engine="auto":
+                        calls.append(scan_engine))
+    monkeypatch.delenv("ART_TPU_SCAN_ENGINE", raising=False)
+    tmain.cli(["--device", "cpu", "cfg.py"])
+    tmain.cli(["--scan-engine", "off", "cfg.py"])
+    monkeypatch.setenv("ART_TPU_SCAN_ENGINE", "off")
+    tmain.cli(["cfg.py"])
+    tmain.cli(["--scan-engine", "auto", "cfg.py"])
+    assert calls == ["auto", "off", "off", "auto"]
+    with pytest.raises(SystemExit):
+        tmain.cli(["--scan-engine", "fast", "cfg.py"])
+    assert "--scan-engine takes one of" in capsys.readouterr().out

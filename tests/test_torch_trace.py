@@ -118,7 +118,9 @@ def test_run_chain_chained_matches_jax(flagship, freeze_dead):
 
 
 def test_trace_rejects_defects(flagship):
+    """Surface defects trace (tests/test_torch_zernike_trace.py); a defect
+    record of no known kind raises TypeError, as in the JAX package."""
     _, _, tsrc, tels = flagship
     bad = [tels[0], tels[1]._replace(defects=("zernike",)), tels[2]]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="unknown defect type"):
         ttr.trace(tsrc, bad, keep_history=False)
