@@ -7,7 +7,8 @@
 // which is what JAX's linearize of the Pallas kernel does (jvp of where).
 //
 // The scalar overload sets below (sqrt_, rsq, div_, fabs_, fmax_, fmin_,
-// isfinite_, val, add_rn, sub_rn) take float and Dual alike, and every Dual
+// isfinite_, val, add_rn, sub_rn) take float and Dual alike (val gives the
+// primal, which decides every branch and index: the grid lookup's cell), and every Dual
 // form takes its value from the float form, so K6's primal is K7's bit for
 // bit. The _rn forms round the value without contraction (Kahan step,
 // delays) and take plain float arithmetic on the tangents.
@@ -214,6 +215,8 @@ ART_DUAL Dual<G> fmax_(const Dual<G>& a, float c) { return a.v > c ? a : Dual<G>
 
 __device__ __forceinline__ float fmin_(float a, float b) { return fminf(a, b); }
 ART_DUAL Dual<G> fmin_(const Dual<G>& a, const Dual<G>& b) { return b.v < a.v ? b : a; }
+// fminf(x, c) against a constant: the constant (zero tangent) when it wins
+ART_DUAL Dual<G> fmin_(const Dual<G>& a, float c) { return a.v < c ? a : Dual<G>(c); }
 
 __device__ __forceinline__ bool isfinite_(float x) { return isfinite(x); }
 ART_DUAL bool isfinite_(const Dual<G>& a) { return isfinite(a.v); }

@@ -25,9 +25,12 @@
 // (trace_runtime_pose, trace_common.cuh, the loop K5 shares): masks are their
 // own (unfolded) steps and dead rays are not frozen at mirrors, as in the
 // JAX kernel; the source does not depend on the poses, so it enters with
-// zero tangents. Epilogue: stats_rows at distance 0 for alive rays (dead
-// rays are skipped, so no tangent of a dead ray reaches a sum; a warp of dead
-// rays leaves the chain early). Each thread sums 7 (1 + G) floats over its
+// zero tangents. A deformed mirror's branch runs on Dual<G> too: a grid
+// map's lookup takes its cell from the primal and its tangents through the
+// bilinear weights (a clamped index carries none), as JAX's autograd takes
+// them through the gather. Epilogue: stats_rows at distance 0 for alive
+// rays (dead rays are skipped, so no tangent of a dead ray reaches a sum; a
+// warp of dead rays leaves the chain early). Each thread sums 7 (1 + G) floats over its
 // rays; the block reduces them in float64 to one row (reduce_columns), no
 // atomics; the host sums the rows in float64. All chunks of 2^23 rays go in
 // one launch, on a grid sized to the rays (block_rays).
@@ -113,7 +116,7 @@ struct ScalarOf<0> {
   using type = float;
 };
 
-template <int G, bool DEFECTS>
+template <int G, int DEFECTS>
 __global__ void __launch_bounds__(MOMENT_THREADS, G > 0 ? K6_MIN_BLOCKS : 1)
 stats_params_kernel(const __grid_constant__ ChainP ch, const __grid_constant__ SourceP src,
                     float opl_ref, int n_rays, int chunk, int blocks_per_chunk, int n_scal,
@@ -167,7 +170,7 @@ int launch_stats_params(const void* chain, const void* source, float opl_ref, in
   const ChainP ch = *static_cast<const ChainP*>(chain);
   const SourceP src = *static_cast<const SourceP*>(source);
   return with_defects(ch, [&](auto defects) {
-    constexpr bool D = decltype(defects)::value;
+    constexpr int D = decltype(defects)::value;
     int n_groups = 1, smem = 0;
     if constexpr (G > 0) {
       n_groups = (n_tangents + G - 1) / G;

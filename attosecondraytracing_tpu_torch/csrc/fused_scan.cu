@@ -46,7 +46,7 @@ enum AuxSlot : int {
   AUX_WCOEF = 4, AUX_PHASE = 5, AUX_KFRAC = 6, AUX_POS_RADIUS = 7
 };
 
-template <bool DEFECTS>
+template <int DEFECTS>
 __global__ void __launch_bounds__(MOMENT_THREADS)
 scan_moments_kernel(const __grid_constant__ ChainP ch, const __grid_constant__ SourceP law,
                     int n_rays, int chunk, int blocks_per_chunk, const float* __restrict__ svec,

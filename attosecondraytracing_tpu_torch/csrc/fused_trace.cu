@@ -51,8 +51,15 @@
 //   block. Rows are (blocks, J, 7) doubles.
 //
 // Each kernel is instantiated on DEFECTS (trace_common.cuh): the launch
-// takes the Zernike branch's instantiation only for a chain with Zernike
-// tables (with_defects).
+// takes the Zernike branch's instantiation for a chain with Zernike tables
+// only, the grid branch's for a chain with grid maps, and the defect-free
+// one otherwise (with_defects). A grid mirror adds per ray two
+// bilinear lookups (the height at the base hit; with ignore_defects False
+// the slopes at the shifted hit), each four 16-byte reads of its packed
+// rows through the read-only path; a map that fits the 50 MB L2 (the
+// grid flagship's 31 MB) is served from it, a larger one (CONFIG_deformed's
+// 1 GB) from HBM, and K1's spiral order scatters a warp's lanes over the
+// map (PERF.md: the gather probe P4's cost per point beside K1's).
 //
 // This file also carries the library's shared C entry points (record sizes,
 // error strings).
@@ -64,7 +71,7 @@ namespace art {
 
 constexpr int K1_THREADS = 256;
 
-template <bool DEFECTS>
+template <int DEFECTS>
 __global__ void __launch_bounds__(K1_THREADS)
 fused_source_trace_kernel(const __grid_constant__ ChainP ch, const __grid_constant__ SourceP src,
                           int n_rays, float phase, float k_frac,
@@ -83,7 +90,7 @@ fused_source_trace_kernel(const __grid_constant__ ChainP ch, const __grid_consta
 constexpr int K2_RAYS_PER_THREAD = 16;
 constexpr int K2_RAYS_PER_BLOCK = MOMENT_THREADS * K2_RAYS_PER_THREAD;
 
-template <bool DEFECTS>
+template <int DEFECTS>
 __global__ void __launch_bounds__(MOMENT_THREADS)
 fused_source_moments_kernel(const __grid_constant__ ChainP ch, const __grid_constant__ SourceP src,
                             const __grid_constant__ DetectorP det, int n_rays, int chunk,
@@ -118,7 +125,7 @@ constexpr int K8_SMEM_FLOATS = (K8_RAYS_PER_THREAD * N_KEPT + N_STATS) * MOMENT_
 
 extern __shared__ float stats_smem[];
 
-template <bool DEFECTS>
+template <int DEFECTS>
 __global__ void __launch_bounds__(MOMENT_THREADS)
 fused_source_stats_kernel(const __grid_constant__ ChainP ch, const __grid_constant__ SourceP src,
                           const __grid_constant__ DetectorP det, int n_rays, int chunk,
@@ -210,15 +217,18 @@ using namespace art;
 
 extern "C" {
 
-// Version of this C interface; ops/_cuda.py loads only its own. Version 4:
-// the chain record carries Zernike tables and ignore_defects (ChainP grows
-// from 1720 to 2512 bytes; the entry points keep version 3's signatures).
+// Version of this C interface; ops/_cuda.py loads only its own. Version 5:
+// the chain record carries grid defect maps after version 4's fields
+// (ChainP grows from 2512 to 2744 bytes), and the library holds the gather
+// probes P4/P5 (gather_probe.cu). Version 4: the chain record carries
+// Zernike tables and ignore_defects (ChainP grows from 1720 to 2512 bytes;
+// the entry points keep version 3's signatures).
 // Version 3 gave K2 and K8 a grid sized to the rays with their own rays per
 // block, and K8 one trace per ray for all its distances (rows (blocks, J,
 // 7)); version 2 gave K5-K7 the sized grid and K6 all tangent rows of a
 // gradient step; libraries without this entry point have version 1's
 // signatures (utils/kernel_ab.py binds every older version for A/B runs).
-int art_abi_version() { return 4; }
+int art_abi_version() { return 5; }
 
 size_t art_chain_params_size() { return sizeof(ChainP); }
 size_t art_source_params_size() { return sizeof(SourceP); }
@@ -276,7 +286,7 @@ int art_launch_fused_source_stats(const void* chain, const void* source, const v
   const DetectorP det = *static_cast<const DetectorP*>(detector);
   constexpr int smem = K8_SMEM_FLOATS * (int)sizeof(float);
   return with_defects(ch, [&](auto defects) {
-    constexpr bool D = decltype(defects)::value;
+    constexpr int D = decltype(defects)::value;
     const cudaError_t status = cudaFuncSetAttribute(
         fused_source_stats_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (status != cudaSuccess) return (int)status;

@@ -29,7 +29,7 @@ namespace art {
 
 constexpr int K3_THREADS = 256;
 
-template <bool DEFECTS>
+template <int DEFECTS>
 __global__ void __launch_bounds__(K3_THREADS)
 streamed_trace_kernel(const __grid_constant__ ChainP ch, int n_rays,
                       const float* __restrict__ p_in, const float* __restrict__ d_in,
@@ -56,7 +56,7 @@ streamed_trace_kernel(const __grid_constant__ ChainP ch, int n_rays,
   store_lab(ch, s, k, p, d, opl, opl_c, alive, inc);
 }
 
-template <bool DEFECTS>
+template <int DEFECTS>
 __global__ void __launch_bounds__(K3_THREADS)
 streamed_trace_fresh_kernel(const __grid_constant__ ChainP ch, int n_rays,
                             const float* __restrict__ p_in, const float* __restrict__ d_in,
@@ -98,7 +98,7 @@ int art_launch_streamed_trace(const void* chain, int n_rays, int fresh, const fl
   const int blocks = (n_rays + K3_THREADS - 1) / K3_THREADS;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return with_defects(ch, [&](auto defects) {
-    constexpr bool D = decltype(defects)::value;
+    constexpr int D = decltype(defects)::value;
     if (fresh) {
       streamed_trace_fresh_kernel<D><<<blocks, K3_THREADS, 0, st>>>(ch, n_rays, p_in, d_in, p, d,
                                                                     opl, opl_c, alive, inc);

@@ -22,14 +22,22 @@
 //
 // Surface defects (ops/trace.chained_step's defect branch). A mirror with
 // Zernike defects has a table in the chain record (ZernikeP: coefficients,
-// 1 / radius; ChainP::zk_of names it), and every kernel runs the branch once
-// per such mirror, on S: the base hit, the height error h from the Andersen
-// recurrence at the hit (zernike_sums), the hit shifted along the ray by
-// h / max(-u.n0, 1e-6), the base surface's normal there (surface_normal,
-// ops/surfaces.normal_c), and unless ignore_defects the defect slopes
-// composed into it. Each kernel is instantiated twice, on the template flag
-// DEFECTS, and the launch takes the instantiation the record asks for
-// (with_defects): a chain without defects runs the code it ran before.
+// 1 / radius; ChainP::zk_of names it); a mirror with grid defect maps has a
+// range of grid records (GridP: the device pointer of its maps packed as
+// float32 rows, origin, spacing, clamp bounds; ChainP::grid_begin/grid_end).
+// Every kernel runs the branch once per deformed mirror, on S: the base
+// hit, the height error h at the hit (the Andersen recurrence, zernike_sums,
+// plus each grid's bilinear lookup, grid_sums), the hit shifted along the
+// ray by h / max(-u.n0, 1e-6), the base surface's normal there
+// (surface_normal, ops/surfaces.normal_c), and unless ignore_defects the
+// defect slopes composed into it. Each kernel is instantiated three times,
+// on the template parameter DEFECTS (NO_DEFECTS, ZERNIKE_TABLES, GRID_MAPS),
+// and the launch takes the instantiation the record asks for (with_defects):
+// a chain without defects runs the code it ran before grid maps came, and a
+// chain with Zernike tables only runs the Zernike branch as it was
+// (zernike_hit); only a chain with grid maps takes the branch that reads
+// them (deformed_hit), whose extra live state would otherwise cost every
+// Zernike chain's registers.
 //
 // Rounding notes. Compiled without --use_fast_math: operator/ and sqrtf are
 // IEEE-rounded, and the source law and the detector epilogues use them. The
@@ -59,6 +67,8 @@ constexpr int MAX_PREMASKS = 8;
 constexpr int MAX_ZERNIKE = 4;
 constexpr int MAX_ZERNIKE_ORDER = 8;
 constexpr int N_ZERNIKE_TERMS = (MAX_ZERNIKE_ORDER + 1) * (MAX_ZERNIKE_ORDER + 2) / 2;
+// grid defect maps per chain
+constexpr int MAX_GRIDS = 4;
 constexpr float T_EPS = 1e-9f;
 
 enum ElementKind : int {
@@ -98,6 +108,19 @@ struct ZernikeP {
   float c[N_ZERNIKE_TERMS];
 };
 
+// one grid defect map (ops/defects._bilinear_multi): its height and slope
+// maps packed as float32 rows {h, dh/dx, dh/dy, 0} in device memory, node
+// (ix, iy) at row ix * ny + iy (ops/fused_trace.grid_rows); origin and
+// spacing rounded to float32 as the plain version rounds them, and the
+// clamp bounds of the fractional index, nx - 1.000001 and ny - 1.000001
+// rounded to float32 on the host
+struct GridP {
+  const float4* rows;
+  int nx, ny;
+  float x0, y0, dx, dy;
+  float fx_max, fy_max;
+};
+
 struct ChainP {
   int n_elements;
   int n_premasks;
@@ -109,13 +132,23 @@ struct ChainP {
   int n_zernike;
   int zk_of[MAX_ELEMENTS];    // element i's Zernike table, or -1
   ZernikeP zk[MAX_ZERNIKE];
+  // C interface version 5 (a version-4 library reads the fields above)
+  int n_grids;
+  int grid_begin[MAX_ELEMENTS];  // element i's grid maps: grid[grid_begin[i] .. grid_end[i])
+  int grid_end[MAX_ELEMENTS];
+  GridP grid[MAX_GRIDS];
 };
 
-// f(std::true_type) for a chain with Zernike tables, f(std::false_type)
-// otherwise: a launch picks its kernel's DEFECTS instantiation
+// the kernels' instantiations on their DEFECTS parameter
+enum DefectBranch : int { NO_DEFECTS = 0, ZERNIKE_TABLES = 1, GRID_MAPS = 2 };
+
+// f(std::integral_constant<int, B>{}) with B the chain's DefectBranch: a
+// launch picks its kernel's DEFECTS instantiation
 template <typename F>
 inline int with_defects(const ChainP& ch, F&& f) {
-  return ch.n_zernike > 0 ? f(std::true_type{}) : f(std::false_type{});
+  if (ch.n_grids > 0) return f(std::integral_constant<int, GRID_MAPS>{});
+  if (ch.n_zernike > 0) return f(std::integral_constant<int, ZERNIKE_TABLES>{});
+  return f(std::integral_constant<int, NO_DEFECTS>{});
 }
 
 struct SourceP {
@@ -667,15 +700,48 @@ __device__ __forceinline__ void zernike_sums(const ZernikeP& zk, S x, S y, S& h,
   }
 }
 
+// A fractional grid index clamped to [0, hi] as torch.clamp takes it (max,
+// then min): a clamped index is a constant, with no tangent.
+template <typename S>
+__device__ __forceinline__ S clamp_index(S f, float hi) {
+  return fmin_(fmax_(f, 0.0f), hi);
+}
+
+// The bilinear lookup of a grid map at support coordinates (x, y), in the
+// arithmetic of ops/defects._bilinear_multi: the fractional index (x - x0) /
+// dx (IEEE divide) clamped, the cell's integer index from the value (on
+// Dual<G> the primal's) clamped to [0, nx - 2], the four corners' weights,
+// and the corners' rows read once each through the read-only path (one
+// 16-byte load: the height and, with SLOPES, both slopes). No texture unit:
+// its 8-bit weights would break parity with the plain version. Index
+// arithmetic is integer: a map of 64 M nodes needs it exact.
+template <bool SLOPES, typename S>
+__device__ __forceinline__ void grid_sums(const GridP& g, S x, S y, S& h, S& gx, S& gy) {
+  const S fx = clamp_index((x - g.x0) / g.dx, g.fx_max);
+  const S fy = clamp_index((y - g.y0) / g.dy, g.fy_max);
+  const int ix = min(max((int)floorf(val(fx)), 0), g.nx - 2);
+  const int iy = min(max((int)floorf(val(fy)), 0), g.ny - 2);
+  const S wx = fx - (float)ix, wy = fy - (float)iy;
+  const S vx = 1.0f - wx, vy = 1.0f - wy;
+  const S w00 = vx * vy, w10 = wx * vy, w01 = vx * wy, w11 = wx * wy;
+  const float4* r = g.rows + ((long long)ix * g.ny + iy);
+  const float4 c00 = __ldg(r), c01 = __ldg(r + 1), c10 = __ldg(r + g.ny), c11 = __ldg(r + g.ny + 1);
+  h = c00.x * w00 + c10.x * w10 + c01.x * w01 + c11.x * w11;
+  if constexpr (SLOPES) {
+    gx = c00.y * w00 + c10.y * w10 + c01.y * w01 + c11.y * w11;
+    gy = c00.z * w00 + c10.z * w10 + c01.z * w01 + c11.z * w11;
+  }
+}
+
 // The hit on a mirror with Zernike defects, from its base hit h (point and t
 // of the base root; alive stays the base hit's): t shifted along the ray by
 // the height error over max(-u.n0, 1e-6), the base normal at the shifted
 // point, and unless ignore_defects the defect slopes composed into it,
-// n = (-gx, -gy, 1) / |.|.
+// n = (-gx, -gy, 1) / |.| (the ZERNIKE_TABLES branch).
 template <typename S>
-__device__ __forceinline__ void deformed_hit(const ElementP& el, const ZernikeP& zk,
-                                             bool ignore_defects, S qx, S qy, S qz, S ux, S uy,
-                                             S uz, HitT<S>& h) {
+__device__ __forceinline__ void zernike_hit(const ElementP& el, const ZernikeP& zk,
+                                            bool ignore_defects, S qx, S qy, S qz, S ux, S uy,
+                                            S uz, HitT<S>& h) {
   S n0x, n0y, n0z, dh, gx, gy;
   surface_normal(el, h.x, h.y, h.z, n0x, n0y, n0z);
   zernike_sums<false>(zk, (h.x - el.cen[0]) * zk.inv_r, (h.y - el.cen[1]) * zk.inv_r, dh, gx, gy);
@@ -689,6 +755,56 @@ __device__ __forceinline__ void deformed_hit(const ElementP& el, const ZernikeP&
   zernike_sums<true>(zk, (h.x - el.cen[0]) * zk.inv_r, (h.y - el.cen[1]) * zk.inv_r, dh, gx, gy);
   gx = -div_(h.nx, h.nz) + gx * zk.inv_r;
   gy = -div_(h.ny, h.nz) + gy * zk.inv_r;
+  const S inv = rsq(gx * gx + gy * gy + 1.0f);
+  h.nx = -gx * inv;
+  h.ny = -gy * inv;
+  h.nz = inv;
+}
+
+// The same for element i of a chain with grid maps (the GRID_MAPS branch):
+// heights and slopes summed over the mirror's Zernike table, then its grid
+// maps in their order (ops/trace._deformed_hit / _defect_normal sum the
+// defects in the order of element.defects: two defects add the same either
+// way round, and the Zernike defects of one mirror are one table already).
+// The grid lookups keep their own temporaries, apart from the recurrence's
+// rows.
+template <typename S>
+__device__ __forceinline__ void deformed_hit(const ChainP& ch, int i, S qx, S qy, S qz, S ux,
+                                             S uy, S uz, HitT<S>& h) {
+  const ElementP& el = ch.el[i];
+  const int z = ch.zk_of[i];
+  S n0x, n0y, n0z, dh = S(0.0f), gx, gy;
+  surface_normal(el, h.x, h.y, h.z, n0x, n0y, n0z);
+  if (z >= 0)
+    zernike_sums<false>(ch.zk[z], (h.x - el.cen[0]) * ch.zk[z].inv_r,
+                        (h.y - el.cen[1]) * ch.zk[z].inv_r, dh, gx, gy);
+  for (int g = ch.grid_begin[i]; g < ch.grid_end[i]; ++g) {
+    S hg, sx, sy;
+    grid_sums<false>(ch.grid[g], h.x - el.cen[0], h.y - el.cen[1], hg, sx, sy);
+    dh = dh + hg;
+  }
+  const S cos_alpha = fmax_(-(ux * n0x + uy * n0y + uz * n0z), 1e-6f);
+  h.t = h.t - div_(dh, cos_alpha);
+  h.x = qx + h.t * ux;
+  h.y = qy + h.t * uy;
+  h.z = qz + h.t * uz;
+  surface_normal(el, h.x, h.y, h.z, h.nx, h.ny, h.nz);
+  if (ch.ignore_defects) return;
+  if (z >= 0) {
+    const ZernikeP& zk = ch.zk[z];
+    zernike_sums<true>(zk, (h.x - el.cen[0]) * zk.inv_r, (h.y - el.cen[1]) * zk.inv_r, dh, gx, gy);
+    gx = -div_(h.nx, h.nz) + gx * zk.inv_r;
+    gy = -div_(h.ny, h.nz) + gy * zk.inv_r;
+  } else {
+    gx = -div_(h.nx, h.nz);
+    gy = -div_(h.ny, h.nz);
+  }
+  for (int g = ch.grid_begin[i]; g < ch.grid_end[i]; ++g) {
+    S hg, sx, sy;
+    grid_sums<true>(ch.grid[g], h.x - el.cen[0], h.y - el.cen[1], hg, sx, sy);
+    gx = gx + sx;
+    gy = gy + sy;
+  }
   const S inv = rsq(gx * gx + gy * gy + 1.0f);
   h.nx = -gx * inv;
   h.ny = -gy * inv;
@@ -815,9 +931,10 @@ struct PoseMaps {
 // caller's ray loop must be warp-uniform (for_thread_rays): the vote names
 // all 32 lanes.
 //
-// DEFECTS (the chain has Zernike tables): a mirror with a table takes the
-// deformed hit (deformed_hit).
-template <bool WANT_INCIDENCE, bool WARP_EXIT, bool DEFECTS, typename S, typename Maps>
+// DEFECTS (with_defects): ZERNIKE_TABLES, a mirror with a Zernike table
+// takes zernike_hit; GRID_MAPS, a mirror with a table or grid maps takes
+// deformed_hit.
+template <bool WANT_INCIDENCE, bool WARP_EXIT, int DEFECTS, typename S, typename Maps>
 __device__ __forceinline__ void trace_chain_maps(const ChainP& ch, const Maps& maps, RayT<S>& s) {
   for (int i = 0; i < ch.n_elements; ++i) {
     const ElementP& el = ch.el[i];
@@ -868,9 +985,12 @@ __device__ __forceinline__ void trace_chain_maps(const ChainP& ch, const Maps& m
         h = quadric_hit(el, qx, qy, qz, ux, uy, uz, t_eps);
         break;
     }
-    if constexpr (DEFECTS) {
+    if constexpr (DEFECTS == ZERNIKE_TABLES) {
       const int z = ch.zk_of[i];
-      if (z >= 0) deformed_hit(el, ch.zk[z], ch.ignore_defects != 0, qx, qy, qz, ux, uy, uz, h);
+      if (z >= 0) zernike_hit(el, ch.zk[z], ch.ignore_defects != 0, qx, qy, qz, ux, uy, uz, h);
+    } else if constexpr (DEFECTS == GRID_MAPS) {
+      if (ch.zk_of[i] >= 0 || ch.grid_end[i] > ch.grid_begin[i])
+        deformed_hit(ch, i, qx, qy, qz, ux, uy, uz, h);
     }
     const S dn = ux * h.nx + uy * h.ny + uz * h.nz;
     if (WANT_INCIDENCE && last) s.inc = acosf(fminf(fmaxf(-val(dn), -1.0f), 1.0f));
@@ -886,7 +1006,7 @@ __device__ __forceinline__ void trace_chain_maps(const ChainP& ch, const Maps& m
 }
 
 // the chain walk with the maps of the chain record
-template <bool WANT_INCIDENCE, bool WARP_EXIT, bool DEFECTS>
+template <bool WANT_INCIDENCE, bool WARP_EXIT, int DEFECTS>
 __device__ __forceinline__ void trace_chain(const ChainP& ch, Ray& s) {
   trace_chain_maps<WANT_INCIDENCE, WARP_EXIT, DEFECTS>(ch, TableMaps{ch}, s);
 }
@@ -1030,7 +1150,7 @@ constexpr int MAX_SCALARS = 12 * MAX_ELEMENTS + 12;
 // from the source record, traced with the element maps of the block's pose
 // table (scalar type S: float, or Dual<G> for K6) and the rest of the chain
 // from the record, then epi(s, rr) for each alive ray.
-template <bool DEFECTS, typename S, typename Epilogue>
+template <int DEFECTS, typename S, typename Epilogue>
 __device__ __forceinline__ void trace_runtime_pose(const ChainP& ch, const SourceP& src,
                                                    const S* pose, int n_local, int first,
                                                    float phase, float k_frac, Epilogue&& epi) {

@@ -276,7 +276,6 @@ def _prepare_fused_scan(chains, AnalysisOptions):
     mode (they need per-ray bundles)."""
     from .models import chain as mchain
     from .ops.fused_scan import make_scan_spec, pose_independent_signature
-    from .ops.fused_trace import check_kernel_defects
 
     if len(chains) < 2:
         return None
@@ -291,8 +290,6 @@ def _prepare_fused_scan(chains, AnalysisOptions):
     if any(AnalysisOptions.get(k) for k in AnalysisOptions if k.startswith("plot_")) and not _CLI_ACTIVE:
         return None
     elements = [[e.to_device("cpu", torch.float64) for e in c.optical_elements] for c in chains]
-    for els in elements:
-        check_kernel_defects(els)
     if len({pose_independent_signature(els) for els in elements}) != 1:
         return None
     baked = specs[0].baked()

@@ -215,11 +215,11 @@ class OpticalChain:
         """True when the fused-source engine takes this chain under
         engine="auto" (the JAX package's rule): a factory source (every
         factory kind) of at least ``PALLAS_MIN_RAYS`` rays. The chain's
-        length, element kinds and Zernike defects do not enter: on a card,
-        what the kernels lack raises NotImplementedError from their wrappers
-        instead of falling back to another engine, and a grid defect map
-        (no kernel form yet, ROADMAP queue 2 entry G) raises from
-        ``ops/fused_trace.chain_table`` on either device."""
+        length, element kinds and surface defects (Zernike tables and grid
+        maps alike) do not enter: on a card, what the kernels lack (past
+        the caps of ``ops/fused_trace.pack_chain``) raises
+        NotImplementedError from their wrappers instead of falling back to
+        another engine."""
         return self._source_spec is not None and self.source_rays.n_rays >= PALLAS_MIN_RAYS
 
     def trace_final(self, ignore_defects: bool = True, engine: str | None = None) -> RayBundle:
@@ -237,7 +237,9 @@ class OpticalChain:
         versions run. The engine used is recorded in
         ``self.last_trace_engine``: "cuda-source"/"torch-source",
         "cuda-streamed"/"torch-streamed" or "trace". ``ignore_defects`` as in
-        :func:`~..ops.trace.trace`."""
+        :func:`~..ops.trace.trace`. A chain whose mirrors carry grid defect
+        maps takes the same engines: the JAX package sends it to its XLA
+        source engine, whose counterpart here is the fused engine."""
         engine = engine or os.environ.get("ART_TPU_ENGINE", "auto")
         engine = ENGINE_ALIASES.get(engine, engine)
         if engine not in ENGINES:

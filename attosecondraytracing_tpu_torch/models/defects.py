@@ -18,6 +18,7 @@ defect exports a device representation
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..ops import supports as sup
 from ..ops.defects import GridDefect, ZernikeDefect
@@ -44,6 +45,10 @@ class Defect:
         """Reference-compatible: height at a 3D point's (x, y)
         (ART/ModuleDefects.py get_offset)."""
         return self.offset_at(Point[0], Point[1])
+
+    def trace_defect(self):
+        """The record the trace takes (:mod:`..ops.defects`)."""
+        return self.device_defect()
 
     def get_normal(self, Point):
         """Reference-compatible 'up' normal of the defect alone.
@@ -95,6 +100,29 @@ class _GridBackedDefect(Defect):
             dx=float(self._dx),
             dy=float(self._dy),
         )
+
+    def trace_defect(self):
+        """:meth:`device_defect` with the maps as CPU float64 tensors over
+        the host arrays, made once per defect: the identity of its height
+        map names the grid, so the copies and packed rows made from it
+        (``ops.defects.grid_to``, ``ops.fused_trace.grid_rows``) are made
+        once per device."""
+        if getattr(self, "_trace", None) is None:
+            d = self.device_defect()
+            self._trace = d._replace(height=torch.from_numpy(d.height),
+                                     slope_x=torch.from_numpy(d.slope_x),
+                                     slope_y=torch.from_numpy(d.slope_y))
+        return self._trace
+
+    def __deepcopy__(self, memo):
+        # the maps never change once built: copies of a chain (scans, the
+        # OpticalChain constructor) share them, and what is made from them
+        return self
+
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        state.pop("_trace", None)
+        return state
 
     def RMS(self):
         return self.rms

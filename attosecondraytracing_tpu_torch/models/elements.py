@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ..ops import host_geometry as hg
-from ..ops.defects import GridDefect
+from ..ops.defects import GridDefect, grid_to
 from ..ops.precision import default_dtype
 from ..ops.trace import MaskElement, MirrorElement
 from .masks import Mask
@@ -147,11 +147,9 @@ class OpticalElement:
         defects = ()
         if isinstance(optic, DeformedMirror):
             # Zernike coefficients stay host floats; grid maps become
-            # tensors on the element's device
-            defects = tuple(
-                d._replace(height=tensor(d.height), slope_x=tensor(d.slope_x),
-                           slope_y=tensor(d.slope_y)) if isinstance(d, GridDefect) else d
-                for d in optic.device_defects())
+            # tensors on the element's device, copied once per device
+            defects = tuple(grid_to(d, device, dtype) if isinstance(d, GridDefect) else d
+                            for d in optic.device_defects())
         return MirrorElement(
             rot=tensor(self.frame_rotation()),
             position=tensor(self._position),

@@ -456,7 +456,7 @@ class DeformedMirror(_MirrorBase):
         return self.Mirror.surface_params()
 
     def device_defects(self):
-        return tuple(d.device_defect() for d in self.DeformationList)
+        return tuple(d.trace_defect() for d in self.DeformationList)
 
     def get_centre(self):
         return self.Mirror.get_centre()

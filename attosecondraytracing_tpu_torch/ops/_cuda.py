@@ -26,8 +26,10 @@ from pathlib import Path
 import numpy as np
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-#: compiled sources, one object each: K1, K2 and K8; K5; K3 and K4; K6 and K7
-UNITS = ("fused_trace.cu", "fused_scan.cu", "streamed_trace.cu", "fused_grad.cu")
+#: compiled sources, one object each: K1, K2 and K8; K5; K3 and K4; K6 and
+#: K7; the gather probes P4 and P5
+UNITS = ("fused_trace.cu", "fused_scan.cu", "streamed_trace.cu", "fused_grad.cu",
+         "gather_probe.cu")
 SOURCES = UNITS + ("trace_common.cuh", "dual.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -37,7 +39,7 @@ NVCC_FLAGS = (
 )
 
 #: version of the C interface these bindings take (``art_abi_version``)
-ABI_VERSION = 4
+ABI_VERSION = 5
 
 _lock = threading.Lock()
 _lib = None
@@ -129,11 +131,13 @@ def load(path) -> ctypes.CDLL:
 
 
 def bind(lib, chain_bytes: int) -> ctypes.CDLL:
-    """Bind the C interface of versions 3 and 4 (the same entry points) to a
-    loaded library and check its record sizes: the chain record must be
-    ``chain_bytes`` long (this version's; version 3's is the prefix before
-    the defect fields, which such a library reads of this version's
-    records), the others as the numpy records."""
+    """Bind the kernels' C interface of versions 3 to 5 (the same entry
+    points) to a loaded library and check its record sizes: the chain
+    record must be ``chain_bytes`` long (this version's; an older version's
+    is a prefix of this version's record, which such a library reads: 4's
+    before the grid maps, 3's before the Zernike tables), the others as the
+    numpy records. The gather probes of version 5 are bound by
+    ``utils/gather_probe.py``."""
     from .fused_scan import N_AUX
     from .fused_trace import DETECTOR_T, SOURCE_T
 
@@ -192,6 +196,19 @@ def _ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 
 
+def _check_grids(grids, like):
+    """The packed grid rows a record points into (``ops/fused_trace.
+    launch_grids``): contiguous float32 (n, 4) on the device of the tensor
+    ``like``. The caller holds them for as long as the launch may run."""
+    import torch
+
+    for rows in grids:
+        if (rows.device != like.device or rows.dtype != torch.float32 or rows.ndim != 2
+                or rows.shape[1] != 4 or not rows.is_contiguous()):
+            raise ValueError(f"grid rows must be contiguous float32 (n, 4) on {like.device}, got "
+                             f"{rows.dtype} {tuple(rows.shape)} on {rows.device}")
+
+
 def moment_rays_per_block() -> int:
     """Rays per block of the runtime-pose kernels K5-K7."""
     return library().art_moment_rays_per_block()
@@ -214,7 +231,10 @@ def tangent_batch() -> int:
 
 
 def launch_fused_source_trace(chain_rec, src_rec, n_rays, phase, k_frac,
-                              p, d, opl, opl_c, alive, inc, stream):
+                              p, d, opl, opl_c, alive, inc, stream, grids=()):
+    """``grids``: the packed rows ``chain_rec`` points into (every launch
+    function below takes them so)."""
+    _check_grids(grids, p)
     lib = library()
     status = lib.art_launch_fused_source_trace(
         _record_ptr(chain_rec), _record_ptr(src_rec), int(n_rays), phase, k_frac,
@@ -224,8 +244,9 @@ def launch_fused_source_trace(chain_rec, src_rec, n_rays, phase, k_frac,
 
 
 def launch_fused_source_moments(chain_rec, src_rec, det_rec, n_rays, chunk, grid,
-                                chunk_params, rows, stream):
+                                chunk_params, rows, stream, grids=()):
     """``grid``: (blocks_per_chunk, n_blocks) of :func:`.fused_trace.ray_grid`."""
+    _check_grids(grids, rows)
     lib = library()
     status = lib.art_launch_fused_source_moments(
         _record_ptr(chain_rec), _record_ptr(src_rec), _record_ptr(det_rec),
@@ -234,8 +255,10 @@ def launch_fused_source_moments(chain_rec, src_rec, det_rec, n_rays, chunk, grid
     _check(lib, status, "fused_source_moments launch")
 
 
-def launch_scan_moments(chain_rec, src_rec, n_rays, chunk, grid, svec, aux, rows, stream):
+def launch_scan_moments(chain_rec, src_rec, n_rays, chunk, grid, svec, aux, rows, stream,
+                        grids=()):
     """``grid``: (blocks_per_chunk, n_blocks) of :func:`.fused_trace.ray_grid`."""
+    _check_grids(grids, rows)
     lib = library()
     status = lib.art_launch_scan_moments(
         _record_ptr(chain_rec), _record_ptr(src_rec), int(n_rays), int(chunk), int(grid[0]),
@@ -243,9 +266,10 @@ def launch_scan_moments(chain_rec, src_rec, n_rays, chunk, grid, svec, aux, rows
     _check(lib, status, "scan_moments launch")
 
 
-def launch_streamed_trace(chain_rec, n_rays, fresh, inputs, outputs, stream):
+def launch_streamed_trace(chain_rec, n_rays, fresh, inputs, outputs, stream, grids=()):
     """``inputs``: (p, d, opl, opl_c, alive, incidence), the last four None
     when ``fresh``; ``outputs``: (p, d, opl, opl_c, alive, incidence)."""
+    _check_grids(grids, outputs[0])
     lib = library()
     status = lib.art_launch_streamed_trace(
         _record_ptr(chain_rec), int(n_rays), int(bool(fresh)),
@@ -254,9 +278,10 @@ def launch_streamed_trace(chain_rec, n_rays, fresh, inputs, outputs, stream):
 
 
 def launch_fused_source_stats(chain_rec, src_rec, det_rec, n_rays, chunk, grid, chunk_params,
-                              dist_params, n_dist, rows, stream):
+                              dist_params, n_dist, rows, stream, grids=()):
     """``grid``: (blocks_per_chunk, n_blocks) of :func:`.fused_trace.ray_grid`;
     ``rows``: (n_blocks, n_dist, 7) float64."""
+    _check_grids(grids, rows)
     lib = library()
     status = lib.art_launch_fused_source_stats(
         _record_ptr(chain_rec), _record_ptr(src_rec), _record_ptr(det_rec), int(n_rays),
@@ -266,10 +291,11 @@ def launch_fused_source_stats(chain_rec, src_rec, det_rec, n_rays, chunk, grid, 
 
 
 def launch_stats_params(chain_rec, src_rec, opl_ref, n_rays, chunk, grid, n_scal, svec,
-                        stangents, chunk_params, rows, stream):
+                        stangents, chunk_params, rows, stream, grids=()):
     """K6 (``stangents`` the step's (P, n_scal) tangent rows on the device)
     or K7 (``stangents`` None); ``grid``: (blocks_per_chunk, n_blocks) of
     :func:`.fused_trace.ray_grid`."""
+    _check_grids(grids, rows)
     lib = library()
     status = lib.art_launch_stats_params(
         _record_ptr(chain_rec), _record_ptr(src_rec), float(opl_ref), int(n_rays), int(chunk),

@@ -15,9 +15,14 @@ Two representations:
   bilinearly interpolated (the reference's RegularGridInterpolator usage,
   ART/ModuleDefects.py:34-146); the maps are tensors on the trace's device;
 * :class:`ZernikeDefect` — coefficients (python floats) evaluated exactly
-  through the Andersen recurrence (ART/ModuleDefects.py:149-181). The CUDA
-  kernels take these (``csrc/trace_common.cuh``, ``zernike_sums``); grid
-  maps run on the plain trace only.
+  through the Andersen recurrence (ART/ModuleDefects.py:149-181).
+
+The CUDA kernels take both (``csrc/trace_common.cuh``: ``zernike_sums`` on
+a table of coefficients, ``grid_sums`` on a grid's maps packed as float32
+rows, ``ops/fused_trace.grid_rows``). A grid's maps are never changed once
+built, and the identity of its height map names it: :func:`derived` keeps
+what is made from a map (a copy on a device, the kernels' packed rows) once
+per map for as long as the map lives, so a map is uploaded once per device.
 
 Note: the reference's Fourrier/MeasuredMap ``get_normal`` returns
 [+dX, +dY, ...] while its Zernike returns [-dX, -dY, 1]
@@ -28,6 +33,7 @@ types (divergence noted per SURVEY.md §7 "implement the intended behavior").
 
 from __future__ import annotations
 
+import weakref
 from typing import NamedTuple
 
 import torch
@@ -86,8 +92,52 @@ def _bilinear_multi(grids, x0, y0, dx, dy, x, y):
     w10 = (wx * (1 - wy))[..., None]
     w01 = ((1 - wx) * wy)[..., None]
     w11 = (wx * wy)[..., None]
+    # the maps are read in the coordinates' dtype, as the kernels read their
+    # float32 rows (the kernels' plain versions hold float64 host maps)
+    c00, c10, c01, c11 = (c.to(x.dtype) for c in (c00, c10, c01, c11))
     vals = c00 * w00 + c10 * w10 + c01 * w01 + c11 * w11
     return [vals[..., k] for k in range(len(grids))]
+
+
+#: what is made from a grid's maps, per height map: id(height) -> {key: value}
+_DERIVED: dict = {}
+
+
+def derived(defect: GridDefect, key, make):
+    """``make()`` for the grid ``defect`` and ``key``, made once while its
+    height map lives (the map's identity names the grid; the entry goes
+    when the map is collected). ``make``'s value must not hold the map."""
+    h = defect.height
+    per = _DERIVED.get(id(h))
+    if per is None:
+        per = _DERIVED[id(h)] = {}
+        weakref.finalize(h, _DERIVED.pop, id(h), None)
+    if key not in per:
+        per[key] = make()
+    return per[key]
+
+
+def indexed_device(device) -> torch.device:
+    """``device`` with its index: "cuda" names the current card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def grid_to(defect: GridDefect, device, dtype) -> GridDefect:
+    """The grid with its maps as tensors on ``device`` in ``dtype``: itself
+    when they are, else a copy made once per (map, device, dtype)."""
+    device = indexed_device(device)
+    maps = (defect.height, defect.slope_x, defect.slope_y)
+    if all(torch.is_tensor(m) and m.device == device and m.dtype == dtype for m in maps):
+        return defect
+
+    def make():  # copies, so the entry never holds the map it is keyed by
+        h, gx, gy = (torch.as_tensor(m).to(device=device, dtype=dtype, copy=True) for m in maps)
+        return defect._replace(height=h, slope_x=gx, slope_y=gy)
+
+    return derived(defect, ("maps", str(device), dtype), make)
 
 
 def _bilinear(grid, x0, y0, dx, dy, x, y):

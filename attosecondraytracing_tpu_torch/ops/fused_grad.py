@@ -179,12 +179,10 @@ def make_loss_spec(source_spec, elements, det_centre, det_normal, duration_weigh
     """The FusedLossSpec of a chain's ``FusedSourceInfo``
     (models/chain.py), its elements, and the fixed lab-frame detector
     plane; the chief-ray probe traces on ``device`` in ``dtype`` (default:
-    the trace dtype). Refuses grid defect maps
-    (:func:`~.fused_trace.check_kernel_defects`)."""
+    the trace dtype)."""
     from . import fused_trace as ft
     from .precision import default_dtype
 
-    ft.check_kernel_defects(elements)
     baked = source_spec.baked()
     opl_ref, _ = ft.chief_ray_refs(baked, elements, det_centre, det_normal, device=device,
                                    dtype=dtype or default_dtype())
@@ -302,18 +300,19 @@ def _scan_spec(spec: FusedLossSpec):
                     n_sources=spec.n_sources)
 
 
-def pack_stats_records(spec: FusedLossSpec):
+def pack_stats_records(spec: FusedLossSpec, device=None):
     """K6/K7's ``(chain, source)`` records: the pose-independent chain
-    record (K5's, :func:`~.fused_scan.pack_scan_chain`) and the source law in
-    its canonical frame. Raises NotImplementedError on what the kernels do
-    not take."""
+    record (K5's, :func:`~.fused_scan.pack_scan_chain`, grid rows on
+    ``device``) and the source law in its canonical frame. Raises
+    NotImplementedError on what the kernels do not take."""
     from . import fused_scan as fs
     from . import fused_trace as ft
 
     src = ft.BakedSource(kind=spec.source_kind, rot=((1.0, 0.0, 0.0),) * 3, origin=(0.0, 0.0, 0.0),
                          radius=spec.source_radius, pos_radius=spec.pos_radius,
                          n_each=spec.n_each, n_sources=spec.n_sources)
-    return fs.pack_scan_chain(_scan_spec(spec)), ft.pack_source(src, spec.n_rays, spec.gaussian_edge)
+    return (fs.pack_scan_chain(_scan_spec(spec), device),
+            ft.pack_source(src, spec.n_rays, spec.gaussian_edge))
 
 
 def prepare_stats_params(spec: FusedLossSpec, svec, stangents, chunks, *, device):
@@ -332,7 +331,8 @@ def prepare_stats_params(spec: FusedLossSpec, svec, stangents, chunks, *, device
     device = ft._cuda_device(device, "fused_stats_params")
     svec, stangents = _check_params_args(spec, svec, stangents)
     P = stangents.shape[0]
-    chain_rec, src_rec = pack_stats_records(spec)
+    chain_rec, src_rec = pack_stats_records(spec, device)
+    grids = ft.launch_grids(spec.elements, device)
     from . import _cuda
 
     n = svec.shape[0]
@@ -353,7 +353,7 @@ def prepare_stats_params(spec: FusedLossSpec, svec, stangents, chunks, *, device
         with torch.cuda.device(rows.device):
             stream = torch.cuda.current_stream(rows.device).cuda_stream
             _cuda.launch_stats_params(chain_rec, src_rec, spec.opl_ref, n_rays, chunk, grid, n,
-                                      svec_t, tang_t, params, rows, stream)
+                                      svec_t, tang_t, params, rows, stream, grids)
         if P:
             fused_stats_params.launches += 1
         else:

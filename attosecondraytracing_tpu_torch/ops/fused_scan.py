@@ -59,9 +59,7 @@ class ScanSpec(NamedTuple):
 def make_scan_spec(source_kind: str, elements, n_total: int, ignore_defects: bool = True,
                    n_each: int = 0, n_sources: int = 0) -> ScanSpec:
     """The :class:`ScanSpec` of a scan whose chains share ``elements``'
-    pose-independent parts; refuses grid defect maps
-    (:func:`~.fused_trace.check_kernel_defects`)."""
-    ft.check_kernel_defects(elements)
+    pose-independent parts."""
     return ScanSpec(source_kind=source_kind,
                     elements=tuple(ft.elements_to(elements, "cpu", torch.float64)),
                     n_total=int(n_total), ignore_defects=bool(ignore_defects),
@@ -112,15 +110,16 @@ def _source_record(spec: ScanSpec) -> ft.BakedSource:
                           n_sources=spec.n_sources)
 
 
-def pack_scan_chain(spec: ScanSpec) -> np.ndarray:
-    """K5's chain record: kinds, surface constants, supports and centres of
-    the unfolded chain, maps left zero (the kernel writes them from
-    ``svec``). Raises NotImplementedError on what the kernel does not take."""
+def pack_scan_chain(spec: ScanSpec, device=None) -> np.ndarray:
+    """K5's chain record: kinds, surface constants, supports, centres and
+    defects of the unfolded chain, maps left zero (the kernel writes them
+    from ``svec``); grid rows on ``device`` as :func:`~.fused_trace.pack_chain`
+    packs them. Raises NotImplementedError on what the kernel does not take."""
     n = len(spec.elements)
     zero_map = (np.zeros((3, 3)), np.zeros(3))
     table = ft.ChainTable(elements=spec.elements, maps=(zero_map,) * n, final=zero_map,
                           premasks=((),) * n)
-    return ft.pack_chain(table, spec.ignore_defects)
+    return ft.pack_chain(table, spec.ignore_defects, device)
 
 
 def scan_moments_ref(spec: ScanSpec, svec, aux_rows, chunks, *, device) -> np.ndarray:
@@ -167,7 +166,8 @@ def prepare_scan_moments(spec: ScanSpec, svec, aux_rows, chunks, *, device):
     it in ``fused_scan_moments.launches``."""
     sizes = ft._check_chunks(chunks)
     device = ft._cuda_device(device, "fused_scan_moments")
-    chain_rec = pack_scan_chain(spec)
+    chain_rec = pack_scan_chain(spec, device)
+    grids = ft.launch_grids(spec.elements, device)
     src_rec = ft.pack_source(_source_record(spec), spec.n_total)
     svec = np.asarray(svec, np.float32)
     aux_rows = np.asarray(aux_rows, np.float32)
@@ -191,7 +191,7 @@ def prepare_scan_moments(spec: ScanSpec, svec, aux_rows, chunks, *, device):
         with torch.cuda.device(rows.device):
             stream = torch.cuda.current_stream(rows.device).cuda_stream
             _cuda.launch_scan_moments(chain_rec, src_rec, n_rays, chunk, grid, svec_t, aux_t,
-                                      rows, stream)
+                                      rows, stream, grids)
         fused_scan_moments.launches += 1
 
     return rows, launch

@@ -37,13 +37,14 @@ host float64 (:func:`chain_table`: ``compose_chain`` + the source frame +
 the Pallas kernels bake, so kernel and plain version see identical
 constants.
 
-Mirrors with Zernike surface defects go through every kernel: their
-coefficients ride in the chain record as one small table per mirror
-(:func:`pack_chain`, up to :data:`MAX_ZERNIKE` tables of order
-:data:`MAX_ZERNIKE_ORDER`), and ``ignore_defects`` is a field of the record.
-Grid defect maps (``Fourrier``, ``MeasuredMap``) have no kernel form yet
-(ROADMAP queue 2 entry G): :func:`chain_table` refuses them, on the CPU and
-on the card alike, and they run on the plain streamed trace.
+Mirrors with surface defects go through every kernel, and
+``ignore_defects`` is a field of the record. Zernike coefficients ride in
+the chain record as one small table per mirror (:func:`pack_chain`, up to
+:data:`MAX_ZERNIKE` tables of order :data:`MAX_ZERNIKE_ORDER`). A grid map
+(``Fourrier``, ``MeasuredMap``) is packed once per device into float32 rows
+{h, dh/dx, dh/dy, 0} on the card (:func:`grid_rows`), and the record holds
+the rows' device pointer with the grid's origin, spacing and clamp bounds
+(up to :data:`MAX_GRIDS` grids per chain).
 """
 
 from __future__ import annotations
@@ -54,7 +55,7 @@ import numpy as np
 import torch
 
 from .bundle import RayBundle
-from .defects import GridDefect, ZernikeDefect, _coeff_items
+from .defects import GridDefect, ZernikeDefect, _coeff_items, derived, grid_to, indexed_device
 from .trace import (
     MaskElement,
     TraceState,
@@ -314,20 +315,6 @@ class ChainTable(NamedTuple):
     premasks: tuple   # per element: tuple of (support, M, b)
 
 
-def check_kernel_defects(elements):
-    """Raise NotImplementedError if a mirror carries a grid defect map: the
-    kernels evaluate Zernike defects only (grid gathers are ROADMAP queue 2
-    entry G). Runs on the host before anything is allocated, whatever the
-    device."""
-    for el in elements:
-        for defect in getattr(el, "defects", ()):
-            if isinstance(defect, GridDefect):
-                raise NotImplementedError(
-                    "grid defect maps (Fourrier, MeasuredMap) have no kernel form yet "
-                    "(ROADMAP queue 2 entry G): trace this chain below PALLAS_MIN_RAYS or "
-                    "with engine='trace'")
-
-
 def chain_table(spec: BakedSource | None, elements) -> ChainTable:
     """Chain maps whose first map takes canonical source-frame coordinates
     straight into element 0's surface frame (the source rotation and origin
@@ -335,8 +322,7 @@ def chain_table(spec: BakedSource | None, elements) -> ChainTable:
     first map takes lab coordinates into element 0's frame (the streamed
     kernels' table: the JAX package's ``_static_chain``). Host float64;
     elements may live on any device and dtype (their poses are read as
-    float64). Refuses grid defect maps (:func:`check_kernel_defects`)."""
-    check_kernel_defects(elements)
+    float64; their defects are carried as they are)."""
     maps, final = compose_chain(elements)
     if spec is not None:
         maps = fold_source(maps, elements, spec.rot, spec.origin)
@@ -359,6 +345,8 @@ MAX_ZERNIKE = 4
 MAX_ZERNIKE_ORDER = 8
 #: coefficients of a table: (n, m) at n (n + 1) / 2 + m, 0 <= m <= n <= 8
 N_ZERNIKE_TERMS = (MAX_ZERNIKE_ORDER + 1) * (MAX_ZERNIKE_ORDER + 2) // 2
+#: grid defect maps per chain
+MAX_GRIDS = 4
 
 _ELEM_KIND = {MaskElement: 0, srf.Plane: 1, srf.Toroid: 2, srf.Parabola: 3,
               srf.Sphere: 4, srf.Cylinder: 5, srf.Ellipsoid: 6}
@@ -372,13 +360,26 @@ _ELEMENT_T = np.dtype([
     ("s", "<f4", (8,)), ("sup", _SUPPORT_T),
 ])
 _ZERNIKE_T = np.dtype([("max_order", "<i4"), ("inv_r", "<f4"), ("c", "<f4", (N_ZERNIKE_TERMS,))])
+#: a grid map: its packed rows' device pointer, nodes, origin, spacing and
+#: the clamp bounds of the fractional index, nx - 1.000001 as float32
+_GRID_T = np.dtype([
+    ("rows", "<u8"), ("nx", "<i4"), ("ny", "<i4"), ("x0", "<f4"), ("y0", "<f4"),
+    ("dx", "<f4"), ("dy", "<f4"), ("fx_max", "<f4"), ("fy_max", "<f4"),
+])
 CHAIN_T = np.dtype([
     ("n_elements", "<i4"), ("n_premasks", "<i4"),
     ("el", _ELEMENT_T, (MAX_ELEMENTS,)), ("pre", _PREMASK_T, (MAX_PREMASKS,)),
     ("RK", "<f4", (9,)), ("posK", "<f4", (3,)),
     ("ignore_defects", "<i4"), ("n_zernike", "<i4"), ("zk_of", "<i4", (MAX_ELEMENTS,)),
     ("zk", _ZERNIKE_T, (MAX_ZERNIKE,)),
+    # C interface version 5: the grid maps, after version 4's fields (the
+    # pad aligns GridP's pointer to 8 bytes, as the C struct does)
+    ("n_grids", "<i4"), ("grid_begin", "<i4", (MAX_ELEMENTS,)),
+    ("grid_end", "<i4", (MAX_ELEMENTS,)), ("_pad", "<i4"), ("grid", _GRID_T, (MAX_GRIDS,)),
 ])
+#: the chain record of C interface version 4 (without the grids): the prefix
+#: a version-4 library reads
+CHAIN_V4_BYTES = CHAIN_T.fields["n_grids"][1]
 SOURCE_T = np.dtype([
     ("kind", "<i4"), ("radius", "<f4"), ("inv_n_total", "<f4"), ("rad2", "<f4"),
     ("ln_edge", "<f4"), ("weighted", "<i4"), ("g", "<f4", (3,)),
@@ -464,13 +465,63 @@ def _pack_zernike(rec, defects):
     rec["c"] = c
 
 
-def pack_chain(table: ChainTable, ignore_defects: bool = True) -> np.ndarray:
+def _node_rows(defect: GridDefect, device) -> torch.Tensor:
+    """(nx ny, 4) float32 rows {h, dh/dx, dh/dy, 0} of a grid's maps on
+    ``device``, node (ix, iy) at row ix ny + iy."""
+    nx, ny = defect.height.shape
+    rows = torch.zeros((nx * ny, 4), dtype=torch.float32, device=device)
+    for k, m in enumerate((defect.height, defect.slope_x, defect.slope_y)):
+        rows[:, k] = torch.as_tensor(m).to(device=device, dtype=torch.float32).reshape(-1)
+    return rows
+
+
+def grid_rows(defect: GridDefect, device) -> torch.Tensor:
+    """The kernels' packed rows of a grid map on ``device``
+    (:func:`_node_rows`), made and uploaded once per (map, device) and kept
+    while the map lives (:func:`~.defects.derived`)."""
+    device = indexed_device(device)
+    return derived(defect, ("rows", str(device)), lambda: _node_rows(defect, device))
+
+
+def launch_grids(elements, device) -> list:
+    """The packed rows of every grid map of ``elements`` on ``device``, in
+    record order (:func:`grid_rows`: cache hits after the first): a prepared
+    launch holds them, so the pointers in its record stay valid."""
+    return [grid_rows(d, device) for el in elements if not isinstance(el, MaskElement)
+            for d in el.defects if isinstance(d, GridDefect)]
+
+
+def _check_grid(defect: GridDefect):
+    shapes = {tuple(m.shape) for m in (defect.height, defect.slope_x, defect.slope_y)}
+    (shape,) = shapes if len(shapes) == 1 else (None,)
+    if shape is None or len(shape) != 2 or min(shape) < 2 or shape[0] * shape[1] >= 1 << 31:
+        raise ValueError(f"a grid defect needs three equal 2-D maps of at least 2 x 2 nodes "
+                         f"(fewer than 2^31), got shapes {sorted(shapes)}")
+    return shape
+
+
+def _pack_grid(rec, defect: GridDefect, shape):
+    """A grid's record but its rows pointer: nodes, origin and spacing
+    rounded to float32 as the plain version rounds them (python floats
+    against float32 coordinates), and the clamp bounds nx - 1.000001 and
+    ny - 1.000001 rounded the same way."""
+    nx, ny = shape
+    rec["nx"], rec["ny"] = nx, ny
+    rec["x0"], rec["y0"], rec["dx"], rec["dy"] = defect.x0, defect.y0, defect.dx, defect.dy
+    rec["fx_max"], rec["fy_max"] = nx - 1.000001, ny - 1.000001
+
+
+def pack_chain(table: ChainTable, ignore_defects: bool = True, device=None) -> np.ndarray:
     """The kernels' by-value chain record from a :class:`ChainTable`;
     raises NotImplementedError on a chain the kernels do not take (the
     plain versions take any chain): more than :data:`MAX_ELEMENTS` elements
-    or :data:`MAX_PREMASKS` folded masks, a defect other than Zernike, more
-    than :data:`MAX_ZERNIKE` deformed mirrors, or a Zernike order above
-    :data:`MAX_ZERNIKE_ORDER`."""
+    or :data:`MAX_PREMASKS` folded masks, a defect other than Zernike or a
+    grid map, more than :data:`MAX_ZERNIKE` mirrors with Zernike defects, a
+    Zernike order above :data:`MAX_ZERNIKE_ORDER`, or more than
+    :data:`MAX_GRIDS` grid maps. Every check runs before anything is
+    uploaded. With a CUDA ``device`` each grid's rows pointer is its packed
+    rows' there (:func:`grid_rows`: packed once per device, alive while the
+    map is); without one it stays 0 (a record to inspect, not to launch)."""
     n = len(table.elements)
     n_pre = sum(len(p) for p in table.premasks)
     if n > MAX_ELEMENTS or n_pre > MAX_PREMASKS:
@@ -482,26 +533,38 @@ def pack_chain(table: ChainTable, ignore_defects: bool = True) -> np.ndarray:
     rec["n_premasks"] = n_pre
     rec["ignore_defects"] = bool(ignore_defects)
     rec["zk_of"] = -1
-    k = 0
+    k = n_grids = 0
     for i, (el, (M, b), pre) in enumerate(zip(table.elements, table.maps, table.premasks)):
         e = rec["el"][i]
         if isinstance(el, MaskElement):
             e["kind"] = _ELEM_KIND[MaskElement]
         else:
-            if el.defects:
-                if not all(isinstance(d, ZernikeDefect) for d in el.defects):
-                    kinds = sorted({type(d).__name__ for d in el.defects})
-                    raise NotImplementedError(
-                        f"defects {kinds} have no kernel form: the kernels take Zernike "
-                        "defects (grid maps: ROADMAP queue 2 entry G)")
+            others = sorted({type(d).__name__ for d in el.defects
+                             if not isinstance(d, (ZernikeDefect, GridDefect))})
+            if others:
+                raise NotImplementedError(
+                    f"defects {others} have no kernel form: the kernels take Zernike defects "
+                    "and grid maps")
+            zernike = [d for d in el.defects if isinstance(d, ZernikeDefect)]
+            if zernike:
                 z = int(rec["n_zernike"])
                 if z == MAX_ZERNIKE:
                     raise NotImplementedError(
                         f"more than {MAX_ZERNIKE} mirrors with Zernike defects exceed the "
                         "kernels' Zernike tables")
-                _pack_zernike(rec["zk"][z], el.defects)
+                _pack_zernike(rec["zk"][z], zernike)
                 rec["zk_of"][i] = z
                 rec["n_zernike"] = z + 1
+            rec["grid_begin"][i] = n_grids
+            for d in el.defects:
+                if isinstance(d, GridDefect):
+                    if n_grids == MAX_GRIDS:
+                        raise NotImplementedError(
+                            f"more than {MAX_GRIDS} grid defect maps exceed the kernels' cap "
+                            f"of MAX_GRIDS = {MAX_GRIDS} per chain")
+                    _pack_grid(rec["grid"][n_grids], d, _check_grid(d))
+                    n_grids += 1
+            rec["grid_end"][i] = n_grids
             consts = _surface_constants(el.surface)
             e["kind"] = _ELEM_KIND[type(el.surface)]
             e["cen"] = bake(el.centre)
@@ -519,6 +582,10 @@ def pack_chain(table: ChainTable, ignore_defects: bool = True) -> np.ndarray:
         e["pre_end"] = k
     rec["RK"] = np.asarray(table.final[0]).reshape(-1)
     rec["posK"] = table.final[1]
+    rec["n_grids"] = n_grids
+    if device is not None:
+        for g, rows in enumerate(launch_grids(table.elements, device)):
+            rec["grid"][g]["rows"] = rows.data_ptr()
     return rec
 
 
@@ -564,6 +631,15 @@ def pack_detector(det: BakedDetector, centre_distance=0.0) -> np.ndarray:
     return rec
 
 
+def _grids_on(elements, device) -> list:
+    """The plain versions' element records: grid maps as float32 tensors on
+    the rays' ``device``, as the kernels read them (copied once per device,
+    :func:`~.defects.grid_to`); everything else as it is."""
+    return [el if isinstance(el, MaskElement) or not el.defects else el._replace(
+        defects=tuple(grid_to(d, device, torch.float32) if isinstance(d, GridDefect) else d
+                      for d in el.defects)) for el in elements]
+
+
 def _synth_traced_state(table: ChainTable, spec: BakedSource, n_local, n_total, phase,
                         k_frac, *, device, want_incidence, ignore_defects=True):
     """The plain versions' shared body: synthesize ``n_local`` source rays
@@ -574,7 +650,8 @@ def _synth_traced_state(table: ChainTable, spec: BakedSource, n_local, n_total, 
     zeros = torch.zeros_like(px)
     s = TraceState(px, py, pz, dx, dy, dz, zeros, zeros, torch.ones_like(px, dtype=torch.bool), zeros)
     last = len(table.elements) - 1
-    for i, (el, (M, b), pre) in enumerate(zip(table.elements, table.maps, table.premasks)):
+    elements = _grids_on(table.elements, device)
+    for i, (el, (M, b), pre) in enumerate(zip(elements, table.maps, table.premasks)):
         s = chained_step(el, M, b, s, want_incidence=want_incidence and i == last,
                          ignore_defects=ignore_defects, premasks=pre, freeze_dead=False)
     return s, rr
@@ -638,7 +715,8 @@ def prepare_fused_source_trace(table: ChainTable, spec: BakedSource, n_rays: int
     outputs and counts it in ``fused_source_trace.launches``."""
     _check_trace_args(n_rays)
     device = _cuda_device(device, "fused_source_trace")
-    chain_rec = pack_chain(table, ignore_defects)
+    chain_rec = pack_chain(table, ignore_defects, device)
+    grids = launch_grids(table.elements, device)
     src_rec = pack_source(spec, n_total or n_rays)
     f32 = torch.float32
     outs = TraceOutputs(
@@ -658,7 +736,7 @@ def prepare_fused_source_trace(table: ChainTable, spec: BakedSource, n_rays: int
             stream = torch.cuda.current_stream(outs.p.device).cuda_stream
             _cuda.launch_fused_source_trace(
                 chain_rec, src_rec, n_rays, float(phase), float(k_frac),
-                outs.p, outs.d, outs.opl, outs.opl_c, outs.alive, outs.incidence, stream)
+                outs.p, outs.d, outs.opl, outs.opl_c, outs.alive, outs.incidence, stream, grids)
         fused_source_trace.launches += 1
 
     return outs, launch
@@ -725,8 +803,8 @@ def streamed_trace_ref(table: ChainTable, bundle: RayBundle, *, fresh: bool,
                            for x in (bundle.opl, bundle.opl_c, bundle.incidence))
         alive = bundle.alive.to(device=device)
     s = TraceState(p[:, 0], p[:, 1], p[:, 2], d[:, 0], d[:, 1], d[:, 2], opl, opl_c, alive, inc)
-    s = run_chain_chained(s, table.elements, table.maps, table.final, ignore_defects,
-                          table.premasks, freeze_dead=False)
+    s = run_chain_chained(s, _grids_on(table.elements, p.device), table.maps, table.final,
+                          ignore_defects, table.premasks, freeze_dead=False)
     return TraceOutputs(
         p=torch.stack([s.px, s.py, s.pz], dim=-1),
         d=torch.stack([s.dx, s.dy, s.dz], dim=-1),
@@ -745,7 +823,8 @@ def prepare_streamed_trace(table: ChainTable, bundle: RayBundle, *, fresh: bool,
     n_rays = bundle.n_rays
     _check_streamed_args(n_rays)
     device = _cuda_device(device, "streamed_trace")
-    chain_rec = pack_chain(table, ignore_defects)
+    chain_rec = pack_chain(table, ignore_defects, device)
+    grids = launch_grids(table.elements, device)
     f32 = torch.float32
 
     def move(x, dtype=f32):
@@ -778,7 +857,7 @@ def prepare_streamed_trace(table: ChainTable, bundle: RayBundle, *, fresh: bool,
     def launch():
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
-            _cuda.launch_streamed_trace(chain_rec, n_rays, fresh, inputs, outs, stream)
+            _cuda.launch_streamed_trace(chain_rec, n_rays, fresh, inputs, outs, stream, grids)
         if fresh:
             streamed_trace.fresh_launches += 1
         else:
@@ -974,16 +1053,14 @@ def sums_to_stats(sums, opl_ref, distances):
 
 
 def elements_to(elements, device, dtype):
-    """Element records with their pose tensors (and grid defect maps) on
-    ``device`` in ``dtype``."""
+    """Element records with their pose tensors (and grid defect maps, copied
+    once per device and dtype: :func:`~.defects.grid_to`) on ``device`` in
+    ``dtype``."""
     def move(x):
         return torch.as_tensor(x).to(device=device, dtype=dtype)
 
     def defect(d):
-        if isinstance(d, GridDefect):
-            return d._replace(height=move(d.height), slope_x=move(d.slope_x),
-                              slope_y=move(d.slope_y))
-        return d
+        return grid_to(d, device, dtype) if isinstance(d, GridDefect) else d
 
     out = []
     for el in elements:
@@ -1086,7 +1163,8 @@ def prepare_fused_source_moments(table: ChainTable, spec: BakedSource, det: Bake
     ``fused_source_moments.launches``."""
     sizes = _check_chunks(chunks)
     device = _cuda_device(device, "fused_source_moments")
-    chain_rec = pack_chain(table, ignore_defects)
+    chain_rec = pack_chain(table, ignore_defects, device)
+    grids = launch_grids(table.elements, device)
     src_rec = pack_source(spec, n_total, gaussian_edge)
     det_rec = pack_detector(det, centre_distance)
     from . import _cuda
@@ -1102,7 +1180,7 @@ def prepare_fused_source_moments(table: ChainTable, spec: BakedSource, det: Bake
         with torch.cuda.device(params.device):
             stream = torch.cuda.current_stream(params.device).cuda_stream
             _cuda.launch_fused_source_moments(
-                chain_rec, src_rec, det_rec, n_rays, chunk, grid, params, rows, stream)
+                chain_rec, src_rec, det_rec, n_rays, chunk, grid, params, rows, stream, grids)
         fused_source_moments.launches += 1
 
     return rows, launch
@@ -1183,7 +1261,8 @@ def prepare_fused_source_stats(table: ChainTable, spec: BakedSource, det: BakedD
     sizes = _check_chunks(chunks)
     n_dist = _check_stats_distances(det)
     device = _cuda_device(device, "fused_source_stats")
-    chain_rec = pack_chain(table, ignore_defects)
+    chain_rec = pack_chain(table, ignore_defects, device)
+    grids = launch_grids(table.elements, device)
     src_rec = pack_source(spec, n_total, gaussian_edge)
     det_rec = pack_detector(det)
     from . import _cuda
@@ -1203,7 +1282,7 @@ def prepare_fused_source_stats(table: ChainTable, spec: BakedSource, det: BakedD
         with torch.cuda.device(params.device):
             stream = torch.cuda.current_stream(params.device).cuda_stream
             _cuda.launch_fused_source_stats(chain_rec, src_rec, det_rec, n_rays, chunk, grid,
-                                            params, dists, n_dist, rows, stream)
+                                            params, dists, n_dist, rows, stream, grids)
         fused_source_stats.launches += 1
 
     return rows, launch

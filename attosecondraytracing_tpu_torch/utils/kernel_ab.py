@@ -1,7 +1,7 @@
 """A/B of builds of the kernel library in one process, on one card.
 
     python -m attosecondraytracing_tpu_torch.utils.kernel_ab OTHER_CSRC [OTHER_CSRC ...]
-        [--rays N] [--rounds R] [--kernels K1,K6,...] [--zernike]
+        [--rays N] [--rounds R] [--kernels K1,K6,...] [--chains flat,zernike] [--zernike] [--grid]
 
 Each ``OTHER_CSRC`` holds another version's ``csrc/`` sources: the parent
 commit's (unpacked with ``git archive`` into a directory that ``.gitignore``
@@ -10,10 +10,12 @@ this checkout's flags, one ``nvcc`` per source (two trees at a time), into
 ``build/kernels_ab/<i>/`` and linked into a library beside this checkout's
 own. For every build the ptxas lines of each kernel (registers, spills,
 shared memory) are printed and, where the toolkit has ``cuobjdump``, the
-static opcode counts of K2's and K8's SASS. The launch-only times on
-the flagship at N rays (default 1e7) are then taken in turns against this
-checkout (A), A B B A per round: each window is 5 back-to-back launches
-between CUDA events.
+static opcode counts of K2's and K8's SASS. The launch-only times at N rays
+(default 1e7) are then taken in turns against this checkout (A), A B B A
+per round: each window is 5 back-to-back launches between CUDA events, on
+each chain of ``--chains``: ``flat``, the flagship (the default), and
+``zernike``, the flagship with its first toroid carrying the Zernike
+defects of ``chip_smoke.py``'s phase zernike.
 
 * K1, K3 and K4 have the same C interface in every build: one prepared
   launch serves each library, picked up through ``ops/_cuda._lib``.
@@ -28,15 +30,19 @@ between CUDA events.
   K6 with 6 tangent rows per launch) through the adapters below. K6 is one
   gradient step's work: all 18 tangent rows of the flagship's pose vector.
   Each build's sums are compared with A's, relative to each statistic's
-  scale.
-* ``--zernike`` also times this checkout's K1-K8 on the deformed flagship
-  (its first toroid carrying the Zernike defects of ``chip_smoke.py``'s
-  phase zernike, ``ignore_defects`` True), A A per round beside the
-  undeformed flagship's launches, in the same process.
+  scale. A build of version 4 (before the grid maps: its chain record is a
+  prefix of this version's) is bound as version 3 is.
+* ``--zernike`` also times this checkout's K1-K8 on the Zernike-deformed
+  flagship, and ``--grid`` on the grid flagship (its first toroid carrying
+  a ``Fourrier`` map of chip_smoke.py's phase grid: a 1 nm map of 3000 x 640
+  nodes), ``ignore_defects`` True, beside the undeformed flagship's
+  launches in turns (undeformed, deformed, deformed, undeformed), in the
+  same process.
 
-Prints one line per kernel and build and a JSON line with each kernel's
-median per build and the ratio B/A (and with ``--zernike`` each kernel's
-deformed and undeformed medians), with the card's name and power limit.
+Prints one line per kernel, chain and build and a JSON line with each
+kernel's median per chain and build and the ratio B/A (and with
+``--zernike`` / ``--grid`` each kernel's deformed and undeformed medians),
+with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -100,13 +106,21 @@ def ptxas_summary(log: str) -> str:
     return "\n".join(out)
 
 
+#: the kernels' DEFECTS instantiations (csrc/trace_common.cuh DefectBranch);
+#: C interface versions 4 and older had a bool: false, true (Zernike)
+DEFECT_BRANCHES = {"0": "", "1": "zernike", "2": "grid"}
+
+
 def _kernel_name(mangled: str) -> str:
     """The kernel's name in a mangled entry, with its template arguments:
-    K6/K7's tangent batch and the DEFECTS flag (``<6, defects>``)."""
-    m = re.search(r"\d+((?:[a-z]+_)+kernel)(?:I(?:Li(\d+)E)?(?:Lb([01])E)?E)?", mangled)
+    K6/K7's tangent batch and the DEFECTS branch (``<6, zernike>``)."""
+    m = re.search(r"\d+((?:[a-z]+_)+kernel)(I(?:L[ib]\d+E)+E)?", mangled)
     if not m:
         return mangled
-    args = ([m.group(2)] if m.group(2) else []) + (["defects"] if m.group(3) == "1" else [])
+    args = re.findall(r"L([ib])(\d+)E", m.group(2) or "")
+    if args:  # the last argument is DEFECTS
+        *lead, (_kind, branch) = args
+        args = [v for _k, v in lead] + ([DEFECT_BRANCHES.get(branch, branch)] if branch != "0" else [])
     return m.group(1) + (f"<{', '.join(args)}>" if args else "")
 
 
@@ -148,8 +162,8 @@ def sass_summary(lib_path, kernels=("fused_source_moments_kernel", "fused_source
 
 def bind(path):
     """``(library, version)``: a library of this C interface through
-    ``_cuda.load`` (version 4), or an older one (version 3 or 2, or 1 without
-    ``art_abi_version``) through :func:`bind_old`."""
+    ``_cuda.load`` (version 5), or an older one (version 4, 3 or 2, or 1
+    without ``art_abi_version``) through :func:`bind_old`."""
     probe = ctypes.CDLL(str(path))
     version = 1
     if hasattr(probe, "art_abi_version"):
@@ -157,7 +171,7 @@ def bind(path):
         version = probe.art_abi_version()
     if version == _cuda.ABI_VERSION:
         return _cuda.load(path), version
-    if version not in (1, 2, 3):
+    if version not in (1, 2, 3, 4):
         raise RuntimeError(f"{path}: C interface version {version} has no adapter here")
     return bind_old(path, version), version
 
@@ -171,16 +185,19 @@ def _chain_prefix_bytes() -> int:
 
 
 def bind_old(path, version: int) -> ctypes.CDLL:
-    """Bind a library of C interface version 1, 2 or 3: version 3 as this
-    version (:func:`.._cuda.bind`); versions 1 and 2 with K1, K3 and K4 as
-    now, K2 and K8 on a (blocks per chunk, chunks) grid, K5 and K6/K7 with
-    the version's signatures (version 1: that grid too, and K6 6 tangent rows
-    per launch; version 2: as now). Every older library takes the chain
-    record's prefix (:func:`_chain_prefix_bytes`) of an undeformed chain.
-    Record sizes checked."""
-    from ..ops.fused_trace import DETECTOR_T, SOURCE_T
+    """Bind a library of C interface version 1, 2, 3 or 4: version 4 as this
+    version (:func:`.._cuda.bind`), reading the prefix of this version's
+    chain record before the grid maps (a chain without grid maps); version 3
+    so, reading the prefix before the defect fields (:func:`_chain_prefix_bytes`:
+    an undeformed chain); versions 1 and 2 with K1, K3 and K4 as now, K2 and
+    K8 on a (blocks per chunk, chunks) grid, K5 and K6/K7 with the version's
+    signatures (version 1: that grid too, and K6 6 tangent rows per launch;
+    version 2: as now), reading version 3's prefix. Record sizes checked."""
+    from ..ops.fused_trace import CHAIN_V4_BYTES, DETECTOR_T, SOURCE_T
 
     lib = ctypes.CDLL(str(path))
+    if version == 4:
+        return _cuda.bind(lib, CHAIN_V4_BYTES)
     if version == 3:
         return _cuda.bind(lib, _chain_prefix_bytes())
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -326,19 +343,37 @@ def _v1_stats_params(lib, spec, svec, tang, chunks, device):
 #: the Zernike defects of the deformed flagship's first toroid (chip_smoke.py's
 #: phase zernike), over its 150 x 32 mm support
 ZERNIKE_COEFFS = {(2, 0): 2e-4, (3, 1): -1e-4, (4, 2): 5e-5, (6, 3): 2e-5}
+#: the flagships: undeformed, and its first toroid Zernike- or grid-deformed
+CHAINS = ("flat", "zernike", "grid")
 
 
-def _problems(n_rays: int, device, deformed: bool = False):
+def first_toroid_defects(kind: str, support):
+    """The defects of the first toroid of the flagship ``kind``: none
+    ("flat"), :data:`ZERNIKE_COEFFS` ("zernike"), or chip_smoke.py's grid
+    flagship's Fourier-PSD map ("grid": RMS 1e-6 mm, smallest wavelength
+    0.1 mm, seed 7; 3000 x 640 nodes over the 150 x 32 mm support)."""
+    from ..models import defects
+
+    if kind == "zernike":
+        return [defects.Zernike(support, ZERNIKE_COEFFS)]
+    if kind == "grid":
+        return [defects.Fourrier(support, RMS=1e-6, smallest=0.1, seed=7)]
+    if kind != "flat":
+        raise ValueError(f"chains are {CHAINS}, got {kind!r}")
+    return []
+
+
+def _problems(n_rays: int, device, kind: str = "flat"):
     """The flagship (round-hole mask and two grazing toroids in f-d-f, 25
-    mrad cone source; ``deformed``: its first toroid with the defects of
-    :data:`ZERNIKE_COEFFS`) at ``n_rays`` rays: prepared launches of K1, K3
-    and K4 (any build), and ``per_lib(lib, version)`` giving each library's
-    ``{kernel: (launch, result)}`` of K2, K8 (1, 20 and 128 distances over
-    +-10 mm, per-distance chief-ray delay offsets), K5, K6 (the step's 18
-    tangent rows of scripts/bench_fused_grad.py's misalignment, Gaussian edge
-    exp(-2)) and K7."""
+    mrad cone source; its first toroid deformed by
+    :func:`first_toroid_defects` of ``kind``) at ``n_rays`` rays: prepared
+    launches of K1, K3 and K4 (any build), and ``per_lib(lib, version)``
+    giving each library's ``{kernel: (launch, result)}`` of K2, K8 (1, 20
+    and 128 distances over +-10 mm, per-distance chief-ray delay offsets),
+    K5, K6 (the step's 18 tangent rows of scripts/bench_fused_grad.py's
+    misalignment, Gaussian edge exp(-2)) and K7."""
     from ..analysis import alignment as al
-    from ..models import defects, masks, mirrors, supports
+    from ..models import masks, mirrors, supports
     from ..models.detector import Detector
     from ..models.placement import OEPlacement
     from ..ops import fused_grad as fg
@@ -347,10 +382,8 @@ def _problems(n_rays: int, device, deformed: bool = False):
 
     R, r = mirrors.ReturnOptimalToroidalRadii(500.0, 80.0)
     tor = mirrors.MirrorToroidal(R, r, supports.SupportRectangle(150, 32))
-    first = tor
-    if deformed:
-        first = mirrors.DeformedMirror(tor, [defects.Zernike(supports.SupportRectangle(150, 32),
-                                                             ZERNIKE_COEFFS)])
+    defects = first_toroid_defects(kind, supports.SupportRectangle(150, 32))
+    first = mirrors.DeformedMirror(tor, defects) if defects else tor
     mask = masks.Mask(supports.SupportRoundHole(Radius=20, RadiusHole=7, CenterHoleX=0, CenterHoleY=0))
     props = {"Divergence": 25e-3, "SourceSize": 0, "Wavelength": 80e-6, "NumberRays": 16}
     chain = OEPlacement(props, [mask, first, tor], [400.0, 100.0, 500.0], [0.0, 80.0, -80.0],
@@ -480,19 +513,46 @@ def _difference(key, a, b) -> str:
     return f"sums within {rel(a, b)} of scale"
 
 
+def _ab(key, shared, own, name, lib_a, lib, rounds):
+    """A B B A rounds of one kernel against one other build: (A ms, B ms,
+    the sums' difference or "")."""
+    libs = {"A": lib_a, "B": lib}
+    if key in shared:
+        launch = {"A": shared[key], "B": shared[key]}
+        outcome = None
+    else:
+        launch = {"A": own["A"][key][0], "B": own[name][key][0]}
+        outcome = {"A": own["A"][key][1], "B": own[name][key][1]}
+    times = {"A": [], "B": []}
+    for ab in ("A", "B"):
+        _cuda._lib = libs[ab]
+        launch[ab]()
+    torch.cuda.synchronize()
+    for _ in range(rounds):
+        for ab in ("A", "B", "B", "A"):
+            _cuda._lib = libs[ab]
+            times[ab].append(_window_ms(launch[ab]))
+    _cuda._lib = lib_a
+    diff = f"; {_difference(key, outcome['A'](), outcome['B']())}" if outcome else ""
+    return float(np.median(times["A"])), float(np.median(times["B"])), diff
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("other_csrc", type=Path, nargs="+")
     parser.add_argument("--rays", type=float, default=1e7)
     parser.add_argument("--rounds", type=int, default=10)
     parser.add_argument("--kernels", default=",".join(KERNELS))
+    parser.add_argument("--chains", default="flat")
     parser.add_argument("--zernike", action="store_true")
+    parser.add_argument("--grid", action="store_true")
     args = parser.parse_args(argv)
     keys = []
     for k in args.kernels.split(","):
         keys += list(K8_DISTANCES) if k == "K8" else [k] if k else []
-    if not set(keys) <= set(KERNELS):
-        raise SystemExit(f"--kernels takes {KERNELS} and K8")
+    chains = [c for c in args.chains.split(",") if c]
+    if not set(keys) <= set(KERNELS) or not set(chains) <= {"flat", "zernike"}:
+        raise SystemExit(f"--kernels takes {KERNELS} and K8; --chains flat and zernike")
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab needs a CUDA card")
     device = torch.device("cuda", 0)
@@ -500,7 +560,7 @@ def main(argv=None):
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
     ab_dir = _cuda.BUILD_DIR.parent / "kernels_ab"
-    with ThreadPoolExecutor(max_workers=2) as pool:  # 4 nvcc each, started beside this build
+    with ThreadPoolExecutor(max_workers=2) as pool:  # one nvcc per source each, beside this build
         builds = [pool.submit(build_other, csrc, ab_dir / str(i))
                   for i, csrc in enumerate(args.other_csrc)]
         lib_a = _cuda.library()
@@ -514,48 +574,40 @@ def main(argv=None):
                   flush=True)
             others.append((f"B{i}", str(csrc), lib, version))
     print(f"{card}; {1 + len(others)} libraries ready in {time.perf_counter() - t0:.1f} s", flush=True)
-    shared, per_lib = _problems(int(args.rays), device)
-    own = {"A": per_lib(lib_a, _cuda.ABI_VERSION)}
-    for name, _csrc, lib, version in others:
-        own[name] = per_lib(lib, version)
-    _cuda._lib = lib_a
-    result = {}
-    for key in keys:
-        for name, csrc, lib, _version in others:
-            libs = {"A": lib_a, "B": lib}
-            if key in shared:
-                launch = {"A": shared[key], "B": shared[key]}
-                outcome = None
-            else:
-                launch = {"A": own["A"][key][0], "B": own[name][key][0]}
-                outcome = {"A": own["A"][key][1], "B": own[name][key][1]}
-            times = {"A": [], "B": []}
-            for ab in ("A", "B"):
-                _cuda._lib = libs[ab]
-                launch[ab]()
-            torch.cuda.synchronize()
-            for _ in range(args.rounds):
-                for ab in ("A", "B", "B", "A"):
-                    _cuda._lib = libs[ab]
-                    times[ab].append(_window_ms(launch[ab]))
-            _cuda._lib = lib_a
-            a, b = float(np.median(times["A"])), float(np.median(times["B"]))
-            result.setdefault(key, {})[name] = {"other": csrc, "A_ms": a, "B_ms": b, "B_over_A": b / a}
-            diff = f"; {_difference(key, outcome['A'](), outcome['B']())}" if outcome else ""
-            print(f"{key} vs {name}: this build {a:.4f} ms, other build {b:.4f} ms (B/A {b / a:.4f}; "
-                  f"{2 * args.rounds} windows each of 5 launches at {int(args.rays)} rays){diff}",
-                  flush=True)
-    zernike = _time_deformed(keys, shared, own["A"], args, device) if args.zernike else None
-    print(json.dumps({"card": card, "rays": int(args.rays), "kernels": result, "zernike": zernike}),
+    flat, result = None, {}
+    for chain in chains:
+        shared, per_lib = _problems(int(args.rays), device, chain)
+        own = {"A": per_lib(lib_a, _cuda.ABI_VERSION)}
+        for name, _csrc, lib, version in others:
+            own[name] = per_lib(lib, version)
+        _cuda._lib = lib_a
+        if chain == "flat":
+            flat = (shared, own["A"])
+        for key in keys:
+            for name, csrc, lib, _version in others:
+                a, b, diff = _ab(key, shared, own, name, lib_a, lib, args.rounds)
+                result.setdefault(chain, {}).setdefault(key, {})[name] = {
+                    "other": csrc, "A_ms": a, "B_ms": b, "B_over_A": b / a}
+                print(f"{key} {chain} flagship vs {name}: this build {a:.4f} ms, other build {b:.4f} ms "
+                      f"(B/A {b / a:.4f}; {2 * args.rounds} windows each of 5 launches at "
+                      f"{int(args.rays)} rays){diff}", flush=True)
+    deformed = {}
+    for kind in ("zernike", "grid"):
+        if getattr(args, kind):
+            if flat is None:
+                shared, per_lib = _problems(int(args.rays), device, "flat")
+                flat = (shared, per_lib(lib_a, _cuda.ABI_VERSION))
+            deformed[kind] = _time_deformed(keys, kind, *flat, args, device)
+    print(json.dumps({"card": card, "rays": int(args.rays), "kernels": result, "deformed": deformed}),
           flush=True)
 
 
-def _time_deformed(keys, shared, own_a, args, device):
-    """This build's launch-only times of ``keys`` on the deformed flagship
-    beside the undeformed flagship's, in turns (undeformed, deformed,
-    deformed, undeformed) per round: ``{kernel: {"ms", "undeformed_ms",
-    "ratio"}}``."""
-    d_shared, d_per_lib = _problems(int(args.rays), device, deformed=True)
+def _time_deformed(keys, kind, shared, own_a, args, device):
+    """This build's launch-only times of ``keys`` on the ``kind`` flagship
+    ("zernike" or "grid") beside the undeformed flagship's, in turns
+    (undeformed, deformed, deformed, undeformed) per round: ``{kernel:
+    {"ms", "undeformed_ms", "ratio"}}``."""
+    d_shared, d_per_lib = _problems(int(args.rays), device, kind)
     d_own = d_per_lib(_cuda.library(), _cuda.ABI_VERSION)
     out = {}
     for key in keys:
@@ -570,7 +622,7 @@ def _time_deformed(keys, shared, own_a, args, device):
                 times[which].append(_window_ms(launch[which]))
         flat, deformed = float(np.median(times["flat"])), float(np.median(times["deformed"]))
         out[key] = {"ms": deformed, "undeformed_ms": flat, "ratio": deformed / flat}
-        print(f"{key} deformed flagship (Zernike, ignore_defects True): {deformed:.4f} ms, undeformed "
+        print(f"{key} {kind} flagship (ignore_defects True): {deformed:.4f} ms, undeformed "
               f"{flat:.4f} ms (ratio {deformed / flat:.4f}; {2 * args.rounds} windows each)", flush=True)
     return out
 

@@ -26,10 +26,18 @@ port's paths through the entry points a user calls, and checks the results:
   K1 and K2, and every kernel K1-K8 held against its plain version on the
   deformed chain (K1 and K2 with ``ignore_defects`` True and False), with
   each kernel's deformed-chain time beside its undeformed time;
+* grid defect maps: the same on the grid flagship (its first toroid a
+  ``DeformedMirror`` with a 1 nm Fourier-PSD map of 3000 x 640 nodes), and
+  ``examples/CONFIG_deformed.py`` at ``--rays 1e7`` through the port's CLI
+  (one K1 launch, its 8000 x 8000 map packed in HBM) against the plain trace
+  of the same loaded chain on the card;
+* the gather probes P4 and P5 (``utils/gather_probe.py``) against their
+  plain versions at the script's shapes, and the trace's lookup timed on
+  three maps in two point orders;
 * the CLI path on ``examples/CONFIG_singleparabola.py``,
   ``examples/CONFIG_gradient_alignment.py`` (a CONFIG that aligns its chain
-  while it loads) and ``examples/CONFIG_deformed.py`` (a Fourier-PSD defect
-  map on the plain trace).
+  while it loads) and ``examples/CONFIG_deformed.py`` at its 1000 rays (the
+  plain trace, below ``PALLAS_MIN_RAYS``).
 
 Each path runs with the launch counts set to 0 just before it and read just
 after. It exits nonzero, printing no result, when there is no CUDA card,
@@ -50,7 +58,16 @@ and its float32 operations over 67 TFLOP/s (H100 SXM data sheet), counted
 for the same inputs. Each entry also carries the phase zernike's numbers:
 ``zernike_ms`` (the launch alone on the deformed flagship at 1e7 rays),
 ``zernike_flat_ms`` (the undeformed flagship's, timed beside it),
-``zernike_bound_ms`` and ``zernike_bound_by``.
+``zernike_bound_ms`` and ``zernike_bound_by``, and the phase grid's
+(``grid_ms``, ``grid_flat_ms``, ``grid_bound_ms``, ``grid_bound_by``: the
+grid flagship's; its bytes add the smaller of the map's packed bytes and
+four 32-byte sectors per ray and lookup), K1's also ``config_deformed_ms``
+and ``config_deformed_flat_ms`` (its launch on examples/CONFIG_deformed.py's
+chain at 1e7 rays with and without the map). The entries P4 and P5 follow:
+their launches in the probe's run, the largest error against the plain
+version, the bilinear form's (P4) and the largest case's (P5) launch, and
+P4's ``lookup``: the trace's lookup over 1e7 points of each map and point
+order, with the sectors per point its time gives at the HBM rate.
 """
 
 from __future__ import annotations
@@ -124,11 +141,34 @@ OPS = {
     "dual_zernike_once": 12,
     "dual_zernike_shift_tangent": 114,
     "dual_zernike_term_tangent": 18,
+    # a mirror with one grid map (trace_common.cuh deformed_hit and
+    # grid_sums, on a toroid): the two surface normals, cos alpha, the
+    # shifted t and point, the support coordinates and the height lookup
+    # (fractional indices by IEEE divide, weights, 4 corners, the sum:
+    # "grid_shift"); with ignore_defects False the slope lookup (two more
+    # channels) and the composed normal ("grid_slopes"). On Dual<G> (K6):
+    # once the reciprocals the tangents share, and per tangent the shift's
+    # and the height lookup's linear parts
+    "grid_shift": 69,
+    "grid_slopes": 48,
+    "dual_grid_once": 14,
+    "dual_grid_shift_tangent": 132,
 }
 
 #: the Zernike defects of the deformed flagship's first toroid (the phase's
 #: chain: astigmatism, coma, a 4th- and a 6th-order term, in mm)
 ZERNIKE = {(2, 0): 2e-4, (3, 1): -1e-4, (4, 2): 5e-5, (6, 3): 2e-5}
+#: the grid flagship's first toroid: a Fourier-PSD map over its 150 x 32 mm
+#: support, RMS 1 nm, wavelengths down to 0.1 mm (3000 x 640 nodes, 31 MB
+#: packed: it sits in the card's 50 MB L2)
+GRID = {"RMS": 1e-6, "smallest": 0.1, "seed": 7}
+#: the same map at 100 nm RMS, for the check that the kernels carry the map's
+#: slopes into the spot: the 1 nm map's slopes (up to ~2e-6 rad) move the
+#: spot SD by less than the kernels' float32 error of it
+GRID_EFFECT_RMS = 1e-4
+#: rays of examples/CONFIG_deformed.py through the CLI (its map: 8000 x 8000
+#: nodes, 1 GB packed, in HBM)
+N_CONFIG_DEFORMED = 10_000_000
 
 
 def _fail(msg):
@@ -176,10 +216,25 @@ def _zernike_terms(el) -> int:
     return sum(n + 1 for n in range(2, order + 1))
 
 
+def _defect_kind(el) -> str | None:
+    """"zernike" or "grid" for a mirror with Zernike defects or one grid
+    map (what the operation counts cover), None without defects."""
+    from attosecondraytracing_tpu_torch.ops.defects import GridDefect, ZernikeDefect
+
+    defects = getattr(el, "defects", ())
+    if not defects:
+        return None
+    if all(isinstance(d, ZernikeDefect) for d in defects):
+        return "zernike"
+    _check(len(defects) == 1 and isinstance(defects[0], GridDefect),
+           "operation counts cover Zernike defects or one grid map per mirror")
+    return "grid"
+
+
 def _trace_ops(table, source: bool, ignore_defects: bool = True) -> int:
     """Per-ray operations of the source (if synthesized) and the chain walk
     of a chain table whose mirrors are toroids (the flagship's), with the
-    Zernike branch of a deformed mirror."""
+    Zernike or grid branch of a deformed mirror."""
     from attosecondraytracing_tpu_torch.ops import surfaces as srf
     from attosecondraytracing_tpu_torch.ops.trace import MaskElement
 
@@ -191,24 +246,42 @@ def _trace_ops(table, source: bool, ignore_defects: bool = True) -> int:
         else:
             _check(isinstance(el.surface, srf.Toroid), "operation counts cover toroids only")
             ops += OPS["toroid"]
-            if el.defects:
+            kind = _defect_kind(el)
+            if kind == "zernike":
                 terms = _zernike_terms(el)
                 ops += OPS["zernike_shift"] + terms * OPS["zernike_term"]
                 if not ignore_defects:
                     ops += terms * OPS["zernike_slope_term"] + OPS["zernike_compose"]
+            elif kind == "grid":
+                ops += OPS["grid_shift"] + (0 if ignore_defects else OPS["grid_slopes"])
     return ops
 
 
-def _dual_zernike_ops(elements, n_tangents: int) -> int:
-    """Per-ray operations the Zernike branch adds on Dual<G> (K6) for a
+def _dual_defect_ops(elements, n_tangents: int) -> int:
+    """Per-ray operations the defect branch adds on Dual<G> (K6) for a
     gradient step of ``n_tangents`` rows, ignore_defects True: once, and
     its linear parts per tangent."""
     ops = 0
     for el in elements:
-        if getattr(el, "defects", ()):
+        kind = _defect_kind(el)
+        if kind == "zernike":
             ops += OPS["dual_zernike_once"] + n_tangents * (
                 OPS["dual_zernike_shift_tangent"] + _zernike_terms(el) * OPS["dual_zernike_term_tangent"])
+        elif kind == "grid":
+            ops += OPS["dual_grid_once"] + n_tangents * OPS["dual_grid_shift_tangent"]
     return ops
+
+
+def _grid_bytes(elements, n_rays: int, ignore_defects: bool = True) -> int:
+    """What a kernel must read of the grid maps of ``elements`` for
+    ``n_rays`` rays: per map, the smaller of its packed bytes (16 per node)
+    and four 32-byte sectors per ray and lookup (one lookup, two with the
+    slopes)."""
+    from attosecondraytracing_tpu_torch.ops.defects import GridDefect
+
+    lookups = 1 if ignore_defects else 2
+    return sum(min(16 * d.height.numel(), n_rays * lookups * 4 * 32)
+               for el in elements for d in getattr(el, "defects", ()) if isinstance(d, GridDefect))
 
 
 def _flagship(n_rays):
@@ -227,22 +300,26 @@ def _flagship(n_rays):
     return chain, props
 
 
-def _deformed_flagship(n_rays, second_distance=500.0):
+def _deformed_flagship(n_rays, second_distance=500.0, kind="zernike", grid_rms=GRID["RMS"]):
     """The flagship with its first toroid carrying the Zernike defects
-    :data:`ZERNIKE` over its support; ``second_distance`` places the second
-    toroid (a list: one chain per value)."""
+    :data:`ZERNIKE` (``kind`` "zernike") or the Fourier-PSD map :data:`GRID`
+    at ``grid_rms`` ("grid") over its support; ``second_distance`` places
+    the second toroid (a list: one chain per value)."""
     from attosecondraytracing_tpu_torch.models import defects, masks, mirrors, supports
     from attosecondraytracing_tpu_torch.models.placement import OEPlacement
 
     R, r = mirrors.ReturnOptimalToroidalRadii(500.0, 80.0)
     tor = mirrors.MirrorToroidal(R, r, supports.SupportRectangle(150, 32))
-    deformed = mirrors.DeformedMirror(tor, [defects.Zernike(supports.SupportRectangle(150, 32), ZERNIKE)])
+    support = supports.SupportRectangle(150, 32)
+    defect = (defects.Zernike(support, ZERNIKE) if kind == "zernike"
+              else defects.Fourrier(support, **dict(GRID, RMS=grid_rms)))
+    deformed = mirrors.DeformedMirror(tor, [defect])
     mask = masks.Mask(supports.SupportRoundHole(Radius=20, RadiusHole=7, CenterHoleX=0, CenterHoleY=0))
     props = {"Divergence": 25e-3, "SourceSize": 0, "Wavelength": 80e-6, "DeltaFT": 0.5,
              "NumberRays": n_rays}
     chain = OEPlacement(props, [mask, deformed, tor], [400.0, 100.0, second_distance],
                         [0.0, 80.0, -80.0], [0.0, 0.0, 0.0],
-                        "deformed flagship: mask + Zernike-deformed toroidal + toroidal f-d-f")
+                        f"deformed flagship: mask + {kind}-deformed toroidal + toroidal f-d-f")
     return chain, props
 
 
@@ -1139,14 +1216,14 @@ def _check_sum_stats(tag, ker, ref, opl_ref, distances):
     return float(spot.max())
 
 
-def _zernike_main_path(torch, dev):
-    """The slice's path on the deformed flagship: main.main at 1e7 rays with
-    the detector-distance optimizer, the launch counts set to 0 just before
-    it: engine cuda-source, exactly one K1 and one K2 launch, no other
-    kernel."""
+def _deformed_main_path(torch, dev, kind):
+    """The slice's path on the ``kind`` flagship ("zernike" or "grid"):
+    main.main at 1e7 rays with the detector-distance optimizer, the launch
+    counts set to 0 just before it: engine cuda-source, exactly one K1 and
+    one K2 launch, no other kernel."""
     from attosecondraytracing_tpu_torch import main as art
 
-    chain, props = _deformed_flagship(N_SLICE)
+    chain, props = _deformed_flagship(N_SLICE, kind=kind)
     do = {"ReflectionNumber": -1, "DistanceDetector": 500.0, "AutoDetectorDistance": True,
           "OptFor": "intensity"}
     ao = {"verbose": True, "save_results": False}
@@ -1158,74 +1235,85 @@ def _zernike_main_path(torch, dev):
     launches = _launches()
     transmission, det = kept["ETransmission"][0], kept["Detector"][0]
     spot, duration = kept["SpotSizeSD"][0], kept["DurationSD"][0]
-    print(f"zernike main path: engine {chain.last_trace_engine}, launches {launches}, transmission "
+    print(f"{kind} main path: engine {chain.last_trace_engine}, launches {launches}, transmission "
           f"{transmission:.6g} %, distance {det.get_distance():.6g} mm, spot SD {spot:.6g} mm, "
           f"duration SD {duration:.6g} fs, main.main wall {wall:.3f} s", flush=True)
-    _check(chain.last_trace_engine == "cuda-source", f"zernike: trace engine {chain.last_trace_engine}")
+    _check(chain.last_trace_engine == "cuda-source", f"{kind}: trace engine {chain.last_trace_engine}")
     _check(launches["K1"] == 1 and launches["K2"] == 1
            and all(v == 0 for k, v in launches.items() if k not in ("K1", "K2")),
-           f"zernike main path launches {launches}")
-    _check(0 < transmission <= 100, f"zernike: transmission {transmission}")
-    _check(abs(det.get_distance() - 500.0) <= 25.0, f"zernike: optimal distance {det.get_distance()}")
-    _check(spot < 0.5, f"zernike: spot SD {spot} mm")
+           f"{kind} main path launches {launches}")
+    _check(0 < transmission <= 100, f"{kind}: transmission {transmission}")
+    _check(abs(det.get_distance() - 500.0) <= 25.0, f"{kind}: optimal distance {det.get_distance()}")
+    _check(spot < 0.5, f"{kind}: spot SD {spot} mm")
     return launches
 
 
-def _zernike_k12(torch, dev):
-    """K1 and K2 against their plain versions on the deformed flagship at 1e7
-    rays, with ignore_defects True and False (phase k1's and k2's
-    tolerances), and the defect's effect on K1's directions. Returns the
-    largest |dp| [mm] of K1 and spot SD difference [mm] of K2."""
+def _deformed_k12(torch, dev, kind, n_rays=N_TIME):
+    """K1 and K2 against their plain versions on the ``kind`` flagship at
+    ``n_rays`` rays, with ignore_defects True and False (phase k1's and k2's
+    tolerances), and the defect slopes' effect on K1's directions and K2's
+    spot SD (for "grid", on the same map at :data:`GRID_EFFECT_RMS`, whose
+    kernels are held against their plain versions too). Returns the largest
+    |dp| [mm] of K1 and spot SD difference [mm] of K2."""
     from attosecondraytracing_tpu_torch.ops import fused_trace as ft
 
-    chain, _ = _deformed_flagship(N_CHECK)
-    spec, elements, det, (opl_ref, inv_dn), chunks, n = _k2_setup(torch, dev, chain, N_TIME)
-    table = ft.chain_table(spec, elements)
+    chain, _ = _deformed_flagship(N_CHECK, kind=kind)
+    spec, elements, det, (opl_ref, inv_dn), chunks, n = _k2_setup(torch, dev, chain, n_rays)
     bdet = ft.bake_detector(elements, det.centre, det.normal, det._plane_rotation(),
                             opl_ref=opl_ref, inv_dn_chief=inv_dn)
+    tables = [(kind, ft.chain_table(spec, elements))]
+    if kind == "grid":  # the same geometry, so the same detector
+        rough = _deformed_flagship(16, kind=kind, grid_rms=GRID_EFFECT_RMS)[0].to(dev)
+        tables.append((f"grid at {GRID_EFFECT_RMS * 1e6:.0f} nm", ft.chain_table(
+            spec, rough.device_elements(torch.float64))))
     err1 = err2 = 0.0
-    dirs, spots = {}, {}
-    for ignore in (True, False):
-        ker = ft.fused_source_trace(table, spec, n, device=dev, ignore_defects=ignore)
-        torch.cuda.synchronize()
-        ref = ft.fused_source_trace_ref(table, spec, n, device=dev, ignore_defects=ignore)
-        err1 = max(err1, _check_bundles(f"K1 deformed flagship ignore_defects={ignore}", ker, ref, torch))
-        dirs[ignore] = (ker, ref)
-        kw = dict(device=dev, gaussian_edge=chain.source_spec.gaussian_edge, ignore_defects=ignore)
-        k2 = ft.fused_source_moments(table, spec, bdet, chunks, n, **kw)
-        r2 = ft.fused_source_moments_ref(table, spec, bdet, chunks, n, **kw)
-        err2 = max(err2, _check_stats(f"K2 deformed flagship ignore_defects={ignore} ({n} rays)", k2, r2,
-                                      opl_ref, 1e-5, 2e-3, 0.025, 0.8))
-        spots[ignore] = [float(ft.sums_to_stats(ft.moments_to_distance_sums(m, (0.0,)), opl_ref, (0.0,))
-                               ["spot_sd"][0]) for m in (k2, r2)]
+    for tag, table in tables:
+        dirs, spots = {}, {}
+        for ignore in (True, False):
+            ker = ft.fused_source_trace(table, spec, n, device=dev, ignore_defects=ignore)
+            torch.cuda.synchronize()
+            ref = ft.fused_source_trace_ref(table, spec, n, device=dev, ignore_defects=ignore)
+            err1 = max(err1, _check_bundles(f"K1 {tag} flagship ignore_defects={ignore}", ker, ref, torch))
+            dirs[ignore] = (ker, ref)
+            kw = dict(device=dev, gaussian_edge=chain.source_spec.gaussian_edge, ignore_defects=ignore)
+            k2 = ft.fused_source_moments(table, spec, bdet, chunks, n, **kw)
+            r2 = ft.fused_source_moments_ref(table, spec, bdet, chunks, n, **kw)
+            err2 = max(err2, _check_stats(f"K2 {tag} flagship ignore_defects={ignore} ({n} rays)", k2, r2,
+                                          opl_ref, 1e-5, 2e-3, 0.025, 0.8))
+            spots[ignore] = [float(ft.sums_to_stats(ft.moments_to_distance_sums(m, (0.0,)), opl_ref,
+                                                    (0.0,))["spot_sd"][0]) for m in (k2, r2)]
+        both = dirs[True][0].alive & dirs[False][0].alive & dirs[True][1].alive & dirs[False][1].alive
+        effect_k = dirs[False][0].d[both] - dirs[True][0].d[both]
+        effect_r = dirs[False][1].d[both] - dirs[True][1].d[both]
+        effect = float(effect_k.abs().max())
+        effect_err = float((effect_k - effect_r).abs().median())
+        spot_move = abs(spots[False][0] - spots[True][0])
+        spot_err = max(abs(spots[v][0] - spots[v][1]) for v in (True, False))
+        print(f"{tag}: the defect slopes (ignore_defects=False) move K1's directions by up to {effect:.3g} "
+              f"(median {float(effect_k.abs().median()):.3g}) on alive rays, the kernel's move against the "
+              f"plain version's within {effect_err:.3g} (median); K2's spot SD at the detector "
+              f"{spots[True][0]:.6g} -> {spots[False][0]:.6g} mm (kernel vs plain within {spot_err:.3g} mm)",
+              flush=True)
     # The defect slopes must change what the kernels compute, by more than
-    # their float32 error. These coefficients' slopes over the support's
-    # 76.7 mm radius are ~1e-6 (the Pallas test's 20 mm parabola at normal
-    # incidence reaches 1e-5), so directions move by up to ~2e-6 and by a
-    # float32 ulp on most rays, where the kernel's own per-ray error is of
-    # that size: the check asks for a move of more than 1e-6 and holds K2's
-    # move of the spot SD to 100 times its error against the plain version.
-    both = dirs[True][0].alive & dirs[False][0].alive & dirs[True][1].alive & dirs[False][1].alive
-    effect_k = dirs[False][0].d[both] - dirs[True][0].d[both]
-    effect_r = dirs[False][1].d[both] - dirs[True][1].d[both]
-    effect = float(effect_k.abs().max())
-    effect_err = float((effect_k - effect_r).abs().median())
-    spot_move = abs(spots[False][0] - spots[True][0])
-    spot_err = max(abs(spots[v][0] - spots[v][1]) for v in (True, False))
-    print(f"zernike: the defect slopes (ignore_defects=False) move K1's directions by up to {effect:.3g} "
-          f"(median {float(effect_k.abs().median()):.3g}) on alive rays, the kernel's move against the plain "
-          f"version's within {effect_err:.3g} (median); K2's spot SD at the detector {spots[True][0]:.6g} -> "
-          f"{spots[False][0]:.6g} mm (kernel vs plain within {spot_err:.3g} mm)", flush=True)
-    _check(effect > 1e-6 and spot_move > 100.0 * spot_err,
-           f"zernike: the defect slopes' effect {effect} / spot {spot_move} against the kernel's error "
+    # their float32 error. The Zernike coefficients' slopes over the
+    # support's 76.7 mm radius are ~1e-6 (the Pallas test's 20 mm parabola
+    # at normal incidence reaches 1e-5), so directions move by up to ~2e-6
+    # and by a float32 ulp on most rays, where the kernel's own per-ray
+    # error is of that size: the check asks for a move of more than 1e-6
+    # and holds K2's move of the spot SD to 100 times its error against the
+    # plain version. The grid map at 100 nm must move the spot SD by more
+    # than 10 times that error.
+    factor = 100.0 if kind == "zernike" else 10.0
+    _check(effect > 1e-6 and spot_move > factor * spot_err,
+           f"{tag}: the defect slopes' effect {effect} / spot {spot_move} against the kernel's error "
            f"{effect_err} / {spot_err}")
     return err1, err2
 
 
-def _zernike_k34(torch, dev):
-    """K4 on a user-built 2^20-ray PointSource bundle through the deformed
-    flagship, and K3 on that bundle traced through the mask, then through the
-    deformed toroid (ignore_defects False) and the second toroid, against
+def _deformed_k34(torch, dev, kind):
+    """K4 on a user-built 2^20-ray PointSource bundle through the ``kind``
+    flagship, and K3 on that bundle traced through the mask, then through
+    the deformed toroid (ignore_defects False) and the second toroid, against
     their plain versions (K1's envelopes). Returns each kernel's largest
     |dp| [mm]."""
     import numpy as np
@@ -1234,12 +1322,12 @@ def _zernike_k34(torch, dev):
     from attosecondraytracing_tpu_torch.ops import fused_trace as ft
     from attosecondraytracing_tpu_torch.ops.bundle import RayBundle
 
-    chain, _ = _deformed_flagship(16)
+    chain, _ = _deformed_flagship(16, kind=kind)
     host = [e.to_device("cpu", torch.float64) for e in chain.optical_elements]
     bundle = sources.ApplyGaussianIntensityToRayList(
         sources.PointSource(np.zeros(3), np.array([1.0, 0.0, 0.0]), 25e-3, N_CHECK, 80e-6), np.exp(-2.0))
     table = ft.chain_table(None, host)
-    err4 = _check_bundles("K4 deformed flagship (user PointSource)", ft.streamed_trace(table, bundle, device=dev),
+    err4 = _check_bundles(f"K4 {kind} flagship (user PointSource)", ft.streamed_trace(table, bundle, device=dev),
                           ft.streamed_trace_ref(table, bundle, fresh=True, device=dev), torch)
     first = ft.streamed_trace(ft.chain_table(None, host[:1]), bundle, device=dev)
     mid = RayBundle(p=first.p, d=first.d, opl=first.opl, opl_c=first.opl_c, alive=first.alive,
@@ -1247,33 +1335,34 @@ def _zernike_k34(torch, dev):
                     wavelength=bundle.wavelength.to(dev, torch.float32))
     _check(not ft._is_fresh(mid), "the masked bundle must not be fresh")
     rest = ft.chain_table(None, host[1:])
-    err3 = _check_bundles("K3 deformed flagship (masked bundle -> deformed toroid -> toroid)",
+    err3 = _check_bundles(f"K3 {kind} flagship (masked bundle -> deformed toroid -> toroid)",
                           ft.streamed_trace(rest, mid, device=dev, ignore_defects=False),
                           ft.streamed_trace_ref(rest, mid, fresh=False, device=dev, ignore_defects=False),
                           torch)
     return err3, err4
 
 
-def _zernike_k5(torch, dev):
-    """A 5-chain scan of the deformed flagship (second toroid at 490-510 mm)
-    at 2^20 rays per chain: main.main takes the scan engine (K5 once per
-    chain, no K1 or K2), and each chain's K5 against its plain version
-    (phase k5's tolerances). Returns the largest spot SD difference [mm]."""
+def _deformed_k5(torch, dev, kind):
+    """A 5-chain scan of the ``kind`` flagship (second toroid at 490-510
+    mm; the chains share the first toroid's defects) at 2^20 rays per chain:
+    main.main takes the scan engine (K5 once per chain, no K1 or K2), and
+    each chain's K5 against its plain version (phase k5's tolerances).
+    Returns the largest spot SD difference [mm]."""
     from attosecondraytracing_tpu_torch import main as art
     from attosecondraytracing_tpu_torch.ops import fused_scan as fs
 
-    chains, props = _deformed_flagship(N_CHECK, [490.0, 495.0, 500.0, 505.0, 510.0])
+    chains, props = _deformed_flagship(N_CHECK, [490.0, 495.0, 500.0, 505.0, 510.0], kind=kind)
     do = {"ReflectionNumber": -1, "DistanceDetector": 500.0, "AutoDetectorDistance": True,
           "OptFor": "spotsize"}
     _reset_launches()
     kept = art.main(chains, props, do, {"verbose": False, "save_results": False}, device=dev)
     launches = _launches()
     engines = [c.last_trace_engine for c in chains]
-    print(f"zernike scan of {len(chains)} chains at {N_CHECK} rays: engines {sorted(set(engines))}, "
+    print(f"{kind} scan of {len(chains)} chains at {N_CHECK} rays: engines {sorted(set(engines))}, "
           f"launches {launches}, optimal distances "
           f"{[round(d.get_distance(), 3) for d in kept['Detector']]} mm", flush=True)
     _check(all(e == "cuda-scan" for e in engines) and launches["K5"] == len(chains)
-           and launches["K1"] == 0 and launches["K2"] == 0, f"zernike scan: {engines} {launches}")
+           and launches["K1"] == 0 and launches["K2"] == 0, f"{kind} scan: {engines} {launches}")
     spot_err = 0.0
     for i, chain in enumerate(chains):
         spec, elements, det, (opl_ref, inv_dn), chunks, n = _k2_setup(torch, dev, chain, N_CHECK)
@@ -1283,51 +1372,51 @@ def _zernike_k5(torch, dev):
         aux = fs.scan_aux(chunks, opl_ref, inv_dn, 0.0, spec.radius, chain.source_spec.gaussian_edge)
         ker = fs.fused_scan_moments(sspec, svec, aux, chunks, device=dev)
         ref = fs.scan_moments_ref(sspec, svec, aux, chunks, device=dev)
-        spot_err = max(spot_err, _check_stats(f"K5 deformed scan chain {i}", ker, ref, opl_ref,
+        spot_err = max(spot_err, _check_stats(f"K5 {kind} scan chain {i}", ker, ref, opl_ref,
                                               1e-5, 2e-3, 0.025, 0.8))
     return spot_err
 
 
-def _zernike_k678(torch, dev):
+def _deformed_k678(torch, dev, kind):
     """K6's 18 tangent rows of one launch against stats_params_ref, K7
     against its plain version and equal to K6's primal, and K8 at 20
     distances against its plain version and against K2's moments, all on
-    the deformed flagship at 2^20 rays (phases k67's and k8's tolerances).
+    the ``kind`` flagship at 2^20 rays (phases k67's and k8's tolerances).
     Returns the (K6 gradient, K7 loss, K8 spot SD) differences."""
     import numpy as np
 
     from attosecondraytracing_tpu_torch.ops import fused_grad as fg
     from attosecondraytracing_tpu_torch.ops import fused_trace as ft
 
-    chain, _ = _deformed_flagship(N_CHECK)
+    chain, _ = _deformed_flagship(N_CHECK, kind=kind)
     spec, host, geo, params, _ = _grad_problem(torch, dev, chain, N_CHECK, _bench_misalignment)
     svec = fg.chain_scalars_np(fg._apply_params_np(host, params), *geo)
     tang = fg.scalar_tangents(host, params, *geo)
     chunks = fg._ray_chunks(spec, fg.GRAD_CHUNK)
     _reset_launches()
     p_k, t_k = fg.fused_stats_params(spec, svec, tang, chunks, device=dev)
-    _check(_launches()["K6"] == 1 and tang.shape[0] == 18, f"K6 deformed: {_launches()}, {tang.shape}")
+    _check(_launches()["K6"] == 1 and tang.shape[0] == 18, f"K6 {kind}: {_launches()}, {tang.shape}")
     p_r, t_r = fg.stats_params_ref(spec, svec, tang, chunks, device=dev)
-    _check_grad_sums("K6 deformed flagship (18 tangent rows in one launch)", p_k, p_r, spec.opl_ref)
+    _check_grad_sums(f"K6 {kind} flagship (18 tangent rows in one launch)", p_k, p_r, spec.opl_ref)
     scale = np.maximum(np.abs(t_r).max(axis=0), 1e-12)
     per_stat = (np.abs(t_k - t_r) / scale).max(axis=0)
-    print("K6 deformed: the 18 tangent rows within " + ", ".join(
+    print(f"K6 {kind}: the 18 tangent rows within " + ", ".join(
         f"{f} {v:.3g}" for f, v in zip(ft.STATS_FIELDS, per_stat)) + " of each statistic's largest",
         flush=True)
     _check(np.all(np.isfinite(t_k)) and per_stat[:5].max() <= 2e-3 and per_stat[5:].max() <= 2e-2,
-           f"K6 deformed: tangents differ by {per_stat}")
+           f"K6 {kind}: tangents differ by {per_stat}")
     p7, _ = fg.fused_stats_params(spec, svec, None, chunks, device=dev)
     p7_r, _ = fg.stats_params_ref(spec, svec, None, chunks, device=dev)
-    _check_grad_sums("K7 deformed flagship", p7, p7_r, spec.opl_ref)
-    _check_grad_sums("K7 vs K6 primal deformed flagship", p7, p_k, spec.opl_ref)
+    _check_grad_sums(f"K7 {kind} flagship", p7, p7_r, spec.opl_ref)
+    _check_grad_sums(f"K7 vs K6 primal {kind} flagship", p7, p_k, spec.opl_ref)
     loss_k, dloss = fg._loss_from_stats(p_k, spec, fg._total_weight(spec))
     loss_r, dloss_r = fg._loss_from_stats(p_r, spec, fg._total_weight(spec))
     g_k, g_r = t_k @ dloss, t_r @ dloss_r
-    print(f"K6 deformed: loss {loss_k:.9g} vs {loss_r:.9g}, gradient max |diff| "
+    print(f"K6 {kind}: loss {loss_k:.9g} vs {loss_r:.9g}, gradient max |diff| "
           f"{np.abs(g_k - g_r).max():.3g} of max |g| {np.abs(g_r).max():.3g}", flush=True)
-    _check(abs(loss_k - loss_r) <= 2e-3 * abs(loss_r), f"K6 deformed: loss {loss_k} vs {loss_r}")
+    _check(abs(loss_k - loss_r) <= 2e-3 * abs(loss_r), f"K6 {kind}: loss {loss_k} vs {loss_r}")
     _check(np.all(np.abs(g_k - g_r) <= 2e-2 * np.abs(g_r).max() + 2e-2 * np.abs(g_r)),
-           f"K6 deformed: gradient {g_k} vs {g_r}")
+           f"K6 {kind}: gradient {g_k} vs {g_r}")
     loss7 = fg._loss_from_stats(p7, spec, fg._total_weight(spec))[0]
     loss7_r = fg._loss_from_stats(p7_r, spec, fg._total_weight(spec))[0]
 
@@ -1340,24 +1429,24 @@ def _zernike_k678(torch, dev):
     edge = chain.source_spec.gaussian_edge
     _reset_launches()
     k8 = ft.fused_source_stats(table, spec8, bdet, chunks8, n, device=dev, gaussian_edge=edge)
-    _check(_launches()["K8"] == 1, f"K8 deformed: {_launches()}")
+    _check(_launches()["K8"] == 1, f"K8 {kind}: {_launches()}")
     r8 = ft.fused_source_stats_ref(table, spec8, bdet, chunks8, n, device=dev, gaussian_edge=edge)
-    err8 = _check_sum_stats("K8 J=20 deformed flagship vs plain", k8, r8, opl_ref, distances)
+    err8 = _check_sum_stats(f"K8 J=20 {kind} flagship vs plain", k8, r8, opl_ref, distances)
     mom = ft.fused_source_moments(table, spec8, bdet._replace(distances=(0.0,), delay_offsets=(0.0,)),
                                   chunks8, n, device=dev, gaussian_edge=edge)
     k2 = ft.moments_to_distance_sums(mom, distances)
-    _check_sum_stats("K8 J=20 deformed flagship vs K2 moments", k8,
+    _check_sum_stats(f"K8 J=20 {kind} flagship vs K2 moments", k8,
                      np.stack([k2[f] for f in ft.STATS_FIELDS]), opl_ref, distances)
     return float(np.abs(g_k - g_r).max()), abs(loss7 - loss7_r), err8
 
 
-def _zernike_launches(torch, dev, chain):
-    """Prepared launch-only calls of K1-K8 on ``chain`` (the flagship or its
+def _kernel_launches(torch, dev, chain):
+    """Prepared launch-only calls of K1-K8 on ``chain`` (the flagship or a
     deformed twin) at 1e7 rays, each with its bound: {kernel: (launch,
     bound)}. K1, K2, K5, K7 and K8 (20 distances) as their phases prepare
     them on the flagship; K6 one gradient step (18 rows); K4 and K3 on a
     fresh 1e7-ray bundle of the flagship's source through the chain's
-    lab-frame table."""
+    lab-frame table. A grid map's bytes join each bound (:func:`_grid_bytes`)."""
     import numpy as np
 
     from attosecondraytracing_tpu_torch.ops import fused_grad as fg
@@ -1367,22 +1456,24 @@ def _zernike_launches(torch, dev, chain):
     spec, elements, det, (opl_ref, inv_dn), chunks, n = _k2_setup(torch, dev, chain, N_TIME)
     edge = chain.source_spec.gaussian_edge
     table = ft.chain_table(spec, elements)
+    grid_bytes = _grid_bytes(table.elements, n)
     outs, k1 = ft.prepare_fused_source_trace(table, spec, n, device=dev)
     k1()
     n_alive = int(outs.alive.sum())
     trace_ops = _trace_ops(table, True)
-    out = {"K1": (k1, _bound(37 * n, (trace_ops + OPS["store"]) * n))}
+    out = {"K1": (k1, _bound(37 * n + grid_bytes, (trace_ops + OPS["store"]) * n))}
     bdet = ft.bake_detector(elements, det.centre, det.normal, det._plane_rotation(), opl_ref=opl_ref,
                             inv_dn_chief=inv_dn)
     rows, k2 = ft.prepare_fused_source_moments(table, spec, bdet, chunks, n, device=dev, gaussian_edge=edge)
-    out["K2"] = (k2, _bound(rows.numel() * 8 + 8 * len(chunks),
+    out["K2"] = (k2, _bound(rows.numel() * 8 + 8 * len(chunks) + grid_bytes,
                             (trace_ops + OPS["weight"]) * n + OPS["moments"] * n_alive))
     host = [e.to_device("cpu", torch.float64) for e in chain.optical_elements]
     lab = ft.chain_table(None, host)
     bundle = ft.source_bundle(spec, n, device=dev)
     for key, fresh in (("K4", True), ("K3", False)):
         _, launch = ft.prepare_streamed_trace(lab, bundle, fresh=fresh, device=dev)
-        out[key] = (launch, _bound((61 if fresh else 74) * n, (_trace_ops(lab, False) + OPS["store"]) * n))
+        out[key] = (launch, _bound((61 if fresh else 74) * n + grid_bytes,
+                                   (_trace_ops(lab, False) + OPS["store"]) * n))
     sspec = fs.make_scan_spec(spec.kind, elements, n)
     svec = fs.scan_chain_scalars(elements, spec.rot, spec.origin, det.centre, det.normal,
                                  det._plane_rotation())
@@ -1390,7 +1481,7 @@ def _zernike_launches(torch, dev, chain):
     rows, k5 = fs.prepare_scan_moments(sspec, svec, aux, chunks, device=dev)
     unfolded = ft.ChainTable(sspec.elements, (), (), ((),) * len(sspec.elements))
     per_ray = _trace_ops(unfolded, True) + OPS["weight"]
-    out["K5"] = (k5, _bound(rows.numel() * 8 + 4 * (svec.size + aux.size),
+    out["K5"] = (k5, _bound(rows.numel() * 8 + 4 * (svec.size + aux.size) + grid_bytes,
                             per_ray * n + OPS["moments"] * n_alive))
     lspec, lhost, geo, params, _ = _grad_problem(torch, dev, chain, n, _bench_misalignment)
     gsvec = fg.chain_scalars_np(fg._apply_params_np(lhost, params), *geo)
@@ -1403,38 +1494,39 @@ def _zernike_launches(torch, dev, chain):
         if group is not None:
             P = len(group)
             ops += (OPS["dual_trace_once"] + P * OPS["dual_trace_tangent"]
-                    + _dual_zernike_ops(lspec.elements, P)) * n
+                    + _dual_defect_ops(lspec.elements, P)) * n
             ops += (OPS["dual_stats_once"] + P * OPS["dual_stats_tangent"]) * n_alive
             n_in += group.size
-        out[key] = (launch, _bound(rows.numel() * 8 + 4 * n_in + 8 * len(gchunks), ops))
+        out[key] = (launch, _bound(rows.numel() * 8 + 4 * n_in + 8 * len(gchunks) + grid_bytes, ops))
     distances = tuple(float(d) for d in np.linspace(-10, 10, 20))
     bdet20 = ft.bake_detector(elements, det.centre, det.normal, det._plane_rotation(), opl_ref=opl_ref,
                               inv_dn_chief=inv_dn, distances=distances,
                               delay_offsets=tuple(-d * inv_dn for d in distances))
     rows, k8 = ft.prepare_fused_source_stats(table, spec, bdet20, chunks, n, device=dev, gaussian_edge=edge)
-    out["K8"] = (k8, _bound(rows.numel() * 8 + 8 * len(chunks) + 8 * 20,
+    out["K8"] = (k8, _bound(rows.numel() * 8 + 8 * len(chunks) + 8 * 20 + grid_bytes,
                             (trace_ops + OPS["weight"]) * n
                             + n_alive * (OPS["stats_geometry"] + 20 * OPS["stats_distance"])))
     return out
 
 
-def phase_zernike(torch, dev):
-    """Zernike surface defects through the slice's path and every kernel:
-    the main path on the deformed flagship (:func:`_zernike_main_path`),
-    each kernel against its plain version on the deformed chain
-    (:func:`_zernike_k12`, :func:`_zernike_k34`, :func:`_zernike_k5`,
-    :func:`_zernike_k678`), then each kernel's launch-only time on the
-    deformed flagship at 1e7 rays beside the undeformed flagship's, in turns
-    (flagship, deformed, deformed, flagship). Returns ({kernel: the
-    phase's numbers}, the main path's launches)."""
-    launches = _zernike_main_path(torch, dev)
-    err1, err2 = _zernike_k12(torch, dev)
-    err3, err4 = _zernike_k34(torch, dev)
-    err5 = _zernike_k5(torch, dev)
-    err6, err7, err8 = _zernike_k678(torch, dev)
+def _deformed_phase(torch, dev, kind):
+    """Surface defects of ``kind`` ("zernike" or "grid") through the slice's
+    path and every kernel: the main path on the deformed flagship
+    (:func:`_deformed_main_path`), each kernel against its plain version on
+    the deformed chain (:func:`_deformed_k12`, :func:`_deformed_k34`,
+    :func:`_deformed_k5`, :func:`_deformed_k678`), then each kernel's
+    launch-only time on the deformed flagship at 1e7 rays beside the
+    undeformed flagship's, in turns (flagship, deformed, deformed,
+    flagship). Returns ({kernel: the phase's numbers, keys prefixed by
+    ``kind``}, the main path's launches)."""
+    launches = _deformed_main_path(torch, dev, kind)
+    err1, err2 = _deformed_k12(torch, dev, kind)
+    err3, err4 = _deformed_k34(torch, dev, kind)
+    err5 = _deformed_k5(torch, dev, kind)
+    err6, err7, err8 = _deformed_k678(torch, dev, kind)
     errs = {"K1": err1, "K2": err2, "K3": err3, "K4": err4, "K5": err5, "K6": err6, "K7": err7, "K8": err8}
-    flat = _zernike_launches(torch, dev, _flagship(N_CHECK)[0])
-    deformed = _zernike_launches(torch, dev, _deformed_flagship(N_CHECK)[0])
+    flat = _kernel_launches(torch, dev, _flagship(N_CHECK)[0])
+    deformed = _kernel_launches(torch, dev, _deformed_flagship(N_CHECK, kind=kind)[0])
     out = {}
     for key in sorted(errs):
         reps, inner = (3, 3) if key == "K6" else (5, 5)
@@ -1444,13 +1536,148 @@ def phase_zernike(torch, dev):
         t_flat2 = _time_ms(flat[key][0], torch, reps=reps, inner=inner)
         ms, flat_ms = (t_def + t_def2) / 2, (t_flat + t_flat2) / 2
         bound = deformed[key][1]
-        print(f"{key} at {N_TIME} rays: deformed flagship {ms:.4f} ms, flagship {flat_ms:.4f} ms "
-              f"(ratio {ms / flat_ms:.4f}); deformed bound {bound['bound_ms']:.4f} ms "
+        print(f"{key} at {N_TIME} rays: {kind} flagship {ms:.4f} ms, flagship {flat_ms:.4f} ms "
+              f"(ratio {ms / flat_ms:.4f}); {kind} bound {bound['bound_ms']:.4f} ms "
               f"({bound['bound_by']}), flagship bound {flat[key][1]['bound_ms']:.4f} ms; kernel vs plain "
-              f"on the deformed chain {errs[key]:.3g}", flush=True)
-        out[key] = {"zernike_ms": ms, "zernike_flat_ms": flat_ms, "zernike_bound_ms": bound["bound_ms"],
-                    "zernike_bound_by": bound["bound_by"], "zernike_max_abs_err": errs[key]}
+              f"on the {kind} chain {errs[key]:.3g}", flush=True)
+        out[key] = {f"{kind}_ms": ms, f"{kind}_flat_ms": flat_ms, f"{kind}_bound_ms": bound["bound_ms"],
+                    f"{kind}_bound_by": bound["bound_by"], f"{kind}_max_abs_err": errs[key]}
     return out, launches
+
+
+def phase_zernike(torch, dev):
+    """Zernike surface defects through the slice's path and every kernel
+    (:func:`_deformed_phase` on the Zernike-deformed flagship)."""
+    return _deformed_phase(torch, dev, "zernike")
+
+
+def _config_deformed(torch, dev):
+    """examples/CONFIG_deformed.py (a parabola with a Fourier-PSD map of
+    8000 x 8000 nodes, 1 GB packed) at --rays 1e7 through the port's CLI,
+    the launch counts set to 0 just before it: exactly one K1 launch and no
+    other kernel; then the plain trace (engine "trace") of the same loaded
+    chain on the card, summarized at the CLI's detector: transmission within
+    0.05 %, spot SD 1e-3 relative, duration SD 1e-2 relative (the CLI
+    envelopes of phase cli). Then K1's launch alone on the loaded chain
+    beside the same chain without its map, in turns. Returns {"ms",
+    "flat_ms"} of those launches."""
+    from attosecondraytracing_tpu_torch.analysis import stats
+    from attosecondraytracing_tpu_torch.main import run_config_file
+    from attosecondraytracing_tpu_torch.ops import fused_trace as ft
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    kept = run_config_file(str(ROOT / "examples" / "CONFIG_deformed.py"), n_rays=N_CONFIG_DEFORMED,
+                           device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    chain, det = kept["OpticalChain"][0], kept["Detector"][0]
+    tg, sg, dg = kept["ETransmission"][0], kept["SpotSizeSD"][0], kept["DurationSD"][0]
+    print(f"CONFIG_deformed.py --rays {N_CONFIG_DEFORMED}: engine {chain.last_trace_engine}, launches "
+          f"{launches}, run_config_file wall {wall:.3f} s (the map's synthesis included)", flush=True)
+    _check(chain.last_trace_engine == "cuda-source" and launches["K1"] == 1
+           and all(v == 0 for k, v in launches.items() if k != "K1"),
+           f"CONFIG_deformed: engine {chain.last_trace_engine}, launches {launches}")
+    t0 = time.perf_counter()
+    ref = chain.trace_final(engine="trace")
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    tr = stats.energy_transmission(chain.source_rays, ref)
+    sr, dr = (float(v) for v in det.get_SpotAndDuration(ref))
+    print(f"CONFIG_deformed.py at {N_CONFIG_DEFORMED} rays: K1 T {tg:.6g} % spot {sg:.6g} mm duration "
+          f"{dg:.6g} fs; plain trace T {tr:.6g} % spot {sr:.6g} mm duration {dr:.6g} fs "
+          f"(plain trace {t_plain:.3f} s)", flush=True)
+    _check(abs(tg - tr) <= 0.05, f"CONFIG_deformed: transmission {tg} vs {tr}")
+    _check(abs(sg - sr) <= 1e-3 * abs(sr), f"CONFIG_deformed: spot SD {sg} vs {sr}")
+    _check(abs(dg - dr) <= 1e-2 * abs(dr), f"CONFIG_deformed: duration SD {dg} vs {dr}")
+    spec, n = chain.source_spec.baked(), chain.source_spec.n_rays
+    table = ft.chain_table(spec, [e.to_device("cpu", torch.float64) for e in chain.optical_elements])
+    bare = table._replace(elements=tuple(el._replace(defects=()) if getattr(el, "defects", ()) else el
+                                         for el in table.elements))
+    launches = {"ms": ft.prepare_fused_source_trace(table, spec, n, device=dev)[1],
+                "flat_ms": ft.prepare_fused_source_trace(bare, spec, n, device=dev)[1]}
+    times = {key: [] for key in launches}
+    for key in ("flat_ms", "ms", "ms", "flat_ms"):
+        times[key].append(_time_ms(launches[key], torch))
+    out = {key: sum(v) / 2 for key, v in times.items()}
+    print(f"CONFIG_deformed.py K1 launch at {n} rays: {out['ms']:.4f} ms with its map (1 GB packed, in HBM), "
+          f"{out['flat_ms']:.4f} ms without it", flush=True)
+    return out
+
+
+def phase_grid(torch, dev):
+    """Grid defect maps through the slice's path and every kernel
+    (:func:`_deformed_phase` on the grid flagship, :data:`GRID`), and
+    examples/CONFIG_deformed.py at 1e7 rays through the CLI
+    (:func:`_config_deformed`). Returns {kernel: the phase's numbers}, K1's
+    with the CONFIG's launch times (``config_deformed_ms``,
+    ``config_deformed_flat_ms``)."""
+    out, _ = _deformed_phase(torch, dev, "grid")
+    config = _config_deformed(torch, dev)
+    out["K1"].update(config_deformed_ms=config["ms"], config_deformed_flat_ms=config["flat_ms"])
+    return out
+
+
+def phase_gather(torch, dev):
+    """The gather probes P4 and P5 (utils/gather_probe.py): the probe's run
+    at the script's shapes with the launch counts set to 0 just before it
+    (every form and case once), each output against its plain version
+    (gathers equal, bilinear within the script's 1e-5), the trace's lookup
+    against its plain version on the grid flagship's map size, then
+    launch-only times: each form and case, and the lookup over 1e7 points of
+    three maps in two orders. Returns the JSON entries of P4 and P5."""
+    from attosecondraytracing_tpu_torch.utils import gather_probe as gp
+
+    gp.gather.launches = gp.take_along.launches = 0
+    outs, (g, x, y, operands) = gp.probe(device=dev)
+    torch.cuda.synchronize()
+    launches = {"P4": gp.gather.launches, "P5": gp.take_along.launches}
+    _check(launches == {"P4": 4, "P5": 4}, f"gather probe launches {launches}")
+    err4 = 0.0
+    forms = {}
+    for form in gp.GATHER_FORMS:
+        ref = gp.gather_ref(form, g, x, y)
+        err = float((outs[form] - ref).abs().max())
+        _check(err <= gp.ATOL if form == "bilinear" else err == 0.0, f"P4 {form}: differs by {err}")
+        err4 = max(err4, err)
+        ms = _time_ms(lambda: gp.gather(form, g, x, y), torch)
+        plain = _time_ms(lambda: gp.gather_ref(form, g, x, y), torch)
+        forms[form] = {"ms": ms, "plain_ms": plain, "max_abs_err": err}
+        print(f"P4 {form}: max |kernel - plain| {err:.3g}, {ms:.4f} ms, plain {plain:.4f} ms", flush=True)
+    cases = {}
+    for (name, shape, axis), op in zip(gp.TAKE_CASES, operands):
+        _check(bool(torch.equal(outs[name], gp.take_along_ref(op, axis))), f"P5 {name}: differs")
+        ms = _time_ms(lambda: gp.take_along(op, axis), torch)
+        plain = _time_ms(lambda: gp.take_along_ref(op, axis), torch)
+        cases[name] = {"ms": ms, "plain_ms": plain, "bytes": 8 * op.numel()}
+        print(f"P5 {name}: equal, {ms:.4f} ms, plain {plain:.4f} ms", flush=True)
+    grid = gp.random_grid((3000, 640), device=dev)
+    px, py = gp.probe_points((3000, 640), N_CHECK, "spiral", device=dev)
+    lookup_err = float((gp.lookup(grid, px, py) - gp.lookup_ref(grid, px, py)).abs().max())
+    print(f"lookup (grid_sums) on 3000 x 640 at {N_CHECK} points: max |kernel - plain| {lookup_err:.3g}",
+          flush=True)
+    _check(lookup_err <= 1e-5, f"the trace's lookup differs from its plain version by {lookup_err}")
+    del grid, px, py
+    lookups = gp.lookup_timings(device=dev)
+    for row in lookups:
+        print(f"lookup {row['map']} ({row['map_mb']:.1f} MB packed), {row['order']} order: {row['ms']:.4f} ms "
+              f"per {row['points']} points, {row['sectors_per_point']:.3f} sectors per point at "
+              f"{gp.HBM_BYTES_PER_S:.3g} B/s", flush=True)
+    n_pts = x.numel()
+    bil = forms["bilinear"]
+    p4 = {"name": "P4 gather_forms (bilinear form; the four forms in forms)", "route": "cuda",
+          "source": CSRC + "gather_probe.cu", "replaces": "scripts/exp_mosaic_gather.py:28",
+          "launches": launches["P4"], "max_abs_err": err4, "ms": bil["ms"], "plain_ms": bil["plain_ms"],
+          # x, y in, the output out, four 4-byte corners per point
+          **_bound(n_pts * (8 + 4 + 16), 19 * n_pts), "library_ms": None, "forms": forms,
+          "lookup": lookups, "lookup_max_abs_err": lookup_err}
+    big = cases["taa_axis0_512x128"]
+    p5 = {"name": "P5 take_along (case taa_axis0_512x128; all four in cases)", "route": "cuda",
+          "source": CSRC + "gather_probe.cu", "replaces": "scripts/exp_mosaic_gather.py:115",
+          "launches": launches["P5"], "max_abs_err": 0.0, "ms": big["ms"], "plain_ms": big["plain_ms"],
+          **_bound(big["bytes"], 0), "library_ms": None, "cases": cases}
+    return [p4, p5]
 
 
 def phase_cli(torch):
@@ -1543,6 +1770,8 @@ def main():
     k8, k8_launches = phase("k8", lambda: phase_k8(torch, dev, n_alive))
     timed["K8"] = k8[20]
     zernike, zernike_launches = phase("zernike", lambda: phase_zernike(torch, dev))
+    grid = phase("grid", lambda: phase_grid(torch, dev))
+    probes = phase("gather", lambda: phase_gather(torch, dev))
     phase("cli", lambda: phase_cli(torch))
     launches.update(K1=slice_launches["K1"], K2=slice_launches["K2"], K5=scan_launches["K5"],
                     K6=grad_launches["K6"], K7=k7_launches["K7"], K8=k8_launches)
@@ -1566,8 +1795,8 @@ def main():
          "attosecondraytracing_tpu/ops/pallas_trace.py:931"),
     )
     kernels = [{"name": name, "route": "cuda", "source": CSRC + src, "replaces": replaces,
-                "launches": launches[key], **timed[key], "library_ms": None, **zernike[key]}
-               for key, name, src, replaces in rows]
+                "launches": launches[key], **timed[key], "library_ms": None, **zernike[key], **grid[key]}
+               for key, name, src, replaces in rows] + probes
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

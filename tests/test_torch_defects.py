@@ -234,27 +234,32 @@ def _deformed_flagship(defect_fn, n_rays=2048):
 
 def test_grid_defect_refused_at_kernel_size(monkeypatch):
     """A chain with a grid defect map takes the plain streamed trace below
-    PALLAS_MIN_RAYS; at or above it the kernel engines refuse it on the CPU
-    and on a CUDA device alike, before anything is allocated, naming ROADMAP
-    queue 2 entry G."""
+    PALLAS_MIN_RAYS and the kernel engines at or above it (their plain
+    versions on the CPU), within the kernels' envelopes of the plain trace
+    (tests/test_pallas.py:44-51); what the kernels refuse at that size is
+    only what exceeds their caps: more than MAX_GRIDS grid maps raise
+    NotImplementedError naming the cap, on a CUDA device before anything is
+    allocated or uploaded."""
     chain = _deformed_flagship(lambda s: tdef.Fourrier(s, RMS=1e-4, smallest=1.0, seed=3)).to("cpu")
     out = chain.trace_final()
     assert chain.last_trace_engine == "trace" and int(out.alive.sum()) > 500
     monkeypatch.setattr(tchain, "PALLAS_MIN_RAYS", 1024)
     assert chain.fused_eligible()
-    for device in ("cpu", "cuda"):
-        chain.device = torch.device(device)  # a CUDA device, without touching a card
-        with pytest.raises(NotImplementedError, match="queue 2 entry G"):
-            chain.trace_final()
-    chain.device = torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="queue 2 entry G"):
-        ft.chain_table(None, chain.device_elements(torch.float64))
-    from attosecondraytracing_tpu_torch import main as tmain
-
-    with pytest.raises(NotImplementedError, match="queue 2 entry G"):
-        tmain.main(chain, {}, {"DistanceDetector": 500.0, "AutoDetectorDistance": True},
-                   {"verbose": False}, device="cpu")
-    assert chain.trace_final(engine="trace").alive.sum() > 500
+    fused = chain.trace_final()
+    assert chain.last_trace_engine == "torch-source"
+    both = fused.alive & out.alive
+    assert int(both.sum()) > 500 and int((fused.alive != out.alive).sum()) <= 2
+    dp = (fused.p[both] - out.p[both].float()).abs()
+    assert float(dp.median()) < 1e-3 and float(dp.max()) < 5e-2
+    table = ft.chain_table(None, chain.device_elements(torch.float64))  # the mask is folded
+    (grid,) = table.elements[0].defects
+    crowded = table._replace(elements=(table.elements[0]._replace(defects=(grid,) * 5),)
+                             + table.elements[1:])
+    with pytest.raises(NotImplementedError, match="MAX_GRIDS = 4"):
+        ft.pack_chain(crowded)
+    with pytest.raises(NotImplementedError, match="MAX_GRIDS = 4"):
+        ft.streamed_trace(crowded, chain.source_rays, device="cuda")
+    assert int(ft.streamed_trace(crowded, chain.source_rays, device="cpu").alive.sum()) > 500
 
 
 def test_zernike_kernel_caps_refused():
@@ -270,7 +275,7 @@ def test_zernike_kernel_caps_refused():
     assert zk["max_order"] == 8 and zk["inv_r"] == np.float32(1.0 / tsupp_radius())
     for (n, m), c in {(8, 4): 1e-5, **COEFFS}.items():
         assert zk["c"][n * (n + 1) // 2 + m] == np.float32(c)
-    assert ft.CHAIN_T.itemsize == 2512
+    assert ft.CHAIN_T.itemsize == 2744 and ft.CHAIN_V4_BYTES == 2512  # grid maps after version 4's fields
 
     high = _deformed_flagship(lambda s: tdef.Zernike(s, {(9, 2): 1e-5})).to("cpu")
     table = ft.chain_table(spec, high.device_elements(torch.float64))

@@ -2,8 +2,9 @@
 fails, the package imports, builds the flagship chain, traces it on the CPU
 through the plain, fused-source and streamed engines, takes alignment steps
 through both gradient engines, runs the per-distance stats pass, and runs a
-two-chain scan through the scan engine, and traces a Zernike-deformed chain
-(``models/defects``, ``ops/defects``, ``ops/zernike``)."""
+two-chain scan through the scan engine, traces a Zernike-deformed chain
+(``models/defects``, ``ops/defects``, ``ops/zernike``) and a grid-deformed
+one (``ops/xla_source``), and runs the gather probes (``utils/gather_probe``)."""
 
 import os
 import subprocess
@@ -69,6 +70,20 @@ z_fused = bent.trace_final(False)
 assert bent.last_trace_engine == "torch-source"
 z_plain = bent.trace_final(False, engine="trace")
 assert abs(int(z_fused.alive.sum()) - int(z_plain.alive.sum())) <= 2
+# a grid-deformed flagship through the fused engine (ops/xla_source's names)
+# and the gather probes' plain versions
+from attosecondraytracing_tpu_torch.ops import xla_source
+from attosecondraytracing_tpu_torch.utils import gather_probe
+gdef = defects.Fourrier(supports.SupportRectangle(150, 32), RMS=1e-4, smallest=1.0, seed=3)
+gridded = art.OEPlacement(props, [mask, mirrors.DeformedMirror(tor, [gdef]), tor], [400, 100, 500],
+                          [0, 80, -80], [0, 0, 0]).to("cpu")
+g_fused = gridded.trace_final(False)
+assert gridded.last_trace_engine == "torch-source"
+g_xla = xla_source.xla_trace_source(gridded.source_spec.baked(), gridded.device_elements(), 4096,
+                                    ignore_defects=False)
+assert abs(int(g_fused.alive.sum()) - int(g_xla.alive.sum())) <= 2
+outs, _ = gather_probe.probe(device="cpu")
+assert len(outs) == 8
 assert art.defects is defects
 assert not any(name == "jax" or name.startswith(("jax.", "jaxlib", "attosecondraytracing_tpu."))
                for name, mod in sys.modules.items() if mod is not None)
