@@ -96,8 +96,14 @@ def detector_points_2d(bundle: RayBundle, centre, normal, rot):
     the host rotation taking ``normal`` onto ez. The product is written out
     component-wise in the bundle's dtype (full float32 on the card)."""
     pts3, _ = detector_points_3d(bundle, centre, normal)
-    rel = pts3 - _like(centre, bundle.p)
-    R = _like(rot, bundle.p)
+    return plane_coords(pts3, centre, rot)
+
+
+def plane_coords(pts3, centre, rot):
+    """In-plane coordinates of lab points ``pts3`` on the detector plane
+    (:func:`detector_points_2d` from impact points already computed)."""
+    rel = pts3 - _like(centre, pts3)
+    R = _like(rot, pts3)
     x = rel[:, 0] * R[0, 0] + rel[:, 1] * R[0, 1] + rel[:, 2] * R[0, 2]
     y = rel[:, 0] * R[1, 0] + rel[:, 1] * R[1, 1] + rel[:, 2] * R[1, 2]
     return torch.stack([x, y], dim=-1)

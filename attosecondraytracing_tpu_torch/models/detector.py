@@ -3,8 +3,8 @@
 
 The Detector object itself is host-side (centre/normal/refpoint as float64
 NumPy); its responses evaluate on the bundle's device via
-:mod:`attosecondraytracing_tpu_torch.analysis.stats`. Detector images are not
-ported yet.
+:mod:`attosecondraytracing_tpu_torch.analysis.stats` and, for images,
+:mod:`attosecondraytracing_tpu_torch.analysis.histogram`.
 """
 
 from __future__ import annotations
@@ -90,3 +90,26 @@ class Detector:
         return stats.spot_and_duration(
             bundle, self.centre, self.normal, self._plane_rotation(), intensity_weighted
         )
+
+    def get_Image(self, bundle: RayBundle, bins=(256, 256), extent=None, intensity_weighted=True):
+        """Intensity image ``(image, (lo, hi))`` binned where the bundle
+        lives: the reference's SpotDiagram scatter
+        (ART/ModuleAnalysisAndPlots.py:133-280) at any bundle size
+        (:func:`~..analysis.histogram.detector_image`)."""
+        self._iscomplete()
+        from ..analysis.histogram import detector_image
+
+        return detector_image(bundle, self.centre, self.normal, self._plane_rotation(),
+                              bins=tuple(bins), extent=extent,
+                              intensity_weighted=intensity_weighted)
+
+    def get_DelayMap(self, bundle: RayBundle, bins=(256, 256), extent=None, intensity_weighted=True):
+        """Per-pixel mean delay [fs] binned where the bundle lives: the
+        binned DelayGraph (ART/ModuleAnalysisAndPlots.py:284-440). Returns
+        ``(mean_delay, weight_image, (lo, hi))``
+        (:func:`~..analysis.histogram.delay_map`)."""
+        self._iscomplete()
+        from ..analysis.histogram import delay_map
+
+        return delay_map(bundle, self.centre, self.normal, self._plane_rotation(),
+                         bins=tuple(bins), extent=extent, intensity_weighted=intensity_weighted)

@@ -27,9 +27,9 @@ import numpy as np
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 #: compiled sources, one object each: K1, K2 and K8; K5; K3 and K4; K6 and
-#: K7; the gather probes P4 and P5
+#: K7; the gather probes P4 and P5; the cost probes P1-P3
 UNITS = ("fused_trace.cu", "fused_scan.cu", "streamed_trace.cu", "fused_grad.cu",
-         "gather_probe.cu")
+         "gather_probe.cu", "cost_probe.cu")
 SOURCES = UNITS + ("trace_common.cuh", "dual.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -137,7 +137,7 @@ def bind(lib, chain_bytes: int) -> ctypes.CDLL:
     is a prefix of this version's record, which such a library reads: 4's
     before the grid maps, 3's before the Zernike tables), the others as the
     numpy records. The gather probes of version 5 are bound by
-    ``utils/gather_probe.py``."""
+    ``utils/gather_probe.py``, the cost probes by ``utils/cost_probe.py``."""
     from .fused_scan import N_AUX
     from .fused_trace import DETECTOR_T, SOURCE_T
 

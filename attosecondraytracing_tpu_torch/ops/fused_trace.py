@@ -707,39 +707,56 @@ def _cuda_device(device, name):
     return device
 
 
-def prepare_fused_source_trace(table: ChainTable, spec: BakedSource, n_rays: int, *,
-                               device, phase=0.0, k_frac=0.0, n_total=None, ignore_defects=True):
-    """K1's host work for a CUDA ``device``: pack the records (raising on
-    what the kernel does not take) and allocate the outputs. Returns
-    ``(outputs, launch)``; each ``launch()`` runs the kernel once into the
-    outputs and counts it in ``fused_source_trace.launches``."""
-    _check_trace_args(n_rays)
+def prepare_fused_source_chunks(table: ChainTable, spec: BakedSource, chunk: int, n_total: int, *,
+                                device, ignore_defects=True):
+    """K1's host work for a loop of launches over one source on a CUDA
+    ``device``: pack the records once (raising on what the kernel does not
+    take; the source record for ``n_total`` rays) and allocate one set of
+    outputs of ``chunk`` rays. Returns ``(outputs, launch)``; each
+    ``launch(n_local, phase, k_frac)`` runs the kernel once over ``n_local
+    <= chunk`` rays of the chunk ``(phase, k_frac)`` (:func:`source_chunks`)
+    into the first ``n_local`` rows of the outputs and counts it in
+    ``fused_source_trace.launches``. Nothing synchronizes."""
+    _check_trace_args(chunk)
     device = _cuda_device(device, "fused_source_trace")
     chain_rec = pack_chain(table, ignore_defects, device)
     grids = launch_grids(table.elements, device)
-    src_rec = pack_source(spec, n_total or n_rays)
+    src_rec = pack_source(spec, n_total)
     f32 = torch.float32
     outs = TraceOutputs(
-        p=torch.empty((n_rays, 3), dtype=f32, device=device),
-        d=torch.empty((n_rays, 3), dtype=f32, device=device),
-        opl=torch.empty((n_rays,), dtype=f32, device=device),
-        opl_c=torch.empty((n_rays,), dtype=f32, device=device),
-        alive=torch.empty((n_rays,), dtype=torch.bool, device=device),
-        incidence=torch.empty((n_rays,), dtype=f32, device=device),
+        p=torch.empty((chunk, 3), dtype=f32, device=device),
+        d=torch.empty((chunk, 3), dtype=f32, device=device),
+        opl=torch.empty((chunk,), dtype=f32, device=device),
+        opl_c=torch.empty((chunk,), dtype=f32, device=device),
+        alive=torch.empty((chunk,), dtype=torch.bool, device=device),
+        incidence=torch.empty((chunk,), dtype=f32, device=device),
     )
     for name, x in outs._asdict().items():
         _check_out(name, x, torch.bool if name == "alive" else f32, outs.p.device)
     from . import _cuda
 
-    def launch():
+    def launch(n_local, phase, k_frac):
+        if not 0 < n_local <= chunk:
+            raise ValueError(f"a launch takes 0 < n_local <= {chunk} rays, got {n_local}")
         with torch.cuda.device(outs.p.device):
             stream = torch.cuda.current_stream(outs.p.device).cuda_stream
             _cuda.launch_fused_source_trace(
-                chain_rec, src_rec, n_rays, float(phase), float(k_frac),
+                chain_rec, src_rec, n_local, float(phase), float(k_frac),
                 outs.p, outs.d, outs.opl, outs.opl_c, outs.alive, outs.incidence, stream, grids)
         fused_source_trace.launches += 1
 
     return outs, launch
+
+
+def prepare_fused_source_trace(table: ChainTable, spec: BakedSource, n_rays: int, *,
+                               device, phase=0.0, k_frac=0.0, n_total=None, ignore_defects=True):
+    """K1's host work for one launch (:func:`prepare_fused_source_chunks`
+    with one chunk of ``n_rays``). Returns ``(outputs, launch)``; each
+    ``launch()`` runs the kernel once into the outputs and counts it in
+    ``fused_source_trace.launches``."""
+    outs, launch_chunk = prepare_fused_source_chunks(table, spec, n_rays, n_total or n_rays,
+                                                     device=device, ignore_defects=ignore_defects)
+    return outs, lambda: launch_chunk(n_rays, phase, k_frac)
 
 
 def fused_source_trace(table: ChainTable, spec: BakedSource, n_rays: int, *,

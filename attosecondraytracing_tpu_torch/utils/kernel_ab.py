@@ -363,21 +363,13 @@ def first_toroid_defects(kind: str, support):
     return []
 
 
-def _problems(n_rays: int, device, kind: str = "flat"):
-    """The flagship (round-hole mask and two grazing toroids in f-d-f, 25
-    mrad cone source; its first toroid deformed by
-    :func:`first_toroid_defects` of ``kind``) at ``n_rays`` rays: prepared
-    launches of K1, K3 and K4 (any build), and ``per_lib(lib, version)``
-    giving each library's ``{kernel: (launch, result)}`` of K2, K8 (1, 20
-    and 128 distances over +-10 mm, per-distance chief-ray delay offsets),
-    K5, K6 (the step's 18 tangent rows of scripts/bench_fused_grad.py's
-    misalignment, Gaussian edge exp(-2)) and K7."""
-    from ..analysis import alignment as al
+def flagship(n_rays: int = 16, kind: str = "flat"):
+    """The flagship (round-hole mask and two grazing toroids at 80 deg in
+    f-d-f, ``__graft_entry__._flagship_chain``; its first toroid deformed by
+    :func:`first_toroid_defects` of ``kind``) as host float64 element
+    records, and its cone source (25 mrad along +x) of ``n_rays`` rays."""
     from ..models import masks, mirrors, supports
-    from ..models.detector import Detector
     from ..models.placement import OEPlacement
-    from ..ops import fused_grad as fg
-    from ..ops import fused_scan as fs
     from ..ops import fused_trace as ft
 
     R, r = mirrors.ReturnOptimalToroidalRadii(500.0, 80.0)
@@ -388,9 +380,27 @@ def _problems(n_rays: int, device, kind: str = "flat"):
     props = {"Divergence": 25e-3, "SourceSize": 0, "Wavelength": 80e-6, "NumberRays": 16}
     chain = OEPlacement(props, [mask, first, tor], [400.0, 100.0, 500.0], [0.0, 80.0, -80.0],
                         [0.0, 0.0, 0.0])
-    host = [e.to_device("cpu", torch.float64) for e in chain.optical_elements]
-    edge = float(np.exp(-2.0))
     spec = ft.make_source_spec("cone", np.zeros(3), np.array([1.0, 0.0, 0.0]), 25e-3, n_rays=n_rays)
+    return [e.to_device("cpu", torch.float64) for e in chain.optical_elements], spec
+
+
+def _problems(n_rays: int, device, kind: str = "flat"):
+    """The flagship (round-hole mask and two grazing toroids in f-d-f, 25
+    mrad cone source; its first toroid deformed by
+    :func:`first_toroid_defects` of ``kind``) at ``n_rays`` rays: prepared
+    launches of K1, K3 and K4 (any build), and ``per_lib(lib, version)``
+    giving each library's ``{kernel: (launch, result)}`` of K2, K8 (1, 20
+    and 128 distances over +-10 mm, per-distance chief-ray delay offsets),
+    K5, K6 (the step's 18 tangent rows of scripts/bench_fused_grad.py's
+    misalignment, Gaussian edge exp(-2)) and K7."""
+    from ..analysis import alignment as al
+    from ..models.detector import Detector
+    from ..ops import fused_grad as fg
+    from ..ops import fused_scan as fs
+    from ..ops import fused_trace as ft
+
+    host, spec = flagship(n_rays, kind)
+    edge = float(np.exp(-2.0))
     table = ft.chain_table(spec, host)
     outs, k1 = ft.prepare_fused_source_trace(table, spec, n_rays, device=device)
     k1()

@@ -34,6 +34,17 @@ port's paths through the entry points a user calls, and checks the results:
 * the gather probes P4 and P5 (``utils/gather_probe.py``) against their
   plain versions at the script's shapes, and the trace's lookup timed on
   three maps in two point orders;
+* giga-ray images (``analysis/gigascan.py``): ``fused_source_images`` on the
+  flagship with its second toroid rolled 0.05 deg at 1e9 rays into 512 x 512
+  pixels (exactly 120 K1 launches, chunks of 2^23 rays), the split of its
+  wall between K1 and the binning, kernel vs plain at 1e8 rays, the 1e7-ray
+  image against ``Detector.get_Image`` / ``get_DelayMap`` of the K1 bundle of
+  the same spiral, kernel vs plain on the grid flagship (slopes in the
+  normals) and on an extended source;
+* the cost probes P1-P3 (``utils/cost_probe.py``) against their plain
+  versions: P1's first launch from a fresh library load and its steady
+  launch latency, P2's cost per operation of the nine ops slope-timed over
+  the op count, P3's copy floor against K4 on four subsets of the flagship;
 * the CLI path on ``examples/CONFIG_singleparabola.py``,
   ``examples/CONFIG_gradient_alignment.py`` (a CONFIG that aligns its chain
   while it loads) and ``examples/CONFIG_deformed.py`` at its 1000 rays (the
@@ -67,7 +78,13 @@ chain at 1e7 rays with and without the map). The entries P4 and P5 follow:
 their launches in the probe's run, the largest error against the plain
 version, the bilinear form's (P4) and the largest case's (P5) launch, and
 P4's ``lookup``: the trace's lookup over 1e7 points of each map and point
-order, with the sectors per point its time gives at the HBM rate.
+order, with the sectors per point its time gives at the HBM rate. K1's entry
+carries the image phase's numbers (``images``: its launches, wall, rays/s,
+K1's summed launch time, the rest, the comparisons). The entries P1-P3
+follow: their launches in the probes' run, the largest error against the
+plain version, the launch alone (P1 on its tile, P2 fma at 40 ops over
+(78336, 128), P3 over 1e7 rays), P1's first-launch seconds, P2's
+slope-timed ``ops``, P3's K4 subsets and K4's compute share.
 """
 
 from __future__ import annotations
@@ -169,6 +186,21 @@ GRID_EFFECT_RMS = 1e-4
 #: rays of examples/CONFIG_deformed.py through the CLI (its map: 8000 x 8000
 #: nodes, 1 GB packed, in HBM)
 N_CONFIG_DEFORMED = 10_000_000
+#: the giga-ray images (analysis/gigascan.py): rays of the full-width image
+#: (chunks of 2^23 rays, one K1 launch each), of the kernel-vs-plain images,
+#: and of the image held against the bundle path; the images' pixels; the
+#: roll [deg] of the flagship's second toroid (examples/gigaray_delay_map.py)
+N_IMAGE = 1_000_000_000
+N_IMAGE_CHECK = 100_000_000
+N_IMAGE_BUNDLE = 10_000_000
+IMAGE_BINS = (512, 512)
+IMAGE_ROLL = 0.05
+#: the image size and ray count of tests/test_gigascan.py's image
+#: comparisons: the kernel-vs-plain images' mean delays are held on blocks of
+#: this size holding more than 5 weight per PRECEDENT_RAYS rays, the JAX
+#: tests' share (as tests/test_torch_gigascan.py's MIN_WEIGHT scales it)
+PRECEDENT_BINS = (64, 64)
+PRECEDENT_RAYS = 16384
 
 
 def _fail(msg):
@@ -1680,6 +1712,479 @@ def phase_gather(torch, dev):
     return [p4, p5]
 
 
+def _image_chain(torch, dev, chain):
+    """(source spec, float32 elements on the card, detector autoplaced at
+    the focal distance behind the chain's K1 trace) of an image phase's
+    chain."""
+    from attosecondraytracing_tpu_torch.models.detector import Detector
+
+    chain.to(dev)
+    det = Detector(chain.optical_elements[-1].position)
+    det.autoplace(chain.trace_final(), 500.0)
+    return chain.source_spec, chain.device_elements(), det
+
+
+def _blur3(a):
+    import numpy as np
+    from numpy.lib.stride_tricks import sliding_window_view
+
+    return sliding_window_view(np.pad(a, 1), (3, 3)).sum(axis=(2, 3))
+
+
+def _image_moments(img):
+    """(centroids, variances) of an image in pixels, both axes."""
+    import numpy as np
+
+    gx, gy = np.meshgrid(np.arange(img.shape[0]), np.arange(img.shape[1]), indexing="ij")
+    w = img.sum()
+    mx, my = (img * gx).sum() / w, (img * gy).sum() / w
+    return np.array([mx, my]), np.array([(img * (gx - mx) ** 2).sum() / w, (img * (gy - my) ** 2).sum() / w])
+
+
+def _delay_diffs(a, b, min_weight=5.0):
+    """|mean delay| differences [fs] of two images on the pixels where both
+    are finite and the first holds more than ``min_weight``."""
+    import numpy as np
+
+    both = np.isfinite(a["mean_delay"]) & np.isfinite(b["mean_delay"]) & (a["weight_image"] > min_weight)
+    return np.abs(a["mean_delay"] - b["mean_delay"])[both]
+
+
+def _rebinned(res):
+    """An image dict summed into :data:`PRECEDENT_BINS` blocks (weights and
+    weight x mean delay), the block means re-formed."""
+    import numpy as np
+
+    bx, by = PRECEDENT_BINS
+
+    def block(a):
+        return a.reshape(bx, a.shape[0] // bx, by, a.shape[1] // by).sum(axis=(1, 3))
+
+    w = res["weight_image"]
+    wb = block(w)
+    wdb = block(np.where(w > 0, np.nan_to_num(res["mean_delay"]) * w, 0.0))
+    return dict(res, image=block(res["image"]), weight_image=wb,
+                mean_delay=np.where(wb > 0, wdb / np.where(wb > 0, wb, 1.0), np.nan))
+
+
+def _image_diffs(ker, ref):
+    """Two images of one extent compared: the sum of weights (relative), the
+    summed pixel differences (over the sum of weights), the centroids [px]
+    and variances (relative), the mean delays [fs] on pixels of weight > 5
+    (median, max), and on the images summed into :data:`PRECEDENT_BINS`
+    blocks the summed differences and the mean delays on blocks of weight
+    > 5 (max) and of more than the precedent's share of the weight
+    (median, max)."""
+    import numpy as np
+
+    sum_w = ref["sum_w"]
+    (c, v), (cr, vr) = _image_moments(ker["image"]), _image_moments(ref["image"])
+    raw = _delay_diffs(ref, ker)
+    kb, rb = _rebinned(ker), _rebinned(ref)
+    block_weight = 5.0 * ref["n_total"] / PRECEDENT_RAYS
+    blocks = _delay_diffs(rb, kb, block_weight)
+    sparse = _delay_diffs(rb, kb)
+    return {"sum_w_rel": float(abs(ker["sum_w"] - sum_w) / sum_w),
+            "l1_rel": float(np.abs(ker["image"] - ref["image"]).sum() / sum_w),
+            "centroid_px": float(np.abs(c - cr).max()), "variance_rel": float(np.abs(v / vr - 1).max()),
+            "delay_pixels": int(raw.size), "delay_median_fs": float(np.median(raw)), "delay_max_fs": float(raw.max()),
+            "block_l1_rel": float(np.abs(kb["image"] - rb["image"]).sum() / sum_w),
+            "blocks_over_5": int(sparse.size), "block_over_5_delay_max_fs": float(sparse.max()),
+            "block_weight": block_weight, "blocks": int(blocks.size),
+            "block_delay_median_fs": float(np.median(blocks)), "block_delay_max_fs": float(blocks.max())}
+
+
+def _paired_chunks(torch, det, opl_ref, rays):
+    """A chunk tracer for ``gigascan._images`` that traces every chunk with
+    K1's chunk form and with its plain version, returns the plain version's
+    outputs (binned into the plain image) and adds the chunk's ray-by-ray
+    differences into ``rays``: alive mismatches, |dp|, |d opl| and
+    |d incidence| as :func:`_check_bundles` reads them, and on the detector
+    plane |dxy| and the |diff| of the delays the image loop forms against
+    ``opl_ref``. Medians are each chunk's, the largest kept. The second
+    chunk (the first at a nonzero offset of the chunk law) is also traced by
+    the plain version at the first chunk's (phase, k_frac): what a chunk-law
+    fault reads."""
+    from attosecondraytracing_tpu_torch.analysis import gigascan as gs
+    from attosecondraytracing_tpu_torch.analysis import stats
+    from attosecondraytracing_tpu_torch.ops.geometry import kahan_add
+    from attosecondraytracing_tpu_torch.ops.precision import LIGHT_SPEED_MM_S
+
+    def tracer(table, spec, chunk, n_total, *, device, ignore_defects):
+        k1 = gs.k1_chunks(table, spec, chunk, n_total, device=device, ignore_defects=ignore_defects)
+        plain = gs.plain_chunks(table, spec, chunk, n_total, device=device, ignore_defects=ignore_defects)
+        centre, normal, rot = (torch.as_tensor(v, dtype=torch.float32, device=device)
+                               for v in (det.centre, det.normal, det._plane_rotation()))
+        laws = []
+
+        def plane(out, both):
+            pts3, t = stats.detector_points_3d(out, centre, normal)
+            s, c = kahan_add(out.opl, out.opl_c, t)
+            delay = ((s - opl_ref) - c) * (1e15 / LIGHT_SPEED_MM_S)  # as gigascan._chunk_binned_sums
+            return pts3[both], stats.plane_coords(pts3, centre, rot)[both], s[both], delay[both]
+
+        def trace_chunk(n_local, phase, k_frac):
+            laws.append((phase, k_frac))
+            ker = k1(n_local, phase, k_frac)
+            ref = plain(n_local, phase, k_frac)
+            both = ker.alive & ref.alive
+            rays["traced"] += n_local
+            rays["mismatch"] += int((ker.alive != ref.alive).sum())
+            n_both = int(both.sum())
+            rays["rays"] += n_both
+            if n_both:
+                (p3, xy, s, delay), (_p3, xyr, _s, delayr) = plane(ker, both), plane(ref, both)
+                dp = (ker.p[both] - ref.p[both]).abs()
+                dopl = ((ker.opl - ker.opl_c)[both] - (ref.opl - ref.opl_c)[both]).abs()
+                dxy = (xy - xyr).abs().max(dim=1).values
+                ddelay = (delay.double() - delayr.double()).abs()
+                for key, v in (("dp_median_mm", dp.median()), ("dp_max_mm", dp.max()), ("dopl_max_mm", dopl.max()),
+                               ("dinc_max", (ker.incidence[both] - ref.incidence[both]).abs().max()),
+                               ("dxy_median_mm", dxy.median()), ("dxy_max_mm", dxy.max()),
+                               ("delay_median_fs", ddelay.median()), ("delay_max_fs", ddelay.max()),
+                               ("lab_max_mm", p3.abs().max()), ("opl_max_mm", s.abs().max())):
+                    rays[key] = max(rays.get(key, 0.0), float(v))
+            if len(laws) == 2:
+                fault = plain(n_local, *laws[0])
+                both_f = ker.alive & fault.alive
+                rays["chunk_law_fault_dp_median_mm"] = float((ker.p[both_f] - fault.p[both_f]).abs().median())
+            return ref
+
+        return trace_chunk
+
+    return tracer
+
+
+def _check_rays(tag, rays, extent):
+    """The rays of two images' chunks held one by one (:func:`_paired_chunks`):
+    the K1 phase's envelope (:func:`_check_bundles`, tests/test_pallas.py)
+    and the delays' |diff| within 2 ulps of the float32 optical path in
+    every chunk's median (each pipeline rounds it within about one). Prints
+    the detector-plane |dxy| in float32 ulps of the rays' lab coordinate and
+    in the image's pixels. Returns the numbers."""
+    import numpy as np
+
+    from attosecondraytracing_tpu_torch.ops.precision import LIGHT_SPEED_MM_S
+
+    _check(rays["rays"] > 0, f"{tag}: no ray alive")
+    rays = dict(rays, alive_mismatch=rays["mismatch"] / rays["traced"],
+                lab_ulp_mm=float(np.spacing(np.float32(rays["lab_max_mm"]))),
+                opl_ulp_fs=float(np.spacing(np.float32(rays["opl_max_mm"]))) * 1e15 / LIGHT_SPEED_MM_S,
+                pixel_mm=float(((np.asarray(extent[1]) - np.asarray(extent[0])) / np.asarray(IMAGE_BINS)).min()))
+    ulp, px = rays["lab_ulp_mm"], rays["pixel_mm"]
+    print(f"{tag} ray by ray: {rays['rays']}/{rays['traced']} alive in both, alive mismatch "
+          f"{rays['alive_mismatch']:.3g}, |dp| median {rays['dp_median_mm']:.3g} max {rays['dp_max_mm']:.3g} mm, "
+          f"|d opl| max {rays['dopl_max_mm']:.3g} mm, |d incidence| max {rays['dinc_max']:.3g} rad; on the detector "
+          f"plane |dxy| median {rays['dxy_median_mm'] * 1e3:.4g} um ({rays['dxy_median_mm'] / ulp:.3g} ulps of the "
+          f"lab coordinate, {rays['dxy_median_mm'] / px:.3g} px), max {rays['dxy_max_mm'] * 1e3:.4g} um "
+          f"({rays['dxy_max_mm'] / ulp:.3g} ulps, {rays['dxy_max_mm'] / px:.3g} px) with pixels of "
+          f"{px * 1e3:.4g} um and an ulp of {ulp * 1e3:.4g} um; |d delay| median {rays['delay_median_fs']:.3g} fs "
+          f"({rays['delay_median_fs'] / rays['opl_ulp_fs']:.3g} ulps of the optical path, {rays['opl_ulp_fs']:.3g} "
+          f"fs), max {rays['delay_max_fs']:.3g} fs; a chunk-law fault (the second chunk at the first one's phase "
+          f"and k_frac) reads |dp| median {rays['chunk_law_fault_dp_median_mm']:.3g} mm", flush=True)
+    _check(rays["alive_mismatch"] <= 1e-4, f"{tag}: alive masks differ on {rays['alive_mismatch']} of rays")
+    _check(rays["dp_median_mm"] <= 1e-3 and rays["dp_max_mm"] <= 5e-2 and rays["dopl_max_mm"] <= 0.1
+           and rays["dinc_max"] <= 1e-4, f"{tag}: rays outside K1's envelope: {rays}")
+    _check(rays["delay_median_fs"] <= 2 * rays["opl_ulp_fs"], f"{tag}: delays differ: {rays}")
+    return rays
+
+
+def _check_kernel_images(tag, ker, ref):
+    """Kernel vs plain images on one extent (:func:`_image_diffs`), held as
+    tests/test_gigascan.py:55-97 holds the JAX package's two float32 image
+    engines (K1 and its plain version are two float32 pipelines of one
+    law): the sum of weights within 1e-5 (:37-39), the summed pixel
+    differences below 20 % of it (:70), centroids within 0.05 px (:83) and
+    variances within 1 %, all on the 512 x 512 pixels; the mean delays on
+    64 x 64 blocks, the precedent's image size, holding more than its share
+    of the rays' weight (5 per 16384 rays) within a median of 0.05 fs and a
+    maximum of 0.5 fs (:37-49). At 512 x 512 a pixel (0.06 um on the image
+    flagship) is finer than the float32 lab coordinate's ulp (0.12 um), so
+    the two pipelines' rays mostly land in different pixels and a pixel's
+    mean delay compares two samples of rays; summed into 64 x 64 blocks,
+    rounding moves a ray out of its block about as often as the precedent's
+    1e-3 mm noise moves one out of its 3.7 um pixel. A block of weight 5 in
+    a 1e8-ray image averages a few rays' delay differences (per ray 0.2 fs
+    in the median, up to ~3 fs): every ray's delay is held by
+    :func:`_check_rays`. Returns the numbers."""
+    d = _image_diffs(ker, ref)
+    print(f"{tag}: sum w {ker['sum_w']:.9g} vs {ref['sum_w']:.9g}; " + ", ".join(
+        f"{k} {v:.3g}" for k, v in d.items()), flush=True)
+    _check(d["sum_w_rel"] <= 1e-5, f"{tag}: sum of weights differs by {d['sum_w_rel']} (rel)")
+    _check(d["l1_rel"] < 0.2 and d["centroid_px"] < 0.05 and d["variance_rel"] < 0.01,
+           f"{tag}: images differ: {d}")
+    _check(d["blocks"] > 50 and d["block_delay_median_fs"] < 0.05 and d["block_delay_max_fs"] < 0.5,
+           f"{tag}: mean delays differ: {d}")
+    return d
+
+
+def _shifted(res):
+    """``res`` (an image dict) moved one pixel along x: what a systematic
+    one-pixel fault reads in :func:`_image_diffs`."""
+    import numpy as np
+
+    return dict(res, image=np.roll(res["image"], 1, axis=0), weight_image=np.roll(res["weight_image"], 1, axis=0),
+                mean_delay=np.roll(res["mean_delay"], 1, axis=0))
+
+
+def _images_kernel_vs_plain(tag, torch, dev, spec, els, det, n_total, extent=None, **kw):
+    """fused_source_images (K1, the launch counts set to 0 just before it:
+    exactly one K1 launch per chunk and no other kernel) against the same
+    loop binning K1's plain version on the card, on the kernel's extent
+    (:func:`_check_kernel_images`), with every ray of every chunk held
+    against its plain twin (:func:`_paired_chunks`, :func:`_check_rays`).
+    Prints what a one-pixel shift of the plain image would read."""
+    from attosecondraytracing_tpu_torch.analysis import gigascan as gs
+    from attosecondraytracing_tpu_torch.ops import fused_trace as ft
+
+    baked = spec.baked()
+    chunks = ft.source_chunks(baked.kind, n_total, n_total, n_each=baked.n_each, n_sources=baked.n_sources)
+    _reset_launches()
+    ker = gs.fused_source_images(spec, els, det, n_total=n_total, bins=IMAGE_BINS, extent=extent, **kw)
+    launches = _launches()
+    _check(launches["K1"] == len(chunks) and all(v == 0 for k, v in launches.items() if k != "K1"),
+           f"{tag}: launches {launches}, expected {len(chunks)} of K1")
+    opl_ref, _ = ft.chief_ray_refs(baked, els, det.centre, det.normal, device=dev, dtype=torch.float32)
+    rays = {"traced": 0, "mismatch": 0, "rays": 0}
+    ref = gs._images(spec, els, det, n_total, IMAGE_BINS, ker["extent"], ft.CHUNK, kw.get("ignore_defects", True),
+                     dev, _paired_chunks(torch, det, torch.tensor(opl_ref, dtype=torch.float32, device=dev), rays))
+    tag = f"{tag} ({len(chunks)} K1 launches) vs plain"
+    rays = _check_rays(tag, rays, ker["extent"])
+    d = _check_kernel_images(tag, ker, ref)
+    print(f"{tag}: the plain image moved one pixel along x would read " + ", ".join(
+        f"{k} {v:.3g}" for k, v in _image_diffs(ker, _shifted(ref)).items()), flush=True)
+    return dict(d, launches=launches["K1"], rays=rays)
+
+
+def phase_images(torch, dev):
+    """Giga-ray images (analysis/gigascan.py) on the flagship with its second
+    toroid rolled IMAGE_ROLL deg (examples/gigaray_delay_map.py), the
+    detector autoplaced at the focal distance: fused_source_images at 1e9
+    rays into 512 x 512 pixels with the launch counts set to 0 just before
+    it (exactly 120 K1 launches, no other kernel), its wall and the split of
+    the loop (K1's launches timed by CUDA events in a second run; the weights
+    and the binning of one chunk timed alone); kernel vs plain at 1e8 rays;
+    the 1e7-ray image against Detector.get_Image / get_DelayMap of the K1
+    bundle of the same spiral (tests/test_gigascan.py:127-185); kernel vs
+    plain on the grid flagship at 1e8 rays (engine "xla-source",
+    ignore_defects False) and on an extended source at 1e7 rays (chunks on
+    whole sub-sources, the window on its whole beam). Returns K1's image
+    numbers."""
+    import numpy as np
+
+    from attosecondraytracing_tpu_torch.analysis import gigascan as gs
+    from attosecondraytracing_tpu_torch.ops import fused_trace as ft
+    from attosecondraytracing_tpu_torch.ops.bundle import RayBundle
+
+    chain, _ = _flagship(N_CHECK)
+    chain.rotate_OE(2, "roll", IMAGE_ROLL)
+    spec, els, det = _image_chain(torch, dev, chain)
+    n_chunks = -(-N_IMAGE // ft.CHUNK)
+    _reset_launches()
+    t0 = time.perf_counter()
+    res = gs.fused_source_images(spec, els, det, n_total=N_IMAGE, bins=IMAGE_BINS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    d = res["mean_delay"]
+    finite = np.isfinite(d)
+    gmean = float((d[finite] * res["weight_image"][finite]).sum() / res["weight_image"][finite].sum())
+    print(f"images {N_IMAGE} rays into {IMAGE_BINS}: launches {launches}, wall {wall:.3f} s, "
+          f"{N_IMAGE / wall:.4g} rays/s, sum w {res['sum_w']:.9g}, extent {res['extent'][0]} .. "
+          f"{res['extent'][1]} mm, delay map {np.nanmin(d):.4g} .. {np.nanmax(d):.4g} fs on "
+          f"{int(finite.sum())} pixels (weighted mean {gmean:.3g} fs)", flush=True)
+    _check(n_chunks == 120 and launches["K1"] == n_chunks
+           and all(v == 0 for k, v in launches.items() if k != "K1"),
+           f"images: launches {launches}, expected {n_chunks} of K1")
+    _check(np.isfinite(res["sum_w"]) and res["sum_w"] > 0 and res["image"].shape == IMAGE_BINS
+           and abs(res["image"].sum() - res["sum_w"]) <= 1e-9 * res["sum_w"], "images: image and sum of weights")
+    _check(finite.sum() > 1000 and abs(gmean) < 1e-3, f"images: delay map ({finite.sum()} pixels, mean {gmean})")
+
+    # the split: K1's launches by CUDA events around each in a second run
+    events = []
+
+    def timed_k1(*args, **kwargs):
+        trace_chunk = gs.k1_chunks(*args, **kwargs)
+
+        def timed(*chunk):
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = trace_chunk(*chunk)
+            stop.record()
+            events.append((start, stop))
+            return out
+
+        return timed
+
+    t0 = time.perf_counter()
+    gs._images(spec, els, det, N_IMAGE, IMAGE_BINS, None, ft.CHUNK, True, dev, timed_k1)
+    torch.cuda.synchronize()
+    wall2 = time.perf_counter() - t0
+    k1_ms = sum(a.elapsed_time(b) for a, b in events)
+    # the setup (chief ray, extent probe) and one chunk's weights and binning alone
+    baked = spec.baked()
+    t0 = time.perf_counter()
+    ft.chief_ray_refs(baked, els, det.centre, det.normal, device=dev, dtype=torch.float32)
+    centre, normal, rot = (torch.as_tensor(v, dtype=torch.float32, device=dev)
+                           for v in (det.centre, det.normal, det._plane_rotation()))
+    gs._fit_extent(baked, els, gs.EXTENT_PROBE_RAYS, centre, normal, rot, True, dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    out = ft.fused_source_trace(ft.chain_table(baked, els), baked, ft.CHUNK, device=dev, n_total=N_IMAGE)
+    logedge = float(np.log(spec.gaussian_edge))
+    weights = gs._weights_c(baked, ft.CHUNK, N_IMAGE, 0.0, 0.0, logedge, dev)
+    lo, hi = (torch.as_tensor(v, dtype=torch.float32, device=dev) for v in res["extent"])
+    ref = torch.tensor(1000.0, dtype=torch.float32, device=dev)
+    images = tuple(torch.zeros(IMAGE_BINS[0] * IMAGE_BINS[1], dtype=torch.float64, device=dev) for _ in range(2))
+    weights_ms = _time_ms(lambda: gs._weights_c(baked, ft.CHUNK, N_IMAGE, 0.0, 0.0, logedge, dev), torch)
+    binning_ms = _time_ms(lambda: gs._chunk_binned_sums(out, weights, centre, normal, rot, lo, hi, ref,
+                                                        IMAGE_BINS, images), torch)
+    split = {"launches": launches["K1"], "wall_s": wall, "rays_per_s": N_IMAGE / wall, "sum_w": res["sum_w"],
+             "delay_min_fs": float(np.nanmin(d)), "delay_max_fs": float(np.nanmax(d)),
+             "k1_ms": k1_ms, "timed_wall_s": wall2, "rest_s": wall2 - k1_ms * 1e-3, "setup_s": setup_s,
+             "chunk_weights_ms": weights_ms, "chunk_binning_ms": binning_ms}
+    print(f"images split (second run, {len(events)} K1 launches timed): wall {wall2:.3f} s, K1 "
+          f"{k1_ms:.2f} ms ({k1_ms * 1e-3 / wall2 * 100:.2f} % of the wall), the rest {wall2 - k1_ms * 1e-3:.3f} s; "
+          f"setup (chief ray, extent probe) {setup_s:.3f} s; one chunk of {ft.CHUNK} rays alone: weights "
+          f"{weights_ms:.3f} ms, binning {binning_ms:.3f} ms ({n_chunks} chunks: "
+          f"{n_chunks * (weights_ms + binning_ms) * 1e-3:.3f} s)", flush=True)
+    del out, weights, images
+
+    split["plain"] = _images_kernel_vs_plain("images 1e8", torch, dev, spec, els, det, N_IMAGE_CHECK,
+                                             extent=res["extent"])
+
+    # against the bundle path: Detector.get_Image / get_DelayMap of the K1
+    # bundle of the same spiral, its intensities the image's weights
+    small = gs.fused_source_images(spec, els, det, n_total=N_IMAGE_BUNDLE, bins=IMAGE_BINS)
+    out = ft.fused_source_trace(ft.chain_table(baked, els), baked, N_IMAGE_BUNDLE, device=dev)
+    rr = ft.synth_spec(baked, torch.arange(N_IMAGE_BUNDLE, device=dev), N_IMAGE_BUNDLE)[2]
+    bundle = RayBundle(p=out.p, d=out.d, opl=out.opl, opl_c=out.opl_c, alive=out.alive,
+                       intensity=torch.exp(logedge * rr), incidence=out.incidence,
+                       wavelength=torch.tensor(spec.wavelength, device=dev))
+    img, _ = det.get_Image(bundle, bins=IMAGE_BINS, extent=small["extent"])
+    mean, w_img, _ = det.get_DelayMap(bundle, bins=IMAGE_BINS, extent=small["extent"])
+    img, mean, w_img = (x.double().cpu().numpy() for x in (img, mean, w_img))
+    bundle_w = float(bundle.weights().double().sum())
+    blur = float(np.abs(_blur3(img) - _blur3(small["image"])).sum() / (9 * small["sum_w"]))
+    (c, v), (cr, vr) = _image_moments(small["image"]), _image_moments(img)
+    rel_w = abs(small["sum_w"] - bundle_w) / bundle_w
+    finite = np.isfinite(mean)
+    mean = mean - (mean[finite] * w_img[finite]).sum() / w_img[finite].sum()
+    bundle_res = {"mean_delay": mean, "weight_image": w_img}
+    diffs = _delay_diffs(bundle_res, small)
+    print(f"images {N_IMAGE_BUNDLE} vs get_Image/get_DelayMap of the K1 bundle: blurred L1 {blur:.3g} of 9 sum w, "
+          f"centroid |diff| {np.abs(c - cr).max():.3g} px, variance rel diff {np.abs(v / vr - 1).max():.3g}, "
+          f"sum w rel {rel_w:.3g}, pixels |diff| max {np.abs(img - small['image']).max():.3g}; re-centred delay "
+          f"maps on {diffs.size} pixels of weight > 5: median {np.median(diffs):.3g} max {diffs.max():.3g} fs",
+          flush=True)
+    _check(blur < 0.05 and np.abs(c - cr).max() < 0.05 and np.all(np.abs(v - vr) <= 0.01 * np.maximum(vr, 1.0))
+           and rel_w <= 1e-4, "images vs the bundle path: outside tests/test_gigascan.py's envelope")
+    split["bundle"] = {"blur_l1_rel": blur, "centroid_px": float(np.abs(c - cr).max()),
+                       "variance_rel": float(np.abs(v / vr - 1).max()), "sum_w_rel": rel_w,
+                       "delay_median_fs": float(np.median(diffs)), "delay_max_fs": float(diffs.max())}
+    del out, rr, bundle
+
+    # a grid-deformed chain (engine "xla-source", the defect slopes in the
+    # normals) and an extended source (chunks on whole sub-sources)
+    gspec, gels, gdet = _image_chain(torch, dev, _deformed_flagship(N_CHECK, kind="grid")[0])
+    split["grid"] = _images_kernel_vs_plain("images grid flagship 1e8", torch, dev, gspec, gels, gdet,
+                                            N_IMAGE_CHECK, engine="xla-source", ignore_defects=False)
+    # the extended source's window spans its whole beam: an auto-fitted one
+    # (a probe of its first 2^17 rays) frames only the first two of its 100
+    # sub-sources, all in the first chunk
+    espec, eels, edet = _image_chain(torch, dev, _extended(N_CHECK))
+    espec = espec._replace(n_rays=N_IMAGE_BUNDLE)
+    ebaked = espec.baked()
+    n_ext = ebaked.n_sources * ebaked.n_each
+    ecentre, enormal, erot = (torch.as_tensor(v, dtype=torch.float32, device=dev)
+                              for v in (edet.centre, edet.normal, edet._plane_rotation()))
+    eextent = gs._fit_extent(ebaked, eels, n_ext, ecentre, enormal, erot, True, dev)
+    split["extended"] = _images_kernel_vs_plain(
+        f"images extended source 1e7 ({ebaked.n_sources} x {ebaked.n_each})", torch, dev, espec, eels, edet,
+        n_ext, extent=eextent)
+    return split
+
+
+def phase_cost(torch, dev):
+    """The cost probes P1-P3 (utils/cost_probe.py): the probes' run at the
+    scripts' shapes with the launch counts set to 0 just before it, each
+    output against its plain version (P1 and P3 equal; P2 every op at 8 and
+    40 ops within 1e-6 relative, recip_approx 1e-5: the approximate
+    reciprocal against the exact one), then P1's first launch from a fresh
+    library load and its steady launch latency, P2 slope-timed over n_ops
+    (the script's 8 and 40, and 0, 200, 400), P3's copy floor against K4 on
+    the flagship's four chain subsets. Returns the JSON entries of P1-P3."""
+    from attosecondraytracing_tpu_torch.utils import cost_probe as cp
+
+    cp.add_one.launches = cp.op_chain.launches = cp.copy_streams.launches = 0
+    runs = cp.probe(device=dev, op_shape=cp.OP_SHAPE, n_rays=cp.N_RAYS)
+    torch.cuda.synchronize()
+    launches = {"P1": cp.add_one.launches, "P2": cp.op_chain.launches, "P3": cp.copy_streams.launches}
+    _check(launches == {"P1": 1, "P2": 2 * len(cp.OPS), "P3": 1}, f"cost probe launches {launches}")
+    (x1,), out1 = runs["P1"]
+    _check(bool(torch.equal(out1, cp.add_one_ref(x1))), "P1 differs from its plain version")
+    err2, abs2 = {}, 0.0
+    for op in cp.OPS:
+        for n in cp.SCRIPT_N_OPS:
+            (_op, x2, _n), out2 = runs[f"P2 {op} {n}"]
+            ref = cp.op_chain_ref(op, x2, n)
+            rel = float(((out2 - ref).abs() / ref.abs()).max())
+            err2[f"{op} {n}"] = rel
+            abs2 = max(abs2, float((out2 - ref).abs().max()))
+            _check(rel <= (1e-5 if op == "recip_approx" else 1e-6), f"P2 {op} at {n} ops: rel {rel}")
+    print("P2 kernel vs plain (max rel): " + ", ".join(f"{k} {v:.3g}" for k, v in err2.items()), flush=True)
+    streams, out3 = runs["P3"]
+    ref3 = cp.copy_streams_ref(streams)
+    _check(all(bool(torch.equal(a, b)) for a, b in zip(out3, ref3)), "P3 differs from its plain version")
+    del runs, out3, ref3
+
+    seconds, x, out = cp.first_launch_seconds(device=dev)
+    _check(bool(torch.equal(out, cp.add_one_ref(x))), "P1 (fresh library) differs from its plain version")
+    p1_ms = _time_ms(lambda: cp.add_one(x), torch, inner=20)
+    # the plain version is one PyTorch call (x + 1): P1's library time too
+    p1_plain = _time_ms(lambda: cp.add_one_ref(x), torch, inner=20)
+    print(f"P1: first launch from a fresh library load {seconds:.4f} s; steady launch {p1_ms * 1e3:.2f} us "
+          f"(plain {p1_plain * 1e3:.2f} us)", flush=True)
+
+    costs = cp.op_costs(device=dev)
+    x2 = cp.op_inputs(device=dev)
+    out2 = torch.empty_like(x2)
+    n_lanes = x2.numel()
+    for op, row in costs.items():
+        floor = row["floor_ms"]
+        leaves = [n for n, ms in row["ms_at"].items() if n and ms > 1.1 * floor]
+        row["leaves_floor_at"] = leaves[0] if leaves else None
+        print(f"P2 {op:12s}: {row['ms_per_op']:.5f} ms per op over {n_lanes} lanes (n_ops 8..40), "
+              f"{row['ms_per_op_large']:.5f} (200..400); " + ", ".join(
+                  f"{n}: {ms:.4f}" for n, ms in row["ms_at"].items())
+              + f" ms; leaves the {floor:.4f} ms floor at {row['leaves_floor_at']} ops", flush=True)
+    p2_ms = _time_ms(lambda: cp.op_chain("fma", x2, 40, out=out2), torch)
+    p2_plain = _time_ms(lambda: cp.op_chain_ref("fma", x2, 40), torch, reps=3, inner=1)
+    cost = cp.kernel_cost(device=dev)
+    for name, ms in cost["k4_ms"].items():
+        print(f"K4 {name}: {ms:.4f} ms per {cp.N_RAYS} rays", flush=True)
+    _bundle, streams = cp.source_streams(cp.N_RAYS, device=dev)
+    p3_plain = _time_ms(lambda: cp.copy_streams_ref(streams), torch)
+    print(f"P3 copy floor {cost['copy_ms']:.4f} ms ({cost['copy_gb_per_s']:.0f} GB/s at {cp.COPY_BYTES_PER_RAY} "
+          f"B/ray; bound {_bound(cp.COPY_BYTES_PER_RAY * cp.N_RAYS, 0)['bound_ms']:.4f} ms), plain "
+          f"{p3_plain:.4f} ms; K4 compute share {cost['compute_share'] * 100:.1f} % (mask "
+          f"{cost['mask_ms']:.4f}, toroid {cost['toroid_ms']:.4f}, second toroid {cost['second_toroid_ms']:.4f} ms)",
+          flush=True)
+    n_tile = x1.numel()
+    p1 = {"name": "P1 add_one", "route": "cuda", "source": CSRC + "cost_probe.cu", "replaces": "bench.py:162",
+          "launches": launches["P1"], "max_abs_err": 0.0, "ms": p1_ms, "plain_ms": p1_plain,
+          **_bound(8 * n_tile, n_tile), "library_ms": p1_plain, "first_launch_s": seconds}
+    p2 = {"name": "P2 op_chain (fma at 40 ops; every op in ops)", "route": "cuda",
+          "source": CSRC + "cost_probe.cu", "replaces": "scripts/diag_vpu_ops.py:21", "launches": launches["P2"],
+          "max_abs_err": abs2, "ms": p2_ms, "plain_ms": p2_plain,
+          **_bound(8 * n_lanes, 2 * 40 * n_lanes), "library_ms": None, "ops": costs, "max_rel_err": err2}
+    p3 = {"name": "P3 copy_streams", "route": "cuda", "source": CSRC + "cost_probe.cu",
+          "replaces": "scripts/diag_kernel_cost.py:72", "launches": launches["P3"], "max_abs_err": 0.0,
+          "ms": cost["copy_ms"], "plain_ms": p3_plain, **_bound(cp.COPY_BYTES_PER_RAY * cp.N_RAYS, 0),
+          "library_ms": None, "k4_ms": cost["k4_ms"], "k4_compute_share": cost["compute_share"]}
+    return [p1, p2, p3]
+
+
 def phase_cli(torch):
     """run_config_file on the card and on the CPU (plain versions) in this
     process: CONFIG_singleparabola.py at 1e6 rays,
@@ -1772,6 +2277,8 @@ def main():
     zernike, zernike_launches = phase("zernike", lambda: phase_zernike(torch, dev))
     grid = phase("grid", lambda: phase_grid(torch, dev))
     probes = phase("gather", lambda: phase_gather(torch, dev))
+    images = phase("images", lambda: phase_images(torch, dev))
+    probes += phase("cost", lambda: phase_cost(torch, dev))
     phase("cli", lambda: phase_cli(torch))
     launches.update(K1=slice_launches["K1"], K2=slice_launches["K2"], K5=scan_launches["K5"],
                     K6=grad_launches["K6"], K7=k7_launches["K7"], K8=k8_launches)
@@ -1797,6 +2304,7 @@ def main():
     kernels = [{"name": name, "route": "cuda", "source": CSRC + src, "replaces": replaces,
                 "launches": launches[key], **timed[key], "library_ms": None, **zernike[key], **grid[key]}
                for key, name, src, replaces in rows] + probes
+    kernels[0]["images"] = images
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

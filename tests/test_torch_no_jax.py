@@ -4,7 +4,9 @@ through the plain, fused-source and streamed engines, takes alignment steps
 through both gradient engines, runs the per-distance stats pass, and runs a
 two-chain scan through the scan engine, traces a Zernike-deformed chain
 (``models/defects``, ``ops/defects``, ``ops/zernike``) and a grid-deformed
-one (``ops/xla_source``), and runs the gather probes (``utils/gather_probe``)."""
+one (``ops/xla_source``), runs the gather probes (``utils/gather_probe``),
+bins detector images (``analysis/histogram``, ``analysis/gigascan``) and
+runs the cost probes (``utils/cost_probe``), without importing matplotlib."""
 
 import os
 import subprocess
@@ -84,6 +86,19 @@ g_xla = xla_source.xla_trace_source(gridded.source_spec.baked(), gridded.device_
 assert abs(int(g_fused.alive.sum()) - int(g_xla.alive.sum())) <= 2
 outs, _ = gather_probe.probe(device="cpu")
 assert len(outs) == 8
+# detector images (analysis/histogram), the giga-ray image loop
+# (analysis/gigascan) and the cost probes (utils/cost_probe), none of which
+# may bring in matplotlib: the card's machine has none
+from attosecondraytracing_tpu_torch.analysis import gigascan, histogram  # noqa: F401
+from attosecondraytracing_tpu_torch.utils import cost_probe
+img, _ = det.get_Image(streamed, bins=(16, 16))
+mean, w_img, _ = det.get_DelayMap(streamed, bins=(16, 16))
+assert float(img.sum()) > 0 and torch.isfinite(mean).any()
+res = gigascan.fused_source_images(gridded.source_spec, gridded.device_elements(), det,
+                                   n_total=4096, bins=(16, 16), chunk=1024, ignore_defects=False)
+assert res["sum_w"] > 0 and res["image"].shape == (16, 16)
+assert len(cost_probe.probe(device="cpu")) == 2 + 2 * len(cost_probe.OPS)
+assert "matplotlib" not in sys.modules
 assert art.defects is defects
 assert not any(name == "jax" or name.startswith(("jax.", "jaxlib", "attosecondraytracing_tpu."))
                for name, mod in sys.modules.items() if mod is not None)
