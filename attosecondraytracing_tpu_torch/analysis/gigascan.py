@@ -1,14 +1,16 @@
-"""Giga-ray detector images: the fused source traced chunk by chunk through
-kernel K1 and binned on the device (counterpart of the JAX package's
-``analysis/gigascan.py``).
+"""Giga-ray detector images: the fused source traced and binned on the
+device (counterpart of the JAX package's ``analysis/gigascan.py``).
 
-K1 synthesizes and traces rays from nothing but the ray index, so the ray
-count of an image is bounded by time, not memory: the spot diagram and the
+The source is synthesized from nothing but the ray index, so the ray count
+of an image is bounded by time, not memory: the spot diagram and the
 spatio-temporal delay map (ART/ModuleAnalysisAndPlots.py:133-440) run at
-billions of rays by streaming chunks of 2^23 rays through the kernel into
-one reused output buffer and adding each chunk into two float64 images on
-the device. Only the O(bins^2) images persist; nothing per ray reaches the
-host.
+billions of rays. On a CUDA device kernel K1i traces every 2^23-ray chunk of
+the image in one launch and adds each ray into two float64 images on the
+device (``ops/fused_trace.prepare_fused_source_image``); nothing per ray is stored.
+Its plain version, and the path on the CPU, is the chunk loop: each chunk
+traced (K1's plain version), weighted, and binned by K1i's per-ray
+arithmetic in plain PyTorch (``ops/fused_trace.image_rays_ref``).
+Only the O(bins^2) images persist.
 
 Delays are taken against a fixed chief-ray reference (not a per-chunk mean,
 which would move from chunk to chunk) and re-centred to the global weighted
@@ -17,49 +19,22 @@ mean at the end: the semantics of Detector.get_Delays at any scale.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from ..ops import fused_trace as ft
-from ..ops.geometry import kahan_add
-from ..ops.precision import LIGHT_SPEED_MM_S
 from ..ops.trace import trace
 from ..ops.xla_source import _elements_device
 from . import stats
-from .histogram import _bin_indices, _flat_index, bin_add
 
 #: the image engines' names in the JAX package: its Mosaic kernel
 #: ("pallas") and its XLA program ("xla-source", which also took grid maps);
-#: both are kernel K1 here, which takes grid maps
+#: both are kernel K1i here, which takes grid maps
 ENGINES = ("pallas", "xla-source")
 #: rays of the trace that fits the image's extent when none is given
 EXTENT_PROBE_RAYS = 1 << 17
-
-
-def _chunk_binned_sums(out: ft.TraceOutputs, weights, centre, normal, rot, lo, hi, opl_ref,
-                       bins, images):
-    """Add one traced chunk into ``images`` (the flat float64 weight and
-    weight x delay images): weights and delays [fs, against ``opl_ref``] on
-    the FIXED extent ``(lo, hi)``."""
-    pts3, t = stats.detector_points_3d(out, centre, normal)  # reads p and d
-    xy = stats.plane_coords(pts3, centre, rot)
-    s, c = kahan_add(out.opl, out.opl_c, t)
-    # (s - opl_ref) is a same-magnitude cancellation (exact); the Kahan
-    # compensation then applies at full significance
-    delay_fs = ((s - opl_ref) - c) * (1e15 / LIGHT_SPEED_MM_S)
-    ix, iy, inside = _bin_indices(xy, lo, hi, bins)
-    wv = torch.where(out.alive & inside, weights, 0.0)
-    bin_add(images, _flat_index(ix, iy, bins), (wv, wv * delay_fs))
-
-
-def _weights_c(spec: ft.BakedSource, n_local, n_total, phase, k_frac, logedge, device):
-    """A chunk's Gaussian weights ``edge ** rr`` from the source's radial law
-    (1.0 without an edge), as the kernels synthesize them."""
-    if logedge is None:
-        return torch.ones((n_local,), dtype=torch.float32, device=device)
-    k = torch.arange(n_local, dtype=torch.int64, device=device)
-    _p, _d, rr = ft.synth_spec(spec, k, n_total, phase, k_frac)
-    return torch.exp(logedge * rr)
 
 
 def k1_chunks(table, spec, chunk, n_total, *, device, ignore_defects):
@@ -116,56 +91,100 @@ def _fit_extent(spec, elements, n_probe, centre, normal, rot, ignore_defects, de
     return mid - half, mid + half
 
 
-def _images(source_spec, elements, detector, n_total, bins, extent, chunk, ignore_defects,
-            device, tracer):
-    """:func:`fused_source_images` with the chunk tracer ``tracer(table, spec,
-    chunk, n_total, device=, ignore_defects=)`` (:func:`k1_chunks`, or
-    :func:`plain_chunks` to hold the kernel against its plain version)."""
+class _Image(NamedTuple):
+    """An image's work: the baked source, its ray count and chunks, the
+    chain table, the pixels, the plane (``ImageDetector``) and the window."""
+
+    spec: ft.BakedSource
+    n_total: int
+    chunks: list
+    table: ft.ChainTable
+    bins: tuple
+    det: ft.ImageDetector
+    window: tuple
+    edge: float | None
+
+
+def _setup(source_spec, elements, detector, n_total, bins, extent, chunk, ignore_defects,
+           device) -> _Image:
+    """The image's :class:`_Image`: chain table, chunks, chief-ray path and
+    window."""
     spec = source_spec.baked()
     n_total = int(n_total if n_total is not None else source_spec.n_rays)
     bins = tuple(int(b) for b in bins)
     table = ft.chain_table(spec, elements)
     chunks = ft.source_chunks(spec.kind, n_total, n_total, chunk, n_each=spec.n_each,
                               n_sources=spec.n_sources)
-    # pack once, before anything else touches the device
-    trace_chunk = tracer(table, spec, chunks[0][0], n_total, device=device,
-                         ignore_defects=ignore_defects)
     rot = detector._plane_rotation()
-    centre = torch.as_tensor(detector.centre, dtype=torch.float32, device=device)
-    normal = torch.as_tensor(detector.normal, dtype=torch.float32, device=device)
-    rot_t = torch.as_tensor(rot, dtype=torch.float32, device=device)
     opl_ref, _ = ft.chief_ray_refs(spec, elements, detector.centre, detector.normal,
                                    device=device, dtype=_elements_dtype(elements))
     if extent is None:
-        lo, hi = _fit_extent(spec, elements, min(n_total, EXTENT_PROBE_RAYS), centre, normal,
-                             rot_t, ignore_defects, device)
+        t = [torch.as_tensor(v, dtype=torch.float32, device=device)
+             for v in (detector.centre, detector.normal, rot)]
+        lo, hi = _fit_extent(spec, elements, min(n_total, EXTENT_PROBE_RAYS), *t,
+                             ignore_defects, device)
     else:
         lo, hi = np.asarray(extent[0], float), np.asarray(extent[1], float)
-    lo_t = torch.as_tensor(lo, dtype=torch.float32, device=device)
-    hi_t = torch.as_tensor(hi, dtype=torch.float32, device=device)
-    opl_ref_t = torch.tensor(opl_ref, dtype=torch.float32, device=device)
-    edge = source_spec.gaussian_edge
-    logedge = None if edge is None else float(np.log(edge))
+    det = ft.ImageDetector(tuple(np.asarray(detector.centre, np.float64)),
+                           tuple(np.asarray(detector.normal, np.float64)),
+                           tuple(map(tuple, np.asarray(rot, np.float64)[:2])), float(opl_ref))
+    return _Image(spec, n_total, chunks, table, bins, det, (lo, hi), source_spec.gaussian_edge)
 
-    # One float64 accumulator pair on the device for all chunks: the JAX
-    # package sums groups of chunks in float32 and the groups on the host in
-    # float64 (pixel weights pass float32's 2^24 on giga-ray images); float64
-    # device sums need no groups. Nothing synchronizes or crosses to the host
-    # until the loop ends.
-    images = tuple(torch.zeros(bins[0] * bins[1], dtype=torch.float64, device=device)
-                   for _ in range(2))
-    for n_local, phase, k_frac in chunks:
-        out = trace_chunk(n_local, phase, k_frac)
-        weights = _weights_c(spec, n_local, n_total, phase, k_frac, logedge, device)
-        _chunk_binned_sums(out, weights, centre, normal, rot_t, lo_t, hi_t, opl_ref_t, bins,
-                           images)
-    w_img, wd_img = (img.reshape(bins).cpu().numpy() for img in images)
+
+def _finish(job: _Image, images) -> dict:
+    """The image dict from the two flat float64 device images: the mean
+    delays re-centred to the global weighted mean on the host."""
+    w_img, wd_img = (img.reshape(job.bins).cpu().numpy() for img in images)
     sum_w = w_img.sum()
     global_mean = wd_img.sum() / max(sum_w, 1e-30)
     has = w_img > 0
     mean_delay = np.where(has, wd_img / np.where(has, w_img, 1.0) - global_mean, np.nan)
     return {"image": w_img, "mean_delay": mean_delay, "weight_image": w_img,
-            "extent": (lo, hi), "sum_w": sum_w, "n_total": n_total}
+            "extent": job.window, "sum_w": sum_w, "n_total": job.n_total}
+
+
+def _zeros(job: _Image, device):
+    return tuple(torch.zeros(job.bins[0] * job.bins[1], dtype=torch.float64, device=device)
+                 for _ in range(2))
+
+
+def _images(source_spec, elements, detector, n_total, bins, extent, chunk, ignore_defects,
+            device, tracer):
+    """The chunk loop: :func:`fused_source_images` with the chunk tracer
+    ``tracer(table, spec, chunk, n_total, device=, ignore_defects=)``
+    (:func:`plain_chunks`: K1i's plain version; :func:`k1_chunks`: K1 per
+    chunk), each chunk weighted and binned by K1i's per-ray arithmetic on
+    the window's FIXED pixels, delays against the chief-ray path
+    (``ops/fused_trace.fused_source_image_ref``)."""
+    job = _setup(source_spec, elements, detector, n_total, bins, extent, chunk, ignore_defects,
+                 device)
+    trace_chunk = tracer(job.table, job.spec, job.chunks[0][0], job.n_total, device=device,
+                         ignore_defects=ignore_defects)
+    # One float64 accumulator pair on the device for all chunks: the JAX
+    # package sums groups of chunks in float32 and the groups on the host in
+    # float64 (pixel weights pass float32's 2^24 on giga-ray images); float64
+    # device sums need no groups. Nothing synchronizes or crosses to the host
+    # until the loop ends.
+    images = _zeros(job, device)
+    ft.fused_source_image_ref(job.table, job.spec, job.chunks, job.n_total, job.det, job.window,
+                              job.bins, images, device=device, gaussian_edge=job.edge,
+                              ignore_defects=ignore_defects, trace_chunk=trace_chunk)
+    return _finish(job, images)
+
+
+def _images_k1i(source_spec, elements, detector, n_total, bins, extent, chunk, ignore_defects,
+                device, record=None):
+    """:func:`fused_source_images` through kernel K1i on a CUDA ``device``:
+    one launch for every chunk (``ops/fused_trace.prepare_fused_source_image``;
+    ``record``: an ``ImageRecord`` of some chunks' rays, for checks)."""
+    job = _setup(source_spec, elements, detector, n_total, bins, extent, chunk, ignore_defects,
+                 device)
+    launch = ft.prepare_fused_source_image(
+        job.table, job.spec, job.chunks, job.n_total, job.det, job.window, job.bins,
+        device=device, gaussian_edge=job.edge, ignore_defects=ignore_defects, record=record)
+    images = _zeros(job, device)
+    launch(images)
+    return _finish(job, images)
 
 
 def fused_source_images(source_spec, elements, detector, n_total: int | None = None,
@@ -174,25 +193,29 @@ def fused_source_images(source_spec, elements, detector, n_total: int | None = N
     """Intensity image and mean-delay map of ``n_total`` fused-source rays.
 
     ``source_spec`` is a chain's ``FusedSourceInfo`` (models/chain.py);
-    ``n_total`` defaults to its ray count and may be arbitrarily larger: the
-    source is synthesized in the kernel, so a billion-ray image costs time,
-    not memory. ``elements`` are the chain's element records (e.g.
-    ``chain.device_elements()``), on the device the image is made on. Returns a
-    dict: ``image`` (weighted intensity histogram, float64, x along axis 0),
-    ``mean_delay`` [fs, NaN off the beam, re-centred to the global weighted
-    mean], ``weight_image``, ``extent`` (lo, hi) [mm], ``sum_w`` and
-    ``n_total``. ``extent=None`` fits the window to a traced probe of
-    ``min(n_total, 2^17)`` rays.
+    ``n_total`` defaults to its ray count and may be arbitrarily larger (below
+    2^31 on the card): the source is synthesized in the kernel, so a
+    billion-ray image costs time, not memory. ``elements`` are the chain's
+    element records (e.g. ``chain.device_elements()``), on the device the
+    image is made on. Returns a dict: ``image`` (weighted intensity
+    histogram, float64, x along axis 0), ``mean_delay`` [fs, NaN off the
+    beam, re-centred to the global weighted mean], ``weight_image``,
+    ``extent`` (lo, hi) [mm], ``sum_w`` and ``n_total``. ``extent=None`` fits
+    the window to a traced probe of ``min(n_total, 2^17)`` rays.
 
     Chunks of ``chunk`` rays (aligned to whole sub-sources or grid rows for
     extended and square sources) follow the JAX package's (phase, k_frac)
     law (``ops/fused_trace.source_chunks``), so ray k is ray k of the one
-    global spiral. On a CUDA device each chunk is one launch of kernel K1;
-    on the CPU its plain version runs. Both of the JAX package's engine
-    names are K1 here (:data:`ENGINES`); with ``ignore_defects=False`` the
-    kernel composes the defect slopes into the normals, grid maps
-    included."""
+    global spiral. On a CUDA device all chunks are one launch of kernel K1i
+    (float64 atomics: reproducible to float64 rounding, not bit for bit); on
+    the CPU its plain version runs, chunk by chunk. Both of the JAX
+    package's engine names are K1i here (:data:`ENGINES`); with
+    ``ignore_defects=False`` the kernel composes the defect slopes into the
+    normals, grid maps included."""
     if engine not in ENGINES:
         raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
-    return _images(source_spec, elements, detector, n_total, bins, extent, chunk,
-                   ignore_defects, _elements_device(elements), k1_chunks)
+    device = _elements_device(elements)
+    args = (source_spec, elements, detector, n_total, bins, extent, chunk, ignore_defects, device)
+    if device.type == "cpu":
+        return _images(*args, plain_chunks)
+    return _images_k1i(*args)

@@ -52,7 +52,7 @@ streamed_trace_kernel(const __grid_constant__ ChainP ch, int n_rays,
   s.opl_c = opl_c_in[k];
   s.inc = inc_in[k];
   s.alive = alive_in[k] != 0;
-  trace_chain<true, false, DEFECTS>(ch, s);
+  trace_chain<true, NO_EXIT, DEFECTS>(ch, s);
   store_lab(ch, s, k, p, d, opl, opl_c, alive, inc);
 }
 
@@ -76,7 +76,7 @@ streamed_trace_fresh_kernel(const __grid_constant__ ChainP ch, int n_rays,
   s.opl_c = 0.0f;
   s.inc = 0.0f;
   s.alive = true;
-  trace_chain<true, false, DEFECTS>(ch, s);
+  trace_chain<true, NO_EXIT, DEFECTS>(ch, s);
   store_lab(ch, s, k, p, d, opl, opl_c, alive, inc);
 }
 

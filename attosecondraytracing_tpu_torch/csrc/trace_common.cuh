@@ -1,4 +1,4 @@
-// Device functions shared by the kernels K1, K2 and K8 (fused_trace.cu), K5
+// Device functions shared by the kernels K1, K1i, K2 and K8 (fused_trace.cu), K5
 // (fused_scan.cu), K3 and K4 (streamed_trace.cu), K6 and K7 (fused_grad.cu).
 //
 // They are the per-ray arithmetic of the JAX package's ops/trace.py
@@ -923,18 +923,22 @@ struct PoseMaps {
 // last element. Dead rays are not frozen at mirrors (their values are
 // unspecified and every consumer masks by alive); mask steps freeze.
 //
-// WARP_EXIT (the kernels that only sum alive rays: K2, K5-K8): a warp whose
-// 32 rays are all dead leaves the chain before the next element. A warp's
-// rays are consecutive points of the source's spiral, one thin ring, so a
-// round mask or hole keeps or kills them together (the flagship loses 51 %
-// of its rays, as whole warps at its mask, before its two toroids). The
-// caller's ray loop must be warp-uniform (for_thread_rays): the vote names
-// all 32 lanes.
+// WARP_EXIT (WarpExit): a warp whose rays are all dead leaves the chain
+// before the next element. A warp's rays are consecutive points of the
+// source's spiral, one thin ring, so a round mask or hole keeps or kills
+// them together (the flagship loses 51 % of its rays, as whole warps at its
+// mask, before its two toroids). WARP_VOTE (the kernels that only sum alive
+// rays: K1i, K2, K5-K8): the caller's ray loop is warp-uniform
+// (for_thread_rays) and the vote names all 32 lanes. ACTIVE_VOTE (K1): the
+// vote names the lanes still active, so a lane past the end may have
+// returned; a lane leaves only when its own ray is dead, whatever lanes vote.
 //
 // DEFECTS (with_defects): ZERNIKE_TABLES, a mirror with a Zernike table
 // takes zernike_hit; GRID_MAPS, a mirror with a table or grid maps takes
 // deformed_hit.
-template <bool WANT_INCIDENCE, bool WARP_EXIT, int DEFECTS, typename S, typename Maps>
+enum WarpExit : int { NO_EXIT = 0, WARP_VOTE = 1, ACTIVE_VOTE = 2 };
+
+template <bool WANT_INCIDENCE, int WARP_EXIT, int DEFECTS, typename S, typename Maps>
 __device__ __forceinline__ void trace_chain_maps(const ChainP& ch, const Maps& maps, RayT<S>& s) {
   for (int i = 0; i < ch.n_elements; ++i) {
     const ElementP& el = ch.el[i];
@@ -955,7 +959,9 @@ __device__ __forceinline__ void trace_chain_maps(const ChainP& ch, const Maps& m
       }
       t_eps = t_floor + T_EPS;
     }
-    if (WARP_EXIT && !__any_sync(0xffffffffu, s.alive)) return;
+    if (WARP_EXIT != NO_EXIT &&
+        !__any_sync(WARP_EXIT == ACTIVE_VOTE ? __activemask() : 0xffffffffu, s.alive))
+      return;
     S qx, qy, qz, ux, uy, uz;
     affine(maps.M(i), maps.b(i), s, qx, qy, qz, ux, uy, uz);
     if (el.kind == ELEM_MASK) {
@@ -1006,25 +1012,38 @@ __device__ __forceinline__ void trace_chain_maps(const ChainP& ch, const Maps& m
 }
 
 // the chain walk with the maps of the chain record
-template <bool WANT_INCIDENCE, bool WARP_EXIT, int DEFECTS>
+template <bool WANT_INCIDENCE, int WARP_EXIT, int DEFECTS>
 __device__ __forceinline__ void trace_chain(const ChainP& ch, Ray& s) {
   trace_chain_maps<WANT_INCIDENCE, WARP_EXIT, DEFECTS>(ch, TableMaps{ch}, s);
 }
 
-// Write ray k of a traced state: patch-relative frame K -> lab,
-// p = RK^T x + posK, d = RK^T d (the outputs of K1, K3 and K4).
+// A traced state in the lab: patch-relative frame K -> lab, p = RK^T x +
+// posK, d = RK^T d (K1's stores, K1i's detector plane: one expression, so
+// one rounding, in both).
+__device__ __forceinline__ void to_lab(const ChainP& ch, const Ray& s, float* P, float* D) {
+  const float* R = ch.RK;
+  P[0] = R[0] * s.px + R[3] * s.py + R[6] * s.pz + ch.posK[0];
+  P[1] = R[1] * s.px + R[4] * s.py + R[7] * s.pz + ch.posK[1];
+  P[2] = R[2] * s.px + R[5] * s.py + R[8] * s.pz + ch.posK[2];
+  D[0] = R[0] * s.dx + R[3] * s.dy + R[6] * s.dz;
+  D[1] = R[1] * s.dx + R[4] * s.dy + R[7] * s.dz;
+  D[2] = R[2] * s.dx + R[5] * s.dy + R[8] * s.dz;
+}
+
+// Write ray k of a traced state in the lab (the outputs of K1, K3 and K4).
 __device__ __forceinline__ void store_lab(const ChainP& ch, const Ray& s, int k,
                                           float* __restrict__ p, float* __restrict__ d,
                                           float* __restrict__ opl, float* __restrict__ opl_c,
                                           unsigned char* __restrict__ alive,
                                           float* __restrict__ inc) {
-  const float* R = ch.RK;
-  p[3 * k + 0] = R[0] * s.px + R[3] * s.py + R[6] * s.pz + ch.posK[0];
-  p[3 * k + 1] = R[1] * s.px + R[4] * s.py + R[7] * s.pz + ch.posK[1];
-  p[3 * k + 2] = R[2] * s.px + R[5] * s.py + R[8] * s.pz + ch.posK[2];
-  d[3 * k + 0] = R[0] * s.dx + R[3] * s.dy + R[6] * s.dz;
-  d[3 * k + 1] = R[1] * s.dx + R[4] * s.dy + R[7] * s.dz;
-  d[3 * k + 2] = R[2] * s.dx + R[5] * s.dy + R[8] * s.dz;
+  float P[3], D[3];
+  to_lab(ch, s, P, D);
+  p[3 * k + 0] = P[0];
+  p[3 * k + 1] = P[1];
+  p[3 * k + 2] = P[2];
+  d[3 * k + 0] = D[0];
+  d[3 * k + 1] = D[1];
+  d[3 * k + 2] = D[2];
   opl[k] = s.opl;
   opl_c[k] = s.opl_c;
   alive[k] = s.alive ? 1 : 0;
@@ -1161,7 +1180,7 @@ __device__ __forceinline__ void trace_runtime_pose(const ChainP& ch, const Sourc
     synth_source(src, k, phase, k_frac, s0, rr);
     s0.alive = in_range;
     RayT<S> s = lift<S>(s0);
-    trace_chain_maps<false, true, DEFECTS>(ch, maps, s);
+    trace_chain_maps<false, WARP_VOTE, DEFECTS>(ch, maps, s);
     if (s.alive) epi(s, rr);
   });
 }

@@ -26,8 +26,8 @@ from pathlib import Path
 import numpy as np
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-#: compiled sources, one object each: K1, K2 and K8; K5; K3 and K4; K6 and
-#: K7; the gather probes P4 and P5; the cost probes P1-P3
+#: compiled sources, one object each: K1, K1i, K2 and K8; K5; K3 and K4; K6
+#: and K7; the gather probes P4 and P5; the cost probes P1-P3
 UNITS = ("fused_trace.cu", "fused_scan.cu", "streamed_trace.cu", "fused_grad.cu",
          "gather_probe.cu", "cost_probe.cu")
 SOURCES = UNITS + ("trace_common.cuh", "dual.cuh")
@@ -39,7 +39,7 @@ NVCC_FLAGS = (
 )
 
 #: version of the C interface these bindings take (``art_abi_version``)
-ABI_VERSION = 5
+ABI_VERSION = 6
 
 _lock = threading.Lock()
 _lib = None
@@ -130,16 +130,17 @@ def load(path) -> ctypes.CDLL:
     return bind(lib, CHAIN_T.itemsize)
 
 
-def bind(lib, chain_bytes: int) -> ctypes.CDLL:
-    """Bind the kernels' C interface of versions 3 to 5 (the same entry
-    points) to a loaded library and check its record sizes: the chain
-    record must be ``chain_bytes`` long (this version's; an older version's
-    is a prefix of this version's record, which such a library reads: 4's
-    before the grid maps, 3's before the Zernike tables), the others as the
-    numpy records. The gather probes of version 5 are bound by
+def bind(lib, chain_bytes: int, image: bool = True) -> ctypes.CDLL:
+    """Bind the kernels' C interface of versions 3 to 6 (the same entry
+    points; version 6 adds the image kernel K1i, bound when ``image``) to a
+    loaded library and check its record sizes: the chain record must be
+    ``chain_bytes`` long (this version's; an older version's is a prefix of
+    this version's record, which such a library reads: 4's before the grid
+    maps, 3's before the Zernike tables), the others as the numpy records.
+    The gather probes of versions 5 and 6 are bound by
     ``utils/gather_probe.py``, the cost probes by ``utils/cost_probe.py``."""
     from .fused_scan import N_AUX
-    from .fused_trace import DETECTOR_T, SOURCE_T
+    from .fused_trace import DETECTOR_T, IMAGE_T, SOURCE_T
 
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for name in ("art_chain_params_size", "art_source_params_size",
@@ -167,9 +168,18 @@ def bind(lib, chain_bytes: int) -> ctypes.CDLL:
     lib.art_launch_fused_source_stats.restype = ci
     lib.art_launch_stats_params.argtypes = [vp, vp, cf, ci, ci, ci, ci, ci, vp, ci, vp, vp, vp, vp]
     lib.art_launch_stats_params.restype = ci
-    for name, size in (("art_chain_params_size", chain_bytes),
-                       ("art_source_params_size", SOURCE_T.itemsize),
-                       ("art_detector_params_size", DETECTOR_T.itemsize)):
+    sizes = [("art_chain_params_size", chain_bytes), ("art_source_params_size", SOURCE_T.itemsize),
+             ("art_detector_params_size", DETECTOR_T.itemsize)]
+    if image:
+        lib.art_image_params_size.argtypes = []
+        lib.art_image_params_size.restype = ctypes.c_size_t
+        lib.art_source_image_rays_per_block.argtypes = []
+        lib.art_source_image_rays_per_block.restype = ci
+        lib.art_launch_fused_source_image.argtypes = [
+            vp, vp, vp, ci, ci, ci, ci, vp, vp, vp, ci, ci, vp, vp, vp, vp]
+        lib.art_launch_fused_source_image.restype = ci
+        sizes.append(("art_image_params_size", IMAGE_T.itemsize))
+    for name, size in sizes:
         got = getattr(lib, name)()
         if got != size:
             raise RuntimeError(f"{name}: C struct is {got} B, numpy record is "
@@ -225,6 +235,11 @@ def source_stats_rays_per_block() -> int:
     return library().art_source_stats_rays_per_block()
 
 
+def source_image_rays_per_block() -> int:
+    """Rays per block of K1i."""
+    return library().art_source_image_rays_per_block()
+
+
 def tangent_batch() -> int:
     """G: the tangent rows each K6 block carries (a group of the step's rows)."""
     return library().art_tangent_batch()
@@ -253,6 +268,22 @@ def launch_fused_source_moments(chain_rec, src_rec, det_rec, n_rays, chunk, grid
         int(n_rays), int(chunk), int(grid[0]), int(grid[1]), chunk_params.data_ptr(),
         rows.data_ptr(), stream)
     _check(lib, status, "fused_source_moments launch")
+
+
+def launch_fused_source_image(chain_rec, src_rec, image_rec, n_rays, chunk, grid, chunk_params,
+                              images, record, stream, grids=()):
+    """``grid``: (blocks_per_chunk, n_blocks) of :func:`.fused_trace.ray_grid`;
+    ``images``: the flat float64 weight and weight x delay images, added
+    into; ``record``: None, or (first chunk, chunks, flat, weight, delay) of
+    :class:`.fused_trace.ImageRecord`."""
+    _check_grids(grids, images[0])
+    first, n_rec, flat, w, delay = record if record is not None else (0, 0, None, None, None)
+    lib = library()
+    status = lib.art_launch_fused_source_image(
+        _record_ptr(chain_rec), _record_ptr(src_rec), _record_ptr(image_rec), int(n_rays),
+        int(chunk), int(grid[0]), int(grid[1]), chunk_params.data_ptr(), images[0].data_ptr(),
+        images[1].data_ptr(), int(first), int(n_rec), _ptr(flat), _ptr(w), _ptr(delay), stream)
+    _check(lib, status, "fused_source_image launch")
 
 
 def launch_scan_moments(chain_rec, src_rec, n_rays, chunk, grid, svec, aux, rows, stream,

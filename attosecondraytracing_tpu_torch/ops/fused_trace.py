@@ -18,6 +18,14 @@ replace its Pallas kernels:
   ray by ray (K4, for a bundle fresh from a factory, reads p and d only) and
   traced through the lab-frame table (:func:`chain_table` with
   ``spec=None``).
+* **K1i** :func:`prepare_fused_source_image` (``fused_source_image_kernel``)
+  replaces the image loop of the JAX package's
+  ``analysis/gigascan.py::_images_fused_pallas`` (K1 per chunk, the chunk's
+  weights, matmul binning): one launch traces every chunk of a giga-ray
+  image and adds each alive ray's weight and weight x delay at its pixel
+  into two float64 images (:func:`image_rays_ref` per ray). Its one caller,
+  ``analysis/gigascan.fused_source_images``, takes the plain version
+  (:func:`fused_source_image_ref`) on the CPU.
 * **K8** :func:`fused_source_stats` (``fused_source_stats_kernel``)
   replaces ``_kernel_source_stats``: K2's trace with the stats epilogue
   (:func:`stats_rows`, 7 weighted sums) at up to 128 distances, the
@@ -68,6 +76,7 @@ from .trace import (
     to_lab_c,
     trace,
 )
+from . import precision
 from . import supports as sup
 from . import surfaces as srf
 
@@ -171,7 +180,7 @@ def _vogel_unit(k, n_total, phase, k_frac):
     tt = a * _PHI_G[2] + b * _PHI_G[1] + c * _PHI_G[0] + phase
     fr = tt - torch.floor(tt)
     s, co = _sincos_pi(2.0 * fr - 1.0)
-    r = torch.sqrt(k.to(f32) * (1.0 / n_total) + k_frac)
+    r = precision.sqrt(k.to(f32) * (1.0 / n_total) + k_frac)
     return -r * co, -r * s
 
 
@@ -218,7 +227,7 @@ def synth_source(kind, k, n_total, radius, phase, k_frac, *, pos_radius=0.0,
     zeros = torch.zeros_like(cx)
     if kind == "disk":
         return (cx, cy, zeros), (zeros, zeros, zeros + 1.0), rr
-    inv = torch.rsqrt(cx * cx + cy * cy + 1.0)
+    inv = precision.rsqrt(cx * cx + cy * cy + 1.0)
     p = (sx, sy, zeros) if kind == "extended" else (zeros, zeros, zeros)
     return p, (cx * inv, cy * inv, inv), rr
 
@@ -388,6 +397,10 @@ SOURCE_T = np.dtype([
 DETECTOR_T = np.dtype([
     ("c", "<f4", (3,)), ("n", "<f4", (3,)), ("e1", "<f4", (3,)), ("e2", "<f4", (3,)),
     ("opl_ref", "<f4"), ("inv_dn_chief", "<f4"), ("centre_distance", "<f4"),
+])
+IMAGE_T = np.dtype([
+    ("c", "<f4", (3,)), ("n", "<f4", (3,)), ("rot", "<f4", (6,)), ("opl_ref", "<f4"),
+    ("fs_per_mm", "<f4"), ("lo", "<f4", (2,)), ("scale", "<f4", (2,)), ("nx", "<i4"), ("ny", "<i4"),
 ])
 
 
@@ -779,6 +792,209 @@ def fused_source_trace(table: ChainTable, spec: BakedSource, n_rays: int, *,
 
 
 fused_source_trace.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K1i: a giga-ray image, traced and binned in one launch
+# ---------------------------------------------------------------------------
+
+
+class ImageDetector(NamedTuple):
+    """The plane an image is binned on: its lab centre and normal, rows 0-1
+    of its rotation (lab -> plane, ``Detector._plane_rotation``), and the
+    chief ray's optical path to it [mm] (the delays' reference). Host
+    float64 numbers, rounded to float32 once (:func:`pack_image`)."""
+
+    centre: tuple
+    normal: tuple
+    rot: tuple
+    opl_ref: float
+
+
+class ImageRecord(NamedTuple):
+    """K1i's optional per-ray record of the chunks ``first .. first +
+    n_chunks - 1``: ray k of chunk ``first + c`` at ``c * chunk + k`` of
+    ``flat`` (int32: its pixel, -1 dead or outside the window), ``w`` (its
+    weight) and ``delay`` (float32 [fs]; 0 where ``flat`` is -1)."""
+
+    first: int
+    n_chunks: int
+    flat: torch.Tensor
+    w: torch.Tensor
+    delay: torch.Tensor
+
+
+def image_record(first: int, n_chunks: int, chunk: int, *, device) -> ImageRecord:
+    """An empty :class:`ImageRecord` of ``n_chunks`` chunks of ``chunk`` rays."""
+    n = n_chunks * chunk
+    f32 = torch.float32
+    return ImageRecord(first, n_chunks, torch.full((n,), -1, dtype=torch.int32, device=device),
+                       torch.zeros((n,), dtype=f32, device=device),
+                       torch.zeros((n,), dtype=f32, device=device))
+
+
+def pack_image(det: ImageDetector, window, bins) -> np.ndarray:
+    """K1i's image record (``ImageP`` in csrc/fused_trace.cu): the plane and
+    the chief ray's path rounded to float32, fs per mm, and the window
+    ``(lo, hi)`` as histogram._bin_indices forms it in float32: its origin
+    and ``bins / (hi - lo)`` per axis, which PyTorch takes as the rounded
+    reciprocal times ``bins``."""
+    from .precision import LIGHT_SPEED_MM_S
+
+    f32 = np.float32
+    lo, hi = (np.asarray(v, np.float64).astype(f32) for v in window)
+    rec = np.zeros((), dtype=IMAGE_T)
+    rec["c"], rec["n"] = det.centre, det.normal
+    rec["rot"] = np.asarray(det.rot, np.float64)[:2].reshape(6)
+    rec["opl_ref"] = det.opl_ref
+    rec["fs_per_mm"] = 1e15 / LIGHT_SPEED_MM_S
+    rec["lo"] = lo
+    rec["scale"] = [(f32(1.0) / (h - l)) * f32(int(n)) for n, l, h in zip(bins, lo, hi)]
+    rec["nx"], rec["ny"] = int(bins[0]), int(bins[1])
+    return rec
+
+
+def source_weights(spec: BakedSource, n_local, n_total, phase, k_frac, gaussian_edge, device):
+    """A chunk's Gaussian weights ``exp(ln(edge) rr)`` from the source's
+    radial law in float32 (1.0 without an edge), as the kernels synthesize
+    them."""
+    if gaussian_edge is None:
+        return torch.ones((n_local,), dtype=torch.float32, device=device)
+    k = torch.arange(n_local, dtype=torch.int64, device=device)
+    _p, _d, rr = synth_spec(spec, k, n_total, phase, k_frac)
+    return torch.exp(float(np.log(gaussian_edge)) * rr)
+
+
+def image_rays_ref(out: TraceOutputs, weights, image_rec):
+    """K1i's per-ray epilogue in plain PyTorch: for K1's outputs ``out`` of a
+    chunk and their ``weights``, each ray's ``(flat, w, delay)`` of
+    :class:`ImageRecord`. The detector point and leg t
+    (stats.detector_points_3d: its dot products summed left to right), the
+    in-plane coordinates (stats.plane_coords), the delay [fs] against the
+    record's chief-ray path after the Kahan step of t
+    (``((s - opl_ref) - c) * fs_per_mm``) and the pixel
+    (histogram._bin_indices: truncation, clamp, window ``0 <= f <= n``),
+    every operation rounded on its own in float32, with the record's
+    float32 constants. A ray counts where it is alive and in the window."""
+    from .geometry import kahan_add
+
+    c, n, R = (tuple(float(v) for v in image_rec[f]) for f in ("c", "n", "rot"))
+    lo, scale = (tuple(float(v) for v in image_rec[f]) for f in ("lo", "scale"))
+    nx, ny = int(image_rec["nx"]), int(image_rec["ny"])
+    p, d = out.p, out.d
+    num = n[0] * (c[0] - p[:, 0]) + n[1] * (c[1] - p[:, 1]) + n[2] * (c[2] - p[:, 2])
+    den = d[:, 0] * n[0] + d[:, 1] * n[1] + d[:, 2] * n[2]
+    t = num / torch.where(torch.abs(den) > 1e-30, den, float("inf"))
+    r = [(p[:, j] + t * d[:, j]) - c[j] for j in range(3)]
+    x = r[0] * R[0] + r[1] * R[1] + r[2] * R[2]
+    y = r[0] * R[3] + r[1] * R[4] + r[2] * R[5]
+    s, sc = kahan_add(out.opl, out.opl_c, t)
+    delay = ((s - float(image_rec["opl_ref"])) - sc) * float(image_rec["fs_per_mm"])
+    fx = (x - lo[0]) * scale[0]
+    fy = (y - lo[1]) * scale[1]
+    ix = torch.clamp(fx.to(torch.int32), 0, nx - 1)
+    iy = torch.clamp(fy.to(torch.int32), 0, ny - 1)
+    counted = out.alive & (fx >= 0) & (fx <= nx) & (fy >= 0) & (fy <= ny)
+    flat = torch.where(counted, ix * ny + iy, -1).to(torch.int32)
+    return flat, weights, torch.where(counted, delay, 0.0)
+
+
+def bin_image_rays(images, flat, w, delay):
+    """Add rays ``(flat, w, delay)`` (:func:`image_rays_ref`) into the flat
+    float64 weight and weight x delay images, in place: ``w`` and the
+    float32 product ``w * delay`` at each counted ray's pixel."""
+    m = flat >= 0
+    idx = flat[m].to(torch.int64)
+    w = w[m]
+    images[0].index_add_(0, idx, w.to(torch.float64))
+    images[1].index_add_(0, idx, (w * delay[m]).to(torch.float64))
+
+
+def _check_image_args(chunks, n_total, bins):
+    sizes = _check_chunks(chunks)
+    if not 0 < n_total < 1 << 31 or sum(sizes) != n_total:
+        raise ValueError(f"an image takes 0 < n_total < 2^31 rays in its chunks, got {n_total} "
+                         f"in chunks of {sizes}")
+    if not all(0 < int(b) for b in bins) or int(bins[0]) * int(bins[1]) >= 1 << 31:
+        raise ValueError(f"image bins must be positive with fewer than 2^31 pixels, got {bins}")
+    return sizes
+
+
+def fused_source_image_ref(table: ChainTable, spec: BakedSource, chunks, n_total: int,
+                           det: ImageDetector, window, bins, images, *, device,
+                           gaussian_edge=None, ignore_defects=True, record=None,
+                           trace_chunk=None):
+    """Plain PyTorch version of K1i, the chunk loop: per chunk the plain
+    trace (:func:`fused_source_trace_ref`; or ``trace_chunk(n_local,
+    phase, k_frac)``, another chunk tracer's outputs: analysis/gigascan's
+    K1 loop), its weights (:func:`source_weights`) and
+    :func:`image_rays_ref`, added into ``images`` (:func:`bin_image_rays`)
+    and, for the chunks of ``record``, written into it."""
+    _check_image_args(chunks, n_total, bins)
+    rec = pack_image(det, window, bins)
+    chunk = chunks[0][0]
+    for i, (n_local, phase, k_frac) in enumerate(chunks):
+        if trace_chunk is None:
+            out = fused_source_trace_ref(table, spec, n_local, device=device, phase=phase,
+                                         k_frac=k_frac, n_total=n_total,
+                                         ignore_defects=ignore_defects)
+        else:
+            out = trace_chunk(n_local, phase, k_frac)
+        w = source_weights(spec, n_local, n_total, phase, k_frac, gaussian_edge, device)
+        rays = image_rays_ref(out, w, rec)
+        bin_image_rays(images, *rays)
+        if record is not None and 0 <= i - record.first < record.n_chunks:
+            at = (i - record.first) * chunk
+            for dst, src in zip(record[2:], rays):
+                dst[at:at + n_local] = src
+
+
+def prepare_fused_source_image(table: ChainTable, spec: BakedSource, chunks, n_total: int,
+                               det: ImageDetector, window, bins, *, device, gaussian_edge=None,
+                               ignore_defects=True, record: ImageRecord | None = None):
+    """K1i's host work for a CUDA ``device``: pack the chain, source and
+    image records (raising on what the kernel does not take) and the chunk
+    table. Returns ``launch(images)``: one launch over every chunk, adding
+    into the flat float64 ``images`` (weight, weight x delay; ``bins[0] *
+    bins[1]`` each, on the device) and writing ``record``'s chunks when one
+    is given; it counts the launch in
+    ``prepare_fused_source_image.launches``. The atomics' order varies, so
+    the images are reproducible to float64 rounding, not bit for bit.
+    Nothing synchronizes. The CPU's form is :func:`fused_source_image_ref`."""
+    sizes = _check_image_args(chunks, n_total, bins)
+    device = _cuda_device(device, "fused_source_image")
+    chain_rec = pack_chain(table, ignore_defects, device)
+    grids = launch_grids(table.elements, device)
+    src_rec = pack_source(spec, n_total, gaussian_edge)
+    image_rec = pack_image(det, window, bins)
+    from . import _cuda
+
+    params = torch.tensor([[c[1], c[2]] for c in chunks], dtype=torch.float32, device=device)
+    grid = ray_grid(sizes, _cuda.source_image_rays_per_block())
+    n_pixels = int(bins[0]) * int(bins[1])
+    if record is not None:
+        for name, x, dtype in (("record flat", record.flat, torch.int32),
+                               ("record w", record.w, torch.float32),
+                               ("record delay", record.delay, torch.float32)):
+            _check_out(name, x, dtype, params.device)
+            if x.numel() != record.n_chunks * sizes[0]:
+                raise ValueError(f"{name}: {record.n_chunks} chunks of {sizes[0]} rays, got {x.numel()}")
+
+    def launch(images):
+        for name, img in zip(("weight image", "delay image"), images):
+            _check_out(name, img, torch.float64, params.device)
+            if img.numel() != n_pixels:
+                raise ValueError(f"{name}: {n_pixels} pixels, got {img.numel()}")
+        with torch.cuda.device(params.device):
+            stream = torch.cuda.current_stream(params.device).cuda_stream
+            _cuda.launch_fused_source_image(chain_rec, src_rec, image_rec, n_total, sizes[0], grid,
+                                            params, images, record, stream, grids)
+        prepare_fused_source_image.launches += 1
+
+    return launch
+
+
+prepare_fused_source_image.launches = 0
 
 
 # ---------------------------------------------------------------------------

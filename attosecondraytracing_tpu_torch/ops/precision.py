@@ -45,6 +45,28 @@ def default_dtype() -> torch.dtype:
     return env_dtype() or torch.float32
 
 
+def rsqrt(x: torch.Tensor) -> torch.Tensor:
+    """``torch.rsqrt``, correctly rounded for float32 on the CPU.
+
+    PyTorch's CPU rsqrt is ``1 / sqrt`` (two roundings) and its vectorized
+    float32 sqrt is not correctly rounded either; the float32 toroid's
+    residual cancels ``rho - R`` at metre radii, so an ulp there moves the
+    root. Through float64 the result is the correctly rounded value, as
+    XLA's. On CUDA this is ``torch.rsqrt`` (the ``rsqrtf`` the kernels
+    take), so the card's plain versions keep their arithmetic."""
+    if x.dtype == torch.float32 and x.device.type == "cpu":
+        return torch.rsqrt(x.double()).float()
+    return torch.rsqrt(x)
+
+
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """``torch.sqrt``, correctly rounded for float32 on the CPU (as
+    :func:`rsqrt`); the kernels' ``sqrtf`` is IEEE-rounded."""
+    if x.dtype == torch.float32 and x.device.type == "cpu":
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)
+
+
 def resolve_device(device) -> torch.device:
     """A ``torch.device`` from a name or device; a CUDA device must exist
     (there is no silent CPU fallback)."""

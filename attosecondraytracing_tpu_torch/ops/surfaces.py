@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from . import supports as sup
-from .precision import HIT_TOL, T_EPS
+from .precision import HIT_TOL, T_EPS, rsqrt
 
 _NEWTON_ITERS = 3
 _NEWTON_ITERS_TOROID = 6
@@ -104,17 +104,17 @@ def _where(cond, a, b):
 def _residual_c(surface, x, y, z, ux, uy, uz):
     if isinstance(surface, Sphere):
         rr = x * x + y * y + z * z
-        inv_r = torch.rsqrt(torch.clamp(rr, min=1e-30))
+        inv_r = rsqrt(torch.clamp(rr, min=1e-30))
         return rr * inv_r - surface.radius, (x * ux + y * uy + z * uz) * inv_r
     if isinstance(surface, Cylinder):
         rr = y * y + z * z
-        inv_r = torch.rsqrt(torch.clamp(rr, min=1e-30))
+        inv_r = rsqrt(torch.clamp(rr, min=1e-30))
         return rr * inv_r - surface.radius, (y * uy + z * uz) * inv_r
     if isinstance(surface, Parabola):
         p = surface.p
         h = z - (x * x + y * y) / (2.0 * p)
         hp = uz - (x * ux + y * uy) / p
-        scale = p * torch.rsqrt(x * x + y * y + p * p)
+        scale = p * rsqrt(x * x + y * y + p * p)
         return h * scale, hp * scale
     if isinstance(surface, Ellipsoid):
         inv_a2 = 1.0 / (surface.a * surface.a)
@@ -122,15 +122,15 @@ def _residual_c(surface, x, y, z, ux, uy, uz):
         f = x * x * inv_a2 + (y * y + z * z) * inv_b2 - 1.0
         fp = 2.0 * (x * ux * inv_a2 + (y * uy + z * uz) * inv_b2)
         gg = (x * inv_a2) ** 2 + (y * inv_b2) ** 2 + (z * inv_b2) ** 2
-        scale = 0.5 * torch.rsqrt(torch.clamp(gg, min=1e-30))
+        scale = 0.5 * rsqrt(torch.clamp(gg, min=1e-30))
         return f * scale, fp * scale
     if isinstance(surface, Toroid):
         R, r = surface.major_radius, surface.minor_radius
         rho2 = x * x + z * z
-        inv_rho = torch.rsqrt(torch.clamp(rho2, min=1e-30))
+        inv_rho = rsqrt(torch.clamp(rho2, min=1e-30))
         w = rho2 * inv_rho - R
         s2 = w * w + y * y
-        inv_s = torch.rsqrt(torch.clamp(s2, min=1e-30))
+        inv_s = rsqrt(torch.clamp(s2, min=1e-30))
         g = s2 * inv_s - r
         drho_dt = (x * ux + z * uz) * inv_rho
         gp = (w * drho_dt + y * uy) * inv_s
@@ -371,10 +371,10 @@ def _toroid_fast_root(surface, q, u, t_eps):
         big = torch.abs(gp) > 1e-12
         t = t - g * _where(big, 1.0 / _where(big, gp, 1.0), 0.0)
     x, y, z = qx + t * ux, qy + t * uy, qz + t * uz
-    inv_rho = torch.rsqrt(torch.clamp(x * x + z * z, min=1e-30))
+    inv_rho = rsqrt(torch.clamp(x * x + z * z, min=1e-30))
     w = (x * x + z * z) * inv_rho - R
     s2_ = w * w + y * y
-    inv_s = torch.rsqrt(torch.clamp(s2_, min=1e-30))
+    inv_s = rsqrt(torch.clamp(s2_, min=1e-30))
     g_abs = torch.abs(s2_ * inv_s - r)
     return t, g_abs, (x, y, z), (inv_rho, inv_s, w)
 
@@ -449,12 +449,12 @@ def normal_c(surface, x, y, z):
         nx, ny, nz = -x * inv_a2, -y * inv_b2, -z * inv_b2
     elif isinstance(surface, Toroid):
         R = surface.major_radius
-        inv_rho = torch.rsqrt(torch.clamp(x * x + z * z, min=1e-30))
+        inv_rho = rsqrt(torch.clamp(x * x + z * z, min=1e-30))
         w = 1.0 - R * inv_rho
         nx, ny, nz = -w * x, -y, -w * z
     else:
         raise TypeError(f"unknown surface {type(surface)}")
-    inv = torch.rsqrt(nx * nx + ny * ny + nz * nz)
+    inv = rsqrt(nx * nx + ny * ny + nz * nz)
     return nx * inv, ny * inv, nz * inv
 
 
@@ -470,7 +470,7 @@ def normal_at_root_c(surface, x, y, z):
         return torch.zeros_like(x), y * inv, z * inv
     if isinstance(surface, Toroid):
         R, r = surface.major_radius, surface.minor_radius
-        inv_rho = torch.rsqrt(torch.clamp(x * x + z * z, min=1e-30))
+        inv_rho = rsqrt(torch.clamp(x * x + z * z, min=1e-30))
         a = (1.0 - R * inv_rho) / r
         return -a * x, -y / r, -a * z
     return normal_c(surface, x, y, z)

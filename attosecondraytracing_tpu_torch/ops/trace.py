@@ -37,7 +37,7 @@ from . import surfaces as srf
 from .bundle import RayBundle
 from .defects import defect_offset, defect_slopes
 from .geometry import kahan_add
-from .precision import T_EPS
+from .precision import T_EPS, rsqrt
 
 
 class MirrorElement(NamedTuple):
@@ -162,7 +162,7 @@ def _defect_normal(element, x, y, n, cen):
         dgx, dgy = defect_slopes(defect, x - cen[0], y - cen[1])
         gx = gx + dgx
         gy = gy + dgy
-    inv = torch.rsqrt(gx * gx + gy * gy + 1.0)
+    inv = rsqrt(gx * gx + gy * gy + 1.0)
     return -gx * inv, -gy * inv, inv
 
 

@@ -11,8 +11,9 @@ bodies compute:
 
 * **P1** :func:`add_one` — an (8, 128) float32 tile plus 1; measured as the
   seconds from loading a fresh copy of the kernel library to the first
-  finished launch (:func:`first_launch_seconds`) and the steady launch
-  latency (:func:`launch_latency_us`);
+  finished launch (:func:`first_launch_seconds`), the steady launch
+  latency (:func:`launch_latency_us`), and the launch's device time with
+  the host's work hidden behind a busy stream (:func:`queued_us`);
 * **P2** :func:`op_chain` — ``n_ops`` dependent applications of one of the
   script's nine :data:`OPS` to every element of a (78336, 128) float32
   array, slope-timed over ``n_ops`` (:func:`op_costs`);
@@ -147,6 +148,34 @@ def launch_latency_us(x, reps=5, inner=20):
     """Steady launch latency of P1 [µs]: the median over ``reps`` CUDA-event
     windows of ``inner`` back-to-back launches on ``x``."""
     return time_ms(lambda: add_one(x), reps=reps, inner=inner) * 1e3
+
+
+def queued_us(fn, n=200, hold_ms=20.0):
+    """Device time per call of ``fn`` [µs] with the host's work hidden: the
+    stream is held busy (``torch.cuda._sleep``, ``hold_ms``) while ``n``
+    calls are queued behind it, so CUDA events around them read the card
+    running the calls back to back, without the host's binding and enqueue
+    between them. Raises if the queueing outlasted the hold (the reading
+    would then be the host's)."""
+    fn()
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    torch.cuda._sleep(1 << 20)
+    stop.record()
+    stop.synchronize()
+    cycles = int((1 << 20) * hold_ms / start.elapsed_time(stop))
+    torch.cuda._sleep(cycles)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    stop.record()
+    stop.synchronize()
+    if host_ms > 0.8 * hold_ms:
+        raise RuntimeError(f"queueing {n} calls took {host_ms:.1f} ms of a {hold_ms} ms hold")
+    return start.elapsed_time(stop) / n * 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -384,7 +413,8 @@ def main():
     seconds, x, out = first_launch_seconds(device=dev)
     print(f"P1 first launch from a fresh library load: {seconds:.4f} s, equal "
           f"{bool(torch.equal(out, add_one_ref(x)))}; steady launch "
-          f"{launch_latency_us(x):.2f} us")
+          f"{launch_latency_us(x):.2f} us; on the card, queued: {queued_us(lambda: add_one(x)):.2f} us "
+          f"(x + 1: {queued_us(lambda: add_one_ref(x)):.2f} us)")
     for op, row in op_costs(device=dev).items():
         print(f"P2 {op:12s}: {row['ms_per_op']:8.5f} ms per op over {OP_SHAPE[0] * OP_SHAPE[1]} lanes "
               f"(n_ops {SCRIPT_N_OPS}), {row['ms_per_op_large']:8.5f} (n_ops {N_OPS_SWEEP[-2:]}); "

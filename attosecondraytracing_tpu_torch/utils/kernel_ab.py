@@ -1,7 +1,8 @@
 """A/B of builds of the kernel library in one process, on one card.
 
     python -m attosecondraytracing_tpu_torch.utils.kernel_ab OTHER_CSRC [OTHER_CSRC ...]
-        [--rays N] [--rounds R] [--kernels K1,K6,...] [--chains flat,zernike] [--zernike] [--grid]
+        [--rays N] [--image-rays N] [--rounds R] [--kernels K1,K6,...] [--chains flat,zernike,grid]
+        [--zernike] [--grid]
 
 Each ``OTHER_CSRC`` holds another version's ``csrc/`` sources: the parent
 commit's (unpacked with ``git archive`` into a directory that ``.gitignore``
@@ -13,12 +14,20 @@ shared memory) are printed and, where the toolkit has ``cuobjdump``, the
 static opcode counts of K2's and K8's SASS. The launch-only times at N rays
 (default 1e7) are then taken in turns against this checkout (A), A B B A
 per round: each window is 5 back-to-back launches between CUDA events, on
-each chain of ``--chains``: ``flat``, the flagship (the default), and
+each chain of ``--chains``: ``flat``, the flagship (the default),
 ``zernike``, the flagship with its first toroid carrying the Zernike
-defects of ``chip_smoke.py``'s phase zernike.
+defects of ``chip_smoke.py``'s phase zernike, and ``grid``, with its grid
+map.
 
 * K1, K3 and K4 have the same C interface in every build: one prepared
-  launch serves each library, picked up through ``ops/_cuda._lib``.
+  launch serves each library, picked up through ``ops/_cuda._lib``. K1's
+  outputs of the two builds are compared ray by ray: the alive masks, and
+  p, d, opl, opl_c and incidence bit for bit on the alive rays.
+* K1i (C interface version 6) is prepared per library of version 6: the
+  flagship's image of ``--image-rays`` rays (default ``--rays``), 512 x 512
+  pixels on the plane 490 mm behind it (the window fitted to a probe), one
+  launch for all its chunks; the two builds'
+  images are compared (sums of weights, summed pixel differences).
 * K2, K5-K7 and K8 (at 1, 20 and 128 distances: ``K8_J1``, ``K8_J20``,
   ``K8_J128``; ``K8`` names all three) are prepared per library. A build of
   this C interface (version 4, ``art_abi_version``) or of version 3 (the same
@@ -62,7 +71,9 @@ import torch
 
 from ..ops import _cuda
 
-KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8_J1", "K8_J20", "K8_J128")
+KERNELS = ("K1", "K1i", "K2", "K3", "K4", "K5", "K6", "K7", "K8_J1", "K8_J20", "K8_J128")
+#: the pixels of K1i's image
+K1I_BINS = (512, 512)
 #: distances of the K8 runs (20: scripts/bench_stats_kernel.py's; 128: the most a pass takes)
 K8_DISTANCES = {"K8_J1": 1, "K8_J20": 20, "K8_J128": 128}
 
@@ -162,7 +173,7 @@ def sass_summary(lib_path, kernels=("fused_source_moments_kernel", "fused_source
 
 def bind(path):
     """``(library, version)``: a library of this C interface through
-    ``_cuda.load`` (version 5), or an older one (version 4, 3 or 2, or 1
+    ``_cuda.load`` (version 6), or an older one (version 5, 4, 3 or 2, or 1
     without ``art_abi_version``) through :func:`bind_old`."""
     probe = ctypes.CDLL(str(path))
     version = 1
@@ -171,7 +182,7 @@ def bind(path):
         version = probe.art_abi_version()
     if version == _cuda.ABI_VERSION:
         return _cuda.load(path), version
-    if version not in (1, 2, 3, 4):
+    if version not in (1, 2, 3, 4, 5):
         raise RuntimeError(f"{path}: C interface version {version} has no adapter here")
     return bind_old(path, version), version
 
@@ -185,21 +196,24 @@ def _chain_prefix_bytes() -> int:
 
 
 def bind_old(path, version: int) -> ctypes.CDLL:
-    """Bind a library of C interface version 1, 2, 3 or 4: version 4 as this
-    version (:func:`.._cuda.bind`), reading the prefix of this version's
+    """Bind a library of C interface version 1 to 5: version 5 as this
+    version without K1i (:func:`.._cuda.bind`); version 4 so, reading the
+    prefix of this version's
     chain record before the grid maps (a chain without grid maps); version 3
     so, reading the prefix before the defect fields (:func:`_chain_prefix_bytes`:
     an undeformed chain); versions 1 and 2 with K1, K3 and K4 as now, K2 and
     K8 on a (blocks per chunk, chunks) grid, K5 and K6/K7 with the version's
     signatures (version 1: that grid too, and K6 6 tangent rows per launch;
     version 2: as now), reading version 3's prefix. Record sizes checked."""
-    from ..ops.fused_trace import CHAIN_V4_BYTES, DETECTOR_T, SOURCE_T
+    from ..ops.fused_trace import CHAIN_T, CHAIN_V4_BYTES, DETECTOR_T, SOURCE_T
 
     lib = ctypes.CDLL(str(path))
+    if version == 5:
+        return _cuda.bind(lib, CHAIN_T.itemsize, image=False)
     if version == 4:
-        return _cuda.bind(lib, CHAIN_V4_BYTES)
+        return _cuda.bind(lib, CHAIN_V4_BYTES, image=False)
     if version == 3:
-        return _cuda.bind(lib, _chain_prefix_bytes())
+        return _cuda.bind(lib, _chain_prefix_bytes(), image=False)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for name, size in (("art_chain_params_size", _chain_prefix_bytes()),
                        ("art_source_params_size", SOURCE_T.itemsize),
@@ -384,7 +398,7 @@ def flagship(n_rays: int = 16, kind: str = "flat"):
     return [e.to_device("cpu", torch.float64) for e in chain.optical_elements], spec
 
 
-def _problems(n_rays: int, device, kind: str = "flat"):
+def _problems(n_rays: int, device, kind: str = "flat", n_image: int | None = None):
     """The flagship (round-hole mask and two grazing toroids in f-d-f, 25
     mrad cone source; its first toroid deformed by
     :func:`first_toroid_defects` of ``kind``) at ``n_rays`` rays: prepared
@@ -392,8 +406,12 @@ def _problems(n_rays: int, device, kind: str = "flat"):
     giving each library's ``{kernel: (launch, result)}`` of K2, K8 (1, 20
     and 128 distances over +-10 mm, per-distance chief-ray delay offsets),
     K5, K6 (the step's 18 tangent rows of scripts/bench_fused_grad.py's
-    misalignment, Gaussian edge exp(-2)) and K7."""
+    misalignment, Gaussian edge exp(-2)) and K7, and K1i (version 6) at
+    ``n_image`` rays (default ``n_rays``).
+    Returns ``(shared, per_lib, results)``: ``results`` holds K1's outputs
+    as the last launch left them."""
     from ..analysis import alignment as al
+    from ..analysis import gigascan as gs
     from ..models.detector import Detector
     from ..ops import fused_grad as fg
     from ..ops import fused_scan as fs
@@ -437,6 +455,18 @@ def _problems(n_rays: int, device, kind: str = "flat"):
     gsvec = fg.chain_scalars_np(fg._apply_params_np(host, params), *geo)
     tang = fg.scalar_tangents(host, params, *geo)
     gchunks = fg._ray_chunks(lspec, fg.GRAD_CHUNK)
+    window = gs._fit_extent(spec, host, min(n_rays, gs.EXTENT_PROBE_RAYS),
+                            *(torch.as_tensor(v, dtype=torch.float32, device=device)
+                              for v in (det.centre, det.normal, rot)), True, device)
+    idet = ft.ImageDetector(tuple(det.centre), tuple(det.normal), tuple(map(tuple, rot[:2])), opl_ref)
+    images = tuple(torch.zeros(K1I_BINS[0] * K1I_BINS[1], dtype=torch.float64, device=device)
+                   for _ in range(2))
+    n_image = n_image or n_rays
+    image_chunks = ft.source_chunks("cone", n_image, n_image)
+
+    def k1_outputs():
+        alive = outs.alive.clone()
+        return alive, [x[alive].clone() for x in (outs.p, outs.d, outs.opl, outs.opl_c, outs.incidence)]
 
     def per_lib(lib, version):
         out = {}
@@ -469,9 +499,22 @@ def _problems(n_rays: int, device, kind: str = "flat"):
         out.update({"K5": (k5, lambda: rows5.sum(dim=0).cpu().numpy()),
                     "K6": (k6, lambda: grad_result(rows6, len(tang))),
                     "K7": (k7, lambda: grad_result(rows7, 0))})
+        if version >= 6:
+            k1i = ft.prepare_fused_source_image(table, spec, image_chunks, n_image, idet, window,
+                                                K1I_BINS, device=device, gaussian_edge=edge)
+
+            def image_result(k1i=k1i, lib=lib):
+                kept, _cuda._lib = _cuda._lib, lib  # the launch binds the current library
+                for img in images:
+                    img.zero_()
+                k1i(images)
+                _cuda._lib = kept
+                return np.concatenate([img.cpu().numpy() for img in images])
+
+            out["K1i"] = (lambda k1i=k1i: k1i(images), image_result)
         return out
 
-    return {"K1": k1, "K3": k3, "K4": k4}, per_lib
+    return {"K1": k1, "K3": k3, "K4": k4}, per_lib, {"K1": k1_outputs}
 
 
 def _window_ms(launch, inner=5) -> float:
@@ -514,6 +557,12 @@ def _difference(key, a, b) -> str:
         delay[[5, 6] if len(d) == 7 else [3, 6, 9, 12, 15]] = True
         return f"{float(d[~delay].max()):.3g} (spatial) and {float(d[delay].max()):.3g} (delay)"
 
+    if key == "K1i":
+        wa, wb = a[:len(a) // 2], b[:len(b) // 2]
+        da, db = a[len(a) // 2:], b[len(b) // 2:]
+        return (f"sums of weights within {abs(wb.sum() / wa.sum() - 1):.3g}, pixels' weights within "
+                f"{np.abs(wb - wa).sum() / wa.sum():.3g} and weight x delay within "
+                f"{np.abs(db - da).sum() / max(np.abs(da).sum(), 1e-300):.3g} (summed, relative)")
     if key == "K6":
         pa, ta = a[:7], a[7:].reshape(-1, 7)
         pb, tb = b[:7], b[7:].reshape(-1, 7)
@@ -523,13 +572,41 @@ def _difference(key, a, b) -> str:
     return f"sums within {rel(a, b)} of scale"
 
 
-def _ab(key, shared, own, name, lib_a, lib, rounds):
+def _outputs_difference(a, b) -> str:
+    """K1's outputs of two builds (``(alive, [p, d, opl, opl_c, incidence]
+    on the alive rays)``): whether the alive masks are equal and how many
+    alive rays differ in any output bit."""
+    (alive_a, xa), (alive_b, xb) = a, b
+    if not torch.equal(alive_a, alive_b):
+        return f"; alive masks differ on {int((alive_a != alive_b).sum())} rays"
+    differ = torch.zeros(int(alive_a.sum()), dtype=torch.bool, device=alive_a.device)
+    fields = []
+    for name, u, v in zip(("p", "d", "opl", "opl_c", "incidence"), xa, xb):
+        same = (u.view(torch.int32) == v.view(torch.int32))
+        same = same.all(dim=1) if same.ndim == 2 else same
+        differ |= ~same
+        if not bool(same.all()):
+            fields.append(f"{name} on {int((~same).sum())} (max |diff| {float((u - v).abs().max()):.3g})")
+    return (f"; alive masks equal, {int(differ.sum())} of {differ.numel()} alive rays differ in "
+            f"p, d, opl, opl_c or incidence (bit for bit){': ' + ', '.join(fields) if fields else ''}")
+
+
+def _ab(key, shared, own, name, lib_a, lib, rounds, results=None):
     """A B B A rounds of one kernel against one other build: (A ms, B ms,
-    the sums' difference or "")."""
+    the sums' or outputs' difference, or "")."""
     libs = {"A": lib_a, "B": lib}
     if key in shared:
         launch = {"A": shared[key], "B": shared[key]}
         outcome = None
+        if results and key in results:
+            got = {}
+            for ab in ("A", "B"):
+                _cuda._lib = libs[ab]
+                launch[ab]()
+                torch.cuda.synchronize()
+                got[ab] = results[key]()
+            _cuda._lib = lib_a
+            compared = _outputs_difference(got["A"], got["B"])
     else:
         launch = {"A": own["A"][key][0], "B": own[name][key][0]}
         outcome = {"A": own["A"][key][1], "B": own[name][key][1]}
@@ -544,6 +621,8 @@ def _ab(key, shared, own, name, lib_a, lib, rounds):
             times[ab].append(_window_ms(launch[ab]))
     _cuda._lib = lib_a
     diff = f"; {_difference(key, outcome['A'](), outcome['B']())}" if outcome else ""
+    if key in shared and results and key in results:
+        diff = compared
     return float(np.median(times["A"])), float(np.median(times["B"])), diff
 
 
@@ -551,6 +630,7 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("other_csrc", type=Path, nargs="+")
     parser.add_argument("--rays", type=float, default=1e7)
+    parser.add_argument("--image-rays", type=float, default=None)
     parser.add_argument("--rounds", type=int, default=10)
     parser.add_argument("--kernels", default=",".join(KERNELS))
     parser.add_argument("--chains", default="flat")
@@ -561,8 +641,8 @@ def main(argv=None):
     for k in args.kernels.split(","):
         keys += list(K8_DISTANCES) if k == "K8" else [k] if k else []
     chains = [c for c in args.chains.split(",") if c]
-    if not set(keys) <= set(KERNELS) or not set(chains) <= {"flat", "zernike"}:
-        raise SystemExit(f"--kernels takes {KERNELS} and K8; --chains flat and zernike")
+    if not set(keys) <= set(KERNELS) or not set(chains) <= set(CHAINS):
+        raise SystemExit(f"--kernels takes {KERNELS} and K8; --chains {CHAINS}")
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab needs a CUDA card")
     device = torch.device("cuda", 0)
@@ -586,7 +666,8 @@ def main(argv=None):
     print(f"{card}; {1 + len(others)} libraries ready in {time.perf_counter() - t0:.1f} s", flush=True)
     flat, result = None, {}
     for chain in chains:
-        shared, per_lib = _problems(int(args.rays), device, chain)
+        shared, per_lib, results = _problems(int(args.rays), device, chain,
+                                             int(args.image_rays or args.rays))
         own = {"A": per_lib(lib_a, _cuda.ABI_VERSION)}
         for name, _csrc, lib, version in others:
             own[name] = per_lib(lib, version)
@@ -595,17 +676,21 @@ def main(argv=None):
             flat = (shared, own["A"])
         for key in keys:
             for name, csrc, lib, _version in others:
-                a, b, diff = _ab(key, shared, own, name, lib_a, lib, args.rounds)
+                if key not in shared and key not in own[name]:
+                    print(f"{key} {chain} flagship: {name} has no {key}", flush=True)
+                    continue
+                a, b, diff = _ab(key, shared, own, name, lib_a, lib, args.rounds, results)
                 result.setdefault(chain, {}).setdefault(key, {})[name] = {
                     "other": csrc, "A_ms": a, "B_ms": b, "B_over_A": b / a}
+                rays = int(args.image_rays or args.rays) if key == "K1i" else int(args.rays)
                 print(f"{key} {chain} flagship vs {name}: this build {a:.4f} ms, other build {b:.4f} ms "
                       f"(B/A {b / a:.4f}; {2 * args.rounds} windows each of 5 launches at "
-                      f"{int(args.rays)} rays){diff}", flush=True)
+                      f"{rays} rays){diff}", flush=True)
     deformed = {}
     for kind in ("zernike", "grid"):
         if getattr(args, kind):
             if flat is None:
-                shared, per_lib = _problems(int(args.rays), device, "flat")
+                shared, per_lib, _results = _problems(int(args.rays), device, "flat")
                 flat = (shared, per_lib(lib_a, _cuda.ABI_VERSION))
             deformed[kind] = _time_deformed(keys, kind, *flat, args, device)
     print(json.dumps({"card": card, "rays": int(args.rays), "kernels": result, "deformed": deformed}),
@@ -617,7 +702,7 @@ def _time_deformed(keys, kind, shared, own_a, args, device):
     ("zernike" or "grid") beside the undeformed flagship's, in turns
     (undeformed, deformed, deformed, undeformed) per round: ``{kernel:
     {"ms", "undeformed_ms", "ratio"}}``."""
-    d_shared, d_per_lib = _problems(int(args.rays), device, kind)
+    d_shared, d_per_lib, _results = _problems(int(args.rays), device, kind)
     d_own = d_per_lib(_cuda.library(), _cuda.ABI_VERSION)
     out = {}
     for key in keys:

@@ -34,6 +34,16 @@ K2 (``fused_trace.cu``): ``k2_r<R>``: R rays per thread, R in 8, 32 (shipped
 16); ``k2_b<B>``: a register budget of B 256-thread blocks per SM, B in 6 (40
 registers), 8 (32) (shipped: none, 48 registers, 5 blocks).
 
+K1 (``fused_trace.cu``): ``k1_warp_loop``: K1 on the summing kernels'
+warp-uniform loop (``for_thread_rays``, 4 rays per thread, the warp's 32
+lanes voting), in place of the shipped one ray per thread whose active
+lanes vote; ``k1_no_warp_exit``: the shipped K1 without the exit of a warp
+whose rays are all dead.
+
+K1i (``fused_trace.cu``): ``k1i_aggregate``: the lanes of a warp whose rays
+share a pixel add their sums in one atomic per image (``__match_any_sync``),
+in place of the shipped atomic per ray.
+
 K8 (``fused_trace.cu``): ``k8_tile<T>``: T distances per pass over a
 thread's kept rays, T in 1, 2, 8 (shipped 4); ``k8_r<R>``: R rays traced and
 kept per thread, R in 4, 5 (32, 40 KB of shared memory a block), 8 (64 KB: 3
@@ -200,8 +210,7 @@ def variants() -> dict:
                           "float div_(float a, float b) { return a * __frcp_rn(b); }")],
         "sqrt_ieee": [_SQRT_IEEE],
         "ieee_all": [_RSQ_IEEE, _DIV_IEEE, _SQRT_IEEE],
-        "no_warp_exit": [_lit("trace_common.cuh",
-                              "    if (WARP_EXIT && !__any_sync(0xffffffffu, s.alive)) return;\n", "")],
+        "no_warp_exit": [_lit("trace_common.cuh", "if (WARP_EXIT != NO_EXIT &&", "if (false &&")],
         "unrolled": [_UNROLLED],
         "reduce_shuffle": [_REDUCE_SHUFFLE],
         "k8_all_blocks": [_lit("fused_trace.cu", "if (__syncthreads_or(n_kept) == 0) {",
@@ -209,6 +218,39 @@ def variants() -> dict:
         "k8_columns_g6": _k8_columns(6),
         "k8_columns_g20": _k8_columns(20),
     }
+    out["k1_warp_loop"] = [
+        ("fused_trace.cu", r"  const int k = blockIdx.x \* K1_THREADS.*?\n}\n",
+         """  for_thread_rays<4>(blockIdx.x * 4 * K1_THREADS + (int)threadIdx.x, n_rays,
+                     [&](int k, bool in_range) {
+                       Ray s;
+                       float rr;
+                       synth_source(src, k, phase, k_frac, s, rr);
+                       s.alive = in_range;
+                       trace_chain<true, WARP_VOTE, DEFECTS>(ch, s);
+                       if (in_range) store_lab(ch, s, k, p, d, opl, opl_c, alive, inc);
+                     });
+}
+""", re.DOTALL),
+        _lit("fused_trace.cu", "const int blocks = (n_rays + K1_THREADS - 1) / K1_THREADS;",
+             "const int blocks = (n_rays + 4 * K1_THREADS - 1) / (4 * K1_THREADS);")]
+    out["k1_no_warp_exit"] = [_lit("fused_trace.cu", "trace_chain<true, ACTIVE_VOTE, DEFECTS>(ch, s);",
+                                   "trace_chain<true, NO_EXIT, DEFECTS>(ch, s);")]
+    out["k1i_aggregate"] = [_lit("fused_trace.cu", """  if (flat < 0) return;
+  atomicAdd(w_img + flat, (double)w);
+  atomicAdd(wd_img + flat, (double)wd);
+""", """  const unsigned peers = __match_any_sync(0xffffffffu, flat);
+  if (flat < 0) return;  // the whole group of lanes without a pixel
+  double sw = 0.0, swd = 0.0;
+  for (unsigned m = peers; m; m &= m - 1) {
+    const int lane = __ffs(m) - 1;
+    sw += __shfl_sync(peers, (double)w, lane);
+    swd += __shfl_sync(peers, (double)wd, lane);
+  }
+  if ((int)(threadIdx.x & 31) == __ffs(peers) - 1) {
+    atomicAdd(w_img + flat, sw);
+    atomicAdd(wd_img + flat, swd);
+  }
+""")]
     for R in (8, 32):
         out[f"k2_r{R}"] = [_set("K2_RAYS_PER_THREAD", R, "fused_trace.cu")]
     for B in (6, 8):

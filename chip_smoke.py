@@ -36,14 +36,18 @@ port's paths through the entry points a user calls, and checks the results:
   three maps in two point orders;
 * giga-ray images (``analysis/gigascan.py``): ``fused_source_images`` on the
   flagship with its second toroid rolled 0.05 deg at 1e9 rays into 512 x 512
-  pixels (exactly 120 K1 launches, chunks of 2^23 rays), the split of its
-  wall between K1 and the binning, kernel vs plain at 1e8 rays, the 1e7-ray
-  image against ``Detector.get_Image`` / ``get_DelayMap`` of the K1 bundle of
-  the same spiral, kernel vs plain on the grid flagship (slopes in the
-  normals) and on an extended source;
+  pixels (exactly one launch of the image kernel K1i for its 120 chunks of
+  2^23 rays), K1i's launch alone, the setup and the copy to the host, its
+  plain version on the same image held against it, and the chunk loop it
+  replaced (K1 per chunk, plain binning) on the same image; K1i vs plain at
+  1e8 rays ray by ray (its per-ray record) and image by image, and vs the
+  K1 loop; the 1e7-ray image against
+  ``Detector.get_Image`` / ``get_DelayMap`` of the K1 bundle of the same
+  spiral; K1i vs plain on the grid flagship (slopes in the normals) and on
+  an extended source;
 * the cost probes P1-P3 (``utils/cost_probe.py``) against their plain
-  versions: P1's first launch from a fresh library load and its steady
-  launch latency, P2's cost per operation of the nine ops slope-timed over
+  versions: P1's first launch from a fresh library load, its steady
+  launch latency and its launch alone on the card beside ``x + 1``'s, P2's cost per operation of the nine ops slope-timed over
   the op count, P3's copy floor against K4 on four subsets of the flagship;
 * the CLI path on ``examples/CONFIG_singleparabola.py``,
   ``examples/CONFIG_gradient_alignment.py`` (a CONFIG that aligns its chain
@@ -78,9 +82,13 @@ chain at 1e7 rays with and without the map). The entries P4 and P5 follow:
 their launches in the probe's run, the largest error against the plain
 version, the bilinear form's (P4) and the largest case's (P5) launch, and
 P4's ``lookup``: the trace's lookup over 1e7 points of each map and point
-order, with the sectors per point its time gives at the HBM rate. K1's entry
-carries the image phase's numbers (``images``: its launches, wall, rays/s,
-K1's summed launch time, the rest, the comparisons). The entries P1-P3
+order, with the sectors per point its time gives at the HBM rate. K1i's
+entry is the 1e9-ray image's: its launch alone, the plain version's one
+call, the bound counted where the image's rays die (the source for every
+ray, each element for the rays alive past its masks, the epilogue for the
+rays alive at the end), and ``images`` (the wall,
+rays/s, setup, copy, the K1 loop's wall, the comparisons); K1's entry
+carries the K1 loop's launches and wall on the same image (``images``). The entries P1-P3
 follow: their launches in the probes' run, the largest error against the
 plain version, the launch alone (P1 on its tile, P2 fma at 40 ops over
 (78336, 128), P3 over 1e7 rays), P1's first-launch seconds, P2's
@@ -123,6 +131,11 @@ OPS = {
     "toroid": 121,       # seed, one Newton step, validity, normal, reflection, Kahan OPL
     "store": 34,         # the to-lab map of p and d, the incidence arccos
     "weight": 2,         # exp(ln edge * rr)
+    # K1i's epilogue of an alive ray (csrc/fused_trace.cu image_pixel): the
+    # to-lab map 33, the plane crossing 14, the point and in-plane
+    # coordinates 19, the Kahan step and delay 7, the bin coordinates 4, the
+    # weight x delay 1 (the two float64 atomic adds resolve in L2)
+    "image": 78,
     "moments": 78,       # the 16 moment terms of an alive ray
     "stats": 58,         # the 7 stats terms at one distance of an alive ray, accumulated
     # K8's stats epilogue of an alive ray: the distance-independent geometry
@@ -263,16 +276,17 @@ def _defect_kind(el) -> str | None:
     return "grid"
 
 
-def _trace_ops(table, source: bool, ignore_defects: bool = True) -> int:
-    """Per-ray operations of the source (if synthesized) and the chain walk
-    of a chain table whose mirrors are toroids (the flagship's), with the
-    Zernike or grid branch of a deformed mirror."""
+def _stage_ops(table, ignore_defects: bool = True) -> list:
+    """Per element of a chain table whose mirrors are toroids (the
+    flagship's), the per-ray operations of its folded masks' tests and of
+    its step (the affine map, the mask or toroid, with the Zernike or grid
+    branch of a deformed mirror): ``[(premask ops, step ops), ...]``."""
     from attosecondraytracing_tpu_torch.ops import surfaces as srf
     from attosecondraytracing_tpu_torch.ops.trace import MaskElement
 
-    ops = OPS["cone_source"] if source else 0
+    stages = []
     for el, pre in zip(table.elements, table.premasks):
-        ops += len(pre) * (OPS["affine"] + OPS["premask"]) + OPS["affine"]
+        ops = OPS["affine"]
         if isinstance(el, MaskElement):
             ops += OPS["mask"]
         else:
@@ -286,6 +300,51 @@ def _trace_ops(table, source: bool, ignore_defects: bool = True) -> int:
                     ops += terms * OPS["zernike_slope_term"] + OPS["zernike_compose"]
             elif kind == "grid":
                 ops += OPS["grid_shift"] + (0 if ignore_defects else OPS["grid_slopes"])
+        stages.append((len(pre) * (OPS["affine"] + OPS["premask"]), ops))
+    return stages
+
+
+def _trace_ops(table, source: bool, ignore_defects: bool = True) -> int:
+    """Per-ray operations of the source (if synthesized) and the whole
+    chain walk (:func:`_stage_ops`)."""
+    return (OPS["cone_source"] if source else 0) + sum(a + b for a, b in _stage_ops(table, ignore_defects))
+
+
+def _alive_by_stage(torch, table, spec, chunks, n_total, dev, ignore_defects: bool = True) -> list:
+    """The rays of a fused source's ``chunks`` alive on entering each
+    element of ``table`` and past its folded masks, then at the chain's end:
+    ``[entering 0, past masks 0, entering 1, ..., at the end]``, counted on
+    the plain trace (K1's plain version, chunk by chunk, the sums on the
+    device). A kernel's warp exit skips the rest of the chain for the
+    others, so the function needs no more than these rays' work."""
+    from attosecondraytracing_tpu_torch.ops import fused_trace as ft
+    from attosecondraytracing_tpu_torch.ops import trace as tr
+
+    counts = torch.zeros(2 * len(table.elements) + 1, dtype=torch.int64, device=dev)
+    elements = ft._grids_on(table.elements, dev)
+    for n_local, phase, k_frac in chunks:
+        k = torch.arange(n_local, dtype=torch.int64, device=dev)
+        (px, py, pz), (dx, dy, dz), _rr = ft.synth_spec(spec, k, n_total, phase, k_frac)
+        zeros = torch.zeros_like(px)
+        s = tr.TraceState(px, py, pz, dx, dy, dz, zeros, zeros, torch.ones_like(px, dtype=torch.bool), zeros)
+        for i, (el, (M, b), pre) in enumerate(zip(elements, table.maps, table.premasks)):
+            counts[2 * i] += s.alive.sum()
+            counts[2 * i + 1] += (tr.premask_alive(pre, s)[0] if pre else s.alive).sum()
+            s = tr.chained_step(el, M, b, s, want_incidence=False, ignore_defects=ignore_defects,
+                                premasks=pre, freeze_dead=False)
+        counts[-1] += s.alive.sum()
+    return [int(c) for c in counts.tolist()]
+
+
+def _image_ops(table, alive, n_binned, ignore_defects: bool = True) -> int:
+    """K1i's operations on one image's rays, counted where the rays die
+    (``alive`` from :func:`_alive_by_stage`): the source for every ray, an
+    element's mask tests for the rays entering it and its step for those
+    past its masks, the epilogue (projection, delay, window) for the rays
+    alive at the end, the weight for the rays binned."""
+    ops = OPS["cone_source"] * alive[0] + OPS["image"] * alive[-1] + OPS["weight"] * n_binned
+    for i, (pre, step) in enumerate(_stage_ops(table, ignore_defects)):
+        ops += pre * alive[2 * i] + step * alive[2 * i + 1]
     return ops
 
 
@@ -438,6 +497,7 @@ def _reset_launches():
     from attosecondraytracing_tpu_torch.ops import fused_trace as ft
 
     ft.fused_source_trace.launches = 0
+    ft.prepare_fused_source_image.launches = 0
     ft.fused_source_moments.launches = 0
     ft.streamed_trace.launches = 0
     ft.streamed_trace.fresh_launches = 0
@@ -452,7 +512,8 @@ def _launches():
     from attosecondraytracing_tpu_torch.ops import fused_scan as fs
     from attosecondraytracing_tpu_torch.ops import fused_trace as ft
 
-    return {"K1": ft.fused_source_trace.launches, "K2": ft.fused_source_moments.launches,
+    return {"K1": ft.fused_source_trace.launches, "K1i": ft.prepare_fused_source_image.launches,
+            "K2": ft.fused_source_moments.launches,
             "K3": ft.streamed_trace.launches, "K4": ft.streamed_trace.fresh_launches,
             "K5": fs.fused_scan_moments.launches, "K6": fg.fused_stats_params.launches,
             "K7": fg.fused_stats_params.primal_launches, "K8": ft.fused_source_stats.launches}
@@ -1794,60 +1855,67 @@ def _image_diffs(ker, ref):
             "block_delay_median_fs": float(np.median(blocks)), "block_delay_max_fs": float(blocks.max())}
 
 
-def _paired_chunks(torch, det, opl_ref, rays):
-    """A chunk tracer for ``gigascan._images`` that traces every chunk with
-    K1's chunk form and with its plain version, returns the plain version's
-    outputs (binned into the plain image) and adds the chunk's ray-by-ray
-    differences into ``rays``: alive mismatches, |dp|, |d opl| and
-    |d incidence| as :func:`_check_bundles` reads them, and on the detector
-    plane |dxy| and the |diff| of the delays the image loop forms against
-    ``opl_ref``. Medians are each chunk's, the largest kept. The second
-    chunk (the first at a nonzero offset of the chunk law) is also traced by
-    the plain version at the first chunk's (phase, k_frac): what a chunk-law
-    fault reads."""
+def _pair_rays(stats, ker, ref, ny):
+    """Add one chunk's rays of two ``(flat, w, delay)`` records (K1i's
+    against another's, ``ops/fused_trace.image_rays_ref``) into ``stats``:
+    rays counted by either, counted by one only, landing in the same pixel;
+    per chunk the median and max of the pixel distance (the larger of the
+    two axes' index differences) and of the |d delay| on rays counted by
+    both, and the largest |d weight| (the largest kept over chunks)."""
+    kf, kw, kd = ker
+    rf, rw, rd = ref
+    either, both = (kf >= 0) | (rf >= 0), (kf >= 0) & (rf >= 0)
+    stats["rays"] += int(either.sum())
+    stats["one_only"] += int((either & ~both).sum())
+    stats["same_pixel"] += int((kf[either] == rf[either]).sum())
+    stats["w_max"] = max(stats.get("w_max", 0.0), float((kw - rw).abs().max()))
+    if int(both.sum()):
+        k, r = kf[both].long(), rf[both].long()
+        px = ((k // ny - r // ny).abs()).maximum((k % ny - r % ny).abs()).double()
+        dd = (kd[both].double() - rd[both].double()).abs()
+        for key, v in (("px_median", px.median()), ("px_max", px.max()), ("delay_median_fs", dd.median()),
+                       ("delay_max_fs", dd.max())):
+            stats[key] = max(stats.get(key, 0.0), float(v))
+
+
+def _paired_records(torch, record, image_rec, sampled, edge, pairs):
+    """A chunk tracer for ``gigascan._images`` (the plain image loop) that
+    traces every chunk with K1's plain version, returns it (binned into the
+    plain image) and holds K1i's per-ray ``record`` of the chunk against the
+    plain rays' own (``image_rays_ref``, the same weights) in
+    ``pairs["plain"]``. On the ``sampled`` chunks it also traces the chunk
+    with K1 (launches not on the image's path) and holds K1i's record
+    against K1's rays binned by the same float32 arithmetic
+    (``pairs["k1"]``). The second chunk is also traced by the plain version
+    at the first chunk's (phase, k_frac) with its weights:
+    ``pairs["fault"]``, what a chunk-law fault reads; and by K1 alike:
+    ``pairs["k1_fault"]``."""
     from attosecondraytracing_tpu_torch.analysis import gigascan as gs
-    from attosecondraytracing_tpu_torch.analysis import stats
-    from attosecondraytracing_tpu_torch.ops.geometry import kahan_add
-    from attosecondraytracing_tpu_torch.ops.precision import LIGHT_SPEED_MM_S
+    from attosecondraytracing_tpu_torch.ops import fused_trace as ft
+
+    ny = int(image_rec["ny"])
 
     def tracer(table, spec, chunk, n_total, *, device, ignore_defects):
         k1 = gs.k1_chunks(table, spec, chunk, n_total, device=device, ignore_defects=ignore_defects)
         plain = gs.plain_chunks(table, spec, chunk, n_total, device=device, ignore_defects=ignore_defects)
-        centre, normal, rot = (torch.as_tensor(v, dtype=torch.float32, device=device)
-                               for v in (det.centre, det.normal, det._plane_rotation()))
         laws = []
 
-        def plane(out, both):
-            pts3, t = stats.detector_points_3d(out, centre, normal)
-            s, c = kahan_add(out.opl, out.opl_c, t)
-            delay = ((s - opl_ref) - c) * (1e15 / LIGHT_SPEED_MM_S)  # as gigascan._chunk_binned_sums
-            return pts3[both], stats.plane_coords(pts3, centre, rot)[both], s[both], delay[both]
+        def rays(out, n_local, phase, k_frac):
+            w = ft.source_weights(spec, n_local, n_total, phase, k_frac, edge, device)
+            return ft.image_rays_ref(out, w, image_rec)
 
         def trace_chunk(n_local, phase, k_frac):
+            c = len(laws)
             laws.append((phase, k_frac))
-            ker = k1(n_local, phase, k_frac)
+            ker = tuple(x[c * chunk:c * chunk + n_local] for x in record[2:])
             ref = plain(n_local, phase, k_frac)
-            both = ker.alive & ref.alive
-            rays["traced"] += n_local
-            rays["mismatch"] += int((ker.alive != ref.alive).sum())
-            n_both = int(both.sum())
-            rays["rays"] += n_both
-            if n_both:
-                (p3, xy, s, delay), (_p3, xyr, _s, delayr) = plane(ker, both), plane(ref, both)
-                dp = (ker.p[both] - ref.p[both]).abs()
-                dopl = ((ker.opl - ker.opl_c)[both] - (ref.opl - ref.opl_c)[both]).abs()
-                dxy = (xy - xyr).abs().max(dim=1).values
-                ddelay = (delay.double() - delayr.double()).abs()
-                for key, v in (("dp_median_mm", dp.median()), ("dp_max_mm", dp.max()), ("dopl_max_mm", dopl.max()),
-                               ("dinc_max", (ker.incidence[both] - ref.incidence[both]).abs().max()),
-                               ("dxy_median_mm", dxy.median()), ("dxy_max_mm", dxy.max()),
-                               ("delay_median_fs", ddelay.median()), ("delay_max_fs", ddelay.max()),
-                               ("lab_max_mm", p3.abs().max()), ("opl_max_mm", s.abs().max())):
-                    rays[key] = max(rays.get(key, 0.0), float(v))
-            if len(laws) == 2:
+            _pair_rays(pairs["plain"], ker, rays(ref, n_local, phase, k_frac), ny)
+            if c in sampled:
+                _pair_rays(pairs["k1"], ker, rays(k1(n_local, phase, k_frac), n_local, phase, k_frac), ny)
+            if c == 1:
                 fault = plain(n_local, *laws[0])
-                both_f = ker.alive & fault.alive
-                rays["chunk_law_fault_dp_median_mm"] = float((ker.p[both_f] - fault.p[both_f]).abs().median())
+                _pair_rays(pairs["fault"], ker, rays(fault, n_local, *laws[0]), ny)
+                _pair_rays(pairs["k1_fault"], ker, rays(k1(n_local, *laws[0]), n_local, *laws[0]), ny)
             return ref
 
         return trace_chunk
@@ -1855,38 +1923,67 @@ def _paired_chunks(torch, det, opl_ref, rays):
     return tracer
 
 
-def _check_rays(tag, rays, extent):
-    """The rays of two images' chunks held one by one (:func:`_paired_chunks`):
-    the K1 phase's envelope (:func:`_check_bundles`, tests/test_pallas.py)
-    and the delays' |diff| within 2 ulps of the float32 optical path in
-    every chunk's median (each pipeline rounds it within about one). Prints
-    the detector-plane |dxy| in float32 ulps of the rays' lab coordinate and
-    in the image's pixels. Returns the numbers."""
+def _check_records(tag, pairs, image_rec, extent):
+    """K1i's per-ray record held ray by ray (:func:`_paired_records`).
+    Against the plain path: rays counted by one only (alive and in the
+    window) on at most 1e-4 of the rays, weights within 1e-6, the |d delay|
+    median within 2 ulps of the float32 optical path in every chunk (as the
+    K1 phase holds K1), and the pixel distance median within two ulps of the
+    lab coordinate in pixels (at least one): the plain trace rounds its lab
+    point otherwise (1.38 ulps per ray in the median, measured), so
+    the pixels' equality is printed, not held. Against K1's rays binned by
+    the same float32 arithmetic (``image_rays_ref`` on K1's outputs):
+    rays counted by one only on at most 1e-4, weights within 1e-6, and the
+    same pixel on at least 1 - 3e-3 of the rays. K1 and K1i trace from the
+    same source, but nvcc contracts the trace's products into FMAs
+    otherwise in the two kernels on 1.0 % of the flagship's alive rays
+    (K1's are its earlier build's bit for bit; PERF.md §6): the same pixel
+    reads 0.998836 on the flagship, 0.998781 on the grid flagship, 0.999883
+    on the extended source, and 1.000000 against K1 built in K1i's form.
+    The chunk-law fault must fail the plain limits, and traced by K1, the
+    K1 limits. Returns the numbers."""
+    import math
+
     import numpy as np
 
     from attosecondraytracing_tpu_torch.ops.precision import LIGHT_SPEED_MM_S
 
-    _check(rays["rays"] > 0, f"{tag}: no ray alive")
-    rays = dict(rays, alive_mismatch=rays["mismatch"] / rays["traced"],
-                lab_ulp_mm=float(np.spacing(np.float32(rays["lab_max_mm"]))),
-                opl_ulp_fs=float(np.spacing(np.float32(rays["opl_max_mm"]))) * 1e15 / LIGHT_SPEED_MM_S,
-                pixel_mm=float(((np.asarray(extent[1]) - np.asarray(extent[0])) / np.asarray(IMAGE_BINS)).min()))
-    ulp, px = rays["lab_ulp_mm"], rays["pixel_mm"]
-    print(f"{tag} ray by ray: {rays['rays']}/{rays['traced']} alive in both, alive mismatch "
-          f"{rays['alive_mismatch']:.3g}, |dp| median {rays['dp_median_mm']:.3g} max {rays['dp_max_mm']:.3g} mm, "
-          f"|d opl| max {rays['dopl_max_mm']:.3g} mm, |d incidence| max {rays['dinc_max']:.3g} rad; on the detector "
-          f"plane |dxy| median {rays['dxy_median_mm'] * 1e3:.4g} um ({rays['dxy_median_mm'] / ulp:.3g} ulps of the "
-          f"lab coordinate, {rays['dxy_median_mm'] / px:.3g} px), max {rays['dxy_max_mm'] * 1e3:.4g} um "
-          f"({rays['dxy_max_mm'] / ulp:.3g} ulps, {rays['dxy_max_mm'] / px:.3g} px) with pixels of "
-          f"{px * 1e3:.4g} um and an ulp of {ulp * 1e3:.4g} um; |d delay| median {rays['delay_median_fs']:.3g} fs "
-          f"({rays['delay_median_fs'] / rays['opl_ulp_fs']:.3g} ulps of the optical path, {rays['opl_ulp_fs']:.3g} "
-          f"fs), max {rays['delay_max_fs']:.3g} fs; a chunk-law fault (the second chunk at the first one's phase "
-          f"and k_frac) reads |dp| median {rays['chunk_law_fault_dp_median_mm']:.3g} mm", flush=True)
-    _check(rays["alive_mismatch"] <= 1e-4, f"{tag}: alive masks differ on {rays['alive_mismatch']} of rays")
-    _check(rays["dp_median_mm"] <= 1e-3 and rays["dp_max_mm"] <= 5e-2 and rays["dopl_max_mm"] <= 0.1
-           and rays["dinc_max"] <= 1e-4, f"{tag}: rays outside K1's envelope: {rays}")
-    _check(rays["delay_median_fs"] <= 2 * rays["opl_ulp_fs"], f"{tag}: delays differ: {rays}")
-    return rays
+    pixel = float((1.0 / image_rec["scale"]).min())
+    lab_ulp = float(np.spacing(np.float32(np.abs(image_rec["c"]).max())))
+    opl_ulp_fs = float(np.spacing(np.float32(image_rec["opl_ref"]))) * 1e15 / LIGHT_SPEED_MM_S
+    px_limit = max(1, math.ceil(2 * lab_ulp / pixel))
+    out = {"pixel_mm": pixel, "lab_ulp_mm": lab_ulp, "opl_ulp_fs": opl_ulp_fs, "px_limit": px_limit}
+
+    def rates(st):
+        n = max(st["rays"], 1)
+        return dict(st, one_only_rate=st["one_only"] / n, same_pixel_rate=st["same_pixel"] / n)
+
+    def plain_ok(st):
+        return (st["one_only_rate"] <= 1e-4 and st["w_max"] <= 1e-6
+                and st.get("delay_median_fs", math.inf) <= 2 * opl_ulp_fs
+                and st.get("px_median", math.inf) <= px_limit)
+
+    def k1_ok(st):
+        return (st["rays"] > 0 and st["one_only_rate"] <= 1e-4 and st["w_max"] <= 1e-6
+                and st["same_pixel_rate"] >= 1 - 3e-3)
+
+    names = dict(plain="the plain path", k1="K1 + the same binning", fault="a chunk-law fault",
+                 k1_fault="a chunk-law fault traced by K1")
+    for key in names:
+        st = out[key] = rates(pairs[key])
+        print(f"{tag} per ray vs {names[key]}"
+              f": {st['rays']} rays counted, by one only {st['one_only_rate']:.3g}, same pixel "
+              f"{st['same_pixel_rate']:.6f}, pixel distance median {st.get('px_median', float('nan')):.3g} max "
+              f"{st.get('px_max', float('nan')):.3g} (limit {px_limit}: 2 ulps of {lab_ulp * 1e3:.4g} um over pixels of "
+              f"{pixel * 1e3:.4g} um), |d w| max {st['w_max']:.3g}, |d delay| median "
+              f"{st.get('delay_median_fs', float('nan')):.3g} fs max {st.get('delay_max_fs', float('nan')):.3g} fs "
+              f"(ulp of the path {opl_ulp_fs:.3g} fs)", flush=True)
+    _check(out["plain"]["rays"] > 0 and plain_ok(out["plain"]), f"{tag}: K1i's rays vs the plain path: {out['plain']}")
+    _check(k1_ok(out["k1"]), f"{tag}: K1i's rays vs K1's binned alike (same pixel >= 1 - 3e-3): {out['k1']}")
+    _check(not plain_ok(out["fault"]), f"{tag}: the chunk-law fault passes the per-ray check: {out['fault']}")
+    _check(not k1_ok(out["k1_fault"]), f"{tag}: the chunk-law fault traced by K1 passes the K1 check: "
+           f"{out['k1_fault']}")
+    return out
 
 
 def _check_kernel_images(tag, ker, ref):
@@ -1927,33 +2024,40 @@ def _shifted(res):
                 mean_delay=np.roll(res["mean_delay"], 1, axis=0))
 
 
-def _images_kernel_vs_plain(tag, torch, dev, spec, els, det, n_total, extent=None, **kw):
-    """fused_source_images (K1, the launch counts set to 0 just before it:
-    exactly one K1 launch per chunk and no other kernel) against the same
-    loop binning K1's plain version on the card, on the kernel's extent
-    (:func:`_check_kernel_images`), with every ray of every chunk held
-    against its plain twin (:func:`_paired_chunks`, :func:`_check_rays`).
-    Prints what a one-pixel shift of the plain image would read."""
+def _images_kernel_vs_plain(tag, torch, dev, spec, els, det, n_total, extent=None, ignore_defects=True):
+    """K1i (one launch, the launch counts set to 0 just before it, its
+    per-ray record of every chunk) against the plain image loop on the card
+    on the kernel's extent (:func:`_check_kernel_images`), every chunk's
+    rays against the plain path's and the first, a middle and the last
+    chunk's against K1's (:func:`_paired_records`, :func:`_check_records`).
+    Prints what a one-pixel shift of the plain image would read. Returns
+    the numbers and the kernel's image."""
     from attosecondraytracing_tpu_torch.analysis import gigascan as gs
     from attosecondraytracing_tpu_torch.ops import fused_trace as ft
 
     baked = spec.baked()
-    chunks = ft.source_chunks(baked.kind, n_total, n_total, n_each=baked.n_each, n_sources=baked.n_sources)
+    chunks = ft.source_chunks(baked.kind, n_total, n_total, ft.CHUNK, n_each=baked.n_each,
+                              n_sources=baked.n_sources)
+    record = ft.image_record(0, len(chunks), chunks[0][0], device=dev)
     _reset_launches()
-    ker = gs.fused_source_images(spec, els, det, n_total=n_total, bins=IMAGE_BINS, extent=extent, **kw)
+    ker = gs._images_k1i(spec, els, det, n_total, IMAGE_BINS, extent, ft.CHUNK, ignore_defects, dev,
+                         record=record)
     launches = _launches()
-    _check(launches["K1"] == len(chunks) and all(v == 0 for k, v in launches.items() if k != "K1"),
-           f"{tag}: launches {launches}, expected {len(chunks)} of K1")
-    opl_ref, _ = ft.chief_ray_refs(baked, els, det.centre, det.normal, device=dev, dtype=torch.float32)
-    rays = {"traced": 0, "mismatch": 0, "rays": 0}
-    ref = gs._images(spec, els, det, n_total, IMAGE_BINS, ker["extent"], ft.CHUNK, kw.get("ignore_defects", True),
-                     dev, _paired_chunks(torch, det, torch.tensor(opl_ref, dtype=torch.float32, device=dev), rays))
-    tag = f"{tag} ({len(chunks)} K1 launches) vs plain"
-    rays = _check_rays(tag, rays, ker["extent"])
+    _check(launches["K1i"] == 1 and all(v == 0 for k, v in launches.items() if k != "K1i"),
+           f"{tag}: launches {launches}, expected one K1i")
+    job = gs._setup(spec, els, det, n_total, IMAGE_BINS, ker["extent"], ft.CHUNK, ignore_defects, dev)
+    image_rec = ft.pack_image(job.det, job.window, job.bins)
+    pairs = {key: {"rays": 0, "one_only": 0, "same_pixel": 0} for key in ("plain", "k1", "fault", "k1_fault")}
+    sampled = {0, len(chunks) // 2, len(chunks) - 1}
+    ref = gs._images(spec, els, det, n_total, IMAGE_BINS, ker["extent"], ft.CHUNK, ignore_defects, dev,
+                     _paired_records(torch, record, image_rec, sampled, spec.gaussian_edge, pairs))
+    del record
+    tag = f"{tag} ({len(chunks)} chunks, one K1i launch) vs plain"
+    rays = _check_records(tag, pairs, image_rec, ker["extent"])
     d = _check_kernel_images(tag, ker, ref)
     print(f"{tag}: the plain image moved one pixel along x would read " + ", ".join(
         f"{k} {v:.3g}" for k, v in _image_diffs(ker, _shifted(ref)).items()), flush=True)
-    return dict(d, launches=launches["K1"], rays=rays)
+    return dict(d, launches=launches["K1i"], rays=rays), ker
 
 
 def phase_images(torch, dev):
@@ -1961,15 +2065,17 @@ def phase_images(torch, dev):
     toroid rolled IMAGE_ROLL deg (examples/gigaray_delay_map.py), the
     detector autoplaced at the focal distance: fused_source_images at 1e9
     rays into 512 x 512 pixels with the launch counts set to 0 just before
-    it (exactly 120 K1 launches, no other kernel), its wall and the split of
-    the loop (K1's launches timed by CUDA events in a second run; the weights
-    and the binning of one chunk timed alone); kernel vs plain at 1e8 rays;
-    the 1e7-ray image against Detector.get_Image / get_DelayMap of the K1
-    bundle of the same spiral (tests/test_gigascan.py:127-185); kernel vs
+    it (exactly one K1i launch, no other kernel), its wall, K1i's launch
+    alone by CUDA events, the setup and the images' copy to the host, its
+    plain version on the same image (image by image), and the K1 loop it
+    replaced (one K1 launch per chunk, the chunks binned in plain PyTorch)
+    on the same image in the same process; K1i vs its plain version at 1e8
+    rays, ray by ray and image by image, and against the K1 loop; the 1e7-ray image against Detector.get_Image / get_DelayMap of the
+    K1 bundle of the same spiral (tests/test_gigascan.py:127-185); K1i vs
     plain on the grid flagship at 1e8 rays (engine "xla-source",
     ignore_defects False) and on an extended source at 1e7 rays (chunks on
-    whole sub-sources, the window on its whole beam). Returns K1's image
-    numbers."""
+    whole sub-sources, the window on its whole beam). Returns K1i's JSON
+    numbers and the K1 loop's."""
     import numpy as np
 
     from attosecondraytracing_tpu_torch.analysis import gigascan as gs
@@ -1993,68 +2099,92 @@ def phase_images(torch, dev):
           f"{N_IMAGE / wall:.4g} rays/s, sum w {res['sum_w']:.9g}, extent {res['extent'][0]} .. "
           f"{res['extent'][1]} mm, delay map {np.nanmin(d):.4g} .. {np.nanmax(d):.4g} fs on "
           f"{int(finite.sum())} pixels (weighted mean {gmean:.3g} fs)", flush=True)
-    _check(n_chunks == 120 and launches["K1"] == n_chunks
-           and all(v == 0 for k, v in launches.items() if k != "K1"),
-           f"images: launches {launches}, expected {n_chunks} of K1")
+    _check(launches["K1i"] == 1 and all(v == 0 for k, v in launches.items() if k != "K1i"),
+           f"images: launches {launches}, expected one K1i")
     _check(np.isfinite(res["sum_w"]) and res["sum_w"] > 0 and res["image"].shape == IMAGE_BINS
            and abs(res["image"].sum() - res["sum_w"]) <= 1e-9 * res["sum_w"], "images: image and sum of weights")
     _check(finite.sum() > 1000 and abs(gmean) < 1e-3, f"images: delay map ({finite.sum()} pixels, mean {gmean})")
 
-    # the split: K1's launches by CUDA events around each in a second run
-    events = []
-
-    def timed_k1(*args, **kwargs):
-        trace_chunk = gs.k1_chunks(*args, **kwargs)
-
-        def timed(*chunk):
-            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = trace_chunk(*chunk)
-            stop.record()
-            events.append((start, stop))
-            return out
-
-        return timed
-
+    # K1i's launch alone, the setup, the images' copy to the host
     t0 = time.perf_counter()
-    gs._images(spec, els, det, N_IMAGE, IMAGE_BINS, None, ft.CHUNK, True, dev, timed_k1)
-    torch.cuda.synchronize()
-    wall2 = time.perf_counter() - t0
-    k1_ms = sum(a.elapsed_time(b) for a, b in events)
-    # the setup (chief ray, extent probe) and one chunk's weights and binning alone
-    baked = spec.baked()
-    t0 = time.perf_counter()
-    ft.chief_ray_refs(baked, els, det.centre, det.normal, device=dev, dtype=torch.float32)
-    centre, normal, rot = (torch.as_tensor(v, dtype=torch.float32, device=dev)
-                           for v in (det.centre, det.normal, det._plane_rotation()))
-    gs._fit_extent(baked, els, gs.EXTENT_PROBE_RAYS, centre, normal, rot, True, dev)
+    job = gs._setup(spec, els, det, N_IMAGE, IMAGE_BINS, None, ft.CHUNK, True, dev)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    out = ft.fused_source_trace(ft.chain_table(baked, els), baked, ft.CHUNK, device=dev, n_total=N_IMAGE)
-    logedge = float(np.log(spec.gaussian_edge))
-    weights = gs._weights_c(baked, ft.CHUNK, N_IMAGE, 0.0, 0.0, logedge, dev)
-    lo, hi = (torch.as_tensor(v, dtype=torch.float32, device=dev) for v in res["extent"])
-    ref = torch.tensor(1000.0, dtype=torch.float32, device=dev)
-    images = tuple(torch.zeros(IMAGE_BINS[0] * IMAGE_BINS[1], dtype=torch.float64, device=dev) for _ in range(2))
-    weights_ms = _time_ms(lambda: gs._weights_c(baked, ft.CHUNK, N_IMAGE, 0.0, 0.0, logedge, dev), torch)
-    binning_ms = _time_ms(lambda: gs._chunk_binned_sums(out, weights, centre, normal, rot, lo, hi, ref,
-                                                        IMAGE_BINS, images), torch)
-    split = {"launches": launches["K1"], "wall_s": wall, "rays_per_s": N_IMAGE / wall, "sum_w": res["sum_w"],
-             "delay_min_fs": float(np.nanmin(d)), "delay_max_fs": float(np.nanmax(d)),
-             "k1_ms": k1_ms, "timed_wall_s": wall2, "rest_s": wall2 - k1_ms * 1e-3, "setup_s": setup_s,
-             "chunk_weights_ms": weights_ms, "chunk_binning_ms": binning_ms}
-    print(f"images split (second run, {len(events)} K1 launches timed): wall {wall2:.3f} s, K1 "
-          f"{k1_ms:.2f} ms ({k1_ms * 1e-3 / wall2 * 100:.2f} % of the wall), the rest {wall2 - k1_ms * 1e-3:.3f} s; "
-          f"setup (chief ray, extent probe) {setup_s:.3f} s; one chunk of {ft.CHUNK} rays alone: weights "
-          f"{weights_ms:.3f} ms, binning {binning_ms:.3f} ms ({n_chunks} chunks: "
-          f"{n_chunks * (weights_ms + binning_ms) * 1e-3:.3f} s)", flush=True)
-    del out, weights, images
+    _check(len(job.chunks) == n_chunks == 120, f"images: {len(job.chunks)} chunks")
+    launch = ft.prepare_fused_source_image(job.table, job.spec, job.chunks, job.n_total, job.det, job.window,
+                                           job.bins, device=dev, gaussian_edge=job.edge)
+    images = gs._zeros(job, dev)
+    k1i_ms = _time_ms(lambda: launch(images), torch)
+    t0 = time.perf_counter()
+    for img in images:
+        img.cpu()
+    copy_s = time.perf_counter() - t0
+    # the bound, counted where the rays die: the rays binned (the same
+    # launch without weights) and the rays alive past each stage of the chain
+    unit = gs._zeros(job, dev)
+    ft.prepare_fused_source_image(job.table, job.spec, job.chunks, job.n_total, job.det, job.window, job.bins,
+                                  device=dev)(unit)
+    n_binned = float(unit[0].sum())
+    alive = _alive_by_stage(torch, job.table, job.spec, job.chunks, job.n_total, dev)
+    bound = _bound(2 * 8 * IMAGE_BINS[0] * IMAGE_BINS[1] + 8 * n_chunks, _image_ops(job.table, alive, n_binned))
+    print(f"images bound: rays alive entering / past the masks of each element, then at the end {alive}, "
+          f"{n_binned:.6g} binned; {_trace_ops(job.table, True)} operations per ray traced to the end",
+          flush=True)
+    # the plain version on the same inputs (one call), held against the
+    # image above on its window
+    plain_job = gs._setup(spec, els, det, N_IMAGE, IMAGE_BINS, res["extent"], ft.CHUNK, True, dev)
+    plain_images = gs._zeros(plain_job, dev)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    ft.fused_source_image_ref(plain_job.table, plain_job.spec, plain_job.chunks, plain_job.n_total, plain_job.det,
+                              plain_job.window, plain_job.bins, plain_images, device=dev, gaussian_edge=plain_job.edge)
+    stop.record()
+    stop.synchronize()
+    plain_ms = start.elapsed_time(stop)
+    vs_plain = _check_kernel_images(f"images {N_IMAGE} ({n_chunks} chunks, one K1i launch) vs plain", res,
+                                    gs._finish(plain_job, plain_images))
+    del unit, plain_images, images
 
-    split["plain"] = _images_kernel_vs_plain("images 1e8", torch, dev, spec, els, det, N_IMAGE_CHECK,
-                                             extent=res["extent"])
+    # the loop K1i replaced: K1 per chunk, each chunk weighted and binned in plain PyTorch
+    _reset_launches()
+    t0 = time.perf_counter()
+    loop = gs._images(spec, els, det, N_IMAGE, IMAGE_BINS, None, ft.CHUNK, True, dev, gs.k1_chunks)
+    torch.cuda.synchronize()
+    loop_wall = time.perf_counter() - t0
+    loop_launches = _launches()
+    _check(loop_launches["K1"] == n_chunks and loop_launches["K1i"] == 0, f"images: K1 loop {loop_launches}")
+    vs_loop = _image_diffs(res, loop)
+    print(f"images split: K1i launch alone {k1i_ms:.3f} ms ({k1i_ms * 1e-3 / wall * 100:.2f} % of the wall), "
+          f"setup (chief ray, extent probe) {setup_s:.3f} s, the two images to the host {copy_s * 1e3:.2f} ms, "
+          f"the rest {wall - setup_s - copy_s - k1i_ms * 1e-3:.3f} s; bound {bound['bound_ms']:.3f} ms "
+          f"({bound['bound_by']}; {n_binned:.6g} rays binned), plain version {plain_ms:.1f} ms; the K1 loop "
+          f"({loop_launches['K1']} K1 launches) wall {loop_wall:.3f} s ({loop_wall / wall:.3g}x K1i's wall); "
+          f"K1i vs the K1 loop: " + ", ".join(f"{k} {v:.3g}" for k, v in vs_loop.items()), flush=True)
+    _check(vs_loop["sum_w_rel"] <= 1e-5 and vs_loop["l1_rel"] < 0.2 and vs_loop["centroid_px"] < 0.05,
+           f"images: K1i and the K1 loop differ: {vs_loop}")
+    k1i = {"launches": launches["K1i"], "ms": k1i_ms, "plain_ms": plain_ms, **bound, "library_ms": None,
+           "images": {"wall_s": wall, "rays_per_s": N_IMAGE / wall, "sum_w": res["sum_w"],
+                      "delay_min_fs": float(np.nanmin(d)), "delay_max_fs": float(np.nanmax(d)),
+                      "setup_s": setup_s, "copy_s": copy_s, "rays_binned": n_binned, "rays_alive_by_stage": alive,
+                      "vs_plain": vs_plain,
+                      "k1_loop_wall_s": loop_wall, "k1_loop_launches": loop_launches["K1"],
+                      "vs_k1_loop": vs_loop}}
+    k1 = {"launches": loop_launches["K1"], "wall_s": loop_wall, "rays_per_s": N_IMAGE / loop_wall}
+    del loop
+
+    imgs = k1i["images"]
+    imgs["plain"], ker = _images_kernel_vs_plain("images 1e8", torch, dev, spec, els, det, N_IMAGE_CHECK,
+                                                 extent=res["extent"])
+    loop = gs._images(spec, els, det, N_IMAGE_CHECK, IMAGE_BINS, ker["extent"], ft.CHUNK, True, dev, gs.k1_chunks)
+    imgs["vs_k1_loop_1e8"] = _image_diffs(ker, loop)
+    print("images 1e8 K1i vs the K1 loop: " + ", ".join(f"{k} {v:.3g}" for k, v in imgs["vs_k1_loop_1e8"].items()),
+          flush=True)
+    del loop, ker
 
     # against the bundle path: Detector.get_Image / get_DelayMap of the K1
     # bundle of the same spiral, its intensities the image's weights
+    baked = spec.baked()
+    logedge = float(np.log(spec.gaussian_edge))
     small = gs.fused_source_images(spec, els, det, n_total=N_IMAGE_BUNDLE, bins=IMAGE_BINS)
     out = ft.fused_source_trace(ft.chain_table(baked, els), baked, N_IMAGE_BUNDLE, device=dev)
     rr = ft.synth_spec(baked, torch.arange(N_IMAGE_BUNDLE, device=dev), N_IMAGE_BUNDLE)[2]
@@ -2079,16 +2209,16 @@ def phase_images(torch, dev):
           flush=True)
     _check(blur < 0.05 and np.abs(c - cr).max() < 0.05 and np.all(np.abs(v - vr) <= 0.01 * np.maximum(vr, 1.0))
            and rel_w <= 1e-4, "images vs the bundle path: outside tests/test_gigascan.py's envelope")
-    split["bundle"] = {"blur_l1_rel": blur, "centroid_px": float(np.abs(c - cr).max()),
-                       "variance_rel": float(np.abs(v / vr - 1).max()), "sum_w_rel": rel_w,
-                       "delay_median_fs": float(np.median(diffs)), "delay_max_fs": float(diffs.max())}
+    imgs["bundle"] = {"blur_l1_rel": blur, "centroid_px": float(np.abs(c - cr).max()),
+                      "variance_rel": float(np.abs(v / vr - 1).max()), "sum_w_rel": rel_w,
+                      "delay_median_fs": float(np.median(diffs)), "delay_max_fs": float(diffs.max())}
     del out, rr, bundle
 
     # a grid-deformed chain (engine "xla-source", the defect slopes in the
     # normals) and an extended source (chunks on whole sub-sources)
     gspec, gels, gdet = _image_chain(torch, dev, _deformed_flagship(N_CHECK, kind="grid")[0])
-    split["grid"] = _images_kernel_vs_plain("images grid flagship 1e8", torch, dev, gspec, gels, gdet,
-                                            N_IMAGE_CHECK, engine="xla-source", ignore_defects=False)
+    imgs["grid"], _ = _images_kernel_vs_plain("images grid flagship 1e8", torch, dev, gspec, gels, gdet,
+                                              N_IMAGE_CHECK, ignore_defects=False)
     # the extended source's window spans its whole beam: an auto-fitted one
     # (a probe of its first 2^17 rays) frames only the first two of its 100
     # sub-sources, all in the first chunk
@@ -2099,10 +2229,11 @@ def phase_images(torch, dev):
     ecentre, enormal, erot = (torch.as_tensor(v, dtype=torch.float32, device=dev)
                               for v in (edet.centre, edet.normal, edet._plane_rotation()))
     eextent = gs._fit_extent(ebaked, eels, n_ext, ecentre, enormal, erot, True, dev)
-    split["extended"] = _images_kernel_vs_plain(
+    imgs["extended"], _ = _images_kernel_vs_plain(
         f"images extended source 1e7 ({ebaked.n_sources} x {ebaked.n_each})", torch, dev, espec, eels, edet,
         n_ext, extent=eextent)
-    return split
+    k1i["max_abs_err"] = max(imgs[key]["block_delay_max_fs"] for key in ("plain", "grid", "extended"))
+    return k1i, k1
 
 
 def phase_cost(torch, dev):
@@ -2143,8 +2274,13 @@ def phase_cost(torch, dev):
     p1_ms = _time_ms(lambda: cp.add_one(x), torch, inner=20)
     # the plain version is one PyTorch call (x + 1): P1's library time too
     p1_plain = _time_ms(lambda: cp.add_one_ref(x), torch, inner=20)
+    # the launches alone on the card: queued behind a busy stream, the host's work hidden
+    p1_device_us = cp.queued_us(lambda: cp.add_one(x))
+    plain_device_us = cp.queued_us(lambda: cp.add_one_ref(x))
     print(f"P1: first launch from a fresh library load {seconds:.4f} s; steady launch {p1_ms * 1e3:.2f} us "
-          f"(plain {p1_plain * 1e3:.2f} us)", flush=True)
+          f"(plain {p1_plain * 1e3:.2f} us); on the card alone, queued: {p1_device_us:.2f} us (plain "
+          f"{plain_device_us:.2f} us): the {'kernel' if p1_device_us > 1.2 * plain_device_us else 'host binding'} "
+          f"loses", flush=True)
 
     costs = cp.op_costs(device=dev)
     x2 = cp.op_inputs(device=dev)
@@ -2173,7 +2309,8 @@ def phase_cost(torch, dev):
     n_tile = x1.numel()
     p1 = {"name": "P1 add_one", "route": "cuda", "source": CSRC + "cost_probe.cu", "replaces": "bench.py:162",
           "launches": launches["P1"], "max_abs_err": 0.0, "ms": p1_ms, "plain_ms": p1_plain,
-          **_bound(8 * n_tile, n_tile), "library_ms": p1_plain, "first_launch_s": seconds}
+          **_bound(8 * n_tile, n_tile), "library_ms": p1_plain, "first_launch_s": seconds,
+          "device_ms": p1_device_us * 1e-3, "library_device_ms": plain_device_us * 1e-3}
     p2 = {"name": "P2 op_chain (fma at 40 ops; every op in ops)", "route": "cuda",
           "source": CSRC + "cost_probe.cu", "replaces": "scripts/diag_vpu_ops.py:21", "launches": launches["P2"],
           "max_abs_err": abs2, "ms": p2_ms, "plain_ms": p2_plain,
@@ -2277,10 +2414,11 @@ def main():
     zernike, zernike_launches = phase("zernike", lambda: phase_zernike(torch, dev))
     grid = phase("grid", lambda: phase_grid(torch, dev))
     probes = phase("gather", lambda: phase_gather(torch, dev))
-    images = phase("images", lambda: phase_images(torch, dev))
+    timed["K1i"], k1_images = phase("images", lambda: phase_images(torch, dev))
     probes += phase("cost", lambda: phase_cost(torch, dev))
     phase("cli", lambda: phase_cli(torch))
-    launches.update(K1=slice_launches["K1"], K2=slice_launches["K2"], K5=scan_launches["K5"],
+    launches.update(K1=slice_launches["K1"], K1i=timed["K1i"].pop("launches"), K2=slice_launches["K2"],
+                    K5=scan_launches["K5"],
                     K6=grad_launches["K6"], K7=k7_launches["K7"], K8=k8_launches)
     for key in ("K3", "K4"):
         timed[key] = dict(streamed[key], max_abs_err=max(streamed[key]["max_abs_err"], k34_err[key]))
@@ -2289,6 +2427,8 @@ def main():
 
     rows = (
         ("K1", "K1 fused_source_trace", "fused_trace.cu", "attosecondraytracing_tpu/ops/pallas_trace.py:476"),
+        ("K1i", "K1i fused_source_image (a 1e9-ray 512 x 512 image)", "fused_trace.cu",
+         "attosecondraytracing_tpu/analysis/gigascan.py:75"),
         ("K2", "K2 fused_source_moments", "fused_trace.cu", "attosecondraytracing_tpu/ops/pallas_trace.py:979"),
         ("K3", "K3 streamed_trace", "streamed_trace.cu", "attosecondraytracing_tpu/ops/pallas_trace.py:182"),
         ("K4", "K4 streamed_trace (fresh)", "streamed_trace.cu",
@@ -2302,9 +2442,10 @@ def main():
          "attosecondraytracing_tpu/ops/pallas_trace.py:931"),
     )
     kernels = [{"name": name, "route": "cuda", "source": CSRC + src, "replaces": replaces,
-                "launches": launches[key], **timed[key], "library_ms": None, **zernike[key], **grid[key]}
+                "launches": launches[key], **timed[key], "library_ms": None, **zernike.get(key, {}),
+                **grid.get(key, {})}
                for key, name, src, replaces in rows] + probes
-    kernels[0]["images"] = images
+    kernels[0]["images"] = k1_images
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

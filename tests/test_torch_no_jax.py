@@ -5,7 +5,8 @@ through both gradient engines, runs the per-distance stats pass, and runs a
 two-chain scan through the scan engine, traces a Zernike-deformed chain
 (``models/defects``, ``ops/defects``, ``ops/zernike``) and a grid-deformed
 one (``ops/xla_source``), runs the gather probes (``utils/gather_probe``),
-bins detector images (``analysis/histogram``, ``analysis/gigascan``) and
+bins detector images (``analysis/histogram``, ``analysis/gigascan``, K1i's
+plain version ``ops/fused_trace.fused_source_image_ref`` with its record) and
 runs the cost probes (``utils/cost_probe``), without importing matplotlib."""
 
 import os
@@ -97,6 +98,19 @@ assert float(img.sum()) > 0 and torch.isfinite(mean).any()
 res = gigascan.fused_source_images(gridded.source_spec, gridded.device_elements(), det,
                                    n_total=4096, bins=(16, 16), chunk=1024, ignore_defects=False)
 assert res["sum_w"] > 0 and res["image"].shape == (16, 16)
+# K1i's plain version with a per-ray record (ops/fused_trace.fused_source_image_ref)
+gbaked = gridded.source_spec.baked()
+rot = det._plane_rotation()
+idet = ft.ImageDetector(tuple(det.centre), tuple(det.normal), tuple(map(tuple, rot[:2])), 900.0)
+record = ft.image_record(1, 2, 1024, device="cpu")
+imgs = tuple(torch.zeros(256, dtype=torch.float64) for _ in range(2))
+ft.fused_source_image_ref(ft.chain_table(gbaked, gridded.device_elements()), gbaked,
+                          ft.source_chunks(gbaked.kind, 4096, 4096, 1024), 4096, idet,
+                          res["extent"], (16, 16), imgs, device="cpu",
+                          gaussian_edge=gridded.source_spec.gaussian_edge, ignore_defects=False,
+                          record=record)
+assert abs(float(imgs[0].sum()) - res["sum_w"]) <= 1e-9 * res["sum_w"]
+assert int((record.flat >= 0).sum()) > 0
 assert len(cost_probe.probe(device="cpu")) == 2 + 2 * len(cost_probe.OPS)
 assert "matplotlib" not in sys.modules
 assert art.defects is defects
