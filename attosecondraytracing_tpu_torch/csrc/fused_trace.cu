@@ -340,7 +340,10 @@ using namespace art;
 
 extern "C" {
 
-// Version of this C interface; ops/_cuda.py loads only its own. Version 6:
+// Version of this C interface; ops/_cuda.py loads only its own. Version 7:
+// K7 in a kernel and entry point of its own (art_launch_stats_primal: its
+// pose in the chain record's maps, its detector in a DetectorP), and
+// art_launch_stats_params takes K6 only. Version 6:
 // the image kernel K1i (art_launch_fused_source_image, ImageP); the other
 // entry points and records are version 5's. Version 5:
 // the chain record carries grid defect maps after version 4's fields
@@ -353,13 +356,14 @@ extern "C" {
 // 7)); version 2 gave K5-K7 the sized grid and K6 all tangent rows of a
 // gradient step; libraries without this entry point have version 1's
 // signatures (utils/kernel_ab.py binds every older version for A/B runs).
-int art_abi_version() { return 6; }
+int art_abi_version() { return 7; }
 
 size_t art_chain_params_size() { return sizeof(ChainP); }
 size_t art_source_params_size() { return sizeof(SourceP); }
 size_t art_detector_params_size() { return sizeof(DetectorP); }
 size_t art_image_params_size() { return sizeof(ImageP); }
-// rays per block of K5-K7, of K2, of K8 and of K1i (ops/fused_trace.ray_grid)
+// rays per block of K5 and K6, of K2, of K8 and of K1i (ops/fused_trace.ray_grid;
+// K7's: fused_grad.cu)
 int art_moment_rays_per_block() { return MOMENT_RAYS_PER_BLOCK; }
 int art_source_moments_rays_per_block() { return K2_RAYS_PER_BLOCK; }
 int art_source_stats_rays_per_block() { return K8_RAYS_PER_BLOCK; }

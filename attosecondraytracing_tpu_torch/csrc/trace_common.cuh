@@ -919,6 +919,52 @@ struct PoseMaps {
   __device__ __forceinline__ const S* b(int i) const { return pose + 12 * i + 9; }
 };
 
+// The element steps of a chain walk, on the ray (qx..uz) in the element's
+// frame; `last`: the chain's last element (its incidence is kept).
+// A mask: the ray crosses the mask's plane past t_eps outside its support,
+// or stops where it is, dead.
+template <bool WANT_INCIDENCE, typename S>
+__device__ __forceinline__ void mask_step(const ElementP& el, float t_eps, bool last, S qx, S qy,
+                                          S qz, S ux, S uy, S uz, RayT<S>& s) {
+  const S t = plane_t(qz, uz);
+  const S x = qx + t * ux, y = qy + t * uy, z = qz + t * uz;
+  const bool upd = s.alive && (t > t_eps) && !include(el.sup, val(x), val(y));
+  if (WANT_INCIDENCE && last && upd) s.inc = acosf(fminf(fmaxf(val(uz), -1.0f), 1.0f));
+  kahan_add(s.opl, s.opl_c, upd ? t : S(0.0f));
+  s.px = upd ? x : qx;
+  s.py = upd ? y : qy;
+  s.pz = upd ? z : qz;
+  s.dx = ux;
+  s.dy = uy;
+  s.dz = uz;
+  s.alive = upd;
+}
+
+// Mirror i after its surface's hit h: a deformed mirror's branch (DEFECTS),
+// the OPL, the reflection, the state patch-relative to the element.
+template <bool WANT_INCIDENCE, int DEFECTS, typename S>
+__device__ __forceinline__ void mirror_step(const ChainP& ch, int i, bool last, S qx, S qy, S qz,
+                                            S ux, S uy, S uz, HitT<S>& h, RayT<S>& s) {
+  const ElementP& el = ch.el[i];
+  if constexpr (DEFECTS == ZERNIKE_TABLES) {
+    const int z = ch.zk_of[i];
+    if (z >= 0) zernike_hit(el, ch.zk[z], ch.ignore_defects != 0, qx, qy, qz, ux, uy, uz, h);
+  } else if constexpr (DEFECTS == GRID_MAPS) {
+    if (ch.zk_of[i] >= 0 || ch.grid_end[i] > ch.grid_begin[i])
+      deformed_hit(ch, i, qx, qy, qz, ux, uy, uz, h);
+  }
+  const S dn = ux * h.nx + uy * h.ny + uz * h.nz;
+  if (WANT_INCIDENCE && last) s.inc = acosf(fminf(fmaxf(-val(dn), -1.0f), 1.0f));
+  kahan_add(s.opl, s.opl_c, h.t);
+  s.px = h.x - el.cen[0];
+  s.py = h.y - el.cen[1];
+  s.pz = h.z - el.cen[2];
+  s.dx = ux - 2.0f * dn * h.nx;
+  s.dy = uy - 2.0f * dn * h.ny;
+  s.dz = uz - 2.0f * dn * h.nz;
+  s.alive = s.alive && h.hit;
+}
+
 // Trace one ray through the chain; the state stays patch-relative to the
 // last element. Dead rays are not frozen at mirrors (their values are
 // unspecified and every consumer masks by alive); mask steps freeze.
@@ -928,7 +974,7 @@ struct PoseMaps {
 // source's spiral, one thin ring, so a round mask or hole keeps or kills
 // them together (the flagship loses 51 % of its rays, as whole warps at its
 // mask, before its two toroids). WARP_VOTE (the kernels that only sum alive
-// rays: K1i, K2, K5-K8): the caller's ray loop is warp-uniform
+// rays: K1i, K2, K5, K6, K8): the caller's ray loop is warp-uniform
 // (for_thread_rays) and the vote names all 32 lanes. ACTIVE_VOTE (K1): the
 // vote names the lanes still active, so a lane past the end may have
 // returned; a lane leaves only when its own ray is dead, whatever lanes vote.
@@ -965,18 +1011,7 @@ __device__ __forceinline__ void trace_chain_maps(const ChainP& ch, const Maps& m
     S qx, qy, qz, ux, uy, uz;
     affine(maps.M(i), maps.b(i), s, qx, qy, qz, ux, uy, uz);
     if (el.kind == ELEM_MASK) {
-      const S t = plane_t(qz, uz);
-      const S x = qx + t * ux, y = qy + t * uy, z = qz + t * uz;
-      const bool upd = s.alive && (t > t_eps) && !include(el.sup, val(x), val(y));
-      if (WANT_INCIDENCE && last && upd) s.inc = acosf(fminf(fmaxf(val(uz), -1.0f), 1.0f));
-      kahan_add(s.opl, s.opl_c, upd ? t : S(0.0f));
-      s.px = upd ? x : qx;
-      s.py = upd ? y : qy;
-      s.pz = upd ? z : qz;
-      s.dx = ux;
-      s.dy = uy;
-      s.dz = uz;
-      s.alive = upd;
+      mask_step<WANT_INCIDENCE>(el, t_eps, last, qx, qy, qz, ux, uy, uz, s);
       continue;
     }
     HitT<S> h;
@@ -991,23 +1026,7 @@ __device__ __forceinline__ void trace_chain_maps(const ChainP& ch, const Maps& m
         h = quadric_hit(el, qx, qy, qz, ux, uy, uz, t_eps);
         break;
     }
-    if constexpr (DEFECTS == ZERNIKE_TABLES) {
-      const int z = ch.zk_of[i];
-      if (z >= 0) zernike_hit(el, ch.zk[z], ch.ignore_defects != 0, qx, qy, qz, ux, uy, uz, h);
-    } else if constexpr (DEFECTS == GRID_MAPS) {
-      if (ch.zk_of[i] >= 0 || ch.grid_end[i] > ch.grid_begin[i])
-        deformed_hit(ch, i, qx, qy, qz, ux, uy, uz, h);
-    }
-    const S dn = ux * h.nx + uy * h.ny + uz * h.nz;
-    if (WANT_INCIDENCE && last) s.inc = acosf(fminf(fmaxf(-val(dn), -1.0f), 1.0f));
-    kahan_add(s.opl, s.opl_c, h.t);
-    s.px = h.x - el.cen[0];
-    s.py = h.y - el.cen[1];
-    s.pz = h.z - el.cen[2];
-    s.dx = ux - 2.0f * dn * h.nx;
-    s.dy = uy - 2.0f * dn * h.ny;
-    s.dz = uz - 2.0f * dn * h.nz;
-    s.alive = s.alive && h.hit;
+    mirror_step<WANT_INCIDENCE, DEFECTS>(ch, i, last, qx, qy, qz, ux, uy, uz, h, s);
   }
 }
 

@@ -39,7 +39,7 @@ NVCC_FLAGS = (
 )
 
 #: version of the C interface these bindings take (``art_abi_version``)
-ABI_VERSION = 6
+ABI_VERSION = 7
 
 _lock = threading.Lock()
 _lib = None
@@ -127,17 +127,19 @@ def load(path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     if not hasattr(lib, "art_abi_version") or lib.art_abi_version() != ABI_VERSION:
         raise RuntimeError(f"{path}: not a kernel library of C interface version {ABI_VERSION}")
-    return bind(lib, CHAIN_T.itemsize)
+    return bind(lib, CHAIN_T.itemsize, ABI_VERSION)
 
 
-def bind(lib, chain_bytes: int, image: bool = True) -> ctypes.CDLL:
-    """Bind the kernels' C interface of versions 3 to 6 (the same entry
-    points; version 6 adds the image kernel K1i, bound when ``image``) to a
-    loaded library and check its record sizes: the chain record must be
+def bind(lib, chain_bytes: int, version: int) -> ctypes.CDLL:
+    """Bind the kernels' C interface of versions 3 to 7 (the same entry
+    points; version 6 adds the image kernel K1i, version 7 K7's own entry
+    ``art_launch_stats_primal``, where version 6 and older launch K7 through
+    ``art_launch_stats_params`` with no tangent rows) to a loaded library of
+    ``version`` and check its record sizes: the chain record must be
     ``chain_bytes`` long (this version's; an older version's is a prefix of
     this version's record, which such a library reads: 4's before the grid
     maps, 3's before the Zernike tables), the others as the numpy records.
-    The gather probes of versions 5 and 6 are bound by
+    The gather probes of versions 5 to 7 are bound by
     ``utils/gather_probe.py``, the cost probes by ``utils/cost_probe.py``."""
     from .fused_scan import N_AUX
     from .fused_trace import DETECTOR_T, IMAGE_T, SOURCE_T
@@ -170,7 +172,12 @@ def bind(lib, chain_bytes: int, image: bool = True) -> ctypes.CDLL:
     lib.art_launch_stats_params.restype = ci
     sizes = [("art_chain_params_size", chain_bytes), ("art_source_params_size", SOURCE_T.itemsize),
              ("art_detector_params_size", DETECTOR_T.itemsize)]
-    if image:
+    if version >= 7:
+        lib.art_stats_primal_rays_per_block.argtypes = []
+        lib.art_stats_primal_rays_per_block.restype = ci
+        lib.art_launch_stats_primal.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp, vp, vp]
+        lib.art_launch_stats_primal.restype = ci
+    if version >= 6:
         lib.art_image_params_size.argtypes = []
         lib.art_image_params_size.restype = ctypes.c_size_t
         lib.art_source_image_rays_per_block.argtypes = []
@@ -220,8 +227,13 @@ def _check_grids(grids, like):
 
 
 def moment_rays_per_block() -> int:
-    """Rays per block of the runtime-pose kernels K5-K7."""
+    """Rays per block of the runtime-pose kernels K5 and K6."""
     return library().art_moment_rays_per_block()
+
+
+def stats_primal_rays_per_block() -> int:
+    """Rays per block of K7."""
+    return library().art_stats_primal_rays_per_block()
 
 
 def source_moments_rays_per_block() -> int:
@@ -323,14 +335,26 @@ def launch_fused_source_stats(chain_rec, src_rec, det_rec, n_rays, chunk, grid, 
 
 def launch_stats_params(chain_rec, src_rec, opl_ref, n_rays, chunk, grid, n_scal, svec,
                         stangents, chunk_params, rows, stream, grids=()):
-    """K6 (``stangents`` the step's (P, n_scal) tangent rows on the device)
-    or K7 (``stangents`` None); ``grid``: (blocks_per_chunk, n_blocks) of
+    """K6: ``stangents`` the step's (P, n_scal) tangent rows on the device,
+    P > 0; ``grid``: (blocks_per_chunk, n_blocks) of
     :func:`.fused_trace.ray_grid`."""
     _check_grids(grids, rows)
     lib = library()
     status = lib.art_launch_stats_params(
         _record_ptr(chain_rec), _record_ptr(src_rec), float(opl_ref), int(n_rays), int(chunk),
-        int(grid[0]), int(grid[1]), int(n_scal), svec.data_ptr(),
-        0 if stangents is None else int(stangents.shape[0]), _ptr(stangents),
-        chunk_params.data_ptr(), rows.data_ptr(), stream)
+        int(grid[0]), int(grid[1]), int(n_scal), svec.data_ptr(), int(stangents.shape[0]),
+        stangents.data_ptr(), chunk_params.data_ptr(), rows.data_ptr(), stream)
     _check(lib, status, "stats_params launch")
+
+
+def launch_stats_primal(chain_rec, src_rec, det_rec, n_rays, chunk, grid, chunk_params, rows,
+                        stream, grids=()):
+    """K7: the chain record carries the pose (:func:`.fused_grad.
+    pack_primal_records`); ``grid``: (blocks_per_chunk, n_blocks) of
+    :func:`.fused_trace.ray_grid`; ``rows``: (n_blocks, 7) float64."""
+    _check_grids(grids, rows)
+    lib = library()
+    status = lib.art_launch_stats_primal(
+        _record_ptr(chain_rec), _record_ptr(src_rec), _record_ptr(det_rec), int(n_rays), int(chunk),
+        int(grid[0]), int(grid[1]), chunk_params.data_ptr(), rows.data_ptr(), stream)
+    _check(lib, status, "stats_primal launch")

@@ -15,8 +15,9 @@ in), then the detector plane in the final element's frame.
   parameter), in one launch per gradient step; each block traces its rays
   once on dual numbers for a group of G rows (the shared primal of
   ``jax.linearize``).
-* **K7** (``stats_params_kernel<0>``) replaces ``_kernel_stats_primal``:
-  the 7 sums alone.
+* **K7** (``stats_primal_kernel``) replaces ``_kernel_stats_primal``:
+  the 7 sums alone, its pose written into its launch record
+  (:func:`pack_primal_records`).
 
 The tangent rows are the Jacobian of ``params -> svec``
 (:func:`chain_scalars`, float64, ``torch.func.jacfwd``), rounded to float32
@@ -300,60 +301,109 @@ def _scan_spec(spec: FusedLossSpec):
                     n_sources=spec.n_sources)
 
 
+def loss_source(spec: FusedLossSpec):
+    """The source law of a loss in its canonical frame (the pose vector's
+    first map folds the source's rotation and origin in)."""
+    from . import fused_trace as ft
+
+    return ft.BakedSource(kind=spec.source_kind, rot=((1.0, 0.0, 0.0), (0.0, 1.0, 0.0), (0.0, 0.0, 1.0)),
+                          origin=(0.0, 0.0, 0.0), radius=spec.source_radius,
+                          pos_radius=spec.pos_radius, n_each=spec.n_each, n_sources=spec.n_sources)
+
+
+def pose_table(elements, svec):
+    """The unfolded :class:`~.fused_trace.ChainTable` of ``elements`` whose
+    maps are the pose vector ``svec``'s (its float32 entries as python
+    floats): masks stay their own steps, as the runtime-pose kernels walk
+    them. Its final frame is left zero."""
+    from . import fused_trace as ft
+
+    maps, _det = _unpack_scalars([float(v) for v in np.asarray(svec, np.float32)], len(elements))
+    zero = (((0.0,) * 3,) * 3, (0.0,) * 3)
+    return ft.ChainTable(elements=tuple(elements), maps=tuple(maps), final=zero,
+                         premasks=((),) * len(elements))
+
+
 def pack_stats_records(spec: FusedLossSpec, device=None):
-    """K6/K7's ``(chain, source)`` records: the pose-independent chain
-    record (K5's, :func:`~.fused_scan.pack_scan_chain`, grid rows on
-    ``device``) and the source law in its canonical frame. Raises
+    """K6's ``(chain, source)`` records: the pose-independent chain record
+    (K5's, :func:`~.fused_scan.pack_scan_chain`, grid rows on ``device``)
+    and the source law in its canonical frame (:func:`loss_source`). Raises
     NotImplementedError on what the kernels do not take."""
     from . import fused_scan as fs
     from . import fused_trace as ft
 
-    src = ft.BakedSource(kind=spec.source_kind, rot=((1.0, 0.0, 0.0),) * 3, origin=(0.0, 0.0, 0.0),
-                         radius=spec.source_radius, pos_radius=spec.pos_radius,
-                         n_each=spec.n_each, n_sources=spec.n_sources)
     return (fs.pack_scan_chain(_scan_spec(spec), device),
-            ft.pack_source(src, spec.n_rays, spec.gaussian_edge))
+            ft.pack_source(loss_source(spec), spec.n_rays, spec.gaussian_edge))
+
+
+def pack_primal_records(spec: FusedLossSpec, svec, device=None):
+    """K7's ``(chain, source, detector)`` records for the pose vector
+    ``svec``: the chain record of :func:`pose_table` (each element's map in
+    ``el[i].M``, ``el[i].b``, masks unfolded; grid rows on ``device``), the
+    source law in its canonical frame (:func:`loss_source`) and the
+    detector plane (centre, normal, e1, e2 in the last element's frame, and
+    the chief ray's ``opl_ref``) in a ``DetectorP``. Raises
+    NotImplementedError on what the kernel does not take."""
+    from . import fused_trace as ft
+
+    chain_rec = ft.pack_chain(pose_table(spec.elements, svec), spec.ignore_defects, device)
+    det = np.zeros((), dtype=ft.DETECTOR_T)
+    c, n, e1, e2 = np.asarray(svec, np.float32)[-N_DET_SCALARS:].reshape(4, 3)
+    det["c"], det["n"], det["e1"], det["e2"], det["opl_ref"] = c, n, e1, e2, spec.opl_ref
+    return chain_rec, ft.pack_source(loss_source(spec), spec.n_rays, spec.gaussian_edge), det
 
 
 def prepare_stats_params(spec: FusedLossSpec, svec, stangents, chunks, *, device):
-    """K6/K7's host work for a CUDA ``device``: pack the records
-    (:func:`pack_stats_records`), copy ``svec``, the P
-    tangent rows and the chunk offsets to the device, and allocate the
-    per-block rows. Returns ``(rows, launch)``: each ``launch()`` runs K6
-    (P > 0) or K7 (P = 0) once over every chunk on a grid sized to the rays
-    (:func:`~.fused_trace.ray_grid`), and counts it. K6 takes the P rows in
-    ceil(P / G) groups of the kernel's G (``_cuda.tangent_batch``) and writes
-    ``rows`` (groups, blocks, 7 (1 + G)): per group and block one float64
-    row of the 7 sums and their G tangents; K7 writes (1, blocks, 7)."""
+    """K6/K7's host work for a CUDA ``device``: pack the records, copy the
+    chunk offsets (K6: also ``svec`` and the P tangent rows) to the device,
+    and allocate the per-block rows. Returns ``(rows, launch)``: each
+    ``launch()`` runs K6 (P > 0) or K7 (P = 0) once over every chunk on a
+    grid sized to the rays (:func:`~.fused_trace.ray_grid`, at the kernel's
+    own rays per block), and counts it. K6 (:func:`pack_stats_records`)
+    takes the P rows in ceil(P / G) groups of the kernel's G
+    (``_cuda.tangent_batch``) and writes ``rows`` (groups, blocks, 7 (1 +
+    G)): per group and block one float64 row of the 7 sums and their G
+    tangents. K7 (:func:`pack_primal_records`: the pose in its launch
+    record) writes (1, blocks, 7)."""
+    from . import _cuda
     from . import fused_trace as ft
 
     sizes = ft._check_chunks(chunks)
     device = ft._cuda_device(device, "fused_stats_params")
     svec, stangents = _check_params_args(spec, svec, stangents)
     P = stangents.shape[0]
-    chain_rec, src_rec = pack_stats_records(spec, device)
+    # the records first: what the kernels do not take raises before any copy
+    if P:
+        chain_rec, src_rec = pack_stats_records(spec, device)
+    else:
+        chain_rec, src_rec, det_rec = pack_primal_records(spec, svec, device)
     grids = ft.launch_grids(spec.elements, device)
-    from . import _cuda
-
-    n = svec.shape[0]
-    G = _cuda.tangent_batch() if P else 0
-    svec_t = torch.tensor(svec, device=device)
-    tang_t = torch.tensor(stangents, device=svec_t.device) if P else None
-    params = torch.tensor([[c[1], c[2]] for c in chunks], dtype=torch.float32, device=svec_t.device)
+    params = torch.tensor([[c[1], c[2]] for c in chunks], dtype=torch.float32, device=device)
     n_rays, chunk = sum(sizes), sizes[0]
-    grid = ft.ray_grid(sizes, _cuda.moment_rays_per_block())
+    checked = [("chunk params", params, torch.float32)]
+    if P:
+        G = _cuda.tangent_batch()
+        svec_t = torch.tensor(svec, device=params.device)
+        tang_t = torch.tensor(stangents, device=params.device)
+        grid = ft.ray_grid(sizes, _cuda.moment_rays_per_block())
+        checked += [("svec", svec_t, torch.float32), ("tangents", tang_t, torch.float32)]
+    else:
+        G = 0
+        grid = ft.ray_grid(sizes, _cuda.stats_primal_rays_per_block())
     rows = torch.empty((-(-P // G) if P else 1, grid[1], 7 * (1 + G)), dtype=torch.float64,
-                       device=svec_t.device)
-    for name, x, dtype in (("svec", svec_t, torch.float32), ("tangents", tang_t, torch.float32),
-                           ("chunk params", params, torch.float32), ("stats rows", rows, torch.float64)):
-        if x is not None:
-            ft._check_out(name, x, dtype, svec_t.device)
+                       device=params.device)
+    for name, x, dtype in checked + [("stats rows", rows, torch.float64)]:
+        ft._check_out(name, x, dtype, params.device)
 
     def launch():
         with torch.cuda.device(rows.device):
             stream = torch.cuda.current_stream(rows.device).cuda_stream
-            _cuda.launch_stats_params(chain_rec, src_rec, spec.opl_ref, n_rays, chunk, grid, n,
-                                      svec_t, tang_t, params, rows, stream, grids)
+            if P:
+                _cuda.launch_stats_params(chain_rec, src_rec, spec.opl_ref, n_rays, chunk, grid,
+                                          svec.shape[0], svec_t, tang_t, params, rows, stream, grids)
+            else:
+                _cuda.launch_stats_primal(chain_rec, src_rec, det_rec, n_rays, chunk, grid, params,
+                                          rows, stream, grids)
         if P:
             fused_stats_params.launches += 1
         else:

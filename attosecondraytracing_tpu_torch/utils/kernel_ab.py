@@ -139,42 +139,342 @@ def _kernel_name(mangled: str) -> str:
 #: slow-path checks and calls, indexed constant loads, shuffles, conversions
 #: and float64 adds (the block reduction), shared memory, barriers
 SASS_CLASSES = ("MUFU", "FCHK", "CALL", "LDC", "SHFL", "F2F", "DADD", "LDS", "STS", "BAR", "BRA")
+#: SASS opcodes by the pipe that issues them; any other opcode is "other"
+SASS_PIPES = {
+    "fp32": ("FFMA", "FMUL", "FADD", "FSETP", "FSEL", "FMNMX"),
+    "integer": ("IMAD", "IADD3", "LOP3", "ISETP", "SHF", "LEA", "SEL"),
+    "mufu": ("MUFU",),
+    "conversion": ("F2F", "I2F", "F2I", "FRND"),
+    "memory": ("LDS", "LDC", "LDG", "STS"),
+    "control": ("BRA", "BSSY", "BSYNC", "WARPSYNC", "VOTE"),
+}
+_PIPE_OF = {op: pipe for pipe, ops in SASS_PIPES.items() for op in ops}
+#: per SM and clock on the H100: warp instructions issued (4 schedulers, one
+#: each) and the lanes of each pipe (a warp instruction takes 32 lane slots)
+ISSUE_PER_SM_CLOCK = 4
+PIPE_LANES = {"fp32": 128, "integer": 64, "mufu": 16, "conversion": 16}
+H100_SMS = 132
+#: an instruction line of cuobjdump -sass or nvdisasm: its offset, an
+#: optional predicate, the opcode before its first modifier
+_OPCODE = re.compile(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P(?:\d+|T)\s+)?([A-Z][A-Z0-9_]*)")
+#: the default kernels of :func:`sass_summary`: K2, K8, K7 and K6
+SUMMARY_KERNELS = ("fused_source_moments_kernel", "fused_source_stats_kernel", "stats_primal_kernel",
+                   "stats_params_kernel")
 
 
-def sass_summary(lib_path, kernels=("fused_source_moments_kernel", "fused_source_stats_kernel")) -> str:
-    """Static opcode counts of the named kernels in a library's SASS
-    (every surface family is compiled in; a flagship ray runs the toroid's):
-    the total and the opcodes of :data:`SASS_CLASSES`."""
-    tool = shutil.which("cuobjdump") or str(Path(_cuda._nvcc()).with_name("cuobjdump"))
+def pipe_counts(opcodes) -> dict:
+    """``{pipe: n, ..., "other": n, "total": n}`` of a sequence of opcodes
+    (:data:`SASS_PIPES`)."""
+    out = dict.fromkeys((*SASS_PIPES, "other", "total"), 0)
+    for op in opcodes:
+        out[_PIPE_OF.get(op, "other")] += 1
+        out["total"] += 1
+    return out
+
+
+def _pipes_text(counts) -> str:
+    return ", ".join(f"{p} {counts[p]:g}" for p in (*SASS_PIPES, "other"))
+
+
+def _cuda_tool(name) -> str:
+    return shutil.which(name) or str(Path(_cuda._nvcc()).with_name(name))
+
+
+def sass_summary(lib_path, kernels=SUMMARY_KERNELS) -> str:
+    """:func:`summarize_sass` of a library's ``cuobjdump -sass`` listing."""
     try:
-        sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
-                              check=True).stdout
+        sass = subprocess.run([_cuda_tool("cuobjdump"), "-sass", str(lib_path)], capture_output=True,
+                              text=True, check=True).stdout
     except (OSError, subprocess.CalledProcessError) as exc:
         return f"SASS counts unavailable ({exc})"
-    out, name, counts = [], None, {}
+    return summarize_sass(sass, kernels)
+
+
+def summarize_sass(sass: str, kernels=SUMMARY_KERNELS) -> str:
+    """Static opcode counts of the named kernels in a ``cuobjdump -sass``
+    listing (every surface family is compiled in; a flagship ray runs the
+    toroid's): one line per kernel with the total, the opcodes of
+    :data:`SASS_CLASSES` and the opcodes by pipe (:data:`SASS_PIPES`)."""
+    out, name, ops = [], None, []
 
     def flush():
         if name and any(k in name for k in kernels):
-            parts = ", ".join(f"{c} {counts.get(c, 0)}" for c in SASS_CLASSES)
-            out.append(f"SASS {_kernel_name(name)}: {counts.get('total', 0)} opcodes ({parts})")
+            counts = {c: ops.count(c) for c in SASS_CLASSES}
+            parts = ", ".join(f"{c} {n}" for c, n in counts.items())
+            out.append(f"SASS {_kernel_name(name)}: {len(ops)} opcodes ({parts}); by pipe: "
+                       f"{_pipes_text(pipe_counts(ops))}")
 
     for line in sass.splitlines():
         if "Function :" in line:
             flush()
-            name, counts = line.split(":", 1)[1].strip(), {}
+            name, ops = line.split(":", 1)[1].strip(), []
         else:
-            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\d+\s+)?([A-Z][A-Z0-9_]*)", line)
+            m = _OPCODE.match(line)
             if m:
-                counts["total"] = counts.get("total", 0) + 1
-                counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+                ops.append(m.group(1))
     flush()
     return "\n".join(out)
 
 
+# ---------------------------------------------------------------------------
+# K7's SASS by stage: nvdisasm's inline line information
+# ---------------------------------------------------------------------------
+
+#: the branches the flagship takes where the device code branches on a kind:
+#: the cone source, the mask's round hole and the toroids' rectangle
+FLAGSHIP_PATH = {"source": "SRC_CONE", "mask": "SUP_ROUND_HOLE", "premask": "SUP_ROUND_HOLE",
+                 "toroid": "SUP_RECT"}
+#: the stages of a summing kernel's instructions, in the order of a ray
+STAGES = ("setup", "ray loop", "source", "walk", "premask", "map", "mask", "toroid", "plane", "quadric",
+          "defects", "mirror", "epilogue", "reduction", "slow path")
+
+
+def _function_of_lines(lines) -> list:
+    """For each line (0-based) of a CUDA source, the name of the function
+    whose body holds it (None outside functions): a function starts at a
+    line at column 0 naming it before ``(`` (``__launch_bounds__`` skipped,
+    the name then on the next line) and ends at the next ``}`` at column 0."""
+    out, name = [None] * len(lines), None
+    skip = ("//", "#", "}", "{", "template", "struct", "enum", "constexpr", "using", "namespace",
+            "extern", " ", "\t")
+    for i, line in enumerate(lines):
+        if name is None and line and not line.startswith(skip):
+            names = [n for n in re.findall(r"(\w+)\s*\(", line) if n != "__launch_bounds__"]
+            if not names and i + 1 < len(lines):
+                names = re.findall(r"^(\w+)\s*\(", lines[i + 1])
+            name = names[0] if names else None
+        out[i] = name
+        if line == "}" or (name and line.rstrip().endswith("}") and not line.startswith(skip)):
+            name = None
+    return out
+
+
+def _block(lines, start: int, opener: str, closer: str | None = None) -> set:
+    """The 1-based line numbers from the first line at or after ``start``
+    (0-based) holding ``opener`` to the first one after it holding
+    ``closer``, or, without ``closer``, to the brace that closes the
+    opener's block (its then-part: an ``} else {`` closes it)."""
+    i = next(k for k in range(start, len(lines)) if opener in lines[k])
+    if closer is not None:
+        j = next(k for k in range(i + 1, len(lines)) if closer in lines[k])
+        return set(range(i + 1, j + 2))
+    depth = 0
+    for j in range(i, len(lines)):
+        depth -= lines[j].count("}")
+        if j > i and depth <= 0:
+            return set(range(i + 1, j + 1))
+        depth += lines[j].count("{")
+    raise ValueError(f"no end of the block at {opener!r}")
+
+
+class _Sources:
+    """The device sources of a ``csrc/`` tree, indexed by file name: each
+    line's function, and the line sets the stage rules read."""
+
+    def __init__(self, csrc: Path):
+        self.lines = {p.name: p.read_text().splitlines() for p in Path(csrc).glob("*.cu*")}
+        self.func = {name: _function_of_lines(text) for name, text in self.lines.items()}
+        tc = self.lines["trace_common.cuh"]
+        walk = self.func["trace_common.cuh"].index("trace_chain_maps")
+        self.premask = _block(tc, walk, "if (el.pre_end > el.pre_begin) {")
+        # a tree whose walk holds its mask and mirror steps inline (before
+        # mask_step and mirror_step): their lines
+        inline = "mask_step" not in self.func["trace_common.cuh"]
+        self.mask = _block(tc, walk, "if (el.kind == ELEM_MASK) {") if inline else set()
+        self.mirror = (_block(tc, walk, "const S dn = ux * h.nx", "s.alive = s.alive && h.hit;")
+                       if inline else set())
+        src = self.func["trace_common.cuh"].index("synth_source")
+        self.source_only = {kind: _block(tc, src, f"if (src.kind == {kind}) {{")
+                            for kind in ("SRC_SQUARE", "SRC_EXTENDED", "SRC_DISK")}
+        # copies of one element step in an unrolled walk (K7's k7_walk)
+        self.copies = int(re.search(r"constexpr int MAX_ELEMENTS = (\d+);", "\n".join(tc)).group(1))
+        # K7's own ray loop (a kernel on for_thread_rays has none)
+        grad = self.lines["fused_grad.cu"]
+        loop = "for (int r = 0; r < K7_RAYS_PER_THREAD"
+        self.ray_loop = _block(grad, 0, loop) if any(loop in line for line in grad) else set()
+
+    def frame(self, file: str, line: int):
+        """(function, text) of a 1-based line of a file of the tree."""
+        name = Path(file).name
+        if name not in self.lines or not 0 < line <= len(self.lines[name]):
+            return None, ""
+        return self.func[name][line - 1], self.lines[name][line - 1]
+
+    def case_of(self, file: str, line: int) -> str | None:
+        """The ``case X:`` label of the switch case holding a line of a
+        function (None outside a case)."""
+        lines, func = self.lines[Path(file).name], self.func[Path(file).name]
+        for k in range(line - 1, -1, -1):
+            if func[k] != func[line - 1]:
+                return None
+            m = re.search(r"case (\w+):", lines[k])
+            if m:
+                return m.group(1)
+            if "switch (" in lines[k]:
+                return None
+        return None
+
+
+def _stage_of(chain, src: _Sources, path=FLAGSHIP_PATH):
+    """(stage, weight) of an instruction from its inline chain of (file,
+    line), innermost first: the stage (:data:`STAGES`) by the outermost
+    frame that names one, and what it counts for in one pass of its stage:
+    0 where the flagship's ``path`` does not run it (a ``case`` of the
+    supports' switch or a source kind's block it does not take), 1 /
+    MAX_ELEMENTS in K7's walk (unrolled: its static code holds one copy of
+    an element step per element), else 1."""
+    frames = [(f, ln, *src.frame(f, ln)) for f, ln in chain]
+    funcs = [fn for _f, _ln, fn, _t in frames]
+    if any(fn in ("reduce_columns", "reduce_to_row") for fn in funcs):
+        return "reduction", 1.0
+    if "synth_source" in funcs or "vogel_point" in funcs or "sincos_pi_law" in funcs:
+        _f, ln, _fn, _t = next(fr for fr in frames if fr[2] == "synth_source")
+        skipped = set().union(*(b for k, b in src.source_only.items() if k != path["source"]))
+        return "source", float(ln not in skipped)
+    walk = [fr for fr in frames if fr[2] in ("trace_chain_maps", "k7_walk")]
+    if walk:
+        _f, ln, fn, text = walk[-1]
+        inner = frames[:frames.index(walk[-1])]  # what the walk's line calls, innermost first
+        called = {fr[2] for fr in inner}
+        # the walks' steps are functions (mask_step, mirror_step), a mirror's
+        # defect branch its lines on zk_of / grid_end (inline in an older walk)
+        calls = (("defects", "zernike_hit"), ("defects", "deformed_hit"), ("toroid", "toroid_hit"),
+                 ("plane", "plane_hit"), ("quadric", "quadric_hit"), ("quadric", "k7_other_hit"),
+                 ("mask", "mask_step"), ("mirror", "mirror_step"), ("map", "affine"))
+        step = inner[-1][3] if inner and inner[-1][2] == "mirror_step" else text
+        if fn == "trace_chain_maps" and ln in src.premask:
+            stage = "premask"
+        elif "__any_sync" in text:
+            stage = "walk"
+        elif re.search(r"\bzk_of|\bgrid_end", step):
+            stage = "defects"
+        elif ln in src.mask:
+            stage = "mask"
+        elif ln in src.mirror:
+            stage = "mirror"
+        else:
+            stage = next((st for st, f in calls if f in called or f + "(" in text or f + "<" in text),
+                         "walk")
+        weight = 1.0 / src.copies if fn == "k7_walk" else 1.0
+        inc = [fr for fr in frames if fr[2] == "include"]
+        if inc and stage in path:
+            case = src.case_of(inc[0][0], inc[0][1])
+            weight *= case is None or case == path[stage]
+        return stage, weight
+    kernel = [fr for fr in frames if fr[2] and fr[2].endswith("_kernel")]
+    if any(fn in ("stats_geometry", "stats_terms", "add_moments") for fn in funcs) \
+            or (kernel and re.search(r"expf|stats_|terms|acc\[", kernel[0][3])):
+        return "epilogue", 1.0
+    if "for_thread_rays" in funcs or (kernel and Path(kernel[-1][0]).name == "fused_grad.cu"
+                                      and kernel[-1][1] in src.ray_loop):
+        return "ray loop", 1.0
+    return "setup", 1.0
+
+
+def parse_nvdisasm(text: str, kernel: str) -> list:
+    """The instructions of the first function of an ``nvdisasm -gi``
+    listing whose mangled name holds ``kernel``: ``[(opcode, chain), ...]``,
+    ``chain`` the (file, line) locations of the group of ``//## File``
+    lines above it (one line per frame, ``File "f", line n inlined at
+    ...``), innermost first. Instructions of subroutines ending in ``RET``
+    (the IEEE sequences' slow paths, past the body's exit) carry the chain
+    None."""
+    out, chain, inside, sub, ended, group = [], [], False, [], False, False
+    for line in text.splitlines():
+        head = re.match(r"\s*\.text\.(\S+):", line)
+        if head:
+            if inside:
+                break
+            inside = kernel in head.group(1)
+            continue
+        if not inside:
+            continue
+        if "//##" in line:
+            frame = re.search(r'File "([^"]+)", line (\d+)', line)
+            chain = (chain if group else []) + [(frame.group(1), int(frame.group(2)))]
+            group = True
+            continue
+        group = False
+        m = _OPCODE.match(line)
+        if m:
+            sub.append((m.group(1), chain))
+            if m.group(1) in ("EXIT", "RET"):
+                # a segment ends: the body's (kept) or a subroutine's (slow path)
+                out += [(op, None if m.group(1) == "RET" else c) for op, c in sub]
+                sub, ended = [], True
+    # past the body's last exit and the subroutines: its closing loop and padding
+    return out if ended else sub
+
+
+def stage_counts(instructions, src: _Sources, path=FLAGSHIP_PATH) -> dict:
+    """``{stage: pipe counts}`` of one pass of each stage on the flagship's
+    path (:func:`parse_nvdisasm`, :func:`_stage_of`'s weights: code of
+    branches it does not take left out, an unrolled walk's copies counted
+    as one step); the slow paths counted apart."""
+    counts = {}
+    for op, chain in instructions:
+        stage, weight = ("slow path", 1.0) if chain is None else _stage_of(chain, src, path)
+        if weight:
+            c = counts.setdefault(stage, dict.fromkeys((*SASS_PIPES, "other", "total"), 0))
+            c[_PIPE_OF.get(op, "other")] += weight
+            c["total"] += weight
+    return {st: counts[st] for st in STAGES if st in counts}
+
+
+def sass_stages(lib_path, kernel: str = "stats_primal_kernelILi0E", csrc=None) -> dict:
+    """:func:`stage_counts` of ``kernel`` (a piece of its mangled name: the
+    default is K7 without defects) in a library built from ``csrc`` (default
+    this checkout's) with line information (``-lineinfo``, as
+    ``_cuda.NVCC_FLAGS`` builds): its cubins extracted (``cuobjdump
+    -xelf``) and disassembled with the inline chains (``nvdisasm -gi``)."""
+    import tempfile
+
+    src = _Sources(Path(csrc or _cuda.CSRC))
+    with tempfile.TemporaryDirectory() as tmp:
+        subprocess.run([_cuda_tool("cuobjdump"), "-xelf", "all", str(Path(lib_path).resolve())],
+                       cwd=tmp, check=True, capture_output=True)
+        for cubin in sorted(Path(tmp).glob("*.cubin")):
+            if kernel.encode() not in cubin.read_bytes():  # its symbol names the object that holds it
+                continue
+            res = subprocess.run([_cuda_tool("nvdisasm"), "-c", "-gi", str(cubin)], capture_output=True,
+                                 text=True)
+            if kernel in res.stdout:
+                return stage_counts(parse_nvdisasm(res.stdout, kernel), src)
+    raise RuntimeError(f"no function {kernel!r} in {lib_path}")
+
+
+def issue_bound(stages: dict, warps: dict, clock_hz: float, sms: int = H100_SMS) -> dict:
+    """The least time [ms] the SMs take to issue a launch's warp
+    instructions (``stages``: :func:`stage_counts`; ``warps``: the warps of
+    32 rays through each stage in the launch, the set-up and reduction's per
+    warp of the grid), at one instruction per scheduler and clock
+    (:data:`ISSUE_PER_SM_CLOCK`), and each pipe's own time at its lanes
+    (:data:`PIPE_LANES`): ``{"issue": ms, pipe: ms, ...}``."""
+    slots = {p: 0.0 for p in ("total", *PIPE_LANES)}
+    for stage, counts in stages.items():
+        for p in slots:
+            slots[p] += counts[p] * warps.get(stage, 0)
+    rate = sms * clock_hz / 1e3
+    out = {"issue": slots["total"] / (ISSUE_PER_SM_CLOCK * rate)}
+    out.update({p: slots[p] * 32 / (lanes * rate) for p, lanes in PIPE_LANES.items()})
+    return out
+
+
+def _k7_stages_text(lib_path, version: int, csrc) -> str:
+    """K7's SASS by stage (:func:`sass_stages`; a walk of the tree's own,
+    not trace_chain_maps, reads as "ray loop"), one line per stage."""
+    kernel = "stats_primal_kernelILi0E" if version >= 7 else "stats_params_kernelILi0ELi0E"
+    try:
+        stages = sass_stages(lib_path, kernel, csrc)
+    except (OSError, RuntimeError, subprocess.CalledProcessError) as exc:
+        return f"K7 SASS by stage unavailable ({exc})"
+    return "\n".join(f"K7 SASS {stage}: {c['total']:g} ({_pipes_text(c)})" for stage, c in stages.items())
+
+
 def bind(path):
     """``(library, version)``: a library of this C interface through
-    ``_cuda.load`` (version 6), or an older one (version 5, 4, 3 or 2, or 1
-    without ``art_abi_version``) through :func:`bind_old`."""
+    ``_cuda.load`` (version 7), or an older one (version 6, 5, 4, 3 or 2, or
+    1 without ``art_abi_version``) through :func:`bind_old`."""
     probe = ctypes.CDLL(str(path))
     version = 1
     if hasattr(probe, "art_abi_version"):
@@ -182,7 +482,7 @@ def bind(path):
         version = probe.art_abi_version()
     if version == _cuda.ABI_VERSION:
         return _cuda.load(path), version
-    if version not in (1, 2, 3, 4, 5):
+    if version not in (1, 2, 3, 4, 5, 6):
         raise RuntimeError(f"{path}: C interface version {version} has no adapter here")
     return bind_old(path, version), version
 
@@ -196,8 +496,9 @@ def _chain_prefix_bytes() -> int:
 
 
 def bind_old(path, version: int) -> ctypes.CDLL:
-    """Bind a library of C interface version 1 to 5: version 5 as this
-    version without K1i (:func:`.._cuda.bind`); version 4 so, reading the
+    """Bind a library of C interface version 1 to 6: version 6 as this
+    version without K7's own entry (K7 goes through :func:`_old_stats_primal`);
+    version 5 so, without K1i (:func:`.._cuda.bind`); version 4 so, reading the
     prefix of this version's
     chain record before the grid maps (a chain without grid maps); version 3
     so, reading the prefix before the defect fields (:func:`_chain_prefix_bytes`:
@@ -208,12 +509,12 @@ def bind_old(path, version: int) -> ctypes.CDLL:
     from ..ops.fused_trace import CHAIN_T, CHAIN_V4_BYTES, DETECTOR_T, SOURCE_T
 
     lib = ctypes.CDLL(str(path))
-    if version == 5:
-        return _cuda.bind(lib, CHAIN_T.itemsize, image=False)
+    if version in (5, 6):
+        return _cuda.bind(lib, CHAIN_T.itemsize, version)
     if version == 4:
-        return _cuda.bind(lib, CHAIN_V4_BYTES, image=False)
+        return _cuda.bind(lib, CHAIN_V4_BYTES, version)
     if version == 3:
-        return _cuda.bind(lib, _chain_prefix_bytes(), image=False)
+        return _cuda.bind(lib, _chain_prefix_bytes(), version)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for name, size in (("art_chain_params_size", _chain_prefix_bytes()),
                        ("art_source_params_size", SOURCE_T.itemsize),
@@ -310,6 +611,33 @@ def _v1_scan_moments(lib, sspec, svec, aux, chunks, device):
             chain_rec.ctypes.data, src_rec.ctypes.data, sum(sizes), sizes[0], len(chunks),
             svec_t.data_ptr(), aux_t.data_ptr(), rows.data_ptr(), bpc, _stream(device))
         _cuda._check(lib, status, "version-1 scan_moments launch")
+
+    return launch, lambda: rows.sum(dim=0).cpu().numpy()
+
+
+def _old_stats_primal(lib, spec, svec, chunks, device):
+    """(launch, result) of K7 through C interface versions 2 to 6: the
+    runtime-pose kernel of K6 without tangent rows (``stats_params_kernel<0>``,
+    ``art_launch_stats_params`` with none), the pose vector on the device,
+    on a grid sized to the rays at ``art_moment_rays_per_block``."""
+    from ..ops import fused_grad as fg
+    from ..ops import fused_trace as ft
+
+    chain_rec, src_rec = fg.pack_stats_records(spec, device)
+    grids = ft.launch_grids(spec.elements, device)  # the rows the record points into, held by launch
+    sizes = [c[0] for c in chunks]
+    bpc, n_blocks = ft.ray_grid(sizes, lib.art_moment_rays_per_block())
+    svec_t = torch.as_tensor(np.asarray(svec, np.float32)).to(device)
+    params = torch.tensor([[c[1], c[2]] for c in chunks], dtype=torch.float32, device=device)
+    rows = torch.empty((n_blocks, 7), dtype=torch.float64, device=device)
+
+    def launch():
+        _cuda._check_grids(grids, rows)
+        status = lib.art_launch_stats_params(
+            chain_rec.ctypes.data, src_rec.ctypes.data, float(spec.opl_ref), sum(sizes), sizes[0], bpc,
+            n_blocks, len(svec), svec_t.data_ptr(), 0, None, params.data_ptr(), rows.data_ptr(),
+            _stream(device))
+        _cuda._check(lib, status, "older-interface stats_params (K7) launch")
 
     return launch, lambda: rows.sum(dim=0).cpu().numpy()
 
@@ -490,15 +818,18 @@ def _problems(n_rays: int, device, kind: str = "flat", n_image: int | None = Non
                 out[key] = (k8, lambda rows8=rows8: ft.stats_from_rows(rows8))
         rows5, k5 = fs.prepare_scan_moments(sspec, svec, aux, chunks, device=device)
         rows6, k6 = fg.prepare_stats_params(lspec, gsvec, tang, gchunks, device=device)
-        rows7, k7 = fg.prepare_stats_params(lspec, gsvec, None, gchunks, device=device)
 
         def grad_result(rows, P):
             p, t = fg.params_from_rows(rows, P)
             return np.concatenate([p, t.reshape(-1)])
 
         out.update({"K5": (k5, lambda: rows5.sum(dim=0).cpu().numpy()),
-                    "K6": (k6, lambda: grad_result(rows6, len(tang))),
-                    "K7": (k7, lambda: grad_result(rows7, 0))})
+                    "K6": (k6, lambda: grad_result(rows6, len(tang)))})
+        if version >= 7:
+            rows7, k7 = fg.prepare_stats_params(lspec, gsvec, None, gchunks, device=device)
+            out["K7"] = (k7, lambda: grad_result(rows7, 0))
+        else:
+            out["K7"] = _old_stats_primal(lib, lspec, gsvec, gchunks, device)
         if version >= 6:
             k1i = ft.prepare_fused_source_image(table, spec, image_chunks, n_image, idet, window,
                                                 K1I_BINS, device=device, gaussian_edge=edge)
@@ -656,12 +987,16 @@ def main(argv=None):
         lib_a = _cuda.library()
         print(f"A = this checkout\n{ptxas_summary(_cuda.build_log_path().read_text())}\n"
               f"{sass_summary(lib_a._name)}", flush=True)
+        if "K7" in keys:
+            print(_k7_stages_text(lib_a._name, _cuda.ABI_VERSION, _cuda.CSRC), flush=True)
         others = []
         for i, (csrc, build) in enumerate(zip(args.other_csrc, builds)):
             path, regs = build.result()
             lib, version = bind(path)
             print(f"B{i} = {csrc} (C interface version {version})\n{regs}\n{sass_summary(path)}",
                   flush=True)
+            if "K7" in keys:
+                print(_k7_stages_text(path, version, csrc), flush=True)
             others.append((f"B{i}", str(csrc), lib, version))
     print(f"{card}; {1 + len(others)} libraries ready in {time.perf_counter() - t0:.1f} s", flush=True)
     flat, result = None, {}

@@ -54,6 +54,18 @@ sums of a group of N distances in the thread's columns of shared memory,
 added to ray by ray (N in 6: 2 blocks per SM, 20: 1 block), in place of the
 shipped distance-outer loop with the sums in registers.
 
+K7 (``fused_grad.cu``, ``stats_primal_kernel``):
+
+* ``k7_r<R>``: R rays per thread (``K7_RAYS_PER_THREAD``), R in 8 (the
+  parent's K7, ``stats_params_kernel<0>``, took 8), 16, 32; the shipped
+  value's tree is a copy of the shipped sources (an A-against-A reading).
+* ``k7_b<B>``: a register budget of B 256-thread blocks per SM in
+  ``__launch_bounds__``, B in 6 (40 registers), 8 (32).
+* ``k7_inline_other``: the plane and quadric hits inline in every unrolled
+  element, in place of the shipped out-of-line ``k7_other_hit``.
+* ``k7_runtime_walk``: the chain walked by trace_chain_maps (a runtime
+  loop over the record, as K2 walks it), in place of K7's unrolled walk.
+
 K6 (``fused_grad.cu``):
 
 * ``g<G>_b<B>``: G tangent rows per block (``TANGENT_BATCH``) and a register
@@ -89,8 +101,14 @@ def _lit(fname, old, new):
 #: the sums in registers; K6's 7 (1 + G) columns exceed the 48 KB a static
 #: array may take, so its reduction stages them in the dynamic columns
 _REG = [
-    ("fused_grad.cu", r"thread_sums<N_OUT, \(G > 0\)>\(\)", "thread_sums<N_OUT, false>()"),
-    _lit("fused_grad.cu", "    reduce_to_row<N>(v, row);\n", """    if constexpr (N * MOMENT_THREADS * sizeof(float) > 48 * 1024) {
+    _lit("fused_grad.cu", "  SharedColumn<N_OUT> acc{sums_smem + threadIdx.x};", "  RegisterSums<N_OUT> acc{};"),
+    _lit("fused_grad.cu", "template <int N>\nstruct SharedColumn {", """template <int N>
+struct RegisterSums {
+  float v[N];
+  __device__ __forceinline__ float& operator[](int m) { return v[m]; }
+  // the block's sums of every thread's N, one float64 row
+  __device__ __forceinline__ void reduce(double* __restrict__ row) const {
+    if constexpr (N * MOMENT_THREADS * sizeof(float) > 48 * 1024) {
 #pragma unroll
       for (int m = 0; m < N; ++m) sums_smem[m * MOMENT_THREADS + threadIdx.x] = v[m];
       __syncthreads();
@@ -98,7 +116,10 @@ _REG = [
     } else {
       reduce_to_row<N>(v, row);
     }
-"""),
+  }
+};
+template <int N>
+struct SharedColumn {"""),
 ]
 
 _IEEE = [
@@ -251,6 +272,15 @@ def variants() -> dict:
     atomicAdd(wd_img + flat, swd);
   }
 """)]
+    for R in (8, 16, 32):
+        out[f"k7_r{R}"] = [_set("K7_RAYS_PER_THREAD", R)]
+    for B in (6, 8):
+        out[f"k7_b{B}"] = [_lit("fused_grad.cu", "__launch_bounds__(MOMENT_THREADS)\nstats_primal_kernel",
+                                f"__launch_bounds__(MOMENT_THREADS, {B})\nstats_primal_kernel")]
+    out["k7_inline_other"] = [_lit("fused_grad.cu", "__device__ __noinline__ HitT<float> k7_other_hit",
+                                   "__device__ __forceinline__ HitT<float> k7_other_hit")]
+    out["k7_runtime_walk"] = [
+        _lit("fused_grad.cu", "    k7_walk<DEFECTS>(ch, s);\n", "    trace_chain<false, WARP_VOTE, DEFECTS>(ch, s);\n")]
     for R in (8, 32):
         out[f"k2_r{R}"] = [_set("K2_RAYS_PER_THREAD", R, "fused_trace.cu")]
     for B in (6, 8):

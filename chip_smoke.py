@@ -18,7 +18,8 @@ port's paths through the entry points a user calls, and checks the results:
   second chain (kernel K3), against the plain streamed trace;
 * alignment by gradient descent: ``gradient_align`` on the flagship at 1e7
   rays through the fused gradient engine (kernel K6), against the autograd
-  engine on the card, and ``fused_focus_loss`` (kernel K7);
+  engine on the card, and ``fused_focus_loss`` (kernel K7, one launch, held
+  against the loss of its plain version's sums);
 * the per-distance stats baseline (kernel K8) at 1, 8, 9, 20 and 128
   distances, and at 20 against K2's moments;
 * Zernike surface defects: ``main.main`` on the deformed flagship (its first
@@ -70,7 +71,15 @@ K7 and K8: 3 windows of one call), at 1e7 rays: K1, K2, K5, K6, K7 and K8
 and bundles.
 ``bound_ms`` is the larger of the bytes the kernel must move over 3.35 TB/s
 and its float32 operations over 67 TFLOP/s (H100 SXM data sheet), counted
-for the same inputs. Each entry also carries the phase zernike's numbers:
+for the same inputs; the summing kernels' operations (K1i, K2, K5, K7, K8)
+are counted where the rays die: the source for every ray, each element's
+step for the rays alive entering it, the epilogue for the rays alive at the
+end (a warp whose rays all died leaves the chain). K7's entry also carries
+``stages``: its launch alone on prefixes of the flagship chain (the mask;
+the mask and the first toroid; the whole chain), the rays and warps alive
+at each stage, each stage's time and operations, and its SASS by stage with
+the issue-slot and per-pipe bounds of each prefix (utils/kernel_ab.py).
+Each entry also carries the phase zernike's numbers:
 ``zernike_ms`` (the launch alone on the deformed flagship at 1e7 rays),
 ``zernike_flat_ms`` (the undeformed flagship's, timed beside it),
 ``zernike_bound_ms`` and ``zernike_bound_by``, and the phase grid's
@@ -92,7 +101,9 @@ carries the K1 loop's launches and wall on the same image (``images``). The entr
 follow: their launches in the probes' run, the largest error against the
 plain version, the launch alone (P1 on its tile, P2 fma at 40 ops over
 (78336, 128), P3 over 1e7 rays), P1's first-launch seconds, P2's
-slope-timed ``ops``, P3's K4 subsets and K4's compute share.
+slope-timed ``ops``, P3's K4 subsets and K4's compute share. P1, P2, P4 and
+P5 (and each P4 form and P5 case) also carry ``device_ms``, the launch alone
+on the card with the host's work hidden (utils/cost_probe.queued_us).
 """
 
 from __future__ import annotations
@@ -310,39 +321,52 @@ def _trace_ops(table, source: bool, ignore_defects: bool = True) -> int:
     return (OPS["cone_source"] if source else 0) + sum(a + b for a, b in _stage_ops(table, ignore_defects))
 
 
-def _alive_by_stage(torch, table, spec, chunks, n_total, dev, ignore_defects: bool = True) -> list:
+def _alive_by_stage(torch, table, spec, chunks, n_total, dev, ignore_defects: bool = True,
+                    warps: bool = False):
     """The rays of a fused source's ``chunks`` alive on entering each
     element of ``table`` and past its folded masks, then at the chain's end:
     ``[entering 0, past masks 0, entering 1, ..., at the end]``, counted on
     the plain trace (K1's plain version, chunk by chunk, the sums on the
     device). A kernel's warp exit skips the rest of the chain for the
-    others, so the function needs no more than these rays' work."""
+    others, so the function needs no more than these rays' work. With
+    ``warps`` also the same counts of warps (32 consecutive rays of a chunk,
+    a kernel warp's lanes) holding at least one such ray: ``(rays, warps)``."""
     from attosecondraytracing_tpu_torch.ops import fused_trace as ft
     from attosecondraytracing_tpu_torch.ops import trace as tr
 
-    counts = torch.zeros(2 * len(table.elements) + 1, dtype=torch.int64, device=dev)
+    counts = torch.zeros((2, 2 * len(table.elements) + 1), dtype=torch.int64, device=dev)
     elements = ft._grids_on(table.elements, dev)
+
+    def add(i, alive):
+        counts[0, i] += alive.sum()
+        if warps:
+            lanes = torch.cat([alive, alive.new_zeros((-alive.numel()) % 32)])
+            counts[1, i] += lanes.view(-1, 32).any(dim=1).sum()
+
     for n_local, phase, k_frac in chunks:
         k = torch.arange(n_local, dtype=torch.int64, device=dev)
         (px, py, pz), (dx, dy, dz), _rr = ft.synth_spec(spec, k, n_total, phase, k_frac)
         zeros = torch.zeros_like(px)
         s = tr.TraceState(px, py, pz, dx, dy, dz, zeros, zeros, torch.ones_like(px, dtype=torch.bool), zeros)
         for i, (el, (M, b), pre) in enumerate(zip(elements, table.maps, table.premasks)):
-            counts[2 * i] += s.alive.sum()
-            counts[2 * i + 1] += (tr.premask_alive(pre, s)[0] if pre else s.alive).sum()
+            add(2 * i, s.alive)
+            add(2 * i + 1, tr.premask_alive(pre, s)[0] if pre else s.alive)
             s = tr.chained_step(el, M, b, s, want_incidence=False, ignore_defects=ignore_defects,
                                 premasks=pre, freeze_dead=False)
-        counts[-1] += s.alive.sum()
-    return [int(c) for c in counts.tolist()]
+        add(-1, s.alive)
+    rays, warp_counts = ([int(c) for c in row] for row in counts.tolist())
+    return (rays, warp_counts) if warps else rays
 
 
-def _image_ops(table, alive, n_binned, ignore_defects: bool = True) -> int:
-    """K1i's operations on one image's rays, counted where the rays die
-    (``alive`` from :func:`_alive_by_stage`): the source for every ray, an
-    element's mask tests for the rays entering it and its step for those
-    past its masks, the epilogue (projection, delay, window) for the rays
-    alive at the end, the weight for the rays binned."""
-    ops = OPS["cone_source"] * alive[0] + OPS["image"] * alive[-1] + OPS["weight"] * n_binned
+def _ops_where_rays_die(table, alive, end_ops: int, ignore_defects: bool = True) -> int:
+    """A fused-source kernel's operations on one launch's rays, counted
+    where the rays die (``alive`` from :func:`_alive_by_stage`): the source
+    for every ray, an element's folded masks' tests for the rays entering
+    it and its step (an unfolded mask's too) for those past its masks, and
+    ``end_ops`` (the weight and the epilogue) for the rays alive at the
+    end. A warp whose rays are all dead leaves the chain, so the kernel's
+    work follows these counts."""
+    ops = OPS["cone_source"] * alive[0] + end_ops * alive[-1]
     for i, (pre, step) in enumerate(_stage_ops(table, ignore_defects)):
         ops += pre * alive[2 * i] + step * alive[2 * i + 1]
     return ops
@@ -593,7 +617,7 @@ def phase_k1(torch, dev):
     print(f"K1 flagship at {N_TIME} rays: kernel launch {ms:.4f} ms, whole wrapper {wrapper_ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}), "
           f"{n_alive} rays alive", flush=True)
-    return {"max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms, **bound}, n_alive
+    return {"max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms, **bound}
 
 
 def _k2_setup(torch, dev, chain, n_time):
@@ -618,7 +642,7 @@ def _k2_setup(torch, dev, chain, n_time):
     return spec, elements, det, refs, chunks, n
 
 
-def phase_k2(torch, dev, n_alive):
+def phase_k2(torch, dev):
     """K2 against its plain version on the card at 1e7 rays, on the flagship
     (cone source, 2 chunks of 2^23 rays) and on an extended source (chunks
     on whole sub-sources): sum of weights and the tests/test_stats_kernel.py
@@ -642,20 +666,22 @@ def phase_k2(torch, dev, n_alive):
             ms = _time_ms(launch, torch)
             wrapper_ms = _time_ms(lambda: ft.fused_source_moments(table, spec, bdet, chunks, n, **kw), torch)
             plain_ms = _time_ms(lambda: ft.fused_source_moments_ref(table, spec, bdet, chunks, n, **kw), torch)
-            ops = (_trace_ops(table, True) + OPS["weight"]) * n + OPS["moments"] * n_alive
-            bound = _bound(rows.numel() * 8 + 8 * len(chunks), ops)
+            alive = _alive_by_stage(torch, table, spec, chunks, n, dev)
+            bound = _bound(rows.numel() * 8 + 8 * len(chunks),
+                           _ops_where_rays_die(table, alive, OPS["weight"] + OPS["moments"]))
             print(f"K2 flagship at {n} rays: kernel launch {ms:.4f} ms, whole wrapper {wrapper_ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})",
                   flush=True)
     return {"max_abs_err": spot_err, "ms": ms, "plain_ms": plain_ms, **bound}
 
 
-def phase_k5(torch, dev, n_alive):
+def phase_k5(torch, dev):
     """K5 against its plain version on the card at 1e7 rays (2 chunks), on
     the flagship, the flagship with its first toroid rolled 0.3 deg, and an
     extended source: the K2 phase's tolerances on the moments; and K5
     against K2 on the same chain within the scan tests' envelope
     (tests/test_scan_kernel.py:49-55)."""
+    from attosecondraytracing_tpu_torch.ops import fused_grad as fg
     from attosecondraytracing_tpu_torch.ops import fused_scan as fs
     from attosecondraytracing_tpu_torch.ops import fused_trace as ft
 
@@ -684,9 +710,10 @@ def phase_k5(torch, dev, n_alive):
             ms = _time_ms(launch, torch)
             wrapper_ms = _time_ms(lambda: fs.fused_scan_moments(sspec, svec, aux, chunks, device=dev), torch)
             plain_ms = _time_ms(lambda: fs.scan_moments_ref(sspec, svec, aux, chunks, device=dev), torch)
-            unfolded = ft.ChainTable(sspec.elements, (), (), ((),) * len(sspec.elements))
-            ops = (_trace_ops(unfolded, True) + OPS["weight"]) * n + OPS["moments"] * n_alive
-            bound = _bound(rows.numel() * 8 + 4 * (svec.size + aux.size), ops)
+            table = fg.pose_table(sspec.elements, svec)
+            alive = _alive_by_stage(torch, table, spec, chunks, n, dev)
+            bound = _bound(rows.numel() * 8 + 4 * (svec.size + aux.size),
+                           _ops_where_rays_die(table, alive, OPS["weight"] + OPS["moments"]))
             print(f"K5 flagship at {n} rays: kernel launch {ms:.4f} ms, whole wrapper {wrapper_ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})",
                   flush=True)
@@ -998,6 +1025,20 @@ def _check_grad_sums(tag, got, ref, opl_ref):
     return abs(s_k - s_r)
 
 
+def _check_focus_loss(tag, fg, params, spec, host, geo, ref_sums, dev):
+    """fused_focus_loss on the card (one K7 launch, counted) against the
+    loss of the plain version's sums ``ref_sums``: rel 2e-3. Returns the
+    difference."""
+    fg.fused_stats_params.primal_launches = 0
+    loss = fg.fused_focus_loss(params, spec, host, *geo, device=dev)
+    ref = fg._loss_from_stats(ref_sums, spec, fg._total_weight(spec))[0]
+    print(f"{tag}: fused_focus_loss {loss:.9g} vs the plain version's {ref:.9g}", flush=True)
+    _check(fg.fused_stats_params.primal_launches == 1, f"{tag}: fused_focus_loss launched K7 "
+           f"{fg.fused_stats_params.primal_launches} times")
+    _check(abs(loss - ref) <= 2e-3 * abs(ref), f"{tag}: fused_focus_loss {loss} vs {ref}")
+    return abs(loss - ref)
+
+
 def _grad_ref(fg, spec, svec, tangents, chunks, dev):
     """(loss, gradient) from the plain version of K6 over every tangent row,
     the host side of fused_focus_value_and_grad."""
@@ -1016,7 +1057,9 @@ def phase_k67(torch, dev):
     gradient of fused_focus_value_and_grad (loss rel 2e-3, gradient within
     2e-2 of its largest entry). Then launch-only times at 1e7 rays (2
     chunks): K6 for the whole step's 18 rows in one launch, K7, and the
-    plain version's."""
+    plain version's; at that size K7's sums are held against the plain
+    version's and K6's primal, and fused_focus_loss against the plain
+    loss, as at 2^20."""
     import numpy as np
 
     from attosecondraytracing_tpu_torch.ops import fused_grad as fg
@@ -1059,42 +1102,161 @@ def phase_k67(torch, dev):
         _check(np.all(np.abs(g_k - g_r) <= 2e-2 * np.abs(g_r).max() + 2e-2 * np.abs(g_r)),
                f"K6 {name}: gradient {g_k} vs {g_r}")
         err6 = max(err6, float(np.abs(g_k - g_r).max()))
-        loss7 = fg._loss_from_stats(p7, spec, fg._total_weight(spec))[0]
-        loss7_r = fg._loss_from_stats(p7_r, spec, fg._total_weight(spec))[0]
-        err7 = max(err7, abs(loss7 - loss7_r))
+        err7 = max(err7, _check_focus_loss(f"K7 {name}", fg, params, spec, host, geo, p7_r, dev))
 
     # launch-only times at 1e7 rays of the flagship (2 chunks in one launch)
     chain = _flagship(N_CHECK)[0]
-    spec, host, geo, params, _ = _grad_problem(torch, dev, chain, N_TIME, _bench_misalignment)
+    spec, host, geo, params, det = _grad_problem(torch, dev, chain, N_TIME, _bench_misalignment)
     svec = fg.chain_scalars_np(fg._apply_params_np(host, params), *geo)
     tang = fg.scalar_tangents(host, params, *geo)
     chunks = fg._ray_chunks(spec, fg.GRAD_CHUNK)
     _check(len(chunks) == 2, f"K6 timing: expected 2 chunks, got {len(chunks)}")
-    baked = chain.source_spec._replace(n_rays=N_TIME).baked()
-    table = ft.chain_table(baked, fg._apply_params_np(host, params))
-    n_alive = int(ft.fused_source_trace(table, baked, N_TIME, device=dev).alive.sum())
-    unfolded = ft.ChainTable(spec.elements, (), (), ((),) * len(spec.elements))
-    per_ray = _trace_ops(unfolded, True) + OPS["weight"]
-    out = {}
+    table = fg.pose_table(spec.elements, svec)
+    alive, warps = _alive_by_stage(torch, table, fg.loss_source(spec), chunks, spec.n_rays, dev, warps=True)
+    n_alive = alive[-1]
+    per_ray = _trace_ops(table, True) + OPS["weight"]
+    out, last = {}, {}
     for key, group in (("K6", tang), ("K7", None)):
         rows, launch = fg.prepare_stats_params(spec, svec, group, chunks, device=dev)
         ms = _time_ms(launch, torch)
-        wrapper_ms = _time_ms(lambda: fg.fused_stats_params(spec, svec, group, chunks, device=dev), torch)
-        plain_ms = _time_ms(lambda: fg.stats_params_ref(spec, svec, group, chunks, device=dev), torch,
-                            reps=3, inner=1)
-        ops = per_ray * N_TIME + OPS["stats"] * n_alive
+        wrapper_ms = _time_ms(lambda: last.update(
+            {key: fg.fused_stats_params(spec, svec, group, chunks, device=dev)[0]}), torch)
+        plain_ms = _time_ms(lambda: last.update(
+            plain=fg.stats_params_ref(spec, svec, group, chunks, device=dev)[0]), torch, reps=3, inner=1)
         n_in = svec.size
         if group is not None:  # one gradient step: the primal once, every tangent row once
             P = len(group)
+            ops = per_ray * N_TIME + OPS["stats"] * n_alive
             ops += (OPS["dual_trace_once"] + P * OPS["dual_trace_tangent"]) * N_TIME
             ops += (OPS["dual_stats_once"] + P * OPS["dual_stats_tangent"]) * n_alive
             n_in += group.size
+        else:
+            # the timed size's sums (2 chunks, the last block partial) against
+            # the plain version's and K6's primal, and the loss
+            tag = f"K7 flagship at {N_TIME} rays"
+            _check_grad_sums(tag, last["K7"], last["plain"], spec.opl_ref)
+            _check_grad_sums(f"K7 vs K6 primal flagship at {N_TIME} rays", last["K7"], last["K6"], spec.opl_ref)
+            err7 = max(err7, _check_focus_loss(tag, fg, params, spec, host, geo, last["plain"], dev))
+            ops = _ops_where_rays_die(table, alive, OPS["weight"] + OPS["stats"])
+            whole = _bound(rows.numel() * 8 + 4 * n_in + 8 * len(chunks), per_ray * N_TIME + OPS["stats"] * n_alive)
+            print(f"K7 bound counted where the rays die (alive entering each element, then at the end: "
+                  f"{alive}): {ops:.6g} operations; every ray charged the whole chain, as before: "
+                  f"{whole['bound_ms']:.4f} ms", flush=True)
         bound = _bound(rows.numel() * 8 + 4 * n_in + 8 * len(chunks), ops)
         print(f"{key} flagship at {N_TIME} rays ({n_alive} alive): kernel launch {ms:.4f} ms, whole "
               f"wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
               f"({bound['bound_by']})", flush=True)
         out[key] = {"max_abs_err": err6 if key == "K6" else err7, "ms": ms, "plain_ms": plain_ms, **bound}
+    out["K7"]["stages"] = _k7_stage_split(torch, dev, chain, host, geo, params, det, alive, warps)
     return out
+
+
+#: K7's stage split: the flagship chain's prefixes (the mask; the mask and
+#: the first toroid; the whole chain), each with its own loss spec
+K7_PREFIXES = (1, 2, 3)
+
+
+def _k7_stage_split(torch, dev, chain, host, geo, params, det, rays, warps):
+    """K7's launch alone at 1e7 rays on each prefix of the misaligned
+    flagship (:data:`K7_PREFIXES`), the same source and detector plane, each
+    prefix its own loss spec and pose vector; the rays and warps alive
+    entering each element and at the end (a prefix's are the whole chain's
+    ``rays`` and ``warps`` up to its end: its pose vector begins with the
+    whole chain's); then per stage (the source, the
+    mask and the epilogue: the first prefix; each toroid: the difference of
+    two prefixes) its time, its rays and warps, its time per entering ray
+    and its operations (:func:`_stage_ops`) beside its time at the float32
+    peak. Returns the prefixes and the stages."""
+    import numpy as np
+
+    from attosecondraytracing_tpu_torch.ops import fused_grad as fg
+
+    info = chain.source_spec._replace(gaussian_edge=float(np.exp(-2.0)), n_rays=N_TIME)
+    elements = chain.device_elements()
+    posed = fg._apply_params_np(host, params)
+    prefixes = []
+    for j in K7_PREFIXES:
+        spec = fg.make_loss_spec(info, elements[:j], det.centre, det.normal, device=dev)
+        svec = fg.chain_scalars_np(posed[:j], *geo)
+        chunks = fg._ray_chunks(spec, fg.GRAD_CHUNK)
+        table = fg.pose_table(spec.elements, svec)
+        rays_j, warps_j = rays[:2 * j + 1], warps[:2 * j + 1]
+        rows, launch = fg.prepare_stats_params(spec, svec, None, chunks, device=dev)
+        prefixes.append({"elements": j, "ms": _time_ms(launch, torch), "rays": rays_j, "warps": warps_j,
+                         "stage_warps": _stage_warps(table, warps_j, rows.shape[1]),
+                         "stage_ops": [step for _pre, step in _stage_ops(table)],
+                         "ops": _ops_where_rays_die(table, rays_j, OPS["weight"] + OPS["stats"])})
+    first = prefixes[0]
+    stages = [{"stage": "source, mask, epilogue", "ms": first["ms"], "rays": first["rays"][1],
+               "warps": first["warps"][1], "ops": first["ops"]}]
+    for a, b in zip(prefixes, prefixes[1:]):
+        i = b["elements"] - 1
+        stages.append({"stage": f"element {i} (toroid)", "ms": b["ms"] - a["ms"], "rays": b["rays"][2 * i + 1],
+                       "warps": b["warps"][2 * i + 1], "ops": b["stage_ops"][i] * b["rays"][2 * i + 1]})
+    for st in stages:
+        st["ns_per_ray"] = st["ms"] * 1e6 / st["rays"]
+        st["ops_ms"] = st["ops"] / FP32_OPS_PER_S * 1e3
+        print(f"K7 stage {st['stage']}: {st['ms']:.4f} ms for {st['rays']} rays ({st['warps']} warps) entering, "
+              f"{st['ns_per_ray']:.5f} ns per ray; {st['ops']:.6g} operations, {st['ops_ms']:.4f} ms at the "
+              f"float32 peak ({st['ms'] / st['ops_ms']:.2f}x)", flush=True)
+    issue = _k7_issue_bounds(prefixes)
+    for p in prefixes:
+        print(f"K7 prefix of {p['elements']} element(s): {p['ms']:.4f} ms; rays alive {p['rays']}, warps "
+              f"{p['warps']}; " + ", ".join(f"{k} {v:.4f}" for k, v in p.get("issue_ms", {}).items())
+              + " ms (issue-slot and pipe bounds)", flush=True)
+    return {"prefixes": prefixes, "stages": stages, "sass": issue}
+
+
+def _stage_warps(table, warps, n_blocks: int) -> dict:
+    """The warp passes through each stage of kernel_ab.STAGES in one launch
+    of a summing kernel on ``table`` (``warps`` from :func:`_alive_by_stage`;
+    ``n_blocks`` blocks of 8 warps): the set-up and the reduction once per
+    warp, the source and the ray loop once per warp of rays, the walk per
+    element entered, an element's map and step per warp past its masks, its
+    folded masks' tests per warp entering it, the epilogue per warp with a
+    ray alive at the end."""
+    from attosecondraytracing_tpu_torch.ops import surfaces as srf
+    from attosecondraytracing_tpu_torch.ops.trace import MaskElement
+
+    out = {"setup": 8 * n_blocks, "reduction": 8 * n_blocks, "ray loop": warps[0], "source": warps[0],
+           "epilogue": warps[-1]}
+    for i, (el, pre) in enumerate(zip(table.elements, table.premasks)):
+        entering, past = warps[2 * i], warps[2 * i + 1]
+        steps = ["walk"] + (["premask"] if pre else [])
+        for st in steps:
+            out[st] = out.get(st, 0) + entering
+        if isinstance(el, MaskElement):
+            kinds = ["map", "mask"]
+        else:
+            surface = {srf.Toroid: "toroid", srf.Plane: "plane"}.get(type(el.surface), "quadric")
+            kinds = ["map", surface, "mirror"] + (["defects"] if el.defects else [])
+        for st in kinds:
+            out[st] = out.get(st, 0) + past
+    return out
+
+
+def _k7_issue_bounds(prefixes) -> dict:
+    """K7's SASS by stage on the flagship's path (utils/kernel_ab.
+    sass_stages over this build's nvdisasm listing) and, for each prefix of
+    the stage split, the issue-slot bound of its warp passes and each pipe's
+    own bound (kernel_ab.issue_bound at the card's clocks.max.sm), written
+    into the prefixes as ``issue_ms``. Returns the stage counts and the
+    clock, or the reason they are not measured."""
+    from attosecondraytracing_tpu_torch.ops import _cuda
+    from attosecondraytracing_tpu_torch.utils import kernel_ab as ab
+
+    try:
+        mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                                   capture_output=True, text=True, check=True).stdout.split()[0])
+        stages = ab.sass_stages(_cuda.library()._name)
+    except (OSError, RuntimeError, ValueError, subprocess.CalledProcessError) as exc:
+        print(f"K7 SASS by stage not measured ({exc})", flush=True)
+        return {"not_measured": str(exc)}
+    for st, c in stages.items():
+        print(f"K7 SASS {st}: {c['total']:g} warp instructions a pass ({ab._pipes_text(c)})", flush=True)
+    for p in prefixes:
+        p["issue_ms"] = ab.issue_bound(stages, p["stage_warps"], mhz * 1e6)
+    return {"stages": stages, "clock_mhz": mhz}
 
 
 def phase_grad(torch, dev):
@@ -1221,7 +1383,7 @@ K8_CHECK = (1, 8, 9, 20, 128)
 K8_TIMED = (1, 20, 128)
 
 
-def phase_k8(torch, dev, n_alive):
+def phase_k8(torch, dev):
     """K8 against its plain version on the card at 2^20 rays for 1, 8, 9, 20
     and 128 distances (scripts/bench_stats_kernel.py:35-36: +-10 mm,
     per-distance chief-ray delay offsets), with the launch counts set to 0
@@ -1267,6 +1429,7 @@ def phase_k8(torch, dev, n_alive):
     spec, elements, det, (opl_ref, inv_dn), chunks, n = _k2_setup(torch, dev, chain, N_TIME)
     table = ft.chain_table(spec, elements)
     _check(len(chunks) == 2, f"K8 timing: expected 2 chunks, got {len(chunks)}")
+    alive = _alive_by_stage(torch, table, spec, chunks, n, dev)
     out = {}
     for J in K8_TIMED:
         bdet = detector(elements, det, opl_ref, inv_dn, cases[J])
@@ -1277,8 +1440,7 @@ def phase_k8(torch, dev, n_alive):
                                                             gaussian_edge=edge), torch)
         plain_ms = _time_ms(lambda: ft.fused_source_stats_ref(table, spec, bdet, chunks, n, device=dev,
                                                               gaussian_edge=edge), torch, reps=3, inner=1)
-        ops = ((_trace_ops(table, True) + OPS["weight"]) * n
-               + n_alive * (OPS["stats_geometry"] + J * OPS["stats_distance"]))
+        ops = _ops_where_rays_die(table, alive, OPS["weight"] + OPS["stats_geometry"] + J * OPS["stats_distance"])
         bound = _bound(rows.numel() * 8 + 8 * len(chunks) + 8 * J, ops)
         print(f"K8 flagship J={J} at {n} rays: kernel launch {ms:.4f} ms, whole wrapper {wrapper_ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})", flush=True)
@@ -1510,8 +1672,7 @@ def _deformed_k678(torch, dev, kind):
     _check(abs(loss_k - loss_r) <= 2e-3 * abs(loss_r), f"K6 {kind}: loss {loss_k} vs {loss_r}")
     _check(np.all(np.abs(g_k - g_r) <= 2e-2 * np.abs(g_r).max() + 2e-2 * np.abs(g_r)),
            f"K6 {kind}: gradient {g_k} vs {g_r}")
-    loss7 = fg._loss_from_stats(p7, spec, fg._total_weight(spec))[0]
-    loss7_r = fg._loss_from_stats(p7_r, spec, fg._total_weight(spec))[0]
+    err7 = _check_focus_loss(f"K7 {kind} flagship", fg, params, spec, host, geo, p7_r, dev)
 
     spec8, elements, det, (opl_ref, inv_dn), chunks8, n = _k2_setup(torch, dev, chain, N_CHECK)
     table = ft.chain_table(spec8, elements)
@@ -1530,7 +1691,7 @@ def _deformed_k678(torch, dev, kind):
     k2 = ft.moments_to_distance_sums(mom, distances)
     _check_sum_stats(f"K8 J=20 {kind} flagship vs K2 moments", k8,
                      np.stack([k2[f] for f in ft.STATS_FIELDS]), opl_ref, distances)
-    return float(np.abs(g_k - g_r).max()), abs(loss7 - loss7_r), err8
+    return float(np.abs(g_k - g_r).max()), err7, err8
 
 
 def _kernel_launches(torch, dev, chain):
@@ -1554,12 +1715,13 @@ def _kernel_launches(torch, dev, chain):
     k1()
     n_alive = int(outs.alive.sum())
     trace_ops = _trace_ops(table, True)
+    alive = _alive_by_stage(torch, table, spec, chunks, n, dev)
     out = {"K1": (k1, _bound(37 * n + grid_bytes, (trace_ops + OPS["store"]) * n))}
     bdet = ft.bake_detector(elements, det.centre, det.normal, det._plane_rotation(), opl_ref=opl_ref,
                             inv_dn_chief=inv_dn)
     rows, k2 = ft.prepare_fused_source_moments(table, spec, bdet, chunks, n, device=dev, gaussian_edge=edge)
     out["K2"] = (k2, _bound(rows.numel() * 8 + 8 * len(chunks) + grid_bytes,
-                            (trace_ops + OPS["weight"]) * n + OPS["moments"] * n_alive))
+                            _ops_where_rays_die(table, alive, OPS["weight"] + OPS["moments"])))
     host = [e.to_device("cpu", torch.float64) for e in chain.optical_elements]
     lab = ft.chain_table(None, host)
     bundle = ft.source_bundle(spec, n, device=dev)
@@ -1572,24 +1734,29 @@ def _kernel_launches(torch, dev, chain):
                                  det._plane_rotation())
     aux = fs.scan_aux(chunks, opl_ref, inv_dn, 0.0, spec.radius, edge)
     rows, k5 = fs.prepare_scan_moments(sspec, svec, aux, chunks, device=dev)
-    unfolded = ft.ChainTable(sspec.elements, (), (), ((),) * len(sspec.elements))
-    per_ray = _trace_ops(unfolded, True) + OPS["weight"]
+    table5 = fg.pose_table(sspec.elements, svec)
     out["K5"] = (k5, _bound(rows.numel() * 8 + 4 * (svec.size + aux.size) + grid_bytes,
-                            per_ray * n + OPS["moments"] * n_alive))
+                            _ops_where_rays_die(table5, _alive_by_stage(torch, table5, spec, chunks, n, dev),
+                                                OPS["weight"] + OPS["moments"])))
     lspec, lhost, geo, params, _ = _grad_problem(torch, dev, chain, n, _bench_misalignment)
     gsvec = fg.chain_scalars_np(fg._apply_params_np(lhost, params), *geo)
     tang = fg.scalar_tangents(lhost, params, *geo)
     gchunks = fg._ray_chunks(lspec, fg.GRAD_CHUNK)
+    table7 = fg.pose_table(lspec.elements, gsvec)
+    per_ray = _trace_ops(table7, True) + OPS["weight"]
     for key, group in (("K6", tang), ("K7", None)):
         rows, launch = fg.prepare_stats_params(lspec, gsvec, group, gchunks, device=dev)
-        ops = per_ray * n + OPS["stats"] * n_alive
         n_in = gsvec.size
         if group is not None:
             P = len(group)
+            ops = per_ray * n + OPS["stats"] * n_alive
             ops += (OPS["dual_trace_once"] + P * OPS["dual_trace_tangent"]
                     + _dual_defect_ops(lspec.elements, P)) * n
             ops += (OPS["dual_stats_once"] + P * OPS["dual_stats_tangent"]) * n_alive
             n_in += group.size
+        else:
+            alive7 = _alive_by_stage(torch, table7, fg.loss_source(lspec), gchunks, lspec.n_rays, dev)
+            ops = _ops_where_rays_die(table7, alive7, OPS["weight"] + OPS["stats"])
         out[key] = (launch, _bound(rows.numel() * 8 + 4 * n_in + 8 * len(gchunks) + grid_bytes, ops))
     distances = tuple(float(d) for d in np.linspace(-10, 10, 20))
     bdet20 = ft.bake_detector(elements, det.centre, det.normal, det._plane_rotation(), opl_ref=opl_ref,
@@ -1597,8 +1764,8 @@ def _kernel_launches(torch, dev, chain):
                               delay_offsets=tuple(-d * inv_dn for d in distances))
     rows, k8 = ft.prepare_fused_source_stats(table, spec, bdet20, chunks, n, device=dev, gaussian_edge=edge)
     out["K8"] = (k8, _bound(rows.numel() * 8 + 8 * len(chunks) + 8 * 20 + grid_bytes,
-                            (trace_ops + OPS["weight"]) * n
-                            + n_alive * (OPS["stats_geometry"] + 20 * OPS["stats_distance"])))
+                            _ops_where_rays_die(table, alive, OPS["weight"] + OPS["stats_geometry"]
+                                                + 20 * OPS["stats_distance"])))
     return out
 
 
@@ -1720,6 +1887,7 @@ def phase_gather(torch, dev):
     against its plain version on the grid flagship's map size, then
     launch-only times: each form and case, and the lookup over 1e7 points of
     three maps in two orders. Returns the JSON entries of P4 and P5."""
+    from attosecondraytracing_tpu_torch.utils import cost_probe as cp
     from attosecondraytracing_tpu_torch.utils import gather_probe as gp
 
     gp.gather.launches = gp.take_along.launches = 0
@@ -1736,15 +1904,20 @@ def phase_gather(torch, dev):
         err4 = max(err4, err)
         ms = _time_ms(lambda: gp.gather(form, g, x, y), torch)
         plain = _time_ms(lambda: gp.gather_ref(form, g, x, y), torch)
-        forms[form] = {"ms": ms, "plain_ms": plain, "max_abs_err": err}
-        print(f"P4 {form}: max |kernel - plain| {err:.3g}, {ms:.4f} ms, plain {plain:.4f} ms", flush=True)
+        # the launch alone on the card, queued behind a busy stream (utils/cost_probe.queued_us)
+        device_ms = cp.queued_us(lambda: gp.gather(form, g, x, y)) * 1e-3
+        forms[form] = {"ms": ms, "plain_ms": plain, "max_abs_err": err, "device_ms": device_ms}
+        print(f"P4 {form}: max |kernel - plain| {err:.3g}, {ms:.4f} ms per wrapper call, {device_ms:.5f} ms "
+              f"on the card alone, plain {plain:.4f} ms", flush=True)
     cases = {}
     for (name, shape, axis), op in zip(gp.TAKE_CASES, operands):
         _check(bool(torch.equal(outs[name], gp.take_along_ref(op, axis))), f"P5 {name}: differs")
         ms = _time_ms(lambda: gp.take_along(op, axis), torch)
         plain = _time_ms(lambda: gp.take_along_ref(op, axis), torch)
-        cases[name] = {"ms": ms, "plain_ms": plain, "bytes": 8 * op.numel()}
-        print(f"P5 {name}: equal, {ms:.4f} ms, plain {plain:.4f} ms", flush=True)
+        device_ms = cp.queued_us(lambda: gp.take_along(op, axis)) * 1e-3
+        cases[name] = {"ms": ms, "plain_ms": plain, "bytes": 8 * op.numel(), "device_ms": device_ms}
+        print(f"P5 {name}: equal, {ms:.4f} ms per wrapper call, {device_ms:.5f} ms on the card alone, plain "
+              f"{plain:.4f} ms", flush=True)
     grid = gp.random_grid((3000, 640), device=dev)
     px, py = gp.probe_points((3000, 640), N_CHECK, "spiral", device=dev)
     lookup_err = float((gp.lookup(grid, px, py) - gp.lookup_ref(grid, px, py)).abs().max())
@@ -1762,6 +1935,7 @@ def phase_gather(torch, dev):
     p4 = {"name": "P4 gather_forms (bilinear form; the four forms in forms)", "route": "cuda",
           "source": CSRC + "gather_probe.cu", "replaces": "scripts/exp_mosaic_gather.py:28",
           "launches": launches["P4"], "max_abs_err": err4, "ms": bil["ms"], "plain_ms": bil["plain_ms"],
+          "device_ms": bil["device_ms"],
           # x, y in, the output out, four 4-byte corners per point
           **_bound(n_pts * (8 + 4 + 16), 19 * n_pts), "library_ms": None, "forms": forms,
           "lookup": lookups, "lookup_max_abs_err": lookup_err}
@@ -1769,6 +1943,7 @@ def phase_gather(torch, dev):
     p5 = {"name": "P5 take_along (case taa_axis0_512x128; all four in cases)", "route": "cuda",
           "source": CSRC + "gather_probe.cu", "replaces": "scripts/exp_mosaic_gather.py:115",
           "launches": launches["P5"], "max_abs_err": 0.0, "ms": big["ms"], "plain_ms": big["plain_ms"],
+          "device_ms": big["device_ms"],
           **_bound(big["bytes"], 0), "library_ms": None, "cases": cases}
     return [p4, p5]
 
@@ -2126,7 +2301,8 @@ def phase_images(torch, dev):
                                   device=dev)(unit)
     n_binned = float(unit[0].sum())
     alive = _alive_by_stage(torch, job.table, job.spec, job.chunks, job.n_total, dev)
-    bound = _bound(2 * 8 * IMAGE_BINS[0] * IMAGE_BINS[1] + 8 * n_chunks, _image_ops(job.table, alive, n_binned))
+    bound = _bound(2 * 8 * IMAGE_BINS[0] * IMAGE_BINS[1] + 8 * n_chunks,
+                   _ops_where_rays_die(job.table, alive, OPS["image"]) + OPS["weight"] * n_binned)
     print(f"images bound: rays alive entering / past the masks of each element, then at the end {alive}, "
           f"{n_binned:.6g} binned; {_trace_ops(job.table, True)} operations per ray traced to the end",
           flush=True)
@@ -2295,6 +2471,9 @@ def phase_cost(torch, dev):
                   f"{n}: {ms:.4f}" for n, ms in row["ms_at"].items())
               + f" ms; leaves the {floor:.4f} ms floor at {row['leaves_floor_at']} ops", flush=True)
     p2_ms = _time_ms(lambda: cp.op_chain("fma", x2, 40, out=out2), torch)
+    p2_device_us = cp.queued_us(lambda: cp.op_chain("fma", x2, 40, out=out2))
+    print(f"P2 fma at 40 ops: {p2_ms * 1e3:.2f} us per wrapper call, {p2_device_us:.2f} us on the card alone, "
+          f"queued", flush=True)
     p2_plain = _time_ms(lambda: cp.op_chain_ref("fma", x2, 40), torch, reps=3, inner=1)
     cost = cp.kernel_cost(device=dev)
     for name, ms in cost["k4_ms"].items():
@@ -2314,7 +2493,8 @@ def phase_cost(torch, dev):
     p2 = {"name": "P2 op_chain (fma at 40 ops; every op in ops)", "route": "cuda",
           "source": CSRC + "cost_probe.cu", "replaces": "scripts/diag_vpu_ops.py:21", "launches": launches["P2"],
           "max_abs_err": abs2, "ms": p2_ms, "plain_ms": p2_plain,
-          **_bound(8 * n_lanes, 2 * 40 * n_lanes), "library_ms": None, "ops": costs, "max_rel_err": err2}
+          **_bound(8 * n_lanes, 2 * 40 * n_lanes), "library_ms": None, "device_ms": p2_device_us * 1e-3,
+          "ops": costs, "max_rel_err": err2}
     p3 = {"name": "P3 copy_streams", "route": "cuda", "source": CSRC + "cost_probe.cu",
           "replaces": "scripts/diag_kernel_cost.py:72", "launches": launches["P3"], "max_abs_err": 0.0,
           "ms": cost["copy_ms"], "plain_ms": p3_plain, **_bound(cp.COPY_BYTES_PER_RAY * cp.N_RAYS, 0),
@@ -2400,16 +2580,16 @@ def main():
         return out
 
     timed = {}
-    timed["K1"], n_alive = phase("k1", lambda: phase_k1(torch, dev))
-    timed["K2"] = phase("k2", lambda: phase_k2(torch, dev, n_alive))
-    timed["K5"] = phase("k5", lambda: phase_k5(torch, dev, n_alive))
+    timed["K1"] = phase("k1", lambda: phase_k1(torch, dev))
+    timed["K2"] = phase("k2", lambda: phase_k2(torch, dev))
+    timed["K5"] = phase("k5", lambda: phase_k5(torch, dev))
     k34_err = phase("k34", lambda: phase_k34(torch, dev))
     slice_launches = phase("slice", lambda: phase_slice(torch, dev))
     scan_launches = phase("scan", lambda: phase_scan(torch, dev))
     launches, streamed = phase("streamed", lambda: phase_streamed(torch, dev))
     timed.update(phase("k67", lambda: phase_k67(torch, dev)))
     grad_launches, k7_launches = phase("grad", lambda: phase_grad(torch, dev))
-    k8, k8_launches = phase("k8", lambda: phase_k8(torch, dev, n_alive))
+    k8, k8_launches = phase("k8", lambda: phase_k8(torch, dev))
     timed["K8"] = k8[20]
     zernike, zernike_launches = phase("zernike", lambda: phase_zernike(torch, dev))
     grid = phase("grid", lambda: phase_grid(torch, dev))
