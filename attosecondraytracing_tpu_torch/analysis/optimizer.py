@@ -49,6 +49,17 @@ def _fitness_at(bundle, centre, normal, rot, shift, opt_for, w):
     return spot, spot, duration
 
 
+def _scan_fitness(bundle, centre, normal, rot, shifts, opt_for, intensity_weighted):
+    """(fitness, spot, duration) float64 arrays over the candidate
+    ``shifts`` of the detector along -normal (``opt_for`` a canonical name:
+    "spotsize", "duration" or "intensity")."""
+    w = bundle.alive.to(bundle.p.dtype)
+    if intensity_weighted:
+        w = w * bundle.intensity.to(bundle.p.dtype)
+    res = [_fitness_at(bundle, centre, normal, rot, float(s), opt_for, w) for s in shifts]
+    return tuple(np.array(col, np.float64) for col in zip(*res))
+
+
 def _auto_amplitude(det, bundle, first_distance):
     xy = det.get_PointList2D(bundle)
     size_spot = 2.0 * float(stats.std_points(xy, bundle.alive.to(xy.dtype)))
@@ -78,9 +89,6 @@ def FindOptimalDistance(
 
     det = Detector.copy_detector()
     rot = det._plane_rotation()
-    w = bundle.alive.to(bundle.p.dtype)
-    if IntensityWeighted:
-        w = w * bundle.intensity.to(bundle.p.dtype)
     base_shift = 0.0
     opt_spot = opt_duration = np.nan
     for k in range(Precision + 1):
@@ -88,11 +96,12 @@ def FindOptimalDistance(
         step_k = step * 0.1**k
         n = int(2 * amp_k / step_k)
         shifts = base_shift + (-amp_k + step_k * np.arange(n))
-        res = [_fitness_at(bundle, det.centre, det.normal, rot, s, opt_for, w) for s in shifts]
-        ind = int(np.argmin([r[0] for r in res]))
+        fitness, spots, durations = _scan_fitness(bundle, det.centre, det.normal, rot, shifts,
+                                                  opt_for, IntensityWeighted)
+        ind = int(np.argmin(fitness))
         base_shift = float(shifts[ind])
-        opt_spot = res[ind][1] if opt_for in ("intensity", "spotsize") else np.nan
-        opt_duration = res[ind][2] if opt_for in ("intensity", "duration") else np.nan
+        opt_spot = float(spots[ind]) if opt_for in ("intensity", "spotsize") else np.nan
+        opt_duration = float(durations[ind]) if opt_for in ("intensity", "duration") else np.nan
 
     det.shiftByDistance(base_shift)
     if not (
@@ -308,3 +317,39 @@ def _x64_refine_distance(spec, elements, n_rays, det, OptFor, amplitude,
         print("(duration near the float32 noise floor: refined with the "
               "two-pass float64 optimizer)")
     return det2, float(spot), float(duration)
+
+
+# ---------------------------------------------------------------------------
+# closed-form focus finder
+# ---------------------------------------------------------------------------
+
+
+def optimal_shift_closed_form(bundle: RayBundle, centre, normal, rot,
+                              intensity_weighted: bool = False):
+    """Detector shift minimizing the spot variance, and the spot SD there
+    (0-d tensors in the bundle's dtype). On a fixed bundle each ray's
+    in-plane impact point is affine in the shift s, so the (weighted) spot
+    variance is an exact quadratic in s with one minimum: no search."""
+    w = bundle.alive.to(bundle.p.dtype)
+    if intensity_weighted:
+        w = w * bundle.intensity.to(bundle.p.dtype)
+    centre = torch.as_tensor(centre, dtype=bundle.p.dtype, device=bundle.p.device)
+    normal = torch.as_tensor(normal, dtype=bundle.p.dtype, device=bundle.p.device)
+    xy0 = stats.detector_points_2d(bundle, centre, normal, rot)
+    g = stats.detector_points_2d(bundle, centre - normal, normal, rot) - xy0  # d(xy)/ds, exact
+    a = xy0 - stats.masked_mean(xy0, w[:, None], dim=0)
+    b = g - stats.masked_mean(g, w[:, None], dim=0)
+    num = -torch.sum(stats.masked_mean(a * b, w[:, None], dim=0))
+    den = torch.sum(stats.masked_mean(b * b, w[:, None], dim=0))
+    s_opt = num / torch.clamp(den, min=1e-30)
+    var = stats.masked_mean(torch.sum((a + s_opt * b) ** 2, dim=-1), w)
+    return s_opt, torch.sqrt(var)
+
+
+def delay_stats_for_shift(bundle: RayBundle, centre, normal, shift):
+    """Duration SD [fs] with the detector shifted by ``shift`` along
+    -normal (alive rays, unweighted)."""
+    centre = torch.as_tensor(centre, dtype=bundle.p.dtype, device=bundle.p.device)
+    normal = torch.as_tensor(normal, dtype=bundle.p.dtype, device=bundle.p.device)
+    delays = stats.detector_delays(bundle, centre - shift * normal, normal)
+    return stats.std_scalar(delays, bundle.alive.to(bundle.p.dtype))

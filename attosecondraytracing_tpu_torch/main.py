@@ -205,12 +205,14 @@ def run_ART(
     DetectorOptions,
     AnalysisOptions,
     loop=False,
+    precomputed_bundle: RayBundle | None = None,
     *,
     device="cuda",
 ):
     """Trace one chain on ``device``, set up / optimize its detector and
-    summarize. Returns (chain, detector, transmission %, spot SD, duration
-    SD)."""
+    summarize. ``precomputed_bundle`` (the chain's analysed bundle, e.g.
+    from :func:`_batched_final_bundles`) replaces the trace. Returns
+    (chain, detector, transmission %, spot SD, duration SD)."""
     chain.to(device)
     niceline = "_" * 99 + "\n"
     A = AnalysisOptions
@@ -218,7 +220,9 @@ def run_ART(
         A[f"plot_{w}MirrorProjection"] for w in ("Delay", "Intensity", "Incidence")
     )
     is_final = DetectorOptions["ReflectionNumber"] in (-1, len(chain.optical_elements) - 1)
-    if is_final and not needs_history:
+    if precomputed_bundle is not None:
+        bundle = precomputed_bundle
+    elif is_final and not needs_history:
         bundle = chain.trace_final()
         if AnalysisOptions["verbose"] and chain.last_trace_engine != "trace":
             print(f"[trace engine: {chain.last_trace_engine}]", flush=True)
@@ -369,9 +373,11 @@ def main(OpticalChainList, SourceProperties, DetectorOptions, AnalysisOptions,
     save. A parameter scan (a list of chains) analysed at its last element
     runs through the scan engine (kernel K5, one packed record for every
     chain, no per-ray bundles) when :func:`_prepare_fused_scan` takes it;
-    otherwise, or with ``scan_engine="off"``, the chains run serially
-    through :func:`run_ART`, each through the fused kernels when it
-    qualifies."""
+    otherwise, or with ``scan_engine="off"``, its chains run through
+    :func:`run_ART`: each through the fused kernels when it qualifies, and,
+    when every chain would take the plain trace, on the bundles of one
+    batched plain trace (:func:`_batched_final_bundles`) where that is
+    possible."""
     if scan_engine not in SCAN_ENGINES:
         raise ValueError(f"scan_engine must be one of {SCAN_ENGINES}, got {scan_engine!r}")
     SourceProperties, DetectorOptions, AnalysisOptions = complete_defaults(
@@ -390,10 +396,13 @@ def main(OpticalChainList, SourceProperties, DetectorOptions, AnalysisOptions,
     else:
         loop = True
 
-    scan_spec = None
+    scan_spec = bundles = None
     last = len(OpticalChainList[0].optical_elements) - 1
-    if loop and scan_engine == "auto" and DetectorOptions["ReflectionNumber"] in (-1, last):
-        scan_spec = _prepare_fused_scan(OpticalChainList, AnalysisOptions)
+    if loop and DetectorOptions["ReflectionNumber"] in (-1, last):
+        if scan_engine == "auto":
+            scan_spec = _prepare_fused_scan(OpticalChainList, AnalysisOptions)
+        if scan_spec is None and all(c.takes_plain_trace() for c in OpticalChainList):
+            bundles = _batched_final_bundles([c.to(device) for c in OpticalChainList])
 
     for i, chain in enumerate(OpticalChainList):
         print(f"Optical Chain {i}/{len(OpticalChainList)} ", end="", flush=True)
@@ -402,7 +411,7 @@ def main(OpticalChainList, SourceProperties, DetectorOptions, AnalysisOptions,
                                          device=device)
         else:
             values = run_ART(chain, SourceProperties, DetectorOptions, AnalysisOptions, loop,
-                             device=device)
+                             None if bundles is None else bundles[i], device=device)
         for name, value in zip(keeper_names, values):
             kept_data[name].append(value)
 
@@ -411,6 +420,48 @@ def main(OpticalChainList, SourceProperties, DetectorOptions, AnalysisOptions,
         save_compressed(kept_data, save_file_name)
         log.clear_line()
     return kept_data
+
+
+def _batched_final_bundles(chains):
+    """The final bundles of a scan's chains from ONE plain trace over the
+    chains stacked on a leading axis (``parallel/mesh.stack_chains`` /
+    ``trace_scan``), each marked ``last_trace_engine = "trace-scan"``; or
+    None, with one stderr line, when the scan is not batched. :func:`main`
+    asks for it only when every chain's ``trace_final`` would run the plain
+    trace (below ``PALLAS_MIN_RAYS``, or ``ART_TPU_ENGINE=trace``), so a
+    chain that qualifies for a kernel engine keeps it; the JAX package
+    batches any scan its scan engine declines. Not batched:
+
+    * the stacked sources would pass ``ART_TPU_SCAN_STACK_MAX_BYTES`` (default
+      1e9; the JAX package's memory guard);
+    * the chains differ in source ray count or in element structure beyond
+      their poses (``parallel/mesh.scan_unbatchable``), decided before any
+      trace. The JAX package instead falls back to the serial trace on any
+      exception of its batched trace; here an error inside the trace
+      raises."""
+    from .ops.precision import default_dtype
+    from .parallel.mesh import scan_unbatchable, stack_chains, trace_scan
+
+    itemsize = torch.finfo(default_dtype()).bits // 8
+    est_bytes = len(chains) * sum(
+        leaf.numel() * (itemsize if leaf.is_floating_point() else leaf.element_size())
+        for leaf in chains[0].source_rays)
+    limit = float(os.environ.get("ART_TPU_SCAN_STACK_MAX_BYTES", 1e9))
+    if est_bytes > limit:
+        print(f"[attosecondraytracing_tpu_torch] batched scan skipped: stacking {len(chains)} "
+              f"source bundles would allocate ~{est_bytes / 1e9:.1f} GB (limit {limit / 1e9:.1f} GB, "
+              f"ART_TPU_SCAN_STACK_MAX_BYTES); tracing serially.", file=sys.stderr, flush=True)
+        return None
+    reason = scan_unbatchable(chains)
+    if reason is not None:
+        print(f"[attosecondraytracing_tpu_torch] batched scan unavailable (ValueError: {reason}); "
+              f"falling back to the serial per-chain trace.", file=sys.stderr, flush=True)
+        return None
+    stacked_elements, stacked_sources = stack_chains(chains)
+    outs = trace_scan(stacked_sources, stacked_elements)
+    for c in chains:
+        c.last_trace_engine = "trace-scan"
+    return [RayBundle(*(x[i] for x in outs)) for i in range(len(chains))]
 
 
 #: short names the JAX package exports at its top level
@@ -551,7 +602,7 @@ def cli(argv=None):
     device = _pop_option(argv, "--device") or "cuda"
     scan_engine = _pop_option(argv, "--scan-engine") or os.environ.get("ART_TPU_SCAN_ENGINE", "auto")
     profile_dir = _pop_option(argv, "--profile")
-    if len(argv) != 1:
+    if not argv:
         print(_USAGE)
         sys.exit(1)
     try:

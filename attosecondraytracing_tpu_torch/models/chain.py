@@ -222,6 +222,16 @@ class OpticalChain:
         another engine."""
         return self._source_spec is not None and self.source_rays.n_rays >= PALLAS_MIN_RAYS
 
+    def takes_plain_trace(self, engine: str | None = None) -> bool:
+        """True when :meth:`trace_final` with this ``engine`` runs the plain
+        streamed trace, False when it launches a kernel engine."""
+        engine = engine or os.environ.get("ART_TPU_ENGINE", "auto")
+        engine = ENGINE_ALIASES.get(engine, engine)
+        if engine not in ENGINES:
+            raise ValueError(f"engine must be one of {ENGINES} or {tuple(ENGINE_ALIASES)}, "
+                             f"got {engine!r}")
+        return engine == "trace" or (engine == "auto" and self.source_rays.n_rays < PALLAS_MIN_RAYS)
+
     def trace_final(self, ignore_defects: bool = True, engine: str | None = None) -> RayBundle:
         """Only the bundle after the last element — the production path.
 
@@ -240,12 +250,7 @@ class OpticalChain:
         :func:`~..ops.trace.trace`. A chain whose mirrors carry grid defect
         maps takes the same engines: the JAX package sends it to its XLA
         source engine, whose counterpart here is the fused engine."""
-        engine = engine or os.environ.get("ART_TPU_ENGINE", "auto")
-        engine = ENGINE_ALIASES.get(engine, engine)
-        if engine not in ENGINES:
-            raise ValueError(f"engine must be one of {ENGINES} or {tuple(ENGINE_ALIASES)}, "
-                             f"got {engine!r}")
-        if engine == "fused" or (engine == "auto" and self.source_rays.n_rays >= PALLAS_MIN_RAYS):
+        if not self.takes_plain_trace(engine):
             if self._source_spec is None:
                 return self._trace_final_streamed(ignore_defects)
             return self._trace_final_fused(ignore_defects)

@@ -89,6 +89,18 @@ def make_bundle(points, directions, wavelength=None, intensity=None, dtype=None,
     )
 
 
+def total_path(bundle: RayBundle):
+    """Accurate accumulated optical path: ``opl - opl_c`` (``kahan_add``
+    keeps the rounding excess already folded into the running sum in
+    ``opl_c``)."""
+    return bundle.opl - bundle.opl_c
+
+
+def to_host(bundle: RayBundle) -> RayBundle:
+    """The bundle as a RayBundle of NumPy arrays on the host."""
+    return RayBundle(*(x.detach().cpu().numpy() for x in bundle))
+
+
 def compact_host(bundle: RayBundle):
     """Drop dead rays on the host (dynamic shape) — for plotting/export.
     Returns (bundle of CPU tensors, original indices)."""

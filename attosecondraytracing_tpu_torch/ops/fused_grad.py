@@ -451,10 +451,34 @@ fused_stats_params.primal_launches = 0
 # ---------------------------------------------------------------------------
 
 
-def _stats_and_jacobian(sprimal, stangents, spec: FusedLossSpec, chunk_size: int, *, device):
+def _stats_and_jacobian(sprimal, stangents, spec: FusedLossSpec, chunk_size: int, *, device,
+                        mesh=None):
     """``(p_stats (7,), t_stats (P, 7))`` float64 over every ray of the
-    global source: all P tangent rows in one K6 launch over every chunk."""
-    return fused_stats_params(spec, sprimal, stangents, _ray_chunks(spec, chunk_size), device=device)
+    global source: all P tangent rows in one K6 launch over every chunk.
+
+    ``mesh`` (``parallel/mesh.Mesh``): each shard runs the launch on its
+    slice of the global spiral (its ``(phase, k_frac)`` offsets; at most
+    ``chunk_size`` rays a shard) on its device, and only the float64 sums
+    and their tangents leave it."""
+    if mesh is None:
+        return fused_stats_params(spec, sprimal, stangents, _ray_chunks(spec, chunk_size),
+                                  device=device)
+    from ..parallel.mesh import _refuse_unaligned, _sum_rows, shard_source_offsets
+
+    _refuse_unaligned(spec.source_kind, "sharded fused gradients")
+    if spec.n_rays % mesh.size:
+        raise ValueError("sharded fused gradients need n_rays divisible by the mesh size")
+    n_local, phases, k_fracs = shard_source_offsets(spec.n_rays, mesh.size)
+    if n_local > chunk_size:
+        raise ValueError(f"per-device ray count {n_local} exceeds the {chunk_size}-ray kernel "
+                         "chunk; use more devices or chunk on one device")
+    rows = []
+    for shard, dev in mesh.local():
+        p, t = fused_stats_params(spec, sprimal, stangents,
+                                  [(n_local, float(phases[shard]), float(k_fracs[shard]))], device=dev)
+        rows.append(np.concatenate([p, t.reshape(-1)]))
+    total = _sum_rows(mesh, rows)
+    return total[:7], total[7:].reshape(-1, 7)
 
 
 def _loss_from_stats(stats, spec: FusedLossSpec, total_weight: float):
@@ -511,20 +535,22 @@ def scalar_tangents(elements, params, source_rot, source_origin, det_centre, det
 
 def fused_focus_value_and_grad(params, spec: FusedLossSpec, elements, source_rot, source_origin,
                                det_centre, det_normal, det_rot, chunk_size: int = GRAD_CHUNK, *,
-                               device):
+                               device, mesh=None):
     """``(loss, grads)`` of the focus loss w.r.t. the AlignmentParams
     ``params``, through K6 on a CUDA ``device`` (its plain version on the
     CPU). ``elements`` are the unperturbed elements; ``grads`` is an
     AlignmentParams of float32 CPU tensors. Cost: one K6 launch over every
     chunk of ``chunk_size`` rays and all 6K tangent rows, and O(1) gradient
-    memory at any ray count."""
+    memory at any ray count. ``mesh`` shards the launch's rays over its
+    shards' devices (:func:`_stats_and_jacobian`)."""
     from ..analysis.alignment import AlignmentParams
 
     sprimal = chain_scalars_np(_apply_params_np(elements, params), source_rot, source_origin,
                                det_centre, det_normal, det_rot)
     stangents = scalar_tangents(elements, params, source_rot, source_origin, det_centre,
                                 det_normal, det_rot)
-    p_stats, t_stats = _stats_and_jacobian(sprimal, stangents, spec, chunk_size, device=device)
+    p_stats, t_stats = _stats_and_jacobian(sprimal, stangents, spec, chunk_size, device=device,
+                                           mesh=mesh)
     loss, dloss = _loss_from_stats(p_stats, spec, _total_weight(spec))
     grads = torch.as_tensor(t_stats @ dloss, dtype=torch.float32)
     K = len(elements)

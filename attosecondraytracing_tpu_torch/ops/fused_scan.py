@@ -233,27 +233,55 @@ def scan_moments(spec: ScanSpec, svec, n_rays: int, opl_ref: float, inv_dn_chief
     return fused_scan_moments(spec, svec, aux, chunks, device=device)
 
 
+def _scan_mesh(spec: ScanSpec, n_rays: int, *, device=None):
+    """The mesh every scan-kernel pass shards its rays over when
+    ``ART_TPU_SCAN_MESH=1`` (``parallel/mesh.scan_moments_sharded``: one
+    16-moment row per shard and chain crosses the mesh): the process
+    group's, one shard per rank on ``device``, when ``torch.distributed``
+    is initialized, else every card of this process. None (one device) when
+    the variable is unset, with fewer than 2 shards, for 'extended' and
+    'square' sources (shard alignment), or when the ray count does not
+    divide."""
+    import os
+
+    if os.environ.get("ART_TPU_SCAN_MESH", "0") != "1":
+        return None
+    from ..parallel.mesh import _default_mesh
+
+    mesh = _default_mesh(device)
+    if (mesh is None or mesh.size < 2 or spec.source_kind in ("extended", "square")
+            or n_rays % mesh.size):
+        return None
+    return mesh
+
+
 def make_moments_fn(spec: ScanSpec, elements, source_info, n_rays: int, *, device):
     """The per-chain ``moments_fn`` of
     :func:`~..analysis.optimizer.FindOptimalDistanceFused`: a closure over
     this chain's elements and factory-source description that evaluates the
-    shared kernel (one packed record across the chains of ``spec``).
+    shared kernel (one packed record across the chains of ``spec``), its
+    rays sharded over :func:`_scan_mesh`'s mesh when there is one.
     ``source_info`` is the chain's ``models.chain.FusedSourceInfo``."""
     from .precision import default_dtype
 
     baked = source_info.baked()
     src_rot = np.asarray(baked.rot, np.float64)
     src_origin = np.asarray(baked.origin, np.float64)
+    mesh = _scan_mesh(spec, n_rays, device=device)
 
     def moments_fn(det_centre, det_normal, det_rot, gaussian_edge=None, centre_distance=0.0):
         opl_ref, inv_dn_chief = ft.chief_ray_refs(baked, elements, det_centre, det_normal,
                                                   device=device, dtype=default_dtype())
         svec = scan_chain_scalars(elements, src_rot, src_origin, det_centre, det_normal,
                                   det_rot)
-        moments = scan_moments(spec, svec, n_rays, opl_ref, inv_dn_chief,
-                               centre_distance=centre_distance, radius=baked.radius,
-                               gaussian_edge=gaussian_edge, pos_radius=baked.pos_radius,
-                               device=device)
+        kw = dict(centre_distance=centre_distance, radius=baked.radius,
+                  gaussian_edge=gaussian_edge, pos_radius=baked.pos_radius)
+        if mesh is None:
+            moments = scan_moments(spec, svec, n_rays, opl_ref, inv_dn_chief, device=device, **kw)
+        else:
+            from ..parallel.mesh import scan_moments_sharded
+
+            moments = scan_moments_sharded(spec, svec, n_rays, mesh, opl_ref, inv_dn_chief, **kw)
         return {"moments": moments, "opl_ref": opl_ref, "inv_dn_chief": inv_dn_chief,
                 "centre_distance": float(np.float32(centre_distance))}
 

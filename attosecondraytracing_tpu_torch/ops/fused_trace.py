@@ -910,11 +910,14 @@ def bin_image_rays(images, flat, w, delay):
     images[1].index_add_(0, idx, (w * delay[m]).to(torch.float64))
 
 
-def _check_image_args(chunks, n_total, bins):
+def _check_image_args(chunks, n_total, bins, covers_spiral=True):
+    """The chunks' sizes; the chunks must cover the whole spiral of
+    ``n_total`` rays, or with ``covers_spiral=False`` a part of it."""
     sizes = _check_chunks(chunks)
-    if not 0 < n_total < 1 << 31 or sum(sizes) != n_total:
-        raise ValueError(f"an image takes 0 < n_total < 2^31 rays in its chunks, got {n_total} "
-                         f"in chunks of {sizes}")
+    covered = sum(sizes) == n_total if covers_spiral else 0 < sum(sizes) <= n_total
+    if not (covered and 0 < n_total < 1 << 31):
+        raise ValueError(f"an image takes {'all' if covers_spiral else 'at most'} the spiral's "
+                         f"0 < n_total < 2^31 rays in its chunks, got {n_total} in chunks of {sizes}")
     if not all(0 < int(b) for b in bins) or int(bins[0]) * int(bins[1]) >= 1 << 31:
         raise ValueError(f"image bins must be positive with fewer than 2^31 pixels, got {bins}")
     return sizes
@@ -923,14 +926,15 @@ def _check_image_args(chunks, n_total, bins):
 def fused_source_image_ref(table: ChainTable, spec: BakedSource, chunks, n_total: int,
                            det: ImageDetector, window, bins, images, *, device,
                            gaussian_edge=None, ignore_defects=True, record=None,
-                           trace_chunk=None):
+                           trace_chunk=None, covers_spiral=True):
     """Plain PyTorch version of K1i, the chunk loop: per chunk the plain
     trace (:func:`fused_source_trace_ref`; or ``trace_chunk(n_local,
     phase, k_frac)``, another chunk tracer's outputs: analysis/gigascan's
     K1 loop), its weights (:func:`source_weights`) and
     :func:`image_rays_ref`, added into ``images`` (:func:`bin_image_rays`)
-    and, for the chunks of ``record``, written into it."""
-    _check_image_args(chunks, n_total, bins)
+    and, for the chunks of ``record``, written into it. ``covers_spiral=False``
+    lets the chunks cover a part of the spiral (a shard's)."""
+    _check_image_args(chunks, n_total, bins, covers_spiral)
     rec = pack_image(det, window, bins)
     chunk = chunks[0][0]
     for i, (n_local, phase, k_frac) in enumerate(chunks):
@@ -951,17 +955,21 @@ def fused_source_image_ref(table: ChainTable, spec: BakedSource, chunks, n_total
 
 def prepare_fused_source_image(table: ChainTable, spec: BakedSource, chunks, n_total: int,
                                det: ImageDetector, window, bins, *, device, gaussian_edge=None,
-                               ignore_defects=True, record: ImageRecord | None = None):
+                               ignore_defects=True, record: ImageRecord | None = None,
+                               covers_spiral=True):
     """K1i's host work for a CUDA ``device``: pack the chain, source and
     image records (raising on what the kernel does not take) and the chunk
-    table. Returns ``launch(images)``: one launch over every chunk, adding
+    table; with ``covers_spiral=False`` the chunks may cover a part of the
+    spiral of ``n_total`` rays (a shard's,
+    ``parallel/mesh.source_images_sharded``). Returns
+    ``launch(images)``: one launch over every chunk, adding
     into the flat float64 ``images`` (weight, weight x delay; ``bins[0] *
     bins[1]`` each, on the device) and writing ``record``'s chunks when one
     is given; it counts the launch in
     ``prepare_fused_source_image.launches``. The atomics' order varies, so
     the images are reproducible to float64 rounding, not bit for bit.
     Nothing synchronizes. The CPU's form is :func:`fused_source_image_ref`."""
-    sizes = _check_image_args(chunks, n_total, bins)
+    sizes = _check_image_args(chunks, n_total, bins, covers_spiral)
     device = _cuda_device(device, "fused_source_image")
     chain_rec = pack_chain(table, ignore_defects, device)
     grids = launch_grids(table.elements, device)
@@ -987,7 +995,7 @@ def prepare_fused_source_image(table: ChainTable, spec: BakedSource, chunks, n_t
                 raise ValueError(f"{name}: {n_pixels} pixels, got {img.numel()}")
         with torch.cuda.device(params.device):
             stream = torch.cuda.current_stream(params.device).cuda_stream
-            _cuda.launch_fused_source_image(chain_rec, src_rec, image_rec, n_total, sizes[0], grid,
+            _cuda.launch_fused_source_image(chain_rec, src_rec, image_rec, sum(sizes), sizes[0], grid,
                                             params, images, record, stream, grids)
         prepare_fused_source_image.launches += 1
 

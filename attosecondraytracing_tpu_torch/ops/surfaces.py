@@ -431,6 +431,21 @@ def intersect_c(surface, support, q, u, t_eps=T_EPS, tol=HIT_TOL):
     return _where(hit, t_best, 0.0), hit
 
 
+def intersect(surface, support, p, d, t_eps=T_EPS, tol=HIT_TOL):
+    """Nearest valid intersection of local-frame rays ``p`` (N, 3) along
+    unit directions ``d`` (:func:`intersect_c` on their components).
+    Returns ``(t, hit)``; ``hit`` is False for rays that miss (wrong branch,
+    outside the support, behind the ray, or no real root)."""
+    return intersect_c(surface, support, (p[..., 0], p[..., 1], p[..., 2]),
+                       (d[..., 0], d[..., 1], d[..., 2]), t_eps=t_eps, tol=tol)
+
+
+def normal_at(surface, q):
+    """Unit normals (..., 3) on the +z ('up') side at local points ``q``
+    (:func:`normal_c` on their components)."""
+    return torch.stack(normal_c(surface, q[..., 0], q[..., 1], q[..., 2]), dim=-1)
+
+
 def normal_c(surface, x, y, z):
     """Unit 'up' normal in component form."""
     one = torch.ones_like(x)

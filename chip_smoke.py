@@ -11,7 +11,7 @@ port's paths through the entry points a user calls, and checks the results:
 * the main path: ``main.main`` on the flagship chain at 1e7 rays with the
   detector-distance optimizer (kernels K1, K2);
 * the parameter scan: ``run_config_file`` on
-  ``examples/CONFIG_2toroidals_f-x-f.py`` at 1e7 rays (11 chains, kernel K5),
+  ``examples/CONFIG_2toroidals_f-x-f.py`` at 5e6 rays (11 chains, kernel K5),
   against the serial K1 + K2 path;
 * user-built bundles: ``main.main`` on ``examples/CONFIG_toroidal2f-2f_byhand.py``
   with a 1e7-ray PointSource (kernel K4) and on a traced bundle fed through a
@@ -50,6 +50,19 @@ port's paths through the entry points a user calls, and checks the results:
   versions: P1's first launch from a fresh library load, its steady
   launch latency and its launch alone on the card beside ``x + 1``'s, P2's cost per operation of the nine ops slope-timed over
   the op count, P3's copy floor against K4 on four subsets of the flagship;
+* batched scans (``main._batched_final_bundles``): ``main.main`` on
+  ``examples/CONFIG_2toroidals_f-x-f.py`` and ``examples/CONFIG_tolerancing.py``
+  at their own 1000 rays and at 150,000 (just under ``PALLAS_MIN_RAYS``):
+  every chain through the stacked plain trace, against the serial path
+  (``ART_TPU_SCAN_STACK_MAX_BYTES=0``);
+* the shard mesh (``parallel/mesh.py``): on the flagship at 1e7 rays, a
+  mesh of 4 shards on the one card, ``source_stats_sharded`` (K2 per shard),
+  ``scan_moments_sharded`` (K5), ``fused_focus_value_and_grad(mesh=)`` (K6),
+  ``source_images_sharded`` at 2^30 rays into 512 x 512 (K1i),
+  ``trace_sharded`` and ``trace_scan_sharded`` against their unsharded
+  calls; then the same passes in 2 spawned processes on gloo, one shard
+  each on the card (the scan engine's mesh from the process group,
+  ``ART_TPU_SCAN_MESH=1``), against the one-process 2-shard mesh;
 * the CLI path on ``examples/CONFIG_singleparabola.py``,
   ``examples/CONFIG_gradient_alignment.py`` (a CONFIG that aligns its chain
   while it loads) and ``examples/CONFIG_deformed.py`` at its 1000 rays (the
@@ -68,7 +81,10 @@ line ``{"ok": true, "device": {...}}``. A kernel's ``ms`` is its launch alone
 CUDA-event windows of 5 back-to-back calls each (the plain versions of K6,
 K7 and K8: 3 windows of one call), at 1e7 rays: K1, K2, K5, K6, K7 and K8
 (at 20 distances) on the flagship, K4 and K3 on their own paths' chains
-and bundles.
+and bundles. The entries of K2, K5, K6 and K1i also carry ``mesh``: their
+launches per sharded call (one per shard), the sharded and unsharded calls'
+walls, the largest difference from the unsharded result and from the
+one-process mesh in the two-process run.
 ``bound_ms`` is the larger of the bytes the kernel must move over 3.35 TB/s
 and its float32 operations over 67 TFLOP/s (H100 SXM data sheet), counted
 for the same inputs; the summing kernels' operations (K1i, K2, K5, K7, K8)
@@ -118,7 +134,7 @@ ROOT = Path(__file__).resolve().parent
 N_CHECK = 1 << 20        # rays per kernel-vs-plain comparison
 N_TIME = 10_000_000      # rays per timed call (the main path's size)
 N_SLICE = 10_000_000     # rays of the main-path run
-N_SCAN = 10_000_000      # rays per chain of the scan run
+N_SCAN = 5_000_000       # rays per chain of the scan run (its host sources set its wall)
 N_STREAMED = 10_000_000  # rays of the user-built bundles
 N_CLI = 1_000_000        # rays of the CLI run
 N_GRAD = 10_000_000      # rays of the gradient-descent run
@@ -817,7 +833,7 @@ def phase_slice(torch, dev):
 
 def phase_scan(torch, dev):
     """The parameter scan: run_config_file on CONFIG_2toroidals_f-x-f.py at
-    1e7 rays per chain. Every chain must take the scan engine (K5, no K1 or
+    N_SCAN rays per chain. Every chain must take the scan engine (K5, no K1 or
     K2 launch) and agree chain by chain with the serial K1 + K2 path on the
     card: transmission within 0.05 %, spot SD 1e-2 relative, distance 1 mm."""
     from attosecondraytracing_tpu_torch import main as art
@@ -2502,6 +2518,368 @@ def phase_cost(torch, dev):
     return [p1, p2, p3]
 
 
+#: the batched scans: rays per chain just under PALLAS_MIN_RAYS, the largest
+#: a scan takes the batched trace at (11 chains stack to ~68 MB in float32)
+N_BATCHED = 150_000
+#: the sharded passes: rays of the flagship, shards of the one-process mesh
+#: (all on the one card), rays of the sharded image (4 shards of 32 chunks of
+#: 2^23 rays: the unsharded image's chunks), ranks of the two-process run and
+#: their time limit [s]
+N_MESH = 10_000_000
+MESH_SHARDS = 4
+N_MESH_IMAGE = 1 << 30
+MESH_RANKS = 2
+MESH_RANK_TIMEOUT = 300
+MESH_DISTANCES = (-5.0, 0.0, 5.0)
+
+
+def phase_batched(torch, dev):
+    """The batched scan (main._batched_final_bundles): main.main on
+    CONFIG_2toroidals_f-x-f.py (11 chains) and CONFIG_tolerancing.py (16
+    chains) at their own 1000 rays and at N_BATCHED rays: every chain must
+    take the batched trace ("trace-scan", no kernel launched: the plain
+    trace, as in the JAX package) and agree with the serial path forced by
+    ART_TPU_SCAN_STACK_MAX_BYTES=0 (each chain's plain trace) within 1e-6
+    relative in transmission, spot SD and duration SD (float32, the same
+    plain trace's operations on both sides); both walls are printed (the
+    earlier phases have loaded the card's elementwise kernels). Returns
+    the walls."""
+    import contextlib
+    import io
+    import os
+
+    import numpy as np
+
+    from attosecondraytracing_tpu_torch import main as art
+
+    out = {}
+    for name in ("CONFIG_2toroidals_f-x-f.py", "CONFIG_tolerancing.py"):
+        np.random.seed(7)  # CONFIG_tolerancing.py draws its rotation axes from it
+        chains, sp, do, ao, _ = _load_config(name)
+        ao = dict(ao, verbose=False)
+        for n_rays in (chains[0].source_rays.n_rays, N_BATCHED):
+            for c in chains:
+                if c.source_rays.n_rays != n_rays:
+                    c.resize_source(n_rays)
+            runs = {}
+            for mode, guard, engine in (("batched", None, "trace-scan"), ("serial", "0", "trace")):
+                if guard is None:
+                    os.environ.pop("ART_TPU_SCAN_STACK_MAX_BYTES", None)
+                else:
+                    os.environ["ART_TPU_SCAN_STACK_MAX_BYTES"] = guard
+                _reset_launches()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):  # a progress line per chain
+                    kept = art.main(chains, sp, do, ao, device=dev)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = _launches()
+                engines = {c.last_trace_engine for c in chains}
+                _check(engines == {engine} and not any(launches.values()),
+                       f"batched {name} at {n_rays} rays, {mode}: engines {engines}, launches {launches}")
+                runs[mode] = (kept, wall)
+            os.environ.pop("ART_TPU_SCAN_STACK_MAX_BYTES", None)
+            (kb, wb), (ks, ws) = runs["batched"], runs["serial"]
+            err = max(abs(a - b) / max(abs(b), 1e-30) for key in ("ETransmission", "SpotSizeSD", "DurationSD")
+                      for a, b in zip(kb[key], ks[key]))
+            print(f"batched {name} at {n_rays} rays: {len(chains)} chains, main.main wall batched {wb:.3f} s, "
+                  f"serial {ws:.3f} s; transmission, spot SD, duration SD max rel diff {err:.3g}; chain 0 "
+                  f"T {kb['ETransmission'][0]:.6g} % spot {kb['SpotSizeSD'][0]:.6g} mm duration "
+                  f"{kb['DurationSD'][0]:.6g} fs", flush=True)
+            _check(err <= 1e-6, f"batched {name} at {n_rays} rays: batched vs serial differ by {err}")
+            out[f"{name}@{n_rays}"] = {"chains": len(chains), "batched_s": wb, "serial_s": ws, "max_rel_diff": err}
+    return out
+
+
+def _mesh_problem(torch, dev):
+    """The sharded passes' inputs on the flagship: its source at N_MESH rays
+    with the Gaussian edge exp(-2), a detector 495 mm behind it and the
+    alignment loss of the K6 phase (_grad_problem), the scan record, and the
+    image flagship (its second toroid rolled IMAGE_ROLL deg, the detector at
+    its focal distance)."""
+    from attosecondraytracing_tpu_torch.ops import fused_scan as fs
+
+    chain, _ = _flagship(N_CHECK)
+    spec, host, geo, params, det = _grad_problem(torch, dev, chain, N_MESH, _bench_misalignment)
+    info = chain.source_spec._replace(gaussian_edge=spec.gaussian_edge, n_rays=N_MESH)
+    els64 = chain.device_elements(torch.float64)
+    ichain, _ = _flagship(N_CHECK)
+    ichain.rotate_OE(2, "roll", IMAGE_ROLL)
+    ispec, iels, idet = _image_chain(torch, dev, ichain)
+    return {"info": info, "els": chain.device_elements(), "els64": els64, "det": det,
+            "loss": (params, spec, host, geo), "scan": fs.make_scan_spec(info.kind, els64, N_MESH),
+            "image": (ispec, iels, idet)}
+
+
+def _mesh_calls(torch, dev, mesh, prob, extent):
+    """Every sharded pass of parallel/mesh.py on ``mesh``, each with the
+    launch counts set to 0 just before it: the stats (K2), the scan moments
+    (K5) and the scan engine's moments_fn (K5; sharded over the process
+    group under ART_TPU_SCAN_MESH=1), the alignment loss and gradient (K6),
+    the 2^30-ray image into the fixed ``extent`` (K1i) and the plain trace
+    of N_MESH rays (trace_sharded; its alive count and float64 sums).
+    Returns ({result: numpy array}, {call: (wall s, launches)})."""
+    import numpy as np
+
+    from attosecondraytracing_tpu_torch.analysis import gigascan as gs
+    from attosecondraytracing_tpu_torch.ops import fused_grad as fg
+    from attosecondraytracing_tpu_torch.ops import fused_scan as fs
+    from attosecondraytracing_tpu_torch.ops import fused_trace as ft
+    from attosecondraytracing_tpu_torch.ops.precision import default_dtype
+    from attosecondraytracing_tpu_torch.parallel import mesh as pm
+
+    info, els, els64, det = prob["info"], prob["els"], prob["els64"], prob["det"]
+    baked = info.baked()
+    rot = det._plane_rotation()
+    res, calls = {}, {}
+
+    def run(name, fn):
+        _reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        calls[name] = (time.perf_counter() - t0, _launches())
+        return out
+
+    st = run("stats", lambda: pm.source_stats_sharded(baked, els, N_MESH, mesh, det.centre, det.normal, rot,
+                                                      distances=MESH_DISTANCES, gaussian_edge=info.gaussian_edge))
+    res.update({"stats_" + k: np.asarray(st[k]) for k in ("sum_w", "spot_sd", "duration_sd")})
+    opl_ref, inv_dn = ft.chief_ray_refs(baked, els64, det.centre, det.normal, device=dev, dtype=default_dtype())
+    svec = fs.scan_chain_scalars(els64, np.asarray(baked.rot), np.asarray(baked.origin), det.centre,
+                                 det.normal, rot)
+    res["scan"] = run("scan", lambda: pm.scan_moments_sharded(
+        prob["scan"], svec, N_MESH, mesh, opl_ref, inv_dn, radius=baked.radius,
+        gaussian_edge=info.gaussian_edge, pos_radius=baked.pos_radius))
+    moments_fn = fs.make_moments_fn(prob["scan"], els64, info, N_MESH, device=dev)
+    res["moments_fn"] = run("moments_fn", lambda: moments_fn(det.centre, det.normal, rot,
+                                                             gaussian_edge=info.gaussian_edge))["moments"]
+    params, spec, host, geo = prob["loss"]
+    loss, grads = run("grad", lambda: fg.fused_focus_value_and_grad(params, spec, host, *geo, device=dev,
+                                                                    mesh=mesh))
+    res["loss"] = np.float64(loss)
+    res["grads"] = np.concatenate([grads.angles.reshape(-1).numpy(), grads.shifts.reshape(-1).numpy()])
+    ispec, iels, idet = prob["image"]
+    iopl, _ = ft.chief_ray_refs(ispec.baked(), iels, idet.centre, idet.normal, device=dev,
+                                dtype=gs._elements_dtype(iels))
+    res["w_img"], res["wd_img"] = run("images", lambda: pm.source_images_sharded(
+        ispec.baked(), iels, N_MESH_IMAGE, mesh, idet.centre, idet.normal, idet._plane_rotation(), extent,
+        bins=IMAGE_BINS, chunk=ft.CHUNK, gaussian_edge=ispec.gaussian_edge, opl_ref=iopl))
+    source = ft.source_bundle(baked, N_MESH, device=dev)
+    traced = run("trace", lambda: pm.trace_sharded(source, els, mesh))
+    per = traced.n_rays // len(mesh.shards)
+    for j, shard in enumerate(mesh.shards):  # each shard's rays: alive count and float64 sums
+        p, alive = traced.p[j * per:(j + 1) * per], traced.alive[j * per:(j + 1) * per]
+        path = (traced.opl - traced.opl_c)[j * per:(j + 1) * per]
+        res[f"trace_{shard}"] = np.array([float(alive.sum()), float(p[alive].double().sum()),
+                                          float(path[alive].double().sum())])
+    return res, calls
+
+
+def _mesh_rank(rank, world, store, out_path, extent, device):
+    """One rank of the two-process mesh run (a spawned process): the process
+    group on gloo through a file store, one shard on card 0, every pass of
+    _mesh_calls with the scan engine's mesh taken from the group
+    (ART_TPU_SCAN_MESH=1); the results saved to ``out_path``."""
+    import os
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    os.environ["ART_TPU_SCAN_MESH"] = "1"
+    from attosecondraytracing_tpu_torch.ops import fused_scan as fs
+    from attosecondraytracing_tpu_torch.parallel import mesh as pm
+
+    dev = torch.device(device)
+    if not pm.distributed_init(backend="gloo", init_method="file://" + store, rank=rank, world_size=world):
+        sys.exit(3)
+    try:
+        mesh = pm.make_mesh(devices=[dev], group=dist.group.WORLD)
+        prob = _mesh_problem(torch, dev)
+        scan_mesh = fs._scan_mesh(prob["scan"], N_MESH, device=dev)
+        if scan_mesh is None or scan_mesh.size != world or mesh.shards != (rank,):
+            sys.exit(4)
+        res, calls = _mesh_calls(torch, dev, mesh, prob, extent)
+        np.savez(out_path, **res, launches=np.array([calls[k][1][key] for k, key in _MESH_KERNELS]))
+    finally:
+        dist.destroy_process_group()
+
+
+#: the sharded calls and the kernel each launches once per shard
+_MESH_KERNELS = (("stats", "K2"), ("scan", "K5"), ("moments_fn", "K5"), ("grad", "K6"), ("images", "K1i"))
+
+
+def _rel(a, b):
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+
+
+def phase_mesh(torch, dev):
+    """The sharded passes (parallel/mesh.py) in one process on a mesh of
+    MESH_SHARDS shards, all on the card: each sharded call launches its
+    kernel once per shard (K2, K5, K6, K1i; the plain trace none) and is
+    held against the unsharded call, its wall beside the unsharded one's
+    (each the second of two calls): source_stats_sharded against one K2
+    pass (tests/test_stats_kernel.py:159-161: sum of weights and spot SD rel
+    2e-3, duration SD rel 2e-2 or 0.2 fs), scan_moments_sharded against
+    scan_moments (tests/test_scan_kernel.py:226-256: sum of weights 2e-3,
+    spot SD 5e-3, duration SD 3 % or 0.9 fs), fused_focus_value_and_grad
+    with and without the mesh (tests/test_gradients.py:281-296: loss rel
+    1e-4, gradients within 2e-3 of their largest entry), the 2^30-ray image
+    against fused_source_images (the shards' chunks are the unsharded
+    image's 128 chunks: every pixel within 1e-9 of the largest, the float64
+    atomics' order), trace_sharded against the plain trace (equal), and
+    trace_scan_sharded on a 2 x 2 mesh against each chain's plain trace
+    (equal). Then the same passes in MESH_RANKS spawned processes on gloo,
+    one shard each on card 0 (the scan engine's moments_fn sharded over the
+    group, ART_TPU_SCAN_MESH=1), each rank's results equal to the
+    one-process MESH_RANKS-shard mesh's within 1e-12 relative (K1i's float64
+    atomics are the only reordering). Returns the JSON numbers of K2, K5,
+    K6 and K1i."""
+    import multiprocessing
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from attosecondraytracing_tpu_torch.analysis import gigascan as gs
+    from attosecondraytracing_tpu_torch.ops import fused_grad as fg
+    from attosecondraytracing_tpu_torch.ops import fused_scan as fs
+    from attosecondraytracing_tpu_torch.ops import fused_trace as ft
+    from attosecondraytracing_tpu_torch.ops.trace import trace
+    from attosecondraytracing_tpu_torch.parallel import mesh as pm
+
+    prob = _mesh_problem(torch, dev)
+    info, els, det = prob["info"], prob["els"], prob["det"]
+    baked = info.baked()
+    rot = det._plane_rotation()
+    ispec, iels, idet = prob["image"]
+    full = gs.fused_source_images(ispec, iels, idet, n_total=N_MESH_IMAGE, bins=IMAGE_BINS, chunk=ft.CHUNK)
+    extent = full["extent"]
+    mesh = pm.make_mesh(devices=[dev] * MESH_SHARDS)
+    _mesh_calls(torch, dev, mesh, prob, extent)  # first calls: records packed, grids copied
+    res, calls = _mesh_calls(torch, dev, mesh, prob, extent)
+    for call, key in _MESH_KERNELS:
+        expect = 1 if call == "moments_fn" else MESH_SHARDS  # one process: moments_fn is not sharded
+        launches = calls[call][1]
+        _check(launches[key] == expect and sum(launches.values()) == expect,
+               f"mesh {call}: launches {launches}, expected {expect} x {key}")
+    _check(not any(calls["trace"][1].values()), f"mesh trace: launches {calls['trace'][1]}")
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # the unsharded calls
+    one_mom, t_stats = timed(lambda: ft.source_detector_moments(baked, els, N_MESH, det.centre, det.normal, rot,
+                                                                device=dev, gaussian_edge=info.gaussian_edge))
+    st1 = ft.sums_to_stats(ft.moments_to_distance_sums(one_mom["moments"], MESH_DISTANCES), one_mom["opl_ref"],
+                           MESH_DISTANCES)
+    err = {}
+    err["K2"] = max(_rel(res["stats_sum_w"], st1["sum_w"]), _rel(res["stats_spot_sd"], st1["spot_sd"]))
+    dur = float(np.abs(res["stats_duration_sd"] - st1["duration_sd"]).max())
+    print(f"mesh stats ({MESH_SHARDS} shards x {N_MESH // MESH_SHARDS} rays): sum w {res['stats_sum_w'][0]:.9g} "
+          f"vs {st1['sum_w'][0]:.9g}, spot SD {res['stats_spot_sd']} vs {st1['spot_sd']} mm, duration SD "
+          f"{res['stats_duration_sd']} vs {st1['duration_sd']} fs", flush=True)
+    _check(err["K2"] <= 2e-3 and np.all(np.abs(res["stats_duration_sd"] - st1["duration_sd"])
+                                        <= np.maximum(2e-2 * st1["duration_sd"], 0.2)),
+           f"mesh stats: rel {err['K2']}, duration {dur}")
+    opl_ref, inv_dn = ft.chief_ray_refs(baked, prob["els64"], det.centre, det.normal, device=dev,
+                                        dtype=torch.float32)
+    svec = fs.scan_chain_scalars(prob["els64"], np.asarray(baked.rot), np.asarray(baked.origin), det.centre,
+                                 det.normal, rot)
+    mom1, t_scan = timed(lambda: fs.scan_moments(prob["scan"], svec, N_MESH, opl_ref, inv_dn, radius=baked.radius,
+                                                 gaussian_edge=info.gaussian_edge, pos_radius=baked.pos_radius,
+                                                 device=dev))
+    _check(np.array_equal(mom1, res["moments_fn"]), "mesh: the unsharded moments_fn is not scan_moments")
+    s8, s1 = (ft.sums_to_stats(ft.moments_to_distance_sums(m, MESH_DISTANCES), opl_ref, MESH_DISTANCES)
+              for m in (res["scan"], mom1))
+    err["K5"] = max(_rel(s8["sum_w"], s1["sum_w"]), _rel(s8["spot_sd"], s1["spot_sd"]))
+    print(f"mesh scan moments: sum w {s8['sum_w'][0]:.9g} vs {s1['sum_w'][0]:.9g}, spot SD {s8['spot_sd']} vs "
+          f"{s1['spot_sd']} mm, duration SD {s8['duration_sd']} vs {s1['duration_sd']} fs", flush=True)
+    _check(_rel(s8["sum_w"], s1["sum_w"]) <= 2e-3 and _rel(s8["spot_sd"], s1["spot_sd"]) <= 5e-3
+           and all(abs(k - r) <= 0.03 * r or abs(k * k - r * r) ** 0.5 <= 0.9
+                   for k, r in zip(s8["duration_sd"], s1["duration_sd"])), "mesh scan moments: outside the envelope")
+    params, spec, host, geo = prob["loss"]
+    (loss1, grads1), t_grad = timed(lambda: fg.fused_focus_value_and_grad(params, spec, host, *geo, device=dev))
+    g1 = np.concatenate([grads1.angles.reshape(-1).numpy(), grads1.shifts.reshape(-1).numpy()])
+    err["K6"] = float(np.abs(res["grads"] - g1).max() / np.abs(g1).max())
+    print(f"mesh gradient: loss {res['loss']:.9g} vs {loss1:.9g}, gradient within {err['K6']:.3g} of its "
+          f"largest entry", flush=True)
+    _check(abs(res["loss"] - loss1) <= 1e-4 * abs(loss1) and err["K6"] <= 2e-3, "mesh gradient: outside the envelope")
+    _, t_img = timed(lambda: gs.fused_source_images(ispec, iels, idet, n_total=N_MESH_IMAGE, bins=IMAGE_BINS,
+                                                    extent=extent, chunk=ft.CHUNK))
+    w8, wd8 = res["w_img"], res["wd_img"]
+    err["K1i"] = _rel(w8, full["image"])
+    has = (w8 > 0) & (full["weight_image"] > 0)
+    mean8 = wd8[has] / w8[has] - wd8.sum() / w8.sum()
+    delay_err = float(np.abs(mean8 - full["mean_delay"][has]).max())
+    print(f"mesh image {N_MESH_IMAGE} rays into {IMAGE_BINS}: sum w {w8.sum():.9g} vs {full['sum_w']:.9g}, "
+          f"pixels within {err['K1i']:.3g} of the largest, mean delays within {delay_err:.3g} fs", flush=True)
+    _check(err["K1i"] <= 1e-9 and delay_err <= 1e-6, f"mesh image: pixels {err['K1i']}, delays {delay_err} fs")
+    source = ft.source_bundle(baked, N_MESH, device=dev)
+    ref, t_trace = timed(lambda: trace(source, els, True, keep_history=False))
+    traced = pm.trace_sharded(source, els, mesh)
+    _check(torch.equal(traced.p, ref.p) and torch.equal(traced.alive, ref.alive), "mesh trace: not equal")
+    scan_chains = [c.to(dev) for c in _flagship(N_BATCHED)[0].get_OE_loop_list(1, "roll", np.linspace(-0.2, 0.2, 4))]
+    stacked = pm.trace_scan_sharded(scan_chains, pm.make_mesh(rays=2, scan=2, devices=[dev] * 4))
+    for i, c in enumerate(scan_chains):
+        own = c.trace_final()
+        _check(torch.equal(stacked.p[i], own.p) and torch.equal(stacked.alive[i], own.alive),
+               f"mesh trace_scan_sharded: chain {i} differs")
+    walls = {"K2": (calls["stats"][0], t_stats), "K5": (calls["scan"][0], t_scan), "K6": (calls["grad"][0], t_grad),
+             "K1i": (calls["images"][0], t_img), "trace": (calls["trace"][0], t_trace)}
+    print("mesh walls (sharded vs unsharded call, s): "
+          + ", ".join(f"{k} {a:.4f} vs {b:.4f}" for k, (a, b) in walls.items()), flush=True)
+
+    # the same passes in MESH_RANKS processes, one shard each on the card
+    t0 = time.perf_counter()
+    ref2, _ = _mesh_calls(torch, dev, pm.make_mesh(devices=[dev] * MESH_RANKS), prob, extent)
+    ctx = multiprocessing.get_context("spawn")
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        store = os.path.join(tmp, "store")
+        paths = [os.path.join(tmp, f"rank{r}.npz") for r in range(MESH_RANKS)]
+        procs = [ctx.Process(target=_mesh_rank, args=(r, MESH_RANKS, store, paths[r], extent, str(dev)))
+                 for r in range(MESH_RANKS)]
+        for p in procs:
+            p.start()
+        deadline = time.perf_counter() + MESH_RANK_TIMEOUT
+        for p in procs:
+            p.join(timeout=max(deadline - time.perf_counter(), 1.0))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        codes = [p.exitcode for p in procs]
+        _check(codes == [0] * MESH_RANKS, f"mesh ranks: exit codes {codes} (time limit {MESH_RANK_TIMEOUT} s)")
+        ranks = [dict(np.load(path)) for path in paths]
+    rank_err = 0.0
+    for r, got in enumerate(ranks):
+        launches = dict(zip([c for c, _ in _MESH_KERNELS], got.pop("launches")))
+        _check(all(v == 1 for v in launches.values()), f"mesh rank {r}: launches {launches}")
+        _check(set(got) == set(ref2) - {f"trace_{s}" for s in range(MESH_RANKS) if s != r},
+               f"mesh rank {r}: results {sorted(got)}")
+        for key, have in got.items():
+            want = ref2["scan"] if key == "moments_fn" else ref2[key]  # the group's sharded K5 pass
+            e = _rel(have, want)
+            rank_err = max(rank_err, e)
+            _check(e <= 1e-12, f"mesh rank {r}: {key} differs from the one-process mesh by {e} (rel)")
+    print(f"mesh {MESH_RANKS} processes (gloo, one shard each on {dev}): every result within {rank_err:.3g} "
+          f"(rel) of the one-process {MESH_RANKS}-shard mesh; launches per rank 1 each of "
+          f"{[k for _, k in _MESH_KERNELS]}; {time.perf_counter() - t0:.1f} s with the processes", flush=True)
+    return {key: {"shards": MESH_SHARDS, "launches": MESH_SHARDS, "wall_s": walls[key][0],
+                  "unsharded_wall_s": walls[key][1], "max_rel_err": err[key], "ranks": MESH_RANKS,
+                  "ranks_max_rel_err": rank_err} for key in ("K2", "K5", "K6", "K1i")}
+
+
 def phase_cli(torch):
     """run_config_file on the card and on the CPU (plain versions) in this
     process: CONFIG_singleparabola.py at 1e6 rays,
@@ -2597,6 +2975,8 @@ def main():
     timed["K1i"], k1_images = phase("images", lambda: phase_images(torch, dev))
     probes += phase("cost", lambda: phase_cost(torch, dev))
     phase("cli", lambda: phase_cli(torch))
+    phase("batched", lambda: phase_batched(torch, dev))
+    mesh = phase("mesh", lambda: phase_mesh(torch, dev))
     launches.update(K1=slice_launches["K1"], K1i=timed["K1i"].pop("launches"), K2=slice_launches["K2"],
                     K5=scan_launches["K5"],
                     K6=grad_launches["K6"], K7=k7_launches["K7"], K8=k8_launches)
@@ -2623,7 +3003,7 @@ def main():
     )
     kernels = [{"name": name, "route": "cuda", "source": CSRC + src, "replaces": replaces,
                 "launches": launches[key], **timed[key], "library_ms": None, **zernike.get(key, {}),
-                **grid.get(key, {})}
+                **grid.get(key, {}), **({"mesh": mesh[key]} if key in mesh else {})}
                for key, name, src, replaces in rows] + probes
     kernels[0]["images"] = k1_images
     print(json.dumps({"kernels": kernels}), flush=True)

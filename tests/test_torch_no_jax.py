@@ -7,7 +7,9 @@ two-chain scan through the scan engine, traces a Zernike-deformed chain
 one (``ops/xla_source``), runs the gather probes (``utils/gather_probe``),
 bins detector images (``analysis/histogram``, ``analysis/gigascan``, K1i's
 plain version ``ops/fused_trace.fused_source_image_ref`` with its record) and
-runs the cost probes (``utils/cost_probe``), without importing matplotlib."""
+runs the cost probes (``utils/cost_probe``), runs a scan through the batched
+trace and a sharded stats pass (``parallel/mesh``), without importing
+matplotlib."""
 
 import os
 import subprocess
@@ -64,6 +66,23 @@ kept = main.main(scan, props, {"DistanceDetector": 500.0, "AutoDetectorDistance"
                  device="cpu")
 assert [c.last_trace_engine for c in kept["OpticalChain"]] == ["torch-scan"] * 2
 assert 0 < kept["ETransmission"][0] <= 100
+# the batched trace of a scan, the sharded passes (parallel/mesh) on a CPU
+# mesh, and the API names of bundle, surfaces and optimizer
+from attosecondraytracing_tpu_torch.parallel import mesh as pm
+from attosecondraytracing_tpu_torch.ops.bundle import to_host, total_path  # noqa: F401
+from attosecondraytracing_tpu_torch.ops.surfaces import intersect, normal_at  # noqa: F401
+from attosecondraytracing_tpu_torch.analysis.optimizer import (  # noqa: F401
+    _scan_fitness, delay_stats_for_shift, optimal_shift_closed_form)
+import os
+os.environ["ART_TPU_ENGINE"] = "trace"  # every chain takes the plain trace: the scan is batched
+batched = main.main(scan, props, {"DistanceDetector": 500.0, "AutoDetectorDistance": True,
+                                  "OptFor": "spotsize"}, {"verbose": False, "save_results": False},
+                    device="cpu", scan_engine="off")
+del os.environ["ART_TPU_ENGINE"]
+assert [c.last_trace_engine for c in batched["OpticalChain"]] == ["trace-scan"] * 2
+st = pm.source_stats_sharded(spec, els, 4096, pm.make_mesh(devices=["cpu"] * 4), det.centre,
+                             det.normal, det._plane_rotation())
+assert st["sum_w"][0] > 1000
 # a Zernike-deformed flagship through the fused engine and the plain trace
 zdef = defects.Zernike(supports.SupportRectangle(150, 32), {(2, 0): 2e-4, (4, 2): 5e-5})
 bent = art.OEPlacement(props, [mask, mirrors.DeformedMirror(tor, [zdef]), tor], [400, 100, 500],

@@ -244,6 +244,11 @@ def test_config_file_through_both_clis(monkeypatch, capsys, name):
 
 
 def test_cli_arguments(monkeypatch, tmp_path, capsys):
+    """The CLI's options reach run_config_file; F9: as the JAX CLI does, it
+    runs its first argument when more are given (``CONFIG.py extra``), here
+    CONFIG_singleparabola.py through both CLIs in float64, with the same
+    results."""
+    real = {"jax": jmain.run_config_file, "port": tmain.run_config_file}
     calls = []
     monkeypatch.setattr(tmain, "run_config_file", lambda path, n_rays=None, device="cuda",
                         scan_engine="auto": calls.append((path, n_rays, device)))
@@ -263,6 +268,21 @@ def test_cli_arguments(monkeypatch, tmp_path, capsys):
         tmain.cli([])
     with pytest.raises(SystemExit):
         tmain.cli(["cfg.py", "--rays"])
+
+    monkeypatch.setenv("ART_TPU_DTYPE", "float64")
+    kept = {}
+    for pkg, module in (("jax", jmain), ("port", tmain)):
+        monkeypatch.setattr(module, "run_config_file",
+                            lambda *a, pkg=pkg, **kw: kept.setdefault(pkg, real[pkg](*a, **kw)))
+    path = os.path.join(EXAMPLES, "CONFIG_singleparabola.py")
+    jmain.cli([path, "extra"])
+    import matplotlib.pyplot as plt
+
+    plt.close("all")
+    tmain.cli(["--device", "cpu", path, "extra"])
+    assert set(kept) == {"jax", "port"}
+    for key in ("ETransmission", "SpotSizeSD", "DurationSD"):
+        assert float(kept["port"][key][0]) == pytest.approx(float(kept["jax"][key][0]), rel=1e-6), key
 
 
 # ---------------------------------------------------------------------------
