@@ -23,10 +23,18 @@ def default_analysis_options() -> dict:
         "plot_IntensityMirrorProjection": False,
         "plot_IncidenceMirrorProjection": False,
         "save_results": True,
-        # image-plot options of the JAX package (not in ART/DefaultOptions.py);
-        # accepted so shared CONFIG files load, unused until plots are ported
+        # additions of the JAX package (not in ART/DefaultOptions.py): spot/delay
+        # plots render as device-binned images instead of per-ray scatters —
+        # "auto" switches at production bundle sizes (PALLAS_MIN_RAYS) where
+        # gathering every ray to the host is impractical; True/False force
+        # either mode
         "image_plots": "auto",
         "image_bins": 256,
+        # render the spot/delay images from THIS many rays synthesized in the
+        # image kernel (analysis/gigascan) instead of the traced bundle —
+        # detector images at ray counts far beyond what fits in memory (e.g.
+        # 1e9). Requires a chain built by OEPlacement from a factory source
+        # (a source_spec); None = use the traced bundle
         "image_rays": None,
     }
 

@@ -199,6 +199,113 @@ def get_result_summary(detector: Detector, bundle: RayBundle, verbose: bool = Fa
     return spot, duration
 
 
+def _plot_calls(chain, bundle, detector, SourceProperties, DetectorOptions, AnalysisOptions):
+    """The flag-gated standard plots in the JAX package's order: yields
+    (public name in ``analysis.plots``, its data record) for each plot
+    requested, computing each record on the bundle's device as it is
+    reached. Neither it nor the records import matplotlib; :func:`make_plots`
+    draws them.
+
+    Spot and delay plots become device-binned images (``SpotDiagramImage``,
+    ``DelayMapImage``) for ``image_plots`` True, or "auto" at
+    ``PALLAS_MIN_RAYS`` rays or more. ``image_rays`` makes the intensity and
+    delay images from that many rays synthesized in the image kernel
+    (``gigascan.fused_source_images``, kernel K1i on a card) when the chain
+    has a ``source_spec``, and then replaces only the Intensity and Delay
+    spot plots and graphs; incidence plots still come from the bundle."""
+    from .analysis import plots
+    from .models import chain as mchain
+
+    A = AnalysisOptions
+    if A["plot_Render"]:
+        yield "RayRenderGraph", plots.ray_render_graph_data(
+            chain,
+            detector.get_distance() * 1.2,
+            A["maxRaysToRender"],
+            A["OEPointsToRender"],
+            A["OEPointsScale"],
+            draw_mesh=A["draw_mesh"],
+            cycle_ray_colors=A["cycle_ray_colors"],
+        )
+    for which in ("Delay", "Intensity", "Incidence"):
+        if A[f"plot_{which}MirrorProjection"]:
+            yield "MirrorProjection", plots.mirror_projection_data(
+                chain, DetectorOptions["ReflectionNumber"], detector, which)
+
+    use_images = A["image_plots"] is True or (
+        A["image_plots"] == "auto" and bundle.n_rays >= mchain.PALLAS_MIN_RAYS
+    )
+    bins = int(A["image_bins"])
+
+    image_rays = A.get("image_rays")
+    giga_done = False
+    want_giga = A["plot_SpotDiagram"] or any(
+        A[f"plot_{w}SpotDiagram"] or A[f"plot_{w}Graph"] for w in ("Delay", "Intensity")
+    )
+    if image_rays and want_giga:
+        if chain.source_spec is None:
+            print(
+                "[attosecondraytracing_tpu_torch] image_rays ignored: this chain's "
+                "source is not in-kernel synthesizable (no source_spec).",
+                flush=True,
+            )
+        else:
+            from .analysis.gigascan import fused_source_images
+
+            res = fused_source_images(
+                chain.source_spec, chain.device_elements(), detector,
+                n_total=int(image_rays), bins=(bins, bins),
+            )
+            yield "GigaRayImages", plots.giga_ray_images_data(res, title=chain.description)
+            giga_done = True
+
+    if A["plot_SpotDiagram"] and not giga_done:
+        if use_images:
+            yield "SpotDiagramImage", plots.spot_diagram_image_data(
+                bundle, detector, A["DrawAiryAndFourier"], bins=bins)
+        else:
+            yield "SpotDiagram", plots.spot_diagram_data(bundle, detector, A["DrawAiryAndFourier"])
+    for which in ("Delay", "Intensity", "Incidence"):
+        if A[f"plot_{which}SpotDiagram"] and not (giga_done and which != "Incidence"):
+            if use_images:
+                yield "SpotDiagramImage", plots.spot_diagram_image_data(
+                    bundle, detector, A["DrawAiryAndFourier"], which, bins=bins)
+            else:
+                yield "SpotDiagram", plots.spot_diagram_data(
+                    bundle, detector, A["DrawAiryAndFourier"], which)
+    for which in ("Delay", "Intensity", "Incidence"):
+        if A[f"plot_{which}Graph"] and not (giga_done and which != "Incidence"):
+            if use_images:
+                yield "DelayMapImage", plots.delay_map_image_data(
+                    bundle, detector, SourceProperties["DeltaFT"], A["DrawAiryAndFourier"],
+                    None if which == "Delay" else which, bins=bins,
+                )
+            else:
+                yield "DelayGraph", plots.delay_graph_data(
+                    bundle, detector, SourceProperties["DeltaFT"], A["DrawAiryAndFourier"],
+                    None if which == "Delay" else which,
+                )
+
+
+def make_plots(chain, bundle, detector, SourceProperties, DetectorOptions, AnalysisOptions):
+    """Flag-gated standard plots: draws each record of :func:`_plot_calls`.
+    Where matplotlib cannot be imported (the card's machine has none), it
+    prints one stderr line naming the requested plots and computes none of
+    them; the JAX package raises ModuleNotFoundError there."""
+    from .analysis import plots
+
+    try:
+        plots.pyplot()
+    except ImportError as exc:
+        requested = [k for k in AnalysisOptions if k.startswith("plot_") and AnalysisOptions[k]]
+        print(f"[attosecondraytracing_tpu_torch] plots not drawn ({', '.join(requested)}): "
+              f"matplotlib cannot be imported ({exc}).", file=sys.stderr, flush=True)
+        return
+    for _name, data in _plot_calls(chain, bundle, detector, SourceProperties, DetectorOptions,
+                                   AnalysisOptions):
+        data.draw()
+
+
 def run_ART(
     chain: OpticalChain,
     SourceProperties,
@@ -209,10 +316,11 @@ def run_ART(
     *,
     device="cuda",
 ):
-    """Trace one chain on ``device``, set up / optimize its detector and
-    summarize. ``precomputed_bundle`` (the chain's analysed bundle, e.g.
-    from :func:`_batched_final_bundles`) replaces the trace. Returns
-    (chain, detector, transmission %, spot SD, duration SD)."""
+    """Trace one chain on ``device``, set up / optimize its detector,
+    summarize and plot (:func:`make_plots`). ``precomputed_bundle`` (the
+    chain's analysed bundle, e.g. from :func:`_batched_final_bundles`)
+    replaces the trace. Returns (chain, detector, transmission %, spot SD,
+    duration SD)."""
     chain.to(device)
     niceline = "_" * 99 + "\n"
     A = AnalysisOptions
@@ -261,10 +369,11 @@ def run_ART(
     if AnalysisOptions["verbose"]:
         print(niceline)
 
+    # the reference's gating: a scan's chains plot only when main() is
+    # called as a library, not from the CLI
     if not loop or not _CLI_ACTIVE:
         if any(AnalysisOptions[k] for k in AnalysisOptions if k.startswith("plot_")):
-            print("[attosecondraytracing_tpu_torch] plots are not ported yet; "
-                  "the requested plot_* options were skipped.", file=sys.stderr, flush=True)
+            make_plots(chain, bundle, detector, SourceProperties, DetectorOptions, AnalysisOptions)
 
     return chain, detector, etransmission, spot_sd, duration_sd
 

@@ -295,6 +295,21 @@ class OpticalChain:
         )
 
     # ------------------------------------------------------------------
+    # visualization
+    def render(self, **kwargs):
+        """3D rendering of elements and rays (ART/ModuleOpticalChain.py:204-215)."""
+        from ..analysis.plots import RayRenderGraph
+
+        kwargs.setdefault("maxRays", 300)
+        kwargs.setdefault("OEpoints", 3000)
+        return RayRenderGraph(self, None, **kwargs)
+
+    def quickshow(self, **kwargs):
+        """Quick 3D look at the chain (documented but unimplemented in the
+        reference, ART/ModuleOpticalChain.py:41)."""
+        return self.render(maxRays=100, OEpoints=1000, **kwargs)
+
+    # ------------------------------------------------------------------
     # source misalignment (ART/ModuleOpticalChain.py:219-369)
 
     def _first_incidence_plane_normal(self):

@@ -10,8 +10,16 @@ port's paths through the entry points a user calls, and checks the results:
 
 * the main path: ``main.main`` on the flagship chain at 1e7 rays with the
   detector-distance optimizer (kernels K1, K2);
+* the plots path: ``main.make_plots``' dispatch (``main._plot_calls``) on
+  the main path's flagship with matplotlib hidden: ``main.main`` with spot
+  and delay plot options (one stderr line, nothing drawn), then the
+  dispatch's data: the giga-ray images at 1e9 rays (one K1i launch) and the
+  incidence image of the K1 bundle, held against a direct
+  ``fused_source_images`` call and against the same data functions on the
+  CPU, and the traced-history plots (``MirrorProjection``,
+  ``RayRenderGraph``) at 1e6 rays, card against CPU;
 * the parameter scan: ``run_config_file`` on
-  ``examples/CONFIG_2toroidals_f-x-f.py`` at 5e6 rays (11 chains, kernel K5),
+  ``examples/CONFIG_2toroidals_f-x-f.py`` at 2.5e6 rays (11 chains, kernel K5),
   against the serial K1 + K2 path;
 * user-built bundles: ``main.main`` on ``examples/CONFIG_toroidal2f-2f_byhand.py``
   with a 1e7-ray PointSource (kernel K4) and on a traced bundle fed through a
@@ -84,7 +92,10 @@ K7 and K8: 3 windows of one call), at 1e7 rays: K1, K2, K5, K6, K7 and K8
 and bundles. The entries of K2, K5, K6 and K1i also carry ``mesh``: their
 launches per sharded call (one per shard), the sharded and unsharded calls'
 walls, the largest difference from the unsharded result and from the
-one-process mesh in the two-process run.
+one-process mesh in the two-process run. The entries of K1, K2 and K1i
+also carry ``plots``: their launches on the plots path, its ``main.main``
+wall, each plot's dispatch wall and the bytes its data brought to the
+host.
 ``bound_ms`` is the larger of the bytes the kernel must move over 3.35 TB/s
 and its float32 operations over 67 TFLOP/s (H100 SXM data sheet), counted
 for the same inputs; the summing kernels' operations (K1i, K2, K5, K7, K8)
@@ -124,6 +135,7 @@ on the card with the host's work hidden (utils/cost_probe.queued_us).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -134,10 +146,11 @@ ROOT = Path(__file__).resolve().parent
 N_CHECK = 1 << 20        # rays per kernel-vs-plain comparison
 N_TIME = 10_000_000      # rays per timed call (the main path's size)
 N_SLICE = 10_000_000     # rays of the main-path run
-N_SCAN = 5_000_000       # rays per chain of the scan run (its host sources set its wall)
+N_SCAN = 2_500_000       # rays per chain of the scan run (its host sources set its wall)
 N_STREAMED = 10_000_000  # rays of the user-built bundles
 N_CLI = 1_000_000        # rays of the CLI run
 N_GRAD = 10_000_000      # rays of the gradient-descent run
+N_PLOTS_HISTORY = 1_000_000  # rays of the plots path's traced-history plots
 GRAD_ITERS = 12          # Adam steps of the gradient-descent run
 N_GRAD_CHECK = 1 << 18   # rays of the fused-vs-autograd gradient check
 CSRC = "attosecondraytracing_tpu_torch/csrc/"
@@ -241,6 +254,13 @@ IMAGE_ROLL = 0.05
 #: tests' share (as tests/test_torch_gigascan.py's MIN_WEIGHT scales it)
 PRECEDENT_BINS = (64, 64)
 PRECEDENT_RAYS = 16384
+#: the plots path's options (main.make_plots / main._plot_calls): the spot
+#: and delay plots of the flagship, images from 200,000 rays ("auto"), and
+#: the intensity and delay images from 1e9 rays in the image kernel
+PLOT_OPTIONS = {"plot_SpotDiagram": True, "plot_DelaySpotDiagram": True,
+                "plot_IncidenceSpotDiagram": True, "plot_DelayGraph": True,
+                "plot_IntensityGraph": True, "image_plots": "auto", "image_bins": 256,
+                "image_rays": 1e9}
 
 
 def _fail(msg):
@@ -828,7 +848,235 @@ def phase_slice(torch, dev):
     t_opt = time.perf_counter() - t0
     print(f"slice warm wall: trace_final {t_trace * 1e3:.3f} ms, optimizer {t_opt * 1e3:.3f} ms",
           flush=True)
-    return launches
+    return launches, chain
+
+
+@contextlib.contextmanager
+def _without_matplotlib():
+    """matplotlib hidden from imports while the block runs, as on a machine
+    without it (any import of it raises ImportError), then restored."""
+    saved = {k: v for k, v in sys.modules.items() if k == "matplotlib" or k.startswith("matplotlib.")}
+    for name in saved:
+        del sys.modules[name]
+    sys.modules["matplotlib"] = None
+    try:
+        yield
+    finally:
+        sys.modules.pop("matplotlib", None)
+        sys.modules.update(saved)
+
+
+def _run_quiet_stderr(fn):
+    """(fn's result, the lines it wrote to sys.stderr); the lines are
+    echoed to stdout."""
+    import io
+
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        out = fn()
+    lines = err.getvalue().splitlines()
+    for line in lines:
+        print(f"(stderr) {line}", flush=True)
+    return out, lines
+
+
+def _host_bytes(data) -> int:
+    """The bytes of the host arrays in a plot's data record."""
+    import dataclasses
+
+    import numpy as np
+
+    def walk(x):
+        if isinstance(x, np.ndarray):
+            return x.nbytes
+        if isinstance(x, (list, tuple)):
+            return sum(walk(v) for v in x)
+        return 0
+
+    return sum(walk(getattr(data, f.name)) for f in dataclasses.fields(data))
+
+
+def _ray_pixels(bundle, det, bins):
+    """(flat pixel, in window, weight) of each ray of ``bundle`` in the
+    intensity image ``Detector.get_Image`` bins it into, on the bundle's
+    device."""
+    from attosecondraytracing_tpu_torch.analysis import histogram, stats
+
+    xy = stats.detector_points_2d(bundle, det.centre, det.normal, det._plane_rotation())
+    w, lo, hi = histogram._weights_and_extent(bundle, xy, None, True)
+    ix, iy, inside = histogram._bin_indices(xy, lo, hi, bins)
+    return histogram._flat_index(ix, iy, bins), inside, w
+
+
+def phase_plots(torch, dev, chain):
+    """The plots path (main.make_plots' dispatch, main._plot_calls) on the
+    card with matplotlib hidden, on phase slice's flagship at 1e7 rays: the
+    launch counts set to 0, main.main with the plot options
+    :data:`PLOT_OPTIONS` (K1, K2; make_plots prints one stderr line and
+    draws nothing, since matplotlib cannot be imported), then the dispatch
+    on main.main's chain, its detector and the bundle of trace_final (K1),
+    each plot's data timed as it is made (the giga-ray images at 1e9 rays:
+    exactly one K1i launch). Then, outside the counted run: the giga-ray
+    images against a direct fused_source_images call with the same
+    arguments (sums within 1e-12 relative: the float64 atomics' order is
+    free); the intensity, delay and incidence images of the card's bundle
+    against the same data functions on that bundle moved to the CPU (the
+    total weight within 1e-9 relative, at least 1 - 1e-4 of the weight in
+    the same pixel; on the pixels summed into PRECEDENT_BINS blocks of
+    weight above 5 per 16384 rays, as phase images scales
+    tests/test_gigascan.py's envelope (_image_diffs), the
+    mean delays within 0.05 fs median and 0.5 fs max about their common
+    offset, which one float32 ulp of the mean path bounds, and the mean
+    incidences within 1e-3 deg); MirrorProjection's data on each element and
+    RayRenderGraph's of the flagship at 1e6 rays through get_output_rays,
+    card against CPU (alive counts within 0.05 %, the projected points'
+    centroid within 1e-3 mm, the same segment counts per hop). Returns the
+    K1, K2 and K1i entries' ``plots``."""
+    import numpy as np
+
+    from attosecondraytracing_tpu_torch import main as art
+    from attosecondraytracing_tpu_torch.analysis import gigascan as gs
+    from attosecondraytracing_tpu_torch.analysis import plots
+    from attosecondraytracing_tpu_torch.ops.precision import LIGHT_SPEED_MM_S
+
+    props = {"Divergence": 25e-3, "SourceSize": 0, "Wavelength": 80e-6, "DeltaFT": 0.5,
+             "NumberRays": N_SLICE}
+    do = {"ReflectionNumber": -1, "DistanceDetector": 500.0, "AutoDetectorDistance": True,
+          "OptFor": "intensity"}
+    ao = dict(PLOT_OPTIONS, verbose=False, save_results=False)
+    sp, do_full, ao_full = art.complete_defaults(props, do, ao)
+    with _without_matplotlib():
+        _reset_launches()
+        t0 = time.perf_counter()
+        kept, err = _run_quiet_stderr(lambda: art.main(chain, props, do, ao, device=dev))
+        torch.cuda.synchronize()
+        main_wall = time.perf_counter() - t0
+        det = kept["Detector"][0]
+        bundle = chain.trace_final()
+        calls = []
+        dispatch = art._plot_calls(chain, bundle, det, sp, do_full, ao_full)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                name, data = next(dispatch)
+            except StopIteration:
+                break
+            torch.cuda.synchronize()
+            calls.append((name, data, time.perf_counter() - t0))
+        launches = _launches()
+        loaded = [k for k in sys.modules if k.startswith("matplotlib.")]
+    requested = [k for k in PLOT_OPTIONS if k.startswith("plot_")]
+    drawn = [line for line in err if "plots not drawn" in line]
+    names = [name for name, _, _ in calls]
+    print(f"plots: main.main wall {main_wall:.3f} s (T {kept['ETransmission'][0]:.6g} %, "
+          f"distance {det.get_distance():.6g} mm, spot {kept['SpotSizeSD'][0]:.6g} mm); dispatch "
+          + ", ".join(f"{name} {wall:.3f} s {_host_bytes(data)} B to the host"
+                      for name, data, wall in calls) + f"; launches {launches}", flush=True)
+    _check(len(drawn) == 1 and all(k in drawn[0] for k in requested),
+           f"plots: make_plots without matplotlib must print one line naming {requested}, got {err}")
+    _check(not loaded, f"plots: the data half imported {loaded}")
+    _check(names == ["GigaRayImages", "SpotDiagramImage"], f"plots: dispatch {names}")
+    _check(launches["K1"] >= 1 and launches["K2"] >= 1 and launches["K1i"] == 1,
+           f"plots: launches {launches}: K1, K2 and exactly one K1i expected")
+    _check(chain.last_trace_engine == "cuda-source", f"plots: trace engine {chain.last_trace_engine}")
+
+    # the giga-ray images against a direct call with the same arguments
+    giga = calls[0][1]
+    bins = int(ao_full["image_bins"])
+    ref = gs.fused_source_images(chain.source_spec, chain.device_elements(), det,
+                                 n_total=int(ao_full["image_rays"]), bins=(bins, bins))
+    img_err = float(np.abs(giga.image - ref["image"].T).max() / ref["image"].max())
+    sum_err = float(abs(np.nansum(giga.image) - ref["sum_w"]) / ref["sum_w"])
+    finite = np.isfinite(ref["mean_delay"].T)
+    same_mask = bool((np.isfinite(giga.mean_delay) == finite).all())
+    md_scale = np.abs(ref["mean_delay"][np.isfinite(ref["mean_delay"])]).max()
+    md_err = float(np.abs(giga.mean_delay - ref["mean_delay"].T)[finite].max() / md_scale)
+    print(f"plots: giga-ray images vs fused_source_images: pixels {img_err:.3g}, sum w {sum_err:.3g}, "
+          f"mean delays {md_err:.3g} (rel), NaN masks equal {same_mask}", flush=True)
+    _check(img_err <= 1e-12 and sum_err <= 1e-12 and md_err <= 1e-12 and same_mask,
+           "plots: the dispatch's giga-ray images differ from fused_source_images")
+
+    # the card's bundle images against the same data functions on the CPU
+    cpu = bundle.to("cpu")
+    card_imgs = {w: plots.spot_diagram_image_data(bundle, det, False, w, bins) for w in
+                 (None, "Delay", "Incidence")}
+    cpu_imgs = {w: plots.spot_diagram_image_data(cpu, det, False, w, bins) for w in
+                (None, "Delay", "Incidence")}
+    sum_rel = float(abs(np.nansum(card_imgs[None].image) - np.nansum(cpu_imgs[None].image))
+                    / np.nansum(cpu_imgs[None].image))
+    flat_g, in_g, _ = _ray_pixels(bundle, det, (bins, bins))
+    flat_c, in_c, w_c = _ray_pixels(cpu, det, (bins, bins))
+    same = (flat_g.cpu() == flat_c) & in_g.cpu() & in_c
+    same_frac = float((w_c.double() * same).sum() / (w_c.double() * in_c).sum())
+    # mean values on the pixels summed into PRECEDENT_BINS blocks of more
+    # than the precedent's share of the weight (5 per 16384 rays), as phase
+    # images scales tests/test_gigascan.py's envelope (_image_diffs)
+    block_weight = 5.0 * N_SLICE / PRECEDENT_RAYS
+
+    def blocks(imgs, which):
+        w = np.nan_to_num(imgs[None].image)
+        return _rebinned({"image": w, "weight_image": w, "mean_delay": imgs[which].image})
+
+    def block_diffs(which):
+        a, b = blocks(card_imgs, which), blocks(cpu_imgs, which)
+        both = (np.isfinite(a["mean_delay"]) & np.isfinite(b["mean_delay"])
+                & (b["weight_image"] > block_weight))
+        return (a["mean_delay"] - b["mean_delay"])[both], b["weight_image"][both]
+
+    # The delays are taken against the mean path of the alive rays, a
+    # float32 sum (stats.detector_delays), which may round to a float32 one
+    # ulp apart on the two devices: a constant offset of one ulp of the path
+    # (0.41 fs at 1.5 m). It is bounded by that ulp; the blocks are held to
+    # the envelope about it.
+    dd, ww = block_diffs("Delay")
+    offset = float((dd * ww).sum() / ww.sum()) if dd.size else np.nan
+    resid = np.abs(dd - offset)
+    path = float((cpu.opl - cpu.opl_c)[cpu.alive].double().mean()) + det.get_distance()
+    ulp_fs = float(np.spacing(np.float32(path))) / LIGHT_SPEED_MM_S * 1e15
+    inc = np.abs(block_diffs("Incidence")[0])
+    print(f"plots: bundle images card vs CPU: sum w rel {sum_rel:.3g}, weight in the same pixel "
+          f"{same_frac:.8f}; on {dd.size} of {PRECEDENT_BINS} blocks of weight > {block_weight:.0f}: "
+          f"delays offset {offset:.6g} fs (one float32 ulp of the {path:.1f} mm path: {ulp_fs:.6g} fs), "
+          f"about it median {np.median(resid) if dd.size else np.nan:.3g} max "
+          f"{resid.max() if dd.size else np.nan:.3g} fs, raw max {np.abs(dd).max() if dd.size else np.nan:.3g} fs; "
+          f"incidences max {inc.max() if inc.size else np.nan:.3g} deg", flush=True)
+    _check(sum_rel <= 1e-9, f"plots: image weight differs by {sum_rel} (rel)")
+    _check(same_frac >= 1 - 1e-4, f"plots: only {same_frac} of the weight in the same pixel")
+    _check(dd.size > 50 and abs(offset) <= 1.001 * ulp_fs and np.median(resid) <= 0.05
+           and resid.max() <= 0.5, "plots: block mean delays differ")
+    _check(inc.size > 50 and inc.max() <= 1e-3, "plots: block mean incidences differ")
+    card_vs_cpu = {"sum_w_rel": sum_rel, "same_pixel": same_frac, "blocks": int(dd.size),
+                   "delay_offset_fs": offset, "delay_median_fs": float(np.median(resid)),
+                   "delay_max_fs": float(resid.max()), "incidence_max_deg": float(inc.max())}
+
+    # the traced history's plots (MirrorProjection, RayRenderGraph), card vs CPU
+    hchain, _ = _flagship(N_PLOTS_HISTORY)
+    history = {}
+    for where in (dev, "cpu"):
+        hchain.to(where)
+        t0 = time.perf_counter()
+        proj = [plots.mirror_projection_data(hchain, k, det, None) for k in range(3)]
+        render = plots.ray_render_graph_data(hchain, det.get_distance() * 1.2,
+                                             ao_full["maxRaysToRender"], ao_full["OEPointsToRender"])
+        history[str(where)] = (proj, render, time.perf_counter() - t0)
+    (pg, rg, tg), (pc, rc, tc) = history[str(dev)], history["cpu"]
+    for k, (a, b) in enumerate(zip(pg, pc)):
+        na, nb = len(a.x), len(b.x)
+        dc = float(np.hypot(a.x.mean() - b.x.mean(), a.y.mean() - b.y.mean()))
+        print(f"plots: MirrorProjection element {k} at {N_PLOTS_HISTORY} rays: alive {na} vs {nb} (CPU), "
+              f"centroid moved {dc:.3g} mm", flush=True)
+        _check(abs(na - nb) <= 5e-4 * nb and dc <= 1e-3, f"plots: projection on element {k} differs")
+    counts = [[len(s) for s in r.segment_sets] for r in (rg, rc)]
+    print(f"plots: RayRenderGraph segments per hop {counts[0]} vs {counts[1]} (CPU); history plots "
+          f"{tg:.3f} s on the card, {tc:.3f} s on the CPU", flush=True)
+    _check(counts[0] == counts[1] and len(counts[0]) == 4, f"plots: render segments {counts}")
+
+    walls = {name: wall for name, _, wall in calls}
+    summary = {"main_s": main_wall, "dispatch_s": walls,
+               "host_bytes": {name: _host_bytes(data) for name, data, _ in calls},
+               "card_vs_cpu": card_vs_cpu}
+    return {"K1": dict(summary, launches=launches["K1"]), "K2": dict(summary, launches=launches["K2"]),
+            "K1i": dict(summary, launches=launches["K1i"], giga_rel_err=max(img_err, sum_err, md_err))}
 
 
 def phase_scan(torch, dev):
@@ -2890,12 +3138,15 @@ def phase_cli(torch):
     both devices). Transmission within 0.05 %, spot SD
     1e-3 relative, duration SD 1e-2 relative, or 10 % for the sub-fs
     duration of the alignment CONFIG (float32 delay noise sets it: 0.44 fs
-    in float32 against 0.067 fs in float64, as in the user-bundle phase)."""
-    import contextlib
+    in float32 against 0.067 fs in float64, as in the user-bundle phase).
+    matplotlib is hidden while the CONFIGs run: CONFIG_singleparabola.py's
+    plot request makes make_plots print one stderr line and draw nothing,
+    and its results on the card equal main.main's on the same CONFIG with
+    the plot option off (1e-9 relative)."""
     import io
     import re
 
-    from attosecondraytracing_tpu_torch.main import run_config_file
+    from attosecondraytracing_tpu_torch import main as art
 
     for name, n_rays, dur_rtol in (("CONFIG_singleparabola.py", N_CLI, 1e-2),
                                    ("CONFIG_gradient_alignment.py", None, 0.1),
@@ -2904,10 +3155,24 @@ def phase_cli(torch):
         res = {}
         for dev in ("cuda", "cpu"):
             out = io.StringIO()
-            with contextlib.redirect_stdout(out):
-                kept = run_config_file(path, n_rays=n_rays, device=dev)
+            with _without_matplotlib(), contextlib.redirect_stdout(out):
+                kept, err = _run_quiet_stderr(lambda: art.run_config_file(path, n_rays=n_rays, device=dev))
+            drawn = [line for line in err if "plots not drawn" in line]
+            want = 1 if name == "CONFIG_singleparabola.py" else 0
+            _check(len(drawn) == want and all("plot_DelaySpotDiagram" in line for line in drawn),
+                   f"CLI {name} on {dev}: expected {want} line(s) for the plots matplotlib cannot "
+                   f"draw, got {err}")
             losses = re.findall(r"alignment loss: (\S+) -> (\S+)", out.getvalue())
             res[dev] = (kept["ETransmission"][0], kept["SpotSizeSD"][0], kept["DurationSD"][0], losses)
+        if name == "CONFIG_singleparabola.py":
+            chain, sp, do, ao, _ = _load_config(name)
+            chain.resize_source(n_rays)
+            quiet = art.main(chain, dict(sp, NumberRays=n_rays), do,
+                             dict(ao, plot_DelaySpotDiagram=False, verbose=False), device="cuda")
+            plain = [quiet[k][0] for k in ("ETransmission", "SpotSizeSD", "DurationSD")]
+            print(f"CLI {name} with the plot option off: {plain}", flush=True)
+            _check(all(abs(a - b) <= 1e-9 * abs(b) for a, b in zip(res["cuda"][:3], plain)),
+                   f"CLI {name}: the plot request changed the results: {res['cuda'][:3]} vs {plain}")
         (tg, sg, dg, lg), (tc, sc, dc, lc) = res["cuda"], res["cpu"]
         print(f"CLI {name} {kept['OpticalChain'][0].source_rays.n_rays} rays: cuda T {tg:.6g} % spot "
               f"{sg:.6g} mm duration {dg:.6g} fs{' loss ' + ' -> '.join(lg[0]) if lg else ''}; cpu T "
@@ -2962,7 +3227,9 @@ def main():
     timed["K2"] = phase("k2", lambda: phase_k2(torch, dev))
     timed["K5"] = phase("k5", lambda: phase_k5(torch, dev))
     k34_err = phase("k34", lambda: phase_k34(torch, dev))
-    slice_launches = phase("slice", lambda: phase_slice(torch, dev))
+    slice_launches, slice_chain = phase("slice", lambda: phase_slice(torch, dev))
+    plots = phase("plots", lambda: phase_plots(torch, dev, slice_chain))
+    del slice_chain
     scan_launches = phase("scan", lambda: phase_scan(torch, dev))
     launches, streamed = phase("streamed", lambda: phase_streamed(torch, dev))
     timed.update(phase("k67", lambda: phase_k67(torch, dev)))
@@ -3003,7 +3270,8 @@ def main():
     )
     kernels = [{"name": name, "route": "cuda", "source": CSRC + src, "replaces": replaces,
                 "launches": launches[key], **timed[key], "library_ms": None, **zernike.get(key, {}),
-                **grid.get(key, {}), **({"mesh": mesh[key]} if key in mesh else {})}
+                **grid.get(key, {}), **({"mesh": mesh[key]} if key in mesh else {}),
+                **({"plots": plots[key]} if key in plots else {})}
                for key, name, src, replaces in rows] + probes
     kernels[0]["images"] = k1_images
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -8,8 +8,9 @@ one (``ops/xla_source``), runs the gather probes (``utils/gather_probe``),
 bins detector images (``analysis/histogram``, ``analysis/gigascan``, K1i's
 plain version ``ops/fused_trace.fused_source_image_ref`` with its record) and
 runs the cost probes (``utils/cost_probe``), runs a scan through the batched
-trace and a sharded stats pass (``parallel/mesh``), without importing
-matplotlib."""
+trace and a sharded stats pass (``parallel/mesh``), and computes every
+plot's data (``analysis/plots``) and the CLI's plot dispatch
+(``main._plot_calls``), without importing matplotlib."""
 
 import os
 import subprocess
@@ -131,6 +132,22 @@ ft.fused_source_image_ref(ft.chain_table(gbaked, gridded.device_elements()), gba
 assert abs(float(imgs[0].sum()) - res["sum_w"]) <= 1e-9 * res["sum_w"]
 assert int((record.flat >= 0).sum()) > 0
 assert len(cost_probe.probe(device="cpu")) == 2 + 2 * len(cost_probe.OPS)
+# the plots' data half (analysis/plots) and the CLI's plot dispatch
+# (main._plot_calls, with image_rays through K1i's plain version)
+from attosecondraytracing_tpu_torch.analysis import plots
+records = [plots.spot_diagram_data(streamed, det, True, "Delay"),
+           plots.spot_diagram_image_data(streamed, det, True, "Incidence", bins=16),
+           plots.delay_map_image_data(streamed, det, 0.5, bins=16),
+           plots.giga_ray_images_data(res, "grid"),
+           plots.delay_graph_data(streamed, det, 0.5, True),
+           plots.mirror_projection_data(chain, -1, det, "Delay"),
+           plots.ray_render_graph_data(chain, maxRays=20, OEpoints=100)]
+assert records[0].navigator.key("right") is not None and len(records[-1].segment_sets) == 4
+sp, do, ao = main.complete_defaults({}, {"DistanceDetector": 500.0}, {
+    "plot_SpotDiagram": True, "plot_IncidenceSpotDiagram": True, "image_rays": 4096,
+    "image_bins": 16})
+calls = list(main._plot_calls(gridded, g_fused, det, sp, do, ao))
+assert [name for name, _ in calls] == ["GigaRayImages", "SpotDiagramImage"], calls
 assert "matplotlib" not in sys.modules
 assert art.defects is defects
 assert not any(name == "jax" or name.startswith(("jax.", "jaxlib", "attosecondraytracing_tpu."))

@@ -202,20 +202,28 @@ def test_config_file_through_both_clis(monkeypatch, capsys, name):
     CONFIG_gradient_alignment.py traces and aligns its chain while it loads
     (the chains a CONFIG builds take the CLI's device); both CLIs print its
     loss history: the first loss agrees within 1e-6 relative, the last
-    within 5 % (float32 parameters, Adam wandering near its floor)."""
+    within 5 % (float32 parameters, Adam wandering near its floor). Both
+    CLIs draw the figures a CONFIG requests (CONFIG_singleparabola.py's
+    delay spot diagram) on Agg, with the same title, legend and arrays."""
     import sys
+
+    import matplotlib.pyplot as plt
+    import numpy as np
 
     monkeypatch.setenv("ART_TPU_DTYPE", "float64")
     path = os.path.join(EXAMPLES, name)
     capsys.readouterr()
+    plt.close("all")
     jk = jmain.run_config_file(path)
     jout = capsys.readouterr().out
-    import matplotlib.pyplot as plt
-
+    jfigs = [plt.figure(n) for n in plt.get_fignums()]
     plt.close("all")
     jax_modules = {k: v for k, v in sys.modules.items()
                    if k.split(".")[0] == "attosecondraytracing_tpu"}
     tk = tmain.run_config_file(path, device="cpu")
+    tfigs = [plt.figure(n) for n in plt.get_fignums()]
+    plt.close("all")
+    assert len(tfigs) == len(jfigs)
     assert {k: v for k, v in sys.modules.items()
             if k.split(".")[0] == "attosecondraytracing_tpu"} == jax_modules  # aliases restored
     chain = tk["OpticalChain"][0]
@@ -238,7 +246,22 @@ def test_config_file_through_both_clis(monkeypatch, capsys, name):
         # spot, as the JAX CLI reports for this CONFIG
         assert 37 < tk["ETransmission"][0] < 39 and 1.0 < tk["SpotSizeSD"][0] < 3.0
     if name == "CONFIG_singleparabola.py":
-        assert "plots are not ported yet" in capsys.readouterr().err
+        # its plot_DelaySpotDiagram, drawn from each package's own float64
+        # trace of the 1000 rays (read: points within 8.5e-11 µm, delays
+        # within 4.8e-10 fs; their rounding is relative to the 300 mm path)
+        assert len(tfigs) == 1
+        tax, jax_ax = tfigs[0].axes[0], jfigs[0].axes[0]
+        assert tax.get_title() == jax_ax.get_title()
+        assert ([t.get_text() for t in tax.get_legend().get_texts()]
+                == [t.get_text() for t in jax_ax.get_legend().get_texts()])
+        assert tfigs[0].axes[1].get_ylabel() == jfigs[0].axes[1].get_ylabel() == "Delay (fs)"
+        np.testing.assert_allclose(tax.collections[0].get_offsets(),
+                                   jax_ax.collections[0].get_offsets(), rtol=1e-9, atol=1e-9)
+        np.testing.assert_allclose(tax.collections[0].get_array(),
+                                   jax_ax.collections[0].get_array(), rtol=0, atol=1e-8)
+        np.testing.assert_allclose(tax.get_xlim(), jax_ax.get_xlim(), rtol=1e-9)
+        np.testing.assert_allclose(tax.lines[0].get_xydata(), jax_ax.lines[0].get_xydata(),
+                                   rtol=1e-9, atol=1e-9)
         # the ~94 % / ~77 um of the verify notes
         assert 90 < tk["ETransmission"][0] < 97 and 0.07 < tk["SpotSizeSD"][0] < 0.085
 
