@@ -37,7 +37,10 @@
 // chain with Zernike tables only runs the Zernike branch as it was
 // (zernike_hit); only a chain with grid maps takes the branch that reads
 // them (deformed_hit), whose extra live state would otherwise cost every
-// Zernike chain's registers.
+// Zernike chain's registers. K6 (Dual<G>) takes overloads of zernike_hit and
+// deformed_hit that sum the defects on the primal and compose their
+// tangents at the hit (below deformed_hit); the float kernels never reach
+// them.
 //
 // Rounding notes. Compiled without --use_fast_math: operator/ and sqrtf are
 // IEEE-rounded, and the source law and the detector epilogues use them. The
@@ -809,6 +812,205 @@ __device__ __forceinline__ void deformed_hit(const ChainP& ch, int i, S qx, S qy
   h.nx = -gx * inv;
   h.ny = -gy * inv;
   h.nz = inv;
+}
+
+// ---------------------------------------------------------------------------
+// the defect branch on dual numbers (K6: overloads of zernike_hit and
+// deformed_hit for Dual<G>, which the float kernels never reach)
+// ---------------------------------------------------------------------------
+//
+// The height error and the defect slopes are functions of the hit's two
+// support coordinates (x, y) only. So K6 evaluates the Zernike recurrence
+// and the grid lookups once per ray on the primal coordinates, in float, in
+// the arithmetic K7 runs (the values are K7's), and composes their tangents
+// by the chain rule at the hit: t(h) = h_x t(x) + h_y t(y), and for the
+// slopes the rows of h's Hessian (or of the slope maps' cell derivatives).
+// This is the linear map JAX's linearize takes through every row of the
+// recurrence and through the bilinear weights; only the float32 rounding
+// differs. The rest of the branch (the base normals, cos alpha, the
+// shifted t and point) stays on Dual<G>.
+
+// the Dual<G> of a function of the support coordinates (x, y): its value v
+// and partial derivatives fx, fy composed with the tangents of x and y
+template <int G>
+__device__ __forceinline__ Dual<G> at_hit(float v, float fx, float fy, const Dual<G>& x,
+                                          const Dual<G>& y) {
+  Dual<G> r;
+  r.v = v;
+#pragma unroll
+  for (int i = 0; i < G; ++i) r.t[i] = fx * x.t[i] + fy * y.t[i];
+  return r;
+}
+
+// grid_sums at float coordinates (x, y) with the bilinear's cell
+// derivatives: the height channel (v[0], SLOPES false) or the two slope
+// channels (v[0], v[1]), each with its derivatives along x and y,
+// ((c10 - c00) vy + (c11 - c01) wy) / dx and ((c01 - c00) vx + (c11 - c10)
+// wx) / dy. The values are grid_sums' arithmetic. A clamped fractional
+// index carries no tangent (clamp_index on Dual<G>: only 0 < f < hi passes
+// it); the cell comes from the value.
+template <bool SLOPES>
+__device__ __forceinline__ void grid_cell(const GridP& g, float x, float y, float* v, float* dvx,
+                                          float* dvy) {
+  const float ux = (x - g.x0) / g.dx, uy = (y - g.y0) / g.dy;
+  const float fx = clamp_index(ux, g.fx_max);
+  const float fy = clamp_index(uy, g.fy_max);
+  const int ix = min(max((int)floorf(fx), 0), g.nx - 2);
+  const int iy = min(max((int)floorf(fy), 0), g.ny - 2);
+  const float wx = fx - (float)ix, wy = fy - (float)iy;
+  const float vx = 1.0f - wx, vy = 1.0f - wy;
+  const float w00 = vx * vy, w10 = wx * vy, w01 = vx * wy, w11 = wx * wy;
+  const float4* r = g.rows + ((long long)ix * g.ny + iy);
+  const float4 c00 = __ldg(r), c01 = __ldg(r + 1), c10 = __ldg(r + g.ny), c11 = __ldg(r + g.ny + 1);
+  const float sx = (ux > 0.0f && ux < g.fx_max) ? tangent_rcp(g.dx) : 0.0f;
+  const float sy = (uy > 0.0f && uy < g.fy_max) ? tangent_rcp(g.dy) : 0.0f;
+  const auto channel = [&](int k, float a00, float a10, float a01, float a11) {
+    v[k] = a00 * w00 + a10 * w10 + a01 * w01 + a11 * w11;
+    dvx[k] = ((a10 - a00) * vy + (a11 - a01) * wy) * sx;
+    dvy[k] = ((a01 - a00) * vx + (a11 - a10) * wx) * sy;
+  };
+  if constexpr (SLOPES) {
+    channel(0, c00.y, c10.y, c01.y, c11.y);
+    channel(1, c00.z, c10.z, c01.z, c11.z);
+  } else {
+    channel(0, c00.x, c10.x, c01.x, c11.x);
+  }
+}
+
+// A Zernike table's slopes and their derivatives at unit-disk coordinates
+// (x, y): g = {gx, gy, d gx/dx, d gx/dy, d gy/dx, d gy/dy}, the recurrence
+// of zernike_sums with slopes on Dual<2> seeded along x and y (its
+// tangents are the rows of the sum's Hessian)
+__device__ __forceinline__ void zernike_hessian(const ZernikeP& zk, float x, float y, float* g) {
+  Dual<2> u(x), v(y), h, gx, gy;
+  u.t[0] = 1.0f;
+  v.t[1] = 1.0f;
+  zernike_sums<true>(zk, u, v, h, gx, gy);
+  g[0] = gx.v;
+  g[1] = gy.v;
+  g[2] = gx.t[0];
+  g[3] = gx.t[1];
+  g[4] = gy.t[0];
+  g[5] = gy.t[1];
+}
+
+// A Zernike table's slopes gx, gy (at the unit-disk coordinates of the hit
+// (hx, hy) about the support centre (cx, cy)) as functions of the hit: the
+// Hessian's rows times the coordinates' d/dx = 1 / radius (only where
+// ignore_defects is False)
+template <int G>
+__device__ __forceinline__ void zernike_slopes_at(const ZernikeP& zk, const Dual<G>& hx,
+                                                  const Dual<G>& hy, float cx, float cy,
+                                                  Dual<G>& gx, Dual<G>& gy) {
+  float g[6];
+  zernike_hessian(zk, (hx.v - cx) * zk.inv_r, (hy.v - cy) * zk.inv_r, g);
+  gx = at_hit(g[0], g[2] * zk.inv_r, g[3] * zk.inv_r, hx, hy);
+  gy = at_hit(g[1], g[4] * zk.inv_r, g[5] * zk.inv_r, hx, hy);
+}
+
+// The normal of a mirror with a Zernike table from its defect slopes at
+// the shifted hit h (ignore_defects False), on Dual<G>. Inline: out of
+// line (a call) it cost K6 1.2x on the deformed flagships, where it never
+// runs (PERF.md §6).
+template <int G>
+__device__ __forceinline__ void zernike_slope_normal(const ZernikeP& zk, float cx, float cy,
+                                                     HitT<Dual<G>>& h) {
+  using S = Dual<G>;
+  S gx, gy;
+  zernike_slopes_at(zk, h.x, h.y, cx, cy, gx, gy);
+  gx = -div_(h.nx, h.nz) + gx * zk.inv_r;
+  gy = -div_(h.ny, h.nz) + gy * zk.inv_r;
+  const S inv = rsq(gx * gx + gy * gy + 1.0f);
+  h.nx = -gx * inv;
+  h.ny = -gy * inv;
+  h.nz = inv;
+}
+
+// zernike_hit on Dual<G>: the height and its gradient on the primal
+// (zernike_sums with slopes, in float), composed at the hit
+template <int G>
+__device__ __forceinline__ void zernike_hit(const ElementP& el, const ZernikeP& zk,
+                                            bool ignore_defects, Dual<G> qx, Dual<G> qy, Dual<G> qz,
+                                            Dual<G> ux, Dual<G> uy, Dual<G> uz, HitT<Dual<G>>& h) {
+  using S = Dual<G>;
+  S n0x, n0y, n0z;
+  surface_normal(el, h.x, h.y, h.z, n0x, n0y, n0z);
+  const S cos_alpha = fmax_(-(ux * n0x + uy * n0y + uz * n0z), 1e-6f);
+  float dh, hx, hy;
+  zernike_sums<true>(zk, (h.x.v - el.cen[0]) * zk.inv_r, (h.y.v - el.cen[1]) * zk.inv_r, dh, hx, hy);
+  h.t = h.t - div_(at_hit(dh, hx * zk.inv_r, hy * zk.inv_r, h.x, h.y), cos_alpha);
+  h.x = qx + h.t * ux;
+  h.y = qy + h.t * uy;
+  h.z = qz + h.t * uz;
+  surface_normal(el, h.x, h.y, h.z, h.nx, h.ny, h.nz);
+  if (ignore_defects) return;
+  zernike_slope_normal(zk, el.cen[0], el.cen[1], h);
+}
+
+// The normal of element i of a chain with grid maps from its defect slopes
+// at the shifted hit h (ignore_defects False), on Dual<G>: the Zernike
+// table's (its Hessian's rows) and each map's slope channels with their
+// cell derivatives. Inline, as zernike_slope_normal.
+template <int G>
+__device__ __forceinline__ void deformed_slope_normal(const ChainP& ch, int i, HitT<Dual<G>>& h) {
+  using S = Dual<G>;
+  const ElementP& el = ch.el[i];
+  const int z = ch.zk_of[i];
+  S gx, gy;
+  if (z >= 0) {
+    const ZernikeP& zk = ch.zk[z];
+    zernike_slopes_at(zk, h.x, h.y, el.cen[0], el.cen[1], gx, gy);
+    gx = -div_(h.nx, h.nz) + gx * zk.inv_r;
+    gy = -div_(h.ny, h.nz) + gy * zk.inv_r;
+  } else {
+    gx = -div_(h.nx, h.nz);
+    gy = -div_(h.ny, h.nz);
+  }
+  for (int g = ch.grid_begin[i]; g < ch.grid_end[i]; ++g) {
+    float s[2], sx[2], sy[2];
+    grid_cell<true>(ch.grid[g], h.x.v - el.cen[0], h.y.v - el.cen[1], s, sx, sy);
+    gx = gx + at_hit(s[0], sx[0], sy[0], h.x, h.y);
+    gy = gy + at_hit(s[1], sx[1], sy[1], h.x, h.y);
+  }
+  const S inv = rsq(gx * gx + gy * gy + 1.0f);
+  h.nx = -gx * inv;
+  h.ny = -gy * inv;
+  h.nz = inv;
+}
+
+// deformed_hit on Dual<G>: the mirror's Zernike table and grid maps summed
+// on the primal, height and gradient, composed at the hit once
+template <int G>
+__device__ __forceinline__ void deformed_hit(const ChainP& ch, int i, Dual<G> qx, Dual<G> qy,
+                                             Dual<G> qz, Dual<G> ux, Dual<G> uy, Dual<G> uz,
+                                             HitT<Dual<G>>& h) {
+  using S = Dual<G>;
+  const ElementP& el = ch.el[i];
+  const int z = ch.zk_of[i];
+  S n0x, n0y, n0z;
+  surface_normal(el, h.x, h.y, h.z, n0x, n0y, n0z);
+  const S cos_alpha = fmax_(-(ux * n0x + uy * n0y + uz * n0z), 1e-6f);
+  float dh = 0.0f, ax = 0.0f, ay = 0.0f;  // the height and its gradient in (x, y)
+  if (z >= 0) {
+    const ZernikeP& zk = ch.zk[z];
+    zernike_sums<true>(zk, (h.x.v - el.cen[0]) * zk.inv_r, (h.y.v - el.cen[1]) * zk.inv_r, dh, ax, ay);
+    ax *= zk.inv_r;
+    ay *= zk.inv_r;
+  }
+  for (int g = ch.grid_begin[i]; g < ch.grid_end[i]; ++g) {
+    float hg, hgx, hgy;
+    grid_cell<false>(ch.grid[g], h.x.v - el.cen[0], h.y.v - el.cen[1], &hg, &hgx, &hgy);
+    dh = dh + hg;
+    ax += hgx;
+    ay += hgy;
+  }
+  h.t = h.t - div_(at_hit(dh, ax, ay, h.x, h.y), cos_alpha);
+  h.x = qx + h.t * ux;
+  h.y = qy + h.t * uy;
+  h.z = qz + h.t * uz;
+  surface_normal(el, h.x, h.y, h.z, h.nx, h.ny, h.nz);
+  if (ch.ignore_defects) return;
+  deformed_slope_normal(ch, i, h);
 }
 
 // ---------------------------------------------------------------------------

@@ -99,6 +99,37 @@ def _bilinear_multi(grids, x0, y0, dx, dy, x, y):
     return [vals[..., k] for k in range(len(grids))]
 
 
+def _bilinear_multi_cells(grids, x0, y0, dx, dy, x, y):
+    """:func:`_bilinear_multi` with each grid's derivatives along x and y,
+    as the gradient kernel K6 takes them on the primal
+    (``csrc/trace_common.cuh``, ``grid_cell``): d/dx = ((c10 - c00) (1 -
+    wy) + (c11 - c01) wy) / dx, d/dy = ((c01 - c00) (1 - wx) + (c11 - c10)
+    wx) / dy, zero where the fractional index is clamped (the clamp's zero
+    tangent; the cell is the value's). Its plain twin for the tests, which
+    nothing on the kernels' path calls. Returns a list of (value, d/dx,
+    d/dy), one per grid."""
+    nx, ny = grids[0].shape
+    ux = (x - x0) / dx
+    uy = (y - y0) / dy
+    fx = torch.clamp(ux, 0.0, nx - 1.000001)
+    fy = torch.clamp(uy, 0.0, ny - 1.000001)
+    ix = torch.clamp(torch.floor(fx).to(torch.int64), 0, nx - 2)
+    iy = torch.clamp(torch.floor(fy).to(torch.int64), 0, ny - 2)
+    wx = fx - ix
+    wy = fy - iy
+    sx = ((ux > 0) & (ux < nx - 1.000001)).to(x.dtype) / dx
+    sy = ((uy > 0) & (uy < ny - 1.000001)).to(x.dtype) / dy
+    base = ix * ny + iy
+    out = []
+    for g in grids:
+        flat = g.reshape(-1)
+        c00, c10, c01, c11 = (flat[i].to(x.dtype) for i in (base, base + ny, base + 1, base + ny + 1))
+        value = c00 * ((1 - wx) * (1 - wy)) + c10 * (wx * (1 - wy)) + c01 * ((1 - wx) * wy) + c11 * (wx * wy)
+        out.append((value, ((c10 - c00) * (1 - wy) + (c11 - c01) * wy) * sx,
+                    ((c01 - c00) * (1 - wx) + (c11 - c10) * wx) * sy))
+    return out
+
+
 #: what is made from a grid's maps, per height map: id(height) -> {key: value}
 _DERIVED: dict = {}
 

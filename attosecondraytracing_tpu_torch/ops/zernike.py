@@ -84,3 +84,48 @@ def zernike_value_and_grad(x, y, max_order: int):
                 DY[(n, m)] = n * Z[(n - 1, n - 1 - m)] - n * Z[(n - 1, n - m)] + DY[(n - 2, m - 1)]
 
     return Z, DX, DY
+
+
+def zernike_value_grad_hessian(x, y, max_order: int):
+    """:func:`zernike_value_and_grad` and the second derivatives, by the
+    same recurrence differentiated once more: each gradient row of the
+    recurrence reads row n - 1's values and row n - 2's gradient, so the
+    Hessian row reads row n - 1's gradient and row n - 2's Hessian
+    (d2Z(n, m)/dx2 = n dZ(n - 1, .)/dx + d2Z(n - 2, m - 1)/dx2, and so on).
+    The gradient kernel K6 composes a mirror's slope tangents from these
+    rows (``csrc/trace_common.cuh``, ``zernike_slopes_at``: the recurrence
+    with slopes on dual numbers seeded along x and y); this is its plain
+    twin for the tests, which nothing on the kernels' path calls.
+
+    Returns six dicts keyed by (n, m): values, d/dx, d/dy, d2/dx2, d2/dxdy,
+    d2/dy2."""
+    max_order = max(int(max_order), 2)
+    Z, DX, DY = zernike_value_and_grad(x, y, max_order)
+    zero = DX[(0, 0)]
+    DXX = {k: zero for k in ((0, 0), (1, 0), (1, 1))}
+    DXY = dict(DXX)
+    DYY = dict(DXX)
+    for n in range(2, max_order + 1):
+        for m in range(0, n + 1):
+            # (row n - 1 entries with their signs) of DX and DY, as the
+            # recurrence reads them from Z
+            if m == 0:
+                dx_terms, dy_terms, two = [(1, 0)], [(1, n - 1)], False
+            elif m == n:
+                dx_terms, dy_terms, two = [(1, n - 1)], [(-1, 0)], False
+            elif n % 2 != 0 and m == (n - 1) // 2:
+                dx_terms, dy_terms, two = [(1, m - 1)], [(1, n - 1 - m), (-1, n - m)], True
+            elif n % 2 != 0 and m == (n - 1) // 2 + 1:
+                dx_terms, dy_terms, two = [(1, m), (1, m - 1)], [(1, n - 1 - m)], True
+            elif n % 2 == 0 and m == n // 2:
+                dx_terms, dy_terms, two = [(2, m)], [(2, n - 1 - m)], True
+            else:
+                dx_terms, dy_terms, two = [(1, m), (1, m - 1)], [(1, n - 1 - m), (-1, n - m)], True
+
+            def row(terms, D):
+                return sum(sign * n * D[(n - 1, j)] for sign, j in terms)
+
+            DXX[(n, m)] = row(dx_terms, DX) + (DXX[(n - 2, m - 1)] if two else 0)
+            DXY[(n, m)] = row(dx_terms, DY) + (DXY[(n - 2, m - 1)] if two else 0)
+            DYY[(n, m)] = row(dy_terms, DY) + (DYY[(n - 2, m - 1)] if two else 0)
+    return Z, DX, DY, DXX, DXY, DYY

@@ -48,6 +48,15 @@ map.
   launches in turns (undeformed, deformed, deformed, undeformed), in the
   same process.
 
+With K6 among ``--kernels``, each build's K6 instantiation of each chain
+(``stats_params_kernel<G>``, ``<G, zernike>``, ``<G, grid>``) is read by
+stage from its SASS (:func:`sass_stages`: the defect branch's height in
+"defects", what runs only where ignore_defects is False in "slopes"), with
+the local-memory loads and stores of each stage, and each timed K6 beside
+its issue-slot bound (:func:`issue_bound` over the warp passes of the
+plain trace's alive warps, once per tangent group). Each other build's
+SASS is compared with this one's function by function (:func:`sass_digests`).
+
 Prints one line per kernel, chain and build and a JSON line with each
 kernel's median per chain and build and the ratio B/A (and with
 ``--zernike`` / ``--grid`` each kernel's deformed and undeformed medians),
@@ -117,6 +126,19 @@ def ptxas_summary(log: str) -> str:
     return "\n".join(out)
 
 
+def ptxas_fields(log: str) -> dict:
+    """``{kernel: {"registers", "stack_frame", "spill_stores",
+    "spill_loads"}}`` (bytes but the registers) from the lines of
+    :func:`ptxas_summary`."""
+    out = {}
+    for line in ptxas_summary(log).splitlines():
+        name, rest = line.rsplit(": Used ", 1)
+        fields = {"registers": r"^(\d+) registers", "stack_frame": r"(\d+) bytes stack frame",
+                  "spill_stores": r"(\d+) bytes spill stores", "spill_loads": r"(\d+) bytes spill loads"}
+        out[name] = {k: int(m.group(1)) if (m := re.search(pat, rest)) else None for k, pat in fields.items()}
+    return out
+
+
 #: the kernels' DEFECTS instantiations (csrc/trace_common.cuh DefectBranch);
 #: C interface versions 4 and older had a bool: false, true (Zernike)
 DEFECT_BRANCHES = {"0": "", "1": "zernike", "2": "grid"}
@@ -139,13 +161,17 @@ def _kernel_name(mangled: str) -> str:
 #: slow-path checks and calls, indexed constant loads, shuffles, conversions
 #: and float64 adds (the block reduction), shared memory, barriers
 SASS_CLASSES = ("MUFU", "FCHK", "CALL", "LDC", "SHFL", "F2F", "DADD", "LDS", "STS", "BAR", "BRA")
+#: local-memory opcodes: a stack frame's loads and stores (spills, arrays
+#: indexed at run time), counted on a line of their own where a kernel has
+#: any, and per stage (:func:`stage_local_memory`)
+LOCAL_MEMORY = ("LDL", "STL")
 #: SASS opcodes by the pipe that issues them; any other opcode is "other"
 SASS_PIPES = {
     "fp32": ("FFMA", "FMUL", "FADD", "FSETP", "FSEL", "FMNMX"),
     "integer": ("IMAD", "IADD3", "LOP3", "ISETP", "SHF", "LEA", "SEL"),
     "mufu": ("MUFU",),
     "conversion": ("F2F", "I2F", "F2I", "FRND"),
-    "memory": ("LDS", "LDC", "LDG", "STS"),
+    "memory": ("LDS", "LDC", "LDG", "STS", "LDL", "STL"),
     "control": ("BRA", "BSSY", "BSYNC", "WARPSYNC", "VOTE"),
 }
 _PIPE_OF = {op: pipe for pipe, ops in SASS_PIPES.items() for op in ops}
@@ -157,9 +183,10 @@ H100_SMS = 132
 #: an instruction line of cuobjdump -sass or nvdisasm: its offset, an
 #: optional predicate, the opcode before its first modifier
 _OPCODE = re.compile(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P(?:\d+|T)\s+)?([A-Z][A-Z0-9_]*)")
-#: the default kernels of :func:`sass_summary`: K2, K8, K7 and K6
+#: the default kernels of :func:`sass_summary`: K2, K8, K7 and K6 (and K6's
+#: slope normals, functions of their own in a build that calls them)
 SUMMARY_KERNELS = ("fused_source_moments_kernel", "fused_source_stats_kernel", "stats_primal_kernel",
-                   "stats_params_kernel")
+                   "stats_params_kernel", "zernike_slope_normal", "deformed_slope_normal")
 
 
 def pipe_counts(opcodes) -> dict:
@@ -190,6 +217,38 @@ def sass_summary(lib_path, kernels=SUMMARY_KERNELS) -> str:
     return summarize_sass(sass, kernels)
 
 
+def sass_digests(lib_path) -> dict:
+    """``{function: digest}`` of every function in a library's ``cuobjdump
+    -sass`` listing: a hash of its instructions with their offsets,
+    encodings and label numbers left out, so two builds whose code is the
+    same read equal (line information does not enter)."""
+    import hashlib
+
+    try:
+        sass = subprocess.run([_cuda_tool("cuobjdump"), "-sass", str(lib_path)], capture_output=True,
+                              text=True, check=True).stdout
+    except (OSError, subprocess.CalledProcessError):
+        return {}
+    out, name, h = {}, None, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name, h = line.split(":", 1)[1].strip(), hashlib.sha1()
+            out[name] = h
+        elif h is not None and _OPCODE.match(line):
+            text = re.sub(r"/\*[0-9a-fx]+\*/", "", line)
+            h.update(re.sub(r"\.L_x_\d+", ".L", text).split(";")[0].strip().encode())
+    return {k: v.hexdigest() for k, v in out.items()}
+
+
+def same_sass_text(a: dict, b: dict) -> str:
+    """Which functions of two builds' :func:`sass_digests` have the same
+    code, by kernel name."""
+    common = sorted(set(a) & set(b))
+    differ = [_kernel_name(k) for k in common if a[k] != b[k]]
+    return (f"SASS equal to A's in {len(common) - len(differ)} of {len(common)} functions"
+            + (f"; differing: {', '.join(differ)}" if differ else ""))
+
+
 def summarize_sass(sass: str, kernels=SUMMARY_KERNELS) -> str:
     """Static opcode counts of the named kernels in a ``cuobjdump -sass``
     listing (every surface family is compiled in; a flagship ray runs the
@@ -203,6 +262,10 @@ def summarize_sass(sass: str, kernels=SUMMARY_KERNELS) -> str:
             parts = ", ".join(f"{c} {n}" for c, n in counts.items())
             out.append(f"SASS {_kernel_name(name)}: {len(ops)} opcodes ({parts}); by pipe: "
                        f"{_pipes_text(pipe_counts(ops))}")
+            local = {op: ops.count(op) for op in LOCAL_MEMORY}
+            if any(local.values()):
+                out.append(f"SASS {_kernel_name(name)}: local memory "
+                           + ", ".join(f"{op} {n}" for op, n in local.items()))
 
     for line in sass.splitlines():
         if "Function :" in line:
@@ -225,8 +288,15 @@ def summarize_sass(sass: str, kernels=SUMMARY_KERNELS) -> str:
 FLAGSHIP_PATH = {"source": "SRC_CONE", "mask": "SUP_ROUND_HOLE", "premask": "SUP_ROUND_HOLE",
                  "toroid": "SUP_RECT"}
 #: the stages of a summing kernel's instructions, in the order of a ray
+#: ("defects": a deformed mirror's branch up to its normal at the shifted
+#: point; "slopes": the rest of it, which runs only when ignore_defects is
+#: False)
 STAGES = ("setup", "ray loop", "source", "walk", "premask", "map", "mask", "toroid", "plane", "quadric",
-          "defects", "mirror", "epilogue", "reduction", "slow path")
+          "defects", "slopes", "mirror", "epilogue", "reduction", "slow path")
+#: the functions of a deformed mirror's branch (both scalar types' forms),
+#: and K6's slope normals (its "slopes" stage, inline or called)
+DEFECT_HITS = ("zernike_hit", "deformed_hit")
+SLOPE_NORMALS = ("zernike_slope_normal", "deformed_slope_normal")
 
 
 def _function_of_lines(lines) -> list:
@@ -292,6 +362,18 @@ class _Sources:
         grad = self.lines["fused_grad.cu"]
         loop = "for (int r = 0; r < K7_RAYS_PER_THREAD"
         self.ray_loop = _block(grad, 0, loop) if any(loop in line for line in grad) else set()
+        # a deformed mirror's slopes: the lines of its branch past the
+        # ignore_defects return, per file
+        self.slopes = {}
+        for name, text in self.lines.items():
+            func, past = self.func[name], None
+            for i, line in enumerate(text):
+                if func[i] != past:
+                    past = None
+                if func[i] in DEFECT_HITS and "ignore_defects) return;" in line:
+                    past = func[i]
+                elif past:
+                    self.slopes.setdefault(name, set()).add(i + 1)
 
     def frame(self, file: str, line: int):
         """(function, text) of a 1-based line of a file of the tree."""
@@ -327,10 +409,14 @@ def _stage_of(chain, src: _Sources, path=FLAGSHIP_PATH):
     funcs = [fn for _f, _ln, fn, _t in frames]
     if any(fn in ("reduce_columns", "reduce_to_row") for fn in funcs):
         return "reduction", 1.0
+    if any(fn in SLOPE_NORMALS for fn in funcs):  # called where ignore_defects is False
+        return "slopes", 1.0
     if "synth_source" in funcs or "vogel_point" in funcs or "sincos_pi_law" in funcs:
-        _f, ln, _fn, _t = next(fr for fr in frames if fr[2] == "synth_source")
+        # the line of synth_source (absent from a chain that starts inside
+        # an out-of-line vogel_point) decides the source kind's branch
+        lines = [ln for _f, ln, fn, _t in frames if fn == "synth_source"]
         skipped = set().union(*(b for k, b in src.source_only.items() if k != path["source"]))
-        return "source", float(ln not in skipped)
+        return "source", float(not lines or lines[0] not in skipped)
     walk = [fr for fr in frames if fr[2] in ("trace_chain_maps", "k7_walk")]
     if walk:
         _f, ln, fn, text = walk[-1]
@@ -344,6 +430,8 @@ def _stage_of(chain, src: _Sources, path=FLAGSHIP_PATH):
         step = inner[-1][3] if inner and inner[-1][2] == "mirror_step" else text
         if fn == "trace_chain_maps" and ln in src.premask:
             stage = "premask"
+        elif any(g in DEFECT_HITS and l in src.slopes.get(Path(f).name, ()) for f, l, g, _t in inner):
+            stage = "slopes"
         elif "__any_sync" in text:
             stage = "walk"
         elif re.search(r"\bzk_of|\bgrid_end", step):
@@ -378,8 +466,10 @@ def parse_nvdisasm(text: str, kernel: str) -> list:
     lines above it (one line per frame, ``File "f", line n inlined at
     ...``), innermost first. Instructions of subroutines ending in ``RET``
     (the IEEE sequences' slow paths, past the body's exit) carry the chain
-    None."""
-    out, chain, inside, sub, ended, group = [], [], False, [], False, False
+    None, unless a label names the subroutine and it is not a slow path
+    (``$..._slowpath:``): a part of the body the compiler outlined (a large
+    kernel's ray loop) keeps its chains."""
+    out, chain, inside, sub, ended, group, label = [], [], False, [], False, False, None
     for line in text.splitlines():
         head = re.match(r"\s*\.text\.(\S+):", line)
         if head:
@@ -388,6 +478,9 @@ def parse_nvdisasm(text: str, kernel: str) -> list:
             inside = kernel in head.group(1)
             continue
         if not inside:
+            continue
+        if line.startswith("$") and line.rstrip().endswith(":"):
+            label = line
             continue
         if "//##" in line:
             frame = re.search(r'File "([^"]+)", line (\d+)', line)
@@ -399,8 +492,10 @@ def parse_nvdisasm(text: str, kernel: str) -> list:
         if m:
             sub.append((m.group(1), chain))
             if m.group(1) in ("EXIT", "RET"):
-                # a segment ends: the body's (kept) or a subroutine's (slow path)
-                out += [(op, None if m.group(1) == "RET" else c) for op, c in sub]
+                # a segment ends: the body's (kept) or a subroutine's (slow
+                # path, or an outlined part of the body: kept)
+                slow = m.group(1) == "RET" and (label is None or "_slowpath" in label)
+                out += [(op, None if slow else c) for op, c in sub]
                 sub, ended = [], True
     # past the body's last exit and the subroutines: its closing loop and padding
     return out if ended else sub
@@ -421,12 +516,25 @@ def stage_counts(instructions, src: _Sources, path=FLAGSHIP_PATH) -> dict:
     return {st: counts[st] for st in STAGES if st in counts}
 
 
-def sass_stages(lib_path, kernel: str = "stats_primal_kernelILi0E", csrc=None) -> dict:
+def stage_local_memory(instructions, src: _Sources, path=FLAGSHIP_PATH) -> dict:
+    """``{stage: n}``: the local-memory loads and stores
+    (:data:`LOCAL_MEMORY`) among one pass of each stage's instructions, as
+    :func:`stage_counts` weighs them."""
+    out = {}
+    for op, chain in instructions:
+        if op in LOCAL_MEMORY:
+            stage, weight = ("slow path", 1.0) if chain is None else _stage_of(chain, src, path)
+            out[stage] = out.get(stage, 0) + weight
+    return out
+
+
+def sass_stages(lib_path, kernel: str = "stats_primal_kernelILi0E", csrc=None, local: bool = False):
     """:func:`stage_counts` of ``kernel`` (a piece of its mangled name: the
     default is K7 without defects) in a library built from ``csrc`` (default
     this checkout's) with line information (``-lineinfo``, as
     ``_cuda.NVCC_FLAGS`` builds): its cubins extracted (``cuobjdump
-    -xelf``) and disassembled with the inline chains (``nvdisasm -gi``)."""
+    -xelf``) and disassembled with the inline chains (``nvdisasm -gi``).
+    With ``local`` also its :func:`stage_local_memory`: ``(stages, local)``."""
     import tempfile
 
     src = _Sources(Path(csrc or _cuda.CSRC))
@@ -439,7 +547,9 @@ def sass_stages(lib_path, kernel: str = "stats_primal_kernelILi0E", csrc=None) -
             res = subprocess.run([_cuda_tool("nvdisasm"), "-c", "-gi", str(cubin)], capture_output=True,
                                  text=True)
             if kernel in res.stdout:
-                return stage_counts(parse_nvdisasm(res.stdout, kernel), src)
+                instructions = parse_nvdisasm(res.stdout, kernel)
+                stages = stage_counts(instructions, src)
+                return (stages, stage_local_memory(instructions, src)) if local else stages
     raise RuntimeError(f"no function {kernel!r} in {lib_path}")
 
 
@@ -457,6 +567,110 @@ def issue_bound(stages: dict, warps: dict, clock_hz: float, sms: int = H100_SMS)
     rate = sms * clock_hz / 1e3
     out = {"issue": slots["total"] / (ISSUE_PER_SM_CLOCK * rate)}
     out.update({p: slots[p] * 32 / (lanes * rate) for p, lanes in PIPE_LANES.items()})
+    return out
+
+
+def alive_by_stage(table, spec, chunks, n_total, dev, ignore_defects: bool = True, warps: bool = False):
+    """The rays of a fused source's ``chunks`` alive on entering each
+    element of ``table`` and past its folded masks, then at the chain's end:
+    ``[entering 0, past masks 0, entering 1, ..., at the end]``, counted on
+    the plain trace (K1's plain version, chunk by chunk, the sums on the
+    device). A kernel's warp exit skips the rest of the chain for the
+    others, so the function needs no more than these rays' work. With
+    ``warps`` also the same counts of warps (32 consecutive rays of a chunk,
+    a kernel warp's lanes) holding at least one such ray: ``(rays, warps)``."""
+    from ..ops import fused_trace as ft
+    from ..ops import trace as tr
+
+    counts = torch.zeros((2, 2 * len(table.elements) + 1), dtype=torch.int64, device=dev)
+    elements = ft._grids_on(table.elements, dev)
+
+    def add(i, alive):
+        counts[0, i] += alive.sum()
+        if warps:
+            lanes = torch.cat([alive, alive.new_zeros((-alive.numel()) % 32)])
+            counts[1, i] += lanes.view(-1, 32).any(dim=1).sum()
+
+    for n_local, phase, k_frac in chunks:
+        k = torch.arange(n_local, dtype=torch.int64, device=dev)
+        (px, py, pz), (dx, dy, dz), _rr = ft.synth_spec(spec, k, n_total, phase, k_frac)
+        zeros = torch.zeros_like(px)
+        s = tr.TraceState(px, py, pz, dx, dy, dz, zeros, zeros, torch.ones_like(px, dtype=torch.bool), zeros)
+        for i, (el, (M, b), pre) in enumerate(zip(elements, table.maps, table.premasks)):
+            add(2 * i, s.alive)
+            add(2 * i + 1, tr.premask_alive(pre, s)[0] if pre else s.alive)
+            s = tr.chained_step(el, M, b, s, want_incidence=False, ignore_defects=ignore_defects,
+                                premasks=pre, freeze_dead=False)
+        add(-1, s.alive)
+    rays, warp_counts = ([int(c) for c in row] for row in counts.tolist())
+    return (rays, warp_counts) if warps else rays
+
+
+def stage_warps(table, warps, n_blocks: int, ignore_defects: bool = True) -> dict:
+    """The warp passes through each stage of :data:`STAGES` in one launch
+    of a summing kernel on ``table`` (``warps`` from :func:`alive_by_stage`;
+    ``n_blocks`` blocks of 8 warps): the set-up and the reduction once per
+    warp, the source and the ray loop once per warp of rays, the walk per
+    element entered, an element's map and step per warp past its masks, its
+    folded masks' tests per warp entering it, the epilogue per warp with a
+    ray alive at the end (a deformed mirror's slopes only without
+    ``ignore_defects``)."""
+    from ..ops import surfaces as srf
+    from ..ops.trace import MaskElement
+
+    out = {"setup": 8 * n_blocks, "reduction": 8 * n_blocks, "ray loop": warps[0], "source": warps[0],
+           "epilogue": warps[-1]}
+    for i, (el, pre) in enumerate(zip(table.elements, table.premasks)):
+        entering, past = warps[2 * i], warps[2 * i + 1]
+        steps = ["walk"] + (["premask"] if pre else [])
+        for st in steps:
+            out[st] = out.get(st, 0) + entering
+        if isinstance(el, MaskElement):
+            kinds = ["map", "mask"]
+        else:
+            surface = {srf.Toroid: "toroid", srf.Plane: "plane"}.get(type(el.surface), "quadric")
+            kinds = ["map", surface, "mirror"]
+            if el.defects:
+                kinds += ["defects"] + ([] if ignore_defects else ["slopes"])
+        for st in kinds:
+            out[st] = out.get(st, 0) + past
+    return out
+
+
+def clock_hz() -> float:
+    """The card's highest SM clock (``nvidia-smi clocks.max.sm``) [Hz]."""
+    mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout.split()[0]
+    return float(mhz) * 1e6
+
+
+def stages_text(tag: str, stages: dict, local: dict) -> str:
+    """One line per stage of :func:`sass_stages`' counts: its warp
+    instructions a pass, by pipe, and its local-memory loads and stores."""
+    return "\n".join(f"{tag} SASS {st}: {c['total']:g} ({_pipes_text(c)}; local memory "
+                     f"{local.get(st, 0):g})" for st, c in stages.items())
+
+
+#: K6's instantiations by chain (csrc/fused_grad.cu stats_params_kernel<G,
+#: DEFECTS>): the mangled piece with the build's tangent batch G
+K6_BRANCHES = {"flat": 0, "zernike": 1, "grid": 2}
+
+
+def k6_kernel(tangent_batch: int, chain: str) -> str:
+    """The piece of K6's mangled name for ``chain``'s instantiation."""
+    return f"stats_params_kernelILi{tangent_batch}ELi{K6_BRANCHES[chain]}E"
+
+
+def _k6_stages(lib_path, tangent_batch: int, csrc, chains) -> dict:
+    """{chain: (K6's SASS by stage, its local memory by stage)} of a build
+    for each chain's instantiation (:func:`sass_stages`), or {chain: the
+    reason}."""
+    out = {}
+    for chain in chains:
+        try:
+            out[chain] = sass_stages(lib_path, k6_kernel(tangent_batch, chain), csrc, local=True)
+        except (OSError, RuntimeError, subprocess.CalledProcessError) as exc:
+            out[chain] = f"unavailable ({exc})"
     return out
 
 
@@ -845,7 +1059,22 @@ def _problems(n_rays: int, device, kind: str = "flat", n_image: int | None = Non
             out["K1i"] = (lambda k1i=k1i: k1i(images), image_result)
         return out
 
-    return {"K1": k1, "K3": k3, "K4": k4}, per_lib, {"K1": k1_outputs}
+    table6 = fg.pose_table(lspec.elements, gsvec)
+    alive6 = []
+
+    def k6_warps(lib):
+        """K6's warp passes through each stage in one launch of ``lib``'s
+        build (:func:`stage_warps` of the plain trace's alive warps, once
+        per group of the build's tangent batch)."""
+        if not alive6:
+            alive6.append(alive_by_stage(table6, fg.loss_source(lspec), gchunks, lspec.n_rays, device,
+                                         ignore_defects=lspec.ignore_defects, warps=True)[1])
+        groups = -(-len(tang) // lib.art_tangent_batch())
+        n_blocks = ft.ray_grid([c[0] for c in gchunks], lib.art_moment_rays_per_block())[1]
+        return {k: v * groups for k, v in stage_warps(table6, alive6[0], n_blocks,
+                                                       lspec.ignore_defects).items()}
+
+    return {"K1": k1, "K3": k3, "K4": k4}, per_lib, {"K1": k1_outputs, "K6_warps": k6_warps}
 
 
 def _window_ms(launch, inner=5) -> float:
@@ -989,15 +1218,24 @@ def main(argv=None):
               f"{sass_summary(lib_a._name)}", flush=True)
         if "K7" in keys:
             print(_k7_stages_text(lib_a._name, _cuda.ABI_VERSION, _cuda.CSRC), flush=True)
+        k6_stages = {}
+        if "K6" in keys:
+            k6_stages["A"] = _k6_stages(lib_a._name, _cuda.tangent_batch(), _cuda.CSRC, chains)
         others = []
         for i, (csrc, build) in enumerate(zip(args.other_csrc, builds)):
             path, regs = build.result()
             lib, version = bind(path)
-            print(f"B{i} = {csrc} (C interface version {version})\n{regs}\n{sass_summary(path)}",
-                  flush=True)
+            print(f"B{i} = {csrc} (C interface version {version})\n{regs}\n{sass_summary(path)}\n"
+                  f"{same_sass_text(sass_digests(lib_a._name), sass_digests(path))}", flush=True)
             if "K7" in keys:
                 print(_k7_stages_text(path, version, csrc), flush=True)
+            if "K6" in keys and version >= 7:
+                k6_stages[f"B{i}"] = _k6_stages(path, lib.art_tangent_batch(), csrc, chains)
             others.append((f"B{i}", str(csrc), lib, version))
+    for name, per_chain in k6_stages.items():
+        for chain, stages in per_chain.items():
+            print(f"K6 {chain} ({name}) SASS by stage: {stages}" if isinstance(stages, str)
+                  else stages_text(f"K6 {chain} ({name})", *stages), flush=True)
     print(f"{card}; {1 + len(others)} libraries ready in {time.perf_counter() - t0:.1f} s", flush=True)
     flat, result = None, {}
     for chain in chains:
@@ -1017,6 +1255,14 @@ def main(argv=None):
                 a, b, diff = _ab(key, shared, own, name, lib_a, lib, args.rounds, results)
                 result.setdefault(chain, {}).setdefault(key, {})[name] = {
                     "other": csrc, "A_ms": a, "B_ms": b, "B_over_A": b / a}
+                if key == "K6":
+                    for ab, lib_ab, ms in (("A", lib_a, a), (name, lib, b)):
+                        bound = _k6_issue_bound(k6_stages, ab, chain, results["K6_warps"], lib_ab)
+                        if bound:
+                            result[chain][key][name][f"{ab}_issue_ms"] = bound["issue"]
+                            print(f"K6 {chain} flagship ({ab}): {ms:.4f} ms against its issue-slot bound "
+                                  + ", ".join(f"{p} {v:.4f}" for p, v in bound.items())
+                                  + " ms (per pipe: its lanes)", flush=True)
                 rays = int(args.image_rays or args.rays) if key == "K1i" else int(args.rays)
                 print(f"{key} {chain} flagship vs {name}: this build {a:.4f} ms, other build {b:.4f} ms "
                       f"(B/A {b / a:.4f}; {2 * args.rounds} windows each of 5 launches at "
@@ -1030,6 +1276,16 @@ def main(argv=None):
             deformed[kind] = _time_deformed(keys, kind, *flat, args, device)
     print(json.dumps({"card": card, "rays": int(args.rays), "kernels": result, "deformed": deformed}),
           flush=True)
+
+
+def _k6_issue_bound(k6_stages, name, chain, k6_warps, lib) -> dict | None:
+    """:func:`issue_bound` of build ``name``'s K6 on ``chain`` (its SASS by
+    stage, the launch's warp passes), or None where its stages are not
+    read."""
+    stages = k6_stages.get(name, {}).get(chain)
+    if isinstance(stages, str) or stages is None:
+        return None
+    return issue_bound(stages[0], k6_warps(lib), clock_hz())
 
 
 def _time_deformed(keys, kind, shared, own_a, args, device):

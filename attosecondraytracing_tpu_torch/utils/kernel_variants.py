@@ -77,6 +77,21 @@ K6 (``fused_grad.cu``):
   reduction).
 * ``..._ieee``: the tangent-only factors of ``dual.cuh`` as IEEE divides
   (``1 / b``, ``0.5 / sqrt``, ``-r / (2 a)``), as in the first version.
+
+K6 on deformed mirrors (``trace_common.cuh``, the defect branch's forms for
+``Dual<G>``; time ``--kernels K6 --chains flat,zernike,grid``; G = 3 is
+``g3_b2``):
+
+* ``k6_slopes_noinline``: the slope normals (``zernike_slope_normal``,
+  ``deformed_slope_normal``, run only where ignore_defects is False) out of
+  line (calls), in place of the shipped inline code.
+* ``k6_two_walks``: K6's walk in two copies on a deformed chain's
+  ignore_defects (the first one's slope normals folded away), in place of
+  the shipped one (its SASS by stage counts both copies).
+* ``k6_dual_recurrence``: the recurrence and the grid lookups on
+  ``Dual<G>`` (the generic ``zernike_hit`` / ``deformed_hit``, the form of
+  the form before the float sums), in place of the shipped float sums with their tangents composed
+  at the hit.
 """
 
 from __future__ import annotations
@@ -297,6 +312,24 @@ def variants() -> dict:
     for base in ("g2_b3", "g3_b1", "g3_b2", "g3_b3", "g6_b1", "g6_b2", "g6_b3", "g9_b1", "g9_b2"):
         out[f"{base}_reg"] = out[base] + _REG
     out["g6_b2_ieee"] = out["g6_b2"] + _IEEE
+    out["k6_slopes_noinline"] = [
+        _lit("trace_common.cuh", f"__device__ __forceinline__ void {name}(", f"__device__ __noinline__ void {name}(")
+        for name in ("zernike_slope_normal", "deformed_slope_normal")]
+    out["k6_two_walks"] = [
+        _lit("fused_grad.cu", """  trace_runtime_pose<DEFECTS>(ch, src, pose, min(chunk, n_rays - br.chunk * chunk), br.first,
+                              cp.x, cp.y, [&](const RayT<S>& s, float rr) {""",
+             "  const auto sums = [&](const RayT<S>& s, float rr) {"),
+        _lit("fused_grad.cu", """  });
+  acc.reduce(rows""", """  };
+  const int n_local = min(chunk, n_rays - br.chunk * chunk);
+  if (DEFECTS != NO_DEFECTS && ch.ignore_defects != 0)
+    trace_runtime_pose<DEFECTS>(ch, src, pose, n_local, br.first, cp.x, cp.y, sums);
+  else
+    trace_runtime_pose<DEFECTS>(ch, src, pose, n_local, br.first, cp.x, cp.y, sums);
+  acc.reduce(rows""")]
+    out["k6_dual_recurrence"] = [
+        ("trace_common.cuh", rf"// {name} on Dual<G>:.*?\n}}\n", "", re.DOTALL)
+        for name in ("zernike_hit", "deformed_hit")]
     return out
 
 

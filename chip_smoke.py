@@ -33,8 +33,10 @@ port's paths through the entry points a user calls, and checks the results:
 * Zernike surface defects: ``main.main`` on the deformed flagship (its first
   toroid a ``DeformedMirror`` with four Zernike terms) at 1e7 rays through
   K1 and K2, and every kernel K1-K8 held against its plain version on the
-  deformed chain (K1 and K2 with ``ignore_defects`` True and False), with
-  each kernel's deformed-chain time beside its undeformed time;
+  deformed chain (K1, K2 and K6 with ``ignore_defects`` True and False), with
+  each kernel's deformed-chain time beside its undeformed time, and
+  ``gradient_align`` on the deformed flagship at 1e7 rays (12 Adam steps,
+  12 K6 launches);
 * grid defect maps: the same on the grid flagship (its first toroid a
   ``DeformedMirror`` with a 1 nm Fourier-PSD map of 3000 x 640 nodes), and
   ``examples/CONFIG_deformed.py`` at ``--rays 1e7`` through the port's CLI
@@ -112,7 +114,14 @@ Each entry also carries the phase zernike's numbers:
 ``zernike_bound_ms`` and ``zernike_bound_by``, and the phase grid's
 (``grid_ms``, ``grid_flat_ms``, ``grid_bound_ms``, ``grid_bound_by``: the
 grid flagship's; its bytes add the smaller of the map's packed bytes and
-four 32-byte sectors per ray and lookup), K1's also ``config_deformed_ms``
+four 32-byte sectors per ray and lookup); K6's, per deformed flagship, also
+the bound with the count of the defect branch on Dual<G> throughout
+(``zernike_dual_recurrence_bound_ms``),
+its ``gradient_align`` run (``zernike_grad_align``: launches, ms per step,
+first and last loss), ptxas's registers, stack frame and spill bytes of
+its instantiation, its SASS's local-memory operations by stage and its
+issue-slot bound (``zernike_local_memory``, ``zernike_issue_ms``), and the
+same ``grid_...`` fields; K1's also ``config_deformed_ms``
 and ``config_deformed_flat_ms`` (its launch on examples/CONFIG_deformed.py's
 chain at 1e7 rays with and without the map). The entries P4 and P5 follow:
 their launches in the probe's run, the largest error against the plain
@@ -201,29 +210,42 @@ OPS = {
     # alpha, the shifted t and point, rows 0-1 of the values ("shift"); each
     # further (n, m) term of the values pass, its row entry and the sum
     # ("term"); with ignore_defects False each term of the slopes pass and
-    # the composed normal ("slope_term", "compose"). On Dual<G> (K6), per
-    # tangent: the shift's and each value term's linear parts, and once
-    # the reciprocals the tangents share
+    # the composed normal ("slope_term", "compose"). On Dual<G> (K6's
+    # zernike_hit for Dual<G>, ignore_defects True): the recurrence runs on
+    # the primal with slopes, once per ray, so each term adds its slope
+    # rows and sums ("dual_zernike_gradient_term"), and once the gradient's
+    # scaling and the reciprocals the tangents share ("once"); per tangent
+    # the shift's linear parts (the normals, cos alpha, t and the point)
+    # and the height's tangent composed at the hit, h_x t(x) + h_y t(y)
     "zernike_shift": 55,
     "zernike_term": 9,
     "zernike_slope_term": 19,
     "zernike_compose": 22,
-    "dual_zernike_once": 12,
-    "dual_zernike_shift_tangent": 114,
-    "dual_zernike_term_tangent": 18,
+    "dual_zernike_once": 14,
+    "dual_zernike_gradient_term": 10,
+    "dual_zernike_shift_tangent": 112,
     # a mirror with one grid map (trace_common.cuh deformed_hit and
     # grid_sums, on a toroid): the two surface normals, cos alpha, the
     # shifted t and point, the support coordinates and the height lookup
     # (fractional indices by IEEE divide, weights, 4 corners, the sum:
     # "grid_shift"); with ignore_defects False the slope lookup (two more
-    # channels) and the composed normal ("grid_slopes"). On Dual<G> (K6):
-    # once the reciprocals the tangents share, and per tangent the shift's
-    # and the height lookup's linear parts
+    # channels) and the composed normal ("grid_slopes"). On Dual<G> (K6's
+    # deformed_hit for Dual<G>): once the reciprocals the tangents share and
+    # the lookup's two cell derivatives (grid_cell), and per tangent the
+    # shift's linear parts and the height's tangent composed at the hit
     "grid_shift": 69,
     "grid_slopes": 48,
-    "dual_grid_once": 14,
-    "dual_grid_shift_tangent": 132,
+    "dual_grid_once": 30,
+    "dual_grid_shift_tangent": 110,
 }
+#: the same counts for K6's defect branch with the recurrence and the
+#: lookup on Dual<G> (the form before the float sums), printed beside the
+#: bound:
+#: per tangent the shift's and every value term's linear parts, and the
+#: lookup's
+OPS_DUAL_RECURRENCE = {"dual_zernike_once": 12, "dual_zernike_shift_tangent": 114,
+                        "dual_zernike_term_tangent": 18, "dual_grid_once": 14,
+                        "dual_grid_shift_tangent": 132}
 
 #: the Zernike defects of the deformed flagship's first toroid (the phase's
 #: chain: astigmatism, coma, a 4th- and a 6th-order term, in mm)
@@ -359,39 +381,12 @@ def _trace_ops(table, source: bool, ignore_defects: bool = True) -> int:
 
 def _alive_by_stage(torch, table, spec, chunks, n_total, dev, ignore_defects: bool = True,
                     warps: bool = False):
-    """The rays of a fused source's ``chunks`` alive on entering each
-    element of ``table`` and past its folded masks, then at the chain's end:
-    ``[entering 0, past masks 0, entering 1, ..., at the end]``, counted on
-    the plain trace (K1's plain version, chunk by chunk, the sums on the
-    device). A kernel's warp exit skips the rest of the chain for the
-    others, so the function needs no more than these rays' work. With
-    ``warps`` also the same counts of warps (32 consecutive rays of a chunk,
-    a kernel warp's lanes) holding at least one such ray: ``(rays, warps)``."""
-    from attosecondraytracing_tpu_torch.ops import fused_trace as ft
-    from attosecondraytracing_tpu_torch.ops import trace as tr
+    """The rays (and with ``warps`` the warps) of a fused source's
+    ``chunks`` alive at each stage of ``table``, counted on the plain trace
+    (utils/kernel_ab.alive_by_stage)."""
+    from attosecondraytracing_tpu_torch.utils import kernel_ab as ab
 
-    counts = torch.zeros((2, 2 * len(table.elements) + 1), dtype=torch.int64, device=dev)
-    elements = ft._grids_on(table.elements, dev)
-
-    def add(i, alive):
-        counts[0, i] += alive.sum()
-        if warps:
-            lanes = torch.cat([alive, alive.new_zeros((-alive.numel()) % 32)])
-            counts[1, i] += lanes.view(-1, 32).any(dim=1).sum()
-
-    for n_local, phase, k_frac in chunks:
-        k = torch.arange(n_local, dtype=torch.int64, device=dev)
-        (px, py, pz), (dx, dy, dz), _rr = ft.synth_spec(spec, k, n_total, phase, k_frac)
-        zeros = torch.zeros_like(px)
-        s = tr.TraceState(px, py, pz, dx, dy, dz, zeros, zeros, torch.ones_like(px, dtype=torch.bool), zeros)
-        for i, (el, (M, b), pre) in enumerate(zip(elements, table.maps, table.premasks)):
-            add(2 * i, s.alive)
-            add(2 * i + 1, tr.premask_alive(pre, s)[0] if pre else s.alive)
-            s = tr.chained_step(el, M, b, s, want_incidence=False, ignore_defects=ignore_defects,
-                                premasks=pre, freeze_dead=False)
-        add(-1, s.alive)
-    rays, warp_counts = ([int(c) for c in row] for row in counts.tolist())
-    return (rays, warp_counts) if warps else rays
+    return ab.alive_by_stage(table, spec, chunks, n_total, dev, ignore_defects=ignore_defects, warps=warps)
 
 
 def _ops_where_rays_die(table, alive, end_ops: int, ignore_defects: bool = True) -> int:
@@ -408,18 +403,24 @@ def _ops_where_rays_die(table, alive, end_ops: int, ignore_defects: bool = True)
     return ops
 
 
-def _dual_defect_ops(elements, n_tangents: int) -> int:
+def _dual_defect_ops(elements, n_tangents: int, dual_recurrence: bool = False) -> int:
     """Per-ray operations the defect branch adds on Dual<G> (K6) for a
     gradient step of ``n_tangents`` rows, ignore_defects True: once, and
-    its linear parts per tangent."""
+    its linear parts per tangent (``dual_recurrence``: the form with the
+    recurrence and the lookup on Dual<G>, :data:`OPS_DUAL_RECURRENCE`)."""
     ops = 0
     for el in elements:
         kind = _defect_kind(el)
-        if kind == "zernike":
-            ops += OPS["dual_zernike_once"] + n_tangents * (
-                OPS["dual_zernike_shift_tangent"] + _zernike_terms(el) * OPS["dual_zernike_term_tangent"])
+        if kind == "zernike" and dual_recurrence:
+            p = OPS_DUAL_RECURRENCE
+            ops += p["dual_zernike_once"] + n_tangents * (
+                p["dual_zernike_shift_tangent"] + _zernike_terms(el) * p["dual_zernike_term_tangent"])
+        elif kind == "zernike":
+            ops += (OPS["dual_zernike_once"] + _zernike_terms(el) * OPS["dual_zernike_gradient_term"]
+                    + n_tangents * OPS["dual_zernike_shift_tangent"])
         elif kind == "grid":
-            ops += OPS["dual_grid_once"] + n_tangents * OPS["dual_grid_shift_tangent"]
+            p = OPS_DUAL_RECURRENCE if dual_recurrence else OPS
+            ops += p["dual_grid_once"] + n_tangents * p["dual_grid_shift_tangent"]
     return ops
 
 
@@ -1473,30 +1474,10 @@ def _k7_stage_split(torch, dev, chain, host, geo, params, det, rays, warps):
 
 def _stage_warps(table, warps, n_blocks: int) -> dict:
     """The warp passes through each stage of kernel_ab.STAGES in one launch
-    of a summing kernel on ``table`` (``warps`` from :func:`_alive_by_stage`;
-    ``n_blocks`` blocks of 8 warps): the set-up and the reduction once per
-    warp, the source and the ray loop once per warp of rays, the walk per
-    element entered, an element's map and step per warp past its masks, its
-    folded masks' tests per warp entering it, the epilogue per warp with a
-    ray alive at the end."""
-    from attosecondraytracing_tpu_torch.ops import surfaces as srf
-    from attosecondraytracing_tpu_torch.ops.trace import MaskElement
+    of a summing kernel on ``table`` (utils/kernel_ab.stage_warps)."""
+    from attosecondraytracing_tpu_torch.utils import kernel_ab as ab
 
-    out = {"setup": 8 * n_blocks, "reduction": 8 * n_blocks, "ray loop": warps[0], "source": warps[0],
-           "epilogue": warps[-1]}
-    for i, (el, pre) in enumerate(zip(table.elements, table.premasks)):
-        entering, past = warps[2 * i], warps[2 * i + 1]
-        steps = ["walk"] + (["premask"] if pre else [])
-        for st in steps:
-            out[st] = out.get(st, 0) + entering
-        if isinstance(el, MaskElement):
-            kinds = ["map", "mask"]
-        else:
-            surface = {srf.Toroid: "toroid", srf.Plane: "plane"}.get(type(el.surface), "quadric")
-            kinds = ["map", surface, "mirror"] + (["defects"] if el.defects else [])
-        for st in kinds:
-            out[st] = out.get(st, 0) + past
-    return out
+    return ab.stage_warps(table, warps, n_blocks)
 
 
 def _k7_issue_bounds(prefixes) -> dict:
@@ -1510,8 +1491,7 @@ def _k7_issue_bounds(prefixes) -> dict:
     from attosecondraytracing_tpu_torch.utils import kernel_ab as ab
 
     try:
-        mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-                                   capture_output=True, text=True, check=True).stdout.split()[0])
+        mhz = ab.clock_hz() / 1e6
         stages = ab.sass_stages(_cuda.library()._name)
     except (OSError, RuntimeError, ValueError, subprocess.CalledProcessError) as exc:
         print(f"K7 SASS by stage not measured ({exc})", flush=True)
@@ -1897,11 +1877,13 @@ def _deformed_k5(torch, dev, kind):
 
 
 def _deformed_k678(torch, dev, kind):
-    """K6's 18 tangent rows of one launch against stats_params_ref, K7
+    """K6's 18 tangent rows of one launch against stats_params_ref with
+    ignore_defects True and False (the loss and gradient they give too), K7
     against its plain version and equal to K6's primal, and K8 at 20
     distances against its plain version and against K2's moments, all on
     the ``kind`` flagship at 2^20 rays (phases k67's and k8's tolerances).
-    Returns the (K6 gradient, K7 loss, K8 spot SD) differences."""
+    Returns the (K6 gradient with ignore_defects True, K7 loss, K8 spot SD)
+    differences."""
     import numpy as np
 
     from attosecondraytracing_tpu_torch.ops import fused_grad as fg
@@ -1912,30 +1894,37 @@ def _deformed_k678(torch, dev, kind):
     svec = fg.chain_scalars_np(fg._apply_params_np(host, params), *geo)
     tang = fg.scalar_tangents(host, params, *geo)
     chunks = fg._ray_chunks(spec, fg.GRAD_CHUNK)
-    _reset_launches()
-    p_k, t_k = fg.fused_stats_params(spec, svec, tang, chunks, device=dev)
-    _check(_launches()["K6"] == 1 and tang.shape[0] == 18, f"K6 {kind}: {_launches()}, {tang.shape}")
-    p_r, t_r = fg.stats_params_ref(spec, svec, tang, chunks, device=dev)
-    _check_grad_sums(f"K6 {kind} flagship (18 tangent rows in one launch)", p_k, p_r, spec.opl_ref)
-    scale = np.maximum(np.abs(t_r).max(axis=0), 1e-12)
-    per_stat = (np.abs(t_k - t_r) / scale).max(axis=0)
-    print(f"K6 {kind}: the 18 tangent rows within " + ", ".join(
-        f"{f} {v:.3g}" for f, v in zip(ft.STATS_FIELDS, per_stat)) + " of each statistic's largest",
-        flush=True)
-    _check(np.all(np.isfinite(t_k)) and per_stat[:5].max() <= 2e-3 and per_stat[5:].max() <= 2e-2,
-           f"K6 {kind}: tangents differ by {per_stat}")
+    # K6 with ignore_defects True (gradient_align's) and False (the defect
+    # slopes in the normals: their tangents are the Hessian's rows)
+    for ignore in (True, False):
+        ispec = spec._replace(ignore_defects=ignore)
+        _reset_launches()
+        p_i, t_i = fg.fused_stats_params(ispec, svec, tang, chunks, device=dev)
+        _check(_launches()["K6"] == 1 and tang.shape[0] == 18, f"K6 {kind}: {_launches()}, {tang.shape}")
+        p_ir, t_ir = fg.stats_params_ref(ispec, svec, tang, chunks, device=dev)
+        tag = f"K6 {kind} flagship, ignore_defects {ignore}"
+        _check_grad_sums(f"{tag} (18 tangent rows in one launch)", p_i, p_ir, spec.opl_ref)
+        scale = np.maximum(np.abs(t_ir).max(axis=0), 1e-12)
+        per_stat = (np.abs(t_i - t_ir) / scale).max(axis=0)
+        print(f"{tag}: the 18 tangent rows within " + ", ".join(
+            f"{f} {v:.3g}" for f, v in zip(ft.STATS_FIELDS, per_stat)) + " of each statistic's largest",
+            flush=True)
+        _check(np.all(np.isfinite(t_i)) and per_stat[:5].max() <= 2e-3 and per_stat[5:].max() <= 2e-2,
+               f"{tag}: tangents differ by {per_stat}")
+        loss_k, dloss = fg._loss_from_stats(p_i, ispec, fg._total_weight(ispec))
+        loss_r, dloss_r = fg._loss_from_stats(p_ir, ispec, fg._total_weight(ispec))
+        g_k, g_r = t_i @ dloss, t_ir @ dloss_r
+        print(f"{tag}: loss {loss_k:.9g} vs {loss_r:.9g}, gradient max |diff| "
+              f"{np.abs(g_k - g_r).max():.3g} of max |g| {np.abs(g_r).max():.3g}", flush=True)
+        _check(abs(loss_k - loss_r) <= 2e-3 * abs(loss_r), f"{tag}: loss {loss_k} vs {loss_r}")
+        _check(np.all(np.abs(g_k - g_r) <= 2e-2 * np.abs(g_r).max() + 2e-2 * np.abs(g_r)),
+               f"{tag}: gradient {g_k} vs {g_r}")
+        if ignore:
+            p_k, err6 = p_i, float(np.abs(g_k - g_r).max())
     p7, _ = fg.fused_stats_params(spec, svec, None, chunks, device=dev)
     p7_r, _ = fg.stats_params_ref(spec, svec, None, chunks, device=dev)
     _check_grad_sums(f"K7 {kind} flagship", p7, p7_r, spec.opl_ref)
     _check_grad_sums(f"K7 vs K6 primal {kind} flagship", p7, p_k, spec.opl_ref)
-    loss_k, dloss = fg._loss_from_stats(p_k, spec, fg._total_weight(spec))
-    loss_r, dloss_r = fg._loss_from_stats(p_r, spec, fg._total_weight(spec))
-    g_k, g_r = t_k @ dloss, t_r @ dloss_r
-    print(f"K6 {kind}: loss {loss_k:.9g} vs {loss_r:.9g}, gradient max |diff| "
-          f"{np.abs(g_k - g_r).max():.3g} of max |g| {np.abs(g_r).max():.3g}", flush=True)
-    _check(abs(loss_k - loss_r) <= 2e-3 * abs(loss_r), f"K6 {kind}: loss {loss_k} vs {loss_r}")
-    _check(np.all(np.abs(g_k - g_r) <= 2e-2 * np.abs(g_r).max() + 2e-2 * np.abs(g_r)),
-           f"K6 {kind}: gradient {g_k} vs {g_r}")
     err7 = _check_focus_loss(f"K7 {kind} flagship", fg, params, spec, host, geo, p7_r, dev)
 
     spec8, elements, det, (opl_ref, inv_dn), chunks8, n = _k2_setup(torch, dev, chain, N_CHECK)
@@ -1955,7 +1944,7 @@ def _deformed_k678(torch, dev, kind):
     k2 = ft.moments_to_distance_sums(mom, distances)
     _check_sum_stats(f"K8 J=20 {kind} flagship vs K2 moments", k8,
                      np.stack([k2[f] for f in ft.STATS_FIELDS]), opl_ref, distances)
-    return float(np.abs(g_k - g_r).max()), err7, err8
+    return err6, err7, err8
 
 
 def _kernel_launches(torch, dev, chain):
@@ -2008,18 +1997,25 @@ def _kernel_launches(torch, dev, chain):
     gchunks = fg._ray_chunks(lspec, fg.GRAD_CHUNK)
     table7 = fg.pose_table(lspec.elements, gsvec)
     per_ray = _trace_ops(table7, True) + OPS["weight"]
+    alive7, warps7 = _alive_by_stage(torch, table7, fg.loss_source(lspec), gchunks, lspec.n_rays, dev,
+                                     warps=True)
     for key, group in (("K6", tang), ("K7", None)):
         rows, launch = fg.prepare_stats_params(lspec, gsvec, group, gchunks, device=dev)
         n_in = gsvec.size
         if group is not None:
             P = len(group)
             ops = per_ray * n + OPS["stats"] * n_alive
-            ops += (OPS["dual_trace_once"] + P * OPS["dual_trace_tangent"]
-                    + _dual_defect_ops(lspec.elements, P)) * n
+            ops += (OPS["dual_trace_once"] + P * OPS["dual_trace_tangent"]) * n
             ops += (OPS["dual_stats_once"] + P * OPS["dual_stats_tangent"]) * n_alive
             n_in += group.size
+            n_bytes = rows.numel() * 8 + 4 * n_in + 8 * len(gchunks) + grid_bytes
+            # K6's warp passes through each stage: every group retraces the primal
+            out["K6_stage_warps"] = {k: v * rows.shape[0]
+                                     for k, v in _stage_warps(table7, warps7, rows.shape[1]).items()}
+            out["K6_dual_recurrence_bound"] = _bound(
+                n_bytes, ops + _dual_defect_ops(lspec.elements, P, dual_recurrence=True) * n)
+            ops += _dual_defect_ops(lspec.elements, P) * n
         else:
-            alive7 = _alive_by_stage(torch, table7, fg.loss_source(lspec), gchunks, lspec.n_rays, dev)
             ops = _ops_where_rays_die(table7, alive7, OPS["weight"] + OPS["stats"])
         out[key] = (launch, _bound(rows.numel() * 8 + 4 * n_in + 8 * len(gchunks) + grid_bytes, ops))
     distances = tuple(float(d) for d in np.linspace(-10, 10, 20))
@@ -2033,6 +2029,69 @@ def _kernel_launches(torch, dev, chain):
     return out
 
 
+def _deformed_grad_align(torch, dev, kind):
+    """gradient_align on the ``kind`` flagship at 1e7 rays, its first toroid
+    rolled 0.3 deg as phase grad rolls the flagship's, lr 2e-4, survival
+    weight 0.1, 12 Adam steps, engine "auto", the launch counts set to 0
+    just before it: the engine must be cuda-grad, K6 launched once per step
+    and no other kernel, every loss finite. Returns {"launches", "ms_per_step",
+    "loss_first", "loss_last"}."""
+    import numpy as np
+
+    from attosecondraytracing_tpu_torch.analysis import alignment as al
+    from attosecondraytracing_tpu_torch.models.detector import Detector
+
+    chain, _ = _deformed_flagship(N_GRAD, kind=kind)
+    chain.to(dev)
+    chain.rotate_OE(1, "roll", 0.3)
+    det = Detector(chain.optical_elements[-1].position)
+    det.autoplace(chain.trace_final(), 500.0)
+    _check(chain.fused_eligible(), f"the {kind} flagship at {N_GRAD} rays must be fused-eligible")
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _params, history = al.gradient_align(chain, det, iters=GRAD_ITERS, lr=2e-4, survival_weight=0.1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    ms = wall / GRAD_ITERS * 1e3
+    print(f"grad {kind}: gradient_align engine {al.gradient_align.last_engine}, launches {launches}, "
+          f"{GRAD_ITERS} steps in {wall:.3f} s ({ms:.3f} ms per step), loss {history[0]:.6g} -> "
+          f"{history[-1]:.6g}", flush=True)
+    _check(al.gradient_align.last_engine == "cuda-grad", f"{kind} engine {al.gradient_align.last_engine}")
+    _check(launches["K6"] == GRAD_ITERS and all(v == 0 for k, v in launches.items() if k != "K6"),
+           f"{kind} gradient_align launches {launches}")
+    _check(len(history) == GRAD_ITERS and np.all(np.isfinite(history)), f"{kind} losses {history}")
+    return {"launches": launches["K6"], "ms_per_step": ms, "loss_first": float(history[0]),
+            "loss_last": float(history[-1])}
+
+
+def _k6_sass(kind, stage_warps) -> dict:
+    """K6's ``kind`` instantiation in this build: ptxas's registers, stack
+    frame and spills (the build log), its SASS by stage with the
+    local-memory loads and stores of each (utils/kernel_ab.sass_stages),
+    and the issue-slot bound of a launch's warp passes through the stages
+    (``stage_warps``) at the card's clocks.max.sm. Keys prefixed by
+    ``kind``."""
+    from attosecondraytracing_tpu_torch.ops import _cuda
+    from attosecondraytracing_tpu_torch.utils import kernel_ab as ab
+
+    name = f"stats_params_kernel<{_cuda.tangent_batch()}{'' if kind == 'flat' else ', ' + kind}>"
+    ptxas = ab.ptxas_fields(_cuda.build_log_path().read_text()).get(name, {})
+    out = {f"{kind}_{k}": v for k, v in ptxas.items()}
+    try:
+        stages, local = ab.sass_stages(_cuda.library()._name, ab.k6_kernel(_cuda.tangent_batch(), kind),
+                                       local=True)
+        bound = ab.issue_bound(stages, stage_warps, ab.clock_hz())
+    except (OSError, RuntimeError, ValueError, subprocess.CalledProcessError) as exc:
+        print(f"K6 {kind} SASS by stage not measured ({exc})", flush=True)
+        return dict(out, **{f"{kind}_sass": f"not measured ({exc})"})
+    print(f"K6 {kind} ({name}): ptxas {ptxas}\n" + ab.stages_text(f"K6 {kind}", stages, local)
+          + f"\nK6 {kind}: issue-slot bound " + ", ".join(f"{p} {v:.4f}" for p, v in bound.items())
+          + " ms (per pipe: its lanes)", flush=True)
+    return dict(out, **{f"{kind}_local_memory": local, f"{kind}_issue_ms": bound["issue"]})
+
+
 def _deformed_phase(torch, dev, kind):
     """Surface defects of ``kind`` ("zernike" or "grid") through the slice's
     path and every kernel: the main path on the deformed flagship
@@ -2044,6 +2103,7 @@ def _deformed_phase(torch, dev, kind):
     flagship). Returns ({kernel: the phase's numbers, keys prefixed by
     ``kind``}, the main path's launches)."""
     launches = _deformed_main_path(torch, dev, kind)
+    grad_align = _deformed_grad_align(torch, dev, kind)
     err1, err2 = _deformed_k12(torch, dev, kind)
     err3, err4 = _deformed_k34(torch, dev, kind)
     err5 = _deformed_k5(torch, dev, kind)
@@ -2066,6 +2126,10 @@ def _deformed_phase(torch, dev, kind):
               f"on the {kind} chain {errs[key]:.3g}", flush=True)
         out[key] = {f"{kind}_ms": ms, f"{kind}_flat_ms": flat_ms, f"{kind}_bound_ms": bound["bound_ms"],
                     f"{kind}_bound_by": bound["bound_by"], f"{kind}_max_abs_err": errs[key]}
+    dual = deformed["K6_dual_recurrence_bound"]["bound_ms"]
+    print(f"K6 {kind} bound with the defect branch's count on Dual<G> throughout: {dual:.4f} ms", flush=True)
+    out["K6"].update({f"{kind}_dual_recurrence_bound_ms": dual, f"{kind}_grad_align": grad_align},
+                     **_k6_sass(kind, deformed["K6_stage_warps"]))
     return out, launches
 
 
