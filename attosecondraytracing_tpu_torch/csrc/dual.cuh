@@ -42,6 +42,13 @@ struct Dual {
   }
 };
 
+// whether a scalar type is a Dual<G> (K6's), for the few places where its
+// order of evaluation differs from the float kernels'
+template <typename S>
+inline constexpr bool is_dual = false;
+template <int G>
+inline constexpr bool is_dual<Dual<G>> = true;
+
 #define ART_DUAL template <int G> __device__ __forceinline__
 
 ART_DUAL Dual<G> operator-(const Dual<G>& a) {

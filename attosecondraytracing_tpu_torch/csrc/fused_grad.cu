@@ -23,15 +23,16 @@
 // (trace_runtime_pose, trace_common.cuh, the loop K5 shares): masks are their
 // own (unfolded) steps and dead rays are not frozen at mirrors, as in the
 // JAX kernel; the source does not depend on the poses, so it enters with
-// zero tangents. A deformed mirror's branch (trace_common.cuh, zernike_hit
-// and deformed_hit for Dual<G>) sums its Zernike recurrence and grid
-// lookups once per ray on the float primal, K7's arithmetic, and composes
+// zero tangents. A deformed mirror's branch (trace_common.cuh, the Dual<G>
+// overloads of zernike_height, zernike_slopes, grid_height and
+// grid_slopes) sums its Zernike recurrence and grid lookups once per ray on
+// the float primal, K7's arithmetic, and composes
 // their tangents at the hit by the chain rule (the height's gradient, the
 // slopes' Hessian rows and cell derivatives; a clamped grid index carries
 // none, as JAX's autograd through the gather); the base normals and the
 // shifted hit stay on Dual<G>. On the deformed flagships that took a step
-// from 9.80 / 6.06 ms (the recurrence and lookups on Dual<6>, their rows in
-// local memory) to 3.70 / 3.98 ms (PERF.md §6; NVIDIA H100 80GB HBM3,
+// from 9.87 / 6.04 ms (the recurrence and lookups on Dual<6>, their rows in
+// local memory) to 3.69 / 3.97 ms (PERF.md §6 PR 13; NVIDIA H100 80GB HBM3,
 // 700.00 W). Epilogue: stats_rows at distance 0 for alive
 // rays (dead rays are skipped, so no tangent of a dead ray reaches a sum; a
 // warp of dead rays leaves the chain early). Each thread sums 7 (1 + G) floats over its

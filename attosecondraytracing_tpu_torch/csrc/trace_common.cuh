@@ -37,10 +37,10 @@
 // chain with Zernike tables only runs the Zernike branch as it was
 // (zernike_hit); only a chain with grid maps takes the branch that reads
 // them (deformed_hit), whose extra live state would otherwise cost every
-// Zernike chain's registers. K6 (Dual<G>) takes overloads of zernike_hit and
-// deformed_hit that sum the defects on the primal and compose their
-// tangents at the hit (below deformed_hit); the float kernels never reach
-// them.
+// Zernike chain's registers. Both hit functions read the defects through
+// zernike_height / zernike_slopes / grid_height / grid_slopes; K6 (Dual<G>)
+// takes their overloads that sum the defects on the primal and compose the
+// tangents at the hit, which the float kernels never reach.
 //
 // Rounding notes. Compiled without --use_fast_math: operator/ and sqrtf are
 // IEEE-rounded, and the source law and the detector epilogues use them. The
@@ -736,99 +736,51 @@ __device__ __forceinline__ void grid_sums(const GridP& g, S x, S y, S& h, S& gx,
   }
 }
 
-// The hit on a mirror with Zernike defects, from its base hit h (point and t
-// of the base root; alive stays the base hit's): t shifted along the ray by
-// the height error over max(-u.n0, 1e-6), the base normal at the shifted
-// point, and unless ignore_defects the defect slopes composed into it,
-// n = (-gx, -gy, 1) / |.| (the ZERNIKE_TABLES branch).
+// The defect sums at a hit (x, y) of a mirror, as the hit functions below
+// take them: a Zernike table's height and slopes at the unit-disk
+// coordinates ((x - cx) / r, (y - cy) / r) about its support centre (the
+// slopes along those coordinates: times 1 / r along the hit's), and a grid
+// map's at support coordinates. On float these are the sums themselves. K6
+// (Dual<G>) takes the overloads that follow: the sums on the primal, their
+// tangents composed at the hit.
 template <typename S>
-__device__ __forceinline__ void zernike_hit(const ElementP& el, const ZernikeP& zk,
-                                            bool ignore_defects, S qx, S qy, S qz, S ux, S uy,
-                                            S uz, HitT<S>& h) {
-  S n0x, n0y, n0z, dh, gx, gy;
-  surface_normal(el, h.x, h.y, h.z, n0x, n0y, n0z);
-  zernike_sums<false>(zk, (h.x - el.cen[0]) * zk.inv_r, (h.y - el.cen[1]) * zk.inv_r, dh, gx, gy);
-  const S cos_alpha = fmax_(-(ux * n0x + uy * n0y + uz * n0z), 1e-6f);
-  h.t = h.t - div_(dh, cos_alpha);
-  h.x = qx + h.t * ux;
-  h.y = qy + h.t * uy;
-  h.z = qz + h.t * uz;
-  surface_normal(el, h.x, h.y, h.z, h.nx, h.ny, h.nz);
-  if (ignore_defects) return;
-  zernike_sums<true>(zk, (h.x - el.cen[0]) * zk.inv_r, (h.y - el.cen[1]) * zk.inv_r, dh, gx, gy);
-  gx = -div_(h.nx, h.nz) + gx * zk.inv_r;
-  gy = -div_(h.ny, h.nz) + gy * zk.inv_r;
-  const S inv = rsq(gx * gx + gy * gy + 1.0f);
-  h.nx = -gx * inv;
-  h.ny = -gy * inv;
-  h.nz = inv;
+__device__ __forceinline__ S zernike_height(const ZernikeP& zk, S x, S y, float cx, float cy) {
+  S h, gx, gy;
+  zernike_sums<false>(zk, (x - cx) * zk.inv_r, (y - cy) * zk.inv_r, h, gx, gy);
+  return h;
 }
 
-// The same for element i of a chain with grid maps (the GRID_MAPS branch):
-// heights and slopes summed over the mirror's Zernike table, then its grid
-// maps in their order (ops/trace._deformed_hit / _defect_normal sum the
-// defects in the order of element.defects: two defects add the same either
-// way round, and the Zernike defects of one mirror are one table already).
-// The grid lookups keep their own temporaries, apart from the recurrence's
-// rows.
 template <typename S>
-__device__ __forceinline__ void deformed_hit(const ChainP& ch, int i, S qx, S qy, S qz, S ux,
-                                             S uy, S uz, HitT<S>& h) {
-  const ElementP& el = ch.el[i];
-  const int z = ch.zk_of[i];
-  S n0x, n0y, n0z, dh = S(0.0f), gx, gy;
-  surface_normal(el, h.x, h.y, h.z, n0x, n0y, n0z);
-  if (z >= 0)
-    zernike_sums<false>(ch.zk[z], (h.x - el.cen[0]) * ch.zk[z].inv_r,
-                        (h.y - el.cen[1]) * ch.zk[z].inv_r, dh, gx, gy);
-  for (int g = ch.grid_begin[i]; g < ch.grid_end[i]; ++g) {
-    S hg, sx, sy;
-    grid_sums<false>(ch.grid[g], h.x - el.cen[0], h.y - el.cen[1], hg, sx, sy);
-    dh = dh + hg;
-  }
-  const S cos_alpha = fmax_(-(ux * n0x + uy * n0y + uz * n0z), 1e-6f);
-  h.t = h.t - div_(dh, cos_alpha);
-  h.x = qx + h.t * ux;
-  h.y = qy + h.t * uy;
-  h.z = qz + h.t * uz;
-  surface_normal(el, h.x, h.y, h.z, h.nx, h.ny, h.nz);
-  if (ch.ignore_defects) return;
-  if (z >= 0) {
-    const ZernikeP& zk = ch.zk[z];
-    zernike_sums<true>(zk, (h.x - el.cen[0]) * zk.inv_r, (h.y - el.cen[1]) * zk.inv_r, dh, gx, gy);
-    gx = -div_(h.nx, h.nz) + gx * zk.inv_r;
-    gy = -div_(h.ny, h.nz) + gy * zk.inv_r;
-  } else {
-    gx = -div_(h.nx, h.nz);
-    gy = -div_(h.ny, h.nz);
-  }
-  for (int g = ch.grid_begin[i]; g < ch.grid_end[i]; ++g) {
-    S hg, sx, sy;
-    grid_sums<true>(ch.grid[g], h.x - el.cen[0], h.y - el.cen[1], hg, sx, sy);
-    gx = gx + sx;
-    gy = gy + sy;
-  }
-  const S inv = rsq(gx * gx + gy * gy + 1.0f);
-  h.nx = -gx * inv;
-  h.ny = -gy * inv;
-  h.nz = inv;
+__device__ __forceinline__ void zernike_slopes(const ZernikeP& zk, S x, S y, float cx, float cy, S& gx,
+                                               S& gy) {
+  S h;
+  zernike_sums<true>(zk, (x - cx) * zk.inv_r, (y - cy) * zk.inv_r, h, gx, gy);
 }
 
-// ---------------------------------------------------------------------------
-// the defect branch on dual numbers (K6: overloads of zernike_hit and
-// deformed_hit for Dual<G>, which the float kernels never reach)
-// ---------------------------------------------------------------------------
-//
-// The height error and the defect slopes are functions of the hit's two
-// support coordinates (x, y) only. So K6 evaluates the Zernike recurrence
-// and the grid lookups once per ray on the primal coordinates, in float, in
-// the arithmetic K7 runs (the values are K7's), and composes their tangents
-// by the chain rule at the hit: t(h) = h_x t(x) + h_y t(y), and for the
-// slopes the rows of h's Hessian (or of the slope maps' cell derivatives).
-// This is the linear map JAX's linearize takes through every row of the
-// recurrence and through the bilinear weights; only the float32 rounding
-// differs. The rest of the branch (the base normals, cos alpha, the
-// shifted t and point) stays on Dual<G>.
+template <typename S>
+__device__ __forceinline__ S grid_height(const GridP& g, S x, S y) {
+  S h, sx, sy;
+  grid_sums<false>(g, x, y, h, sx, sy);
+  return h;
+}
+
+template <typename S>
+__device__ __forceinline__ void grid_slopes(const GridP& g, S x, S y, S& sx, S& sy) {
+  S h;
+  grid_sums<true>(g, x, y, h, sx, sy);
+}
+
+// The defect sums on dual numbers (K6). The height error and the defect
+// slopes are functions of the hit's two support coordinates (x, y) only. So
+// K6 evaluates the Zernike recurrence and the grid lookups once per ray on
+// the primal coordinates, in float, in the arithmetic K7 runs (the values
+// are K7's), and composes their tangents by the chain rule at the hit:
+// t(h) = h_x t(x) + h_y t(y), and for the slopes the rows of h's Hessian
+// (or of the slope maps' cell derivatives). This is the linear map JAX's
+// linearize takes through every row of the recurrence and through the
+// bilinear weights; only the float32 rounding differs. The rest of the
+// defect branch (the base normals, cos alpha, the shifted t and point)
+// stays on Dual<G>.
 
 // the Dual<G> of a function of the support coordinates (x, y): its value v
 // and partial derivatives fx, fy composed with the tangents of x and y
@@ -894,30 +846,67 @@ __device__ __forceinline__ void zernike_hessian(const ZernikeP& zk, float x, flo
   g[5] = gy.t[1];
 }
 
-// A Zernike table's slopes gx, gy (at the unit-disk coordinates of the hit
-// (hx, hy) about the support centre (cx, cy)) as functions of the hit: the
-// Hessian's rows times the coordinates' d/dx = 1 / radius (only where
-// ignore_defects is False)
+// the height: the recurrence with slopes on the primal, its gradient along
+// the hit's coordinates composed at the hit
 template <int G>
-__device__ __forceinline__ void zernike_slopes_at(const ZernikeP& zk, const Dual<G>& hx,
-                                                  const Dual<G>& hy, float cx, float cy,
-                                                  Dual<G>& gx, Dual<G>& gy) {
-  float g[6];
-  zernike_hessian(zk, (hx.v - cx) * zk.inv_r, (hy.v - cy) * zk.inv_r, g);
-  gx = at_hit(g[0], g[2] * zk.inv_r, g[3] * zk.inv_r, hx, hy);
-  gy = at_hit(g[1], g[4] * zk.inv_r, g[5] * zk.inv_r, hx, hy);
+__device__ __forceinline__ Dual<G> zernike_height(const ZernikeP& zk, Dual<G> x, Dual<G> y, float cx,
+                                                  float cy) {
+  float h, hx, hy;
+  zernike_sums<true>(zk, (x.v - cx) * zk.inv_r, (y.v - cy) * zk.inv_r, h, hx, hy);
+  return at_hit(h, hx * zk.inv_r, hy * zk.inv_r, x, y);
 }
 
-// The normal of a mirror with a Zernike table from its defect slopes at
-// the shifted hit h (ignore_defects False), on Dual<G>. Inline: out of
-// line (a call) it cost K6 1.2x on the deformed flagships, where it never
-// runs (PERF.md §6).
+// the slopes (only where ignore_defects is False): the Hessian's rows times
+// the coordinates' d/dx = 1 / radius
 template <int G>
-__device__ __forceinline__ void zernike_slope_normal(const ZernikeP& zk, float cx, float cy,
-                                                     HitT<Dual<G>>& h) {
-  using S = Dual<G>;
-  S gx, gy;
-  zernike_slopes_at(zk, h.x, h.y, cx, cy, gx, gy);
+__device__ __forceinline__ void zernike_slopes(const ZernikeP& zk, Dual<G> x, Dual<G> y, float cx,
+                                               float cy, Dual<G>& gx, Dual<G>& gy) {
+  float g[6];
+  zernike_hessian(zk, (x.v - cx) * zk.inv_r, (y.v - cy) * zk.inv_r, g);
+  gx = at_hit(g[0], g[2] * zk.inv_r, g[3] * zk.inv_r, x, y);
+  gy = at_hit(g[1], g[4] * zk.inv_r, g[5] * zk.inv_r, x, y);
+}
+
+template <int G>
+__device__ __forceinline__ Dual<G> grid_height(const GridP& g, Dual<G> x, Dual<G> y) {
+  float v, vx, vy;
+  grid_cell<false>(g, x.v, y.v, &v, &vx, &vy);
+  return at_hit(v, vx, vy, x, y);
+}
+
+template <int G>
+__device__ __forceinline__ void grid_slopes(const GridP& g, Dual<G> x, Dual<G> y, Dual<G>& sx,
+                                            Dual<G>& sy) {
+  float s[2], dx[2], dy[2];
+  grid_cell<true>(g, x.v, y.v, s, dx, dy);
+  sx = at_hit(s[0], dx[0], dy[0], x, y);
+  sy = at_hit(s[1], dx[1], dy[1], x, y);
+}
+
+// The hit on a mirror with Zernike defects, from its base hit h (point and t
+// of the base root; alive stays the base hit's): t shifted along the ray by
+// the height error over max(-u.n0, 1e-6), the base normal at the shifted
+// point, and unless ignore_defects the defect slopes composed into it,
+// n = (-gx, -gy, 1) / |.| (the ZERNIKE_TABLES branch).
+template <typename S>
+__device__ __forceinline__ void zernike_hit(const ElementP& el, const ZernikeP& zk,
+                                            bool ignore_defects, S qx, S qy, S qz, S ux, S uy,
+                                            S uz, HitT<S>& h) {
+  S n0x, n0y, n0z, cos_alpha, gx, gy;
+  surface_normal(el, h.x, h.y, h.z, n0x, n0y, n0z);
+  // on Dual<G> cos alpha is taken first, so that the base normals (3 (1 + G)
+  // floats) die before the defect sums: live across them they spill there
+  // (PERF.md §6 PR 13); the float kernels keep the order they were tuned in
+  if constexpr (is_dual<S>) cos_alpha = fmax_(-(ux * n0x + uy * n0y + uz * n0z), 1e-6f);
+  const S dh = zernike_height(zk, h.x, h.y, el.cen[0], el.cen[1]);
+  if constexpr (!is_dual<S>) cos_alpha = fmax_(-(ux * n0x + uy * n0y + uz * n0z), 1e-6f);
+  h.t = h.t - div_(dh, cos_alpha);
+  h.x = qx + h.t * ux;
+  h.y = qy + h.t * uy;
+  h.z = qz + h.t * uz;
+  surface_normal(el, h.x, h.y, h.z, h.nx, h.ny, h.nz);
+  if (ignore_defects) return;
+  zernike_slopes(zk, h.x, h.y, el.cen[0], el.cen[1], gx, gy);
   gx = -div_(h.nx, h.nz) + gx * zk.inv_r;
   gy = -div_(h.ny, h.nz) + gy * zk.inv_r;
   const S inv = rsq(gx * gx + gy * gy + 1.0f);
@@ -926,40 +915,34 @@ __device__ __forceinline__ void zernike_slope_normal(const ZernikeP& zk, float c
   h.nz = inv;
 }
 
-// zernike_hit on Dual<G>: the height and its gradient on the primal
-// (zernike_sums with slopes, in float), composed at the hit
-template <int G>
-__device__ __forceinline__ void zernike_hit(const ElementP& el, const ZernikeP& zk,
-                                            bool ignore_defects, Dual<G> qx, Dual<G> qy, Dual<G> qz,
-                                            Dual<G> ux, Dual<G> uy, Dual<G> uz, HitT<Dual<G>>& h) {
-  using S = Dual<G>;
-  S n0x, n0y, n0z;
+// The same for element i of a chain with grid maps (the GRID_MAPS branch):
+// heights and slopes summed over the mirror's Zernike table, then its grid
+// maps in their order (ops/trace._deformed_hit / _defect_normal sum the
+// defects in the order of element.defects: two defects add the same either
+// way round, and the Zernike defects of one mirror are one table already).
+// The grid lookups keep their own temporaries, apart from the recurrence's
+// rows.
+template <typename S>
+__device__ __forceinline__ void deformed_hit(const ChainP& ch, int i, S qx, S qy, S qz, S ux,
+                                             S uy, S uz, HitT<S>& h) {
+  const ElementP& el = ch.el[i];
+  const int z = ch.zk_of[i];
+  S n0x, n0y, n0z, cos_alpha, dh = S(0.0f), gx, gy;
   surface_normal(el, h.x, h.y, h.z, n0x, n0y, n0z);
-  const S cos_alpha = fmax_(-(ux * n0x + uy * n0y + uz * n0z), 1e-6f);
-  float dh, hx, hy;
-  zernike_sums<true>(zk, (h.x.v - el.cen[0]) * zk.inv_r, (h.y.v - el.cen[1]) * zk.inv_r, dh, hx, hy);
-  h.t = h.t - div_(at_hit(dh, hx * zk.inv_r, hy * zk.inv_r, h.x, h.y), cos_alpha);
+  if constexpr (is_dual<S>) cos_alpha = fmax_(-(ux * n0x + uy * n0y + uz * n0z), 1e-6f);  // as above
+  if (z >= 0) dh = zernike_height(ch.zk[z], h.x, h.y, el.cen[0], el.cen[1]);
+  for (int g = ch.grid_begin[i]; g < ch.grid_end[i]; ++g)
+    dh = dh + grid_height(ch.grid[g], h.x - el.cen[0], h.y - el.cen[1]);
+  if constexpr (!is_dual<S>) cos_alpha = fmax_(-(ux * n0x + uy * n0y + uz * n0z), 1e-6f);
+  h.t = h.t - div_(dh, cos_alpha);
   h.x = qx + h.t * ux;
   h.y = qy + h.t * uy;
   h.z = qz + h.t * uz;
   surface_normal(el, h.x, h.y, h.z, h.nx, h.ny, h.nz);
-  if (ignore_defects) return;
-  zernike_slope_normal(zk, el.cen[0], el.cen[1], h);
-}
-
-// The normal of element i of a chain with grid maps from its defect slopes
-// at the shifted hit h (ignore_defects False), on Dual<G>: the Zernike
-// table's (its Hessian's rows) and each map's slope channels with their
-// cell derivatives. Inline, as zernike_slope_normal.
-template <int G>
-__device__ __forceinline__ void deformed_slope_normal(const ChainP& ch, int i, HitT<Dual<G>>& h) {
-  using S = Dual<G>;
-  const ElementP& el = ch.el[i];
-  const int z = ch.zk_of[i];
-  S gx, gy;
+  if (ch.ignore_defects) return;
   if (z >= 0) {
     const ZernikeP& zk = ch.zk[z];
-    zernike_slopes_at(zk, h.x, h.y, el.cen[0], el.cen[1], gx, gy);
+    zernike_slopes(zk, h.x, h.y, el.cen[0], el.cen[1], gx, gy);
     gx = -div_(h.nx, h.nz) + gx * zk.inv_r;
     gy = -div_(h.ny, h.nz) + gy * zk.inv_r;
   } else {
@@ -967,50 +950,15 @@ __device__ __forceinline__ void deformed_slope_normal(const ChainP& ch, int i, H
     gy = -div_(h.ny, h.nz);
   }
   for (int g = ch.grid_begin[i]; g < ch.grid_end[i]; ++g) {
-    float s[2], sx[2], sy[2];
-    grid_cell<true>(ch.grid[g], h.x.v - el.cen[0], h.y.v - el.cen[1], s, sx, sy);
-    gx = gx + at_hit(s[0], sx[0], sy[0], h.x, h.y);
-    gy = gy + at_hit(s[1], sx[1], sy[1], h.x, h.y);
+    S sx, sy;
+    grid_slopes(ch.grid[g], h.x - el.cen[0], h.y - el.cen[1], sx, sy);
+    gx = gx + sx;
+    gy = gy + sy;
   }
   const S inv = rsq(gx * gx + gy * gy + 1.0f);
   h.nx = -gx * inv;
   h.ny = -gy * inv;
   h.nz = inv;
-}
-
-// deformed_hit on Dual<G>: the mirror's Zernike table and grid maps summed
-// on the primal, height and gradient, composed at the hit once
-template <int G>
-__device__ __forceinline__ void deformed_hit(const ChainP& ch, int i, Dual<G> qx, Dual<G> qy,
-                                             Dual<G> qz, Dual<G> ux, Dual<G> uy, Dual<G> uz,
-                                             HitT<Dual<G>>& h) {
-  using S = Dual<G>;
-  const ElementP& el = ch.el[i];
-  const int z = ch.zk_of[i];
-  S n0x, n0y, n0z;
-  surface_normal(el, h.x, h.y, h.z, n0x, n0y, n0z);
-  const S cos_alpha = fmax_(-(ux * n0x + uy * n0y + uz * n0z), 1e-6f);
-  float dh = 0.0f, ax = 0.0f, ay = 0.0f;  // the height and its gradient in (x, y)
-  if (z >= 0) {
-    const ZernikeP& zk = ch.zk[z];
-    zernike_sums<true>(zk, (h.x.v - el.cen[0]) * zk.inv_r, (h.y.v - el.cen[1]) * zk.inv_r, dh, ax, ay);
-    ax *= zk.inv_r;
-    ay *= zk.inv_r;
-  }
-  for (int g = ch.grid_begin[i]; g < ch.grid_end[i]; ++g) {
-    float hg, hgx, hgy;
-    grid_cell<false>(ch.grid[g], h.x.v - el.cen[0], h.y.v - el.cen[1], &hg, &hgx, &hgy);
-    dh = dh + hg;
-    ax += hgx;
-    ay += hgy;
-  }
-  h.t = h.t - div_(at_hit(dh, ax, ay, h.x, h.y), cos_alpha);
-  h.x = qx + h.t * ux;
-  h.y = qy + h.t * uy;
-  h.z = qz + h.t * uz;
-  surface_normal(el, h.x, h.y, h.z, h.nx, h.ny, h.nz);
-  if (ch.ignore_defects) return;
-  deformed_slope_normal(ch, i, h);
 }
 
 // ---------------------------------------------------------------------------

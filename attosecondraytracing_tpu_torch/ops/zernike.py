@@ -93,7 +93,7 @@ def zernike_value_grad_hessian(x, y, max_order: int):
     Hessian row reads row n - 1's gradient and row n - 2's Hessian
     (d2Z(n, m)/dx2 = n dZ(n - 1, .)/dx + d2Z(n - 2, m - 1)/dx2, and so on).
     The gradient kernel K6 composes a mirror's slope tangents from these
-    rows (``csrc/trace_common.cuh``, ``zernike_slopes_at``: the recurrence
+    rows (``csrc/trace_common.cuh``, ``zernike_hessian``: the recurrence
     with slopes on dual numbers seeded along x and y); this is its plain
     twin for the tests, which nothing on the kernels' path calls.
 

@@ -184,9 +184,9 @@ H100_SMS = 132
 #: optional predicate, the opcode before its first modifier
 _OPCODE = re.compile(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P(?:\d+|T)\s+)?([A-Z][A-Z0-9_]*)")
 #: the default kernels of :func:`sass_summary`: K2, K8, K7 and K6 (and K6's
-#: slope normals, functions of their own in a build that calls them)
+#: slope sums, functions of their own in a build that calls them)
 SUMMARY_KERNELS = ("fused_source_moments_kernel", "fused_source_stats_kernel", "stats_primal_kernel",
-                   "stats_params_kernel", "zernike_slope_normal", "deformed_slope_normal")
+                   "stats_params_kernel", "zernike_slopes", "grid_slopes")
 
 
 def pipe_counts(opcodes) -> dict:
@@ -293,10 +293,10 @@ FLAGSHIP_PATH = {"source": "SRC_CONE", "mask": "SUP_ROUND_HOLE", "premask": "SUP
 #: False)
 STAGES = ("setup", "ray loop", "source", "walk", "premask", "map", "mask", "toroid", "plane", "quadric",
           "defects", "slopes", "mirror", "epilogue", "reduction", "slow path")
-#: the functions of a deformed mirror's branch (both scalar types' forms),
-#: and K6's slope normals (its "slopes" stage, inline or called)
+#: the functions of a deformed mirror's branch, and its slope sums (the
+#: "slopes" stage, inline or called)
 DEFECT_HITS = ("zernike_hit", "deformed_hit")
-SLOPE_NORMALS = ("zernike_slope_normal", "deformed_slope_normal")
+SLOPE_NORMALS = ("zernike_slopes", "grid_slopes")
 
 
 def _function_of_lines(lines) -> list:

@@ -82,16 +82,21 @@ K6 on deformed mirrors (``trace_common.cuh``, the defect branch's forms for
 ``Dual<G>``; time ``--kernels K6 --chains flat,zernike,grid``; G = 3 is
 ``g3_b2``):
 
-* ``k6_slopes_noinline``: the slope normals (``zernike_slope_normal``,
-  ``deformed_slope_normal``, run only where ignore_defects is False) out of
-  line (calls), in place of the shipped inline code.
+* ``k6_slopes_noinline``: the slope sums on ``Dual<G>`` (``zernike_slopes``,
+  ``grid_slopes``, run only where ignore_defects is False) out of line
+  (calls), in place of the shipped inline code.
 * ``k6_two_walks``: K6's walk in two copies on a deformed chain's
   ignore_defects (the first one's slope normals folded away), in place of
   the shipped one (its SASS by stage counts both copies).
+* ``k6_sums_first``: K6's defect hits take cos alpha after the defect sums,
+  as the float kernels do (``dual.cuh`` ``is_dual`` false for ``Dual<G>``,
+  its only use), in place of before them.
+* ``k6_cos_first``: the float kernels' defect hits take cos alpha before
+  the defect sums too, as K6's do (``is_dual`` true for every type).
 * ``k6_dual_recurrence``: the recurrence and the grid lookups on
-  ``Dual<G>`` (the generic ``zernike_hit`` / ``deformed_hit``, the form of
-  the form before the float sums), in place of the shipped float sums with their tangents composed
-  at the hit.
+  ``Dual<G>`` (the ``Dual<G>`` overloads of the defect sums removed, so the
+  generic ones run on it: the form before the float sums), in place of the
+  shipped float sums with their tangents composed at the hit.
 """
 
 from __future__ import annotations
@@ -313,8 +318,8 @@ def variants() -> dict:
         out[f"{base}_reg"] = out[base] + _REG
     out["g6_b2_ieee"] = out["g6_b2"] + _IEEE
     out["k6_slopes_noinline"] = [
-        _lit("trace_common.cuh", f"__device__ __forceinline__ void {name}(", f"__device__ __noinline__ void {name}(")
-        for name in ("zernike_slope_normal", "deformed_slope_normal")]
+        _lit("trace_common.cuh", f"__device__ __forceinline__ void {head}", f"__device__ __noinline__ void {head}")
+        for head in ("zernike_slopes(const ZernikeP& zk, Dual<G>", "grid_slopes(const GridP& g, Dual<G>")]
     out["k6_two_walks"] = [
         _lit("fused_grad.cu", """  trace_runtime_pose<DEFECTS>(ch, src, pose, min(chunk, n_rays - br.chunk * chunk), br.first,
                               cp.x, cp.y, [&](const RayT<S>& s, float rr) {""",
@@ -327,9 +332,13 @@ def variants() -> dict:
   else
     trace_runtime_pose<DEFECTS>(ch, src, pose, n_local, br.first, cp.x, cp.y, sums);
   acc.reduce(rows""")]
+    out["k6_sums_first"] = [_lit("dual.cuh", "inline constexpr bool is_dual<Dual<G>> = true;",
+                                 "inline constexpr bool is_dual<Dual<G>> = false;")]
+    out["k6_cos_first"] = [_lit("dual.cuh", "template <typename S>\ninline constexpr bool is_dual = false;",
+                                "template <typename S>\ninline constexpr bool is_dual = true;")]
     out["k6_dual_recurrence"] = [
-        ("trace_common.cuh", rf"// {name} on Dual<G>:.*?\n}}\n", "", re.DOTALL)
-        for name in ("zernike_hit", "deformed_hit")]
+        ("trace_common.cuh", r"// the height: the recurrence with slopes on the primal.*?(?=// The hit on a mirror)", "",
+         re.DOTALL)]
     return out
 
 

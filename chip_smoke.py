@@ -115,13 +115,13 @@ Each entry also carries the phase zernike's numbers:
 (``grid_ms``, ``grid_flat_ms``, ``grid_bound_ms``, ``grid_bound_by``: the
 grid flagship's; its bytes add the smaller of the map's packed bytes and
 four 32-byte sectors per ray and lookup); K6's, per deformed flagship, also
-the bound with the count of the defect branch on Dual<G> throughout
-(``zernike_dual_recurrence_bound_ms``),
 its ``gradient_align`` run (``zernike_grad_align``: launches, ms per step,
-first and last loss), ptxas's registers, stack frame and spill bytes of
-its instantiation, its SASS's local-memory operations by stage and its
-issue-slot bound (``zernike_local_memory``, ``zernike_issue_ms``), and the
-same ``grid_...`` fields; K1's also ``config_deformed_ms``
+first and last loss), the defects' share of its rows against the plain
+version's (``zernike_effect``: per chain and difference, the largest gap,
+the statistics moved and the largest difference), ptxas's registers, stack
+frame and spill bytes of its instantiation, its SASS's local-memory
+operations by stage and its issue-slot bound (``zernike_local_memory``,
+``zernike_issue_ms``), and the same ``grid_...`` fields; K1's also ``config_deformed_ms``
 and ``config_deformed_flat_ms`` (its launch on examples/CONFIG_deformed.py's
 chain at 1e7 rays with and without the map). The entries P4 and P5 follow:
 their launches in the probe's run, the largest error against the plain
@@ -211,7 +211,7 @@ OPS = {
     # further (n, m) term of the values pass, its row entry and the sum
     # ("term"); with ignore_defects False each term of the slopes pass and
     # the composed normal ("slope_term", "compose"). On Dual<G> (K6's
-    # zernike_hit for Dual<G>, ignore_defects True): the recurrence runs on
+    # zernike_height for Dual<G>, ignore_defects True): the recurrence runs on
     # the primal with slopes, once per ray, so each term adds its slope
     # rows and sums ("dual_zernike_gradient_term"), and once the gradient's
     # scaling and the reciprocals the tangents share ("once"); per tangent
@@ -230,22 +230,15 @@ OPS = {
     # (fractional indices by IEEE divide, weights, 4 corners, the sum:
     # "grid_shift"); with ignore_defects False the slope lookup (two more
     # channels) and the composed normal ("grid_slopes"). On Dual<G> (K6's
-    # deformed_hit for Dual<G>): once the reciprocals the tangents share and
+    # grid_height for Dual<G>): once the reciprocals the tangents share and
     # the lookup's two cell derivatives (grid_cell), and per tangent the
-    # shift's linear parts and the height's tangent composed at the hit
+    # shift's linear parts and the height's tangent composed at the hit,
+    # added to the height's zero start
     "grid_shift": 69,
     "grid_slopes": 48,
     "dual_grid_once": 30,
-    "dual_grid_shift_tangent": 110,
+    "dual_grid_shift_tangent": 111,
 }
-#: the same counts for K6's defect branch with the recurrence and the
-#: lookup on Dual<G> (the form before the float sums), printed beside the
-#: bound:
-#: per tangent the shift's and every value term's linear parts, and the
-#: lookup's
-OPS_DUAL_RECURRENCE = {"dual_zernike_once": 12, "dual_zernike_shift_tangent": 114,
-                        "dual_zernike_term_tangent": 18, "dual_grid_once": 14,
-                        "dual_grid_shift_tangent": 132}
 
 #: the Zernike defects of the deformed flagship's first toroid (the phase's
 #: chain: astigmatism, coma, a 4th- and a 6th-order term, in mm)
@@ -258,6 +251,19 @@ GRID = {"RMS": 1e-6, "smallest": 0.1, "seed": 7}
 #: slopes into the spot: the 1 nm map's slopes (up to ~2e-6 rad) move the
 #: spot SD by less than the kernels' float32 error of it
 GRID_EFFECT_RMS = 1e-4
+#: the defects of K6's effect check (_k6_effect): the Zernike terms 100
+#: times ZERNIKE's (20 um of astigmatism), and a Fourier-PSD map of 1 um RMS
+#: down to 1 mm wavelengths (the slopes of the 100 nm map, ten times its
+#: heights: at 100 nm a height's share of the rows with ignore_defects True
+#: does not stand clear of K6's float32 error of them); PERF.md §6 PR 13
+ZERNIKE_K6_EFFECT = {key: 100 * c for key, c in ZERNIKE.items()}
+GRID_K6_EFFECT = {"RMS": 1e-3, "smallest": 1.0, "seed": 7}
+#: the bound on K6's difference of rows against the plain version's,
+#: relative to the plain version's largest, per statistic (_k6_effect): on
+#: an H100 the shipped K6 reads at most 0.0107, a K6 with the Hessian's
+#: tangent rows zeroed 0.355, its grid cell derivatives zeroed 1.08, its
+#: Zernike height's gradient zeroed 0.544 (PERF.md §6 PR 13)
+K6_EFFECT_REL = 0.05
 #: rays of examples/CONFIG_deformed.py through the CLI (its map: 8000 x 8000
 #: nodes, 1 GB packed, in HBM)
 N_CONFIG_DEFORMED = 10_000_000
@@ -379,19 +385,9 @@ def _trace_ops(table, source: bool, ignore_defects: bool = True) -> int:
     return (OPS["cone_source"] if source else 0) + sum(a + b for a, b in _stage_ops(table, ignore_defects))
 
 
-def _alive_by_stage(torch, table, spec, chunks, n_total, dev, ignore_defects: bool = True,
-                    warps: bool = False):
-    """The rays (and with ``warps`` the warps) of a fused source's
-    ``chunks`` alive at each stage of ``table``, counted on the plain trace
-    (utils/kernel_ab.alive_by_stage)."""
-    from attosecondraytracing_tpu_torch.utils import kernel_ab as ab
-
-    return ab.alive_by_stage(table, spec, chunks, n_total, dev, ignore_defects=ignore_defects, warps=warps)
-
-
 def _ops_where_rays_die(table, alive, end_ops: int, ignore_defects: bool = True) -> int:
     """A fused-source kernel's operations on one launch's rays, counted
-    where the rays die (``alive`` from :func:`_alive_by_stage`): the source
+    where the rays die (``alive`` from utils/kernel_ab.alive_by_stage): the source
     for every ray, an element's folded masks' tests for the rays entering
     it and its step (an unfolded mask's too) for those past its masks, and
     ``end_ops`` (the weight and the epilogue) for the rays alive at the
@@ -403,24 +399,18 @@ def _ops_where_rays_die(table, alive, end_ops: int, ignore_defects: bool = True)
     return ops
 
 
-def _dual_defect_ops(elements, n_tangents: int, dual_recurrence: bool = False) -> int:
+def _dual_defect_ops(elements, n_tangents: int) -> int:
     """Per-ray operations the defect branch adds on Dual<G> (K6) for a
     gradient step of ``n_tangents`` rows, ignore_defects True: once, and
-    its linear parts per tangent (``dual_recurrence``: the form with the
-    recurrence and the lookup on Dual<G>, :data:`OPS_DUAL_RECURRENCE`)."""
+    its linear parts per tangent."""
     ops = 0
     for el in elements:
         kind = _defect_kind(el)
-        if kind == "zernike" and dual_recurrence:
-            p = OPS_DUAL_RECURRENCE
-            ops += p["dual_zernike_once"] + n_tangents * (
-                p["dual_zernike_shift_tangent"] + _zernike_terms(el) * p["dual_zernike_term_tangent"])
-        elif kind == "zernike":
+        if kind == "zernike":
             ops += (OPS["dual_zernike_once"] + _zernike_terms(el) * OPS["dual_zernike_gradient_term"]
                     + n_tangents * OPS["dual_zernike_shift_tangent"])
         elif kind == "grid":
-            p = OPS_DUAL_RECURRENCE if dual_recurrence else OPS
-            ops += p["dual_grid_once"] + n_tangents * p["dual_grid_shift_tangent"]
+            ops += OPS["dual_grid_once"] + n_tangents * OPS["dual_grid_shift_tangent"]
     return ops
 
 
@@ -452,20 +442,20 @@ def _flagship(n_rays):
     return chain, props
 
 
-def _deformed_flagship(n_rays, second_distance=500.0, kind="zernike", grid_rms=GRID["RMS"]):
+def _deformed_flagship(n_rays, second_distance=500.0, kind="zernike", zernike=ZERNIKE, grid=GRID):
     """The flagship with its first toroid carrying the Zernike defects
-    :data:`ZERNIKE` (``kind`` "zernike") or the Fourier-PSD map :data:`GRID`
-    at ``grid_rms`` ("grid") over its support; ``second_distance`` places
-    the second toroid (a list: one chain per value)."""
+    ``zernike`` (``kind`` "zernike"), the Fourier-PSD map ``grid`` ("grid")
+    or both ("mixed") over its support; ``second_distance`` places the
+    second toroid (a list: one chain per value)."""
     from attosecondraytracing_tpu_torch.models import defects, masks, mirrors, supports
     from attosecondraytracing_tpu_torch.models.placement import OEPlacement
 
     R, r = mirrors.ReturnOptimalToroidalRadii(500.0, 80.0)
     tor = mirrors.MirrorToroidal(R, r, supports.SupportRectangle(150, 32))
     support = supports.SupportRectangle(150, 32)
-    defect = (defects.Zernike(support, ZERNIKE) if kind == "zernike"
-              else defects.Fourrier(support, **dict(GRID, RMS=grid_rms)))
-    deformed = mirrors.DeformedMirror(tor, [defect])
+    deformed = mirrors.DeformedMirror(
+        tor, ([defects.Zernike(support, zernike)] if kind in ("zernike", "mixed") else [])
+        + ([defects.Fourrier(support, **grid)] if kind in ("grid", "mixed") else []))
     mask = masks.Mask(supports.SupportRoundHole(Radius=20, RadiusHole=7, CenterHoleX=0, CenterHoleY=0))
     props = {"Divergence": 25e-3, "SourceSize": 0, "Wavelength": 80e-6, "DeltaFT": 0.5,
              "NumberRays": n_rays}
@@ -685,6 +675,7 @@ def phase_k2(torch, dev):
     on whole sub-sources): sum of weights and the tests/test_stats_kernel.py
     tolerances on the statistics at 5 distances."""
     from attosecondraytracing_tpu_torch.ops import fused_trace as ft
+    from attosecondraytracing_tpu_torch.utils import kernel_ab as ab
 
     spot_err = 0.0
     for name, chain in (("flagship", _flagship(N_CHECK)[0]), ("extended", _extended(N_CHECK))):
@@ -703,7 +694,7 @@ def phase_k2(torch, dev):
             ms = _time_ms(launch, torch)
             wrapper_ms = _time_ms(lambda: ft.fused_source_moments(table, spec, bdet, chunks, n, **kw), torch)
             plain_ms = _time_ms(lambda: ft.fused_source_moments_ref(table, spec, bdet, chunks, n, **kw), torch)
-            alive = _alive_by_stage(torch, table, spec, chunks, n, dev)
+            alive = ab.alive_by_stage(table, spec, chunks, n, dev)
             bound = _bound(rows.numel() * 8 + 8 * len(chunks),
                            _ops_where_rays_die(table, alive, OPS["weight"] + OPS["moments"]))
             print(f"K2 flagship at {n} rays: kernel launch {ms:.4f} ms, whole wrapper {wrapper_ms:.4f} ms, "
@@ -721,6 +712,7 @@ def phase_k5(torch, dev):
     from attosecondraytracing_tpu_torch.ops import fused_grad as fg
     from attosecondraytracing_tpu_torch.ops import fused_scan as fs
     from attosecondraytracing_tpu_torch.ops import fused_trace as ft
+    from attosecondraytracing_tpu_torch.utils import kernel_ab as ab
 
     flagship = _flagship(N_CHECK)[0]
     spot_err = 0.0
@@ -748,7 +740,7 @@ def phase_k5(torch, dev):
             wrapper_ms = _time_ms(lambda: fs.fused_scan_moments(sspec, svec, aux, chunks, device=dev), torch)
             plain_ms = _time_ms(lambda: fs.scan_moments_ref(sspec, svec, aux, chunks, device=dev), torch)
             table = fg.pose_table(sspec.elements, svec)
-            alive = _alive_by_stage(torch, table, spec, chunks, n, dev)
+            alive = ab.alive_by_stage(table, spec, chunks, n, dev)
             bound = _bound(rows.numel() * 8 + 4 * (svec.size + aux.size),
                            _ops_where_rays_die(table, alive, OPS["weight"] + OPS["moments"]))
             print(f"K5 flagship at {n} rays: kernel launch {ms:.4f} ms, whole wrapper {wrapper_ms:.4f} ms, "
@@ -1230,12 +1222,12 @@ def phase_streamed(torch, dev):
     return counts, timed
 
 
-def _grad_problem(torch, dev, chain, n_rays, params_fn, distance=495.0, survival_weight=1.0):
-    """(spec, host elements, geometry, params) of a fused alignment loss:
-    the chain's factory source at ``n_rays`` rays with the Gaussian edge
-    exp(-2), a detector ``distance`` behind the last element, placed from a
-    4096-ray probe trace (scripts/bench_fused_grad.py), and the
-    misalignment ``params_fn`` gives."""
+def _grad_problem(torch, dev, chain, n_rays, params_fn, distance=495.0, survival_weight=1.0, det=None):
+    """(spec, host elements, geometry, params, detector) of a fused
+    alignment loss: the chain's factory source at ``n_rays`` rays with the
+    Gaussian edge exp(-2), a detector ``distance`` behind the last element,
+    placed from a 4096-ray probe trace (scripts/bench_fused_grad.py) unless
+    ``det`` is given, and the misalignment ``params_fn`` gives."""
     import numpy as np
 
     from attosecondraytracing_tpu_torch.analysis import alignment as al
@@ -1247,8 +1239,9 @@ def _grad_problem(torch, dev, chain, n_rays, params_fn, distance=495.0, survival
     info = chain.source_spec._replace(gaussian_edge=float(np.exp(-2.0)), n_rays=n_rays)
     baked = info.baked()
     elements = chain.device_elements()
-    det = Detector(chain.optical_elements[-1].position)
-    det.autoplace(ft.probe_trace(baked, elements, 4096, device=dev, dtype=torch.float32), distance)
+    if det is None:
+        det = Detector(chain.optical_elements[-1].position)
+        det.autoplace(ft.probe_trace(baked, elements, 4096, device=dev, dtype=torch.float32), distance)
     spec = fg.make_loss_spec(info, elements, det.centre, det.normal, survival_weight=survival_weight,
                              device=dev)
     host = [e.to_device("cpu", torch.float64) for e in chain.optical_elements]
@@ -1329,6 +1322,7 @@ def phase_k67(torch, dev):
 
     from attosecondraytracing_tpu_torch.ops import fused_grad as fg
     from attosecondraytracing_tpu_torch.ops import fused_trace as ft
+    from attosecondraytracing_tpu_torch.utils import kernel_ab as ab
 
     err6 = err7 = 0.0
     for name, chain in (("flagship", _flagship(N_CHECK)[0]), ("extended", _extended(N_CHECK))):
@@ -1377,7 +1371,7 @@ def phase_k67(torch, dev):
     chunks = fg._ray_chunks(spec, fg.GRAD_CHUNK)
     _check(len(chunks) == 2, f"K6 timing: expected 2 chunks, got {len(chunks)}")
     table = fg.pose_table(spec.elements, svec)
-    alive, warps = _alive_by_stage(torch, table, fg.loss_source(spec), chunks, spec.n_rays, dev, warps=True)
+    alive, warps = ab.alive_by_stage(table, fg.loss_source(spec), chunks, spec.n_rays, dev, warps=True)
     n_alive = alive[-1]
     per_ray = _trace_ops(table, True) + OPS["weight"]
     out, last = {}, {}
@@ -1435,6 +1429,7 @@ def _k7_stage_split(torch, dev, chain, host, geo, params, det, rays, warps):
     import numpy as np
 
     from attosecondraytracing_tpu_torch.ops import fused_grad as fg
+    from attosecondraytracing_tpu_torch.utils import kernel_ab as ab
 
     info = chain.source_spec._replace(gaussian_edge=float(np.exp(-2.0)), n_rays=N_TIME)
     elements = chain.device_elements()
@@ -1448,7 +1443,7 @@ def _k7_stage_split(torch, dev, chain, host, geo, params, det, rays, warps):
         rays_j, warps_j = rays[:2 * j + 1], warps[:2 * j + 1]
         rows, launch = fg.prepare_stats_params(spec, svec, None, chunks, device=dev)
         prefixes.append({"elements": j, "ms": _time_ms(launch, torch), "rays": rays_j, "warps": warps_j,
-                         "stage_warps": _stage_warps(table, warps_j, rows.shape[1]),
+                         "stage_warps": ab.stage_warps(table, warps_j, rows.shape[1]),
                          "stage_ops": [step for _pre, step in _stage_ops(table)],
                          "ops": _ops_where_rays_die(table, rays_j, OPS["weight"] + OPS["stats"])})
     first = prefixes[0]
@@ -1470,14 +1465,6 @@ def _k7_stage_split(torch, dev, chain, host, geo, params, det, rays, warps):
               f"{p['warps']}; " + ", ".join(f"{k} {v:.4f}" for k, v in p.get("issue_ms", {}).items())
               + " ms (issue-slot and pipe bounds)", flush=True)
     return {"prefixes": prefixes, "stages": stages, "sass": issue}
-
-
-def _stage_warps(table, warps, n_blocks: int) -> dict:
-    """The warp passes through each stage of kernel_ab.STAGES in one launch
-    of a summing kernel on ``table`` (utils/kernel_ab.stage_warps)."""
-    from attosecondraytracing_tpu_torch.utils import kernel_ab as ab
-
-    return ab.stage_warps(table, warps, n_blocks)
 
 
 def _k7_issue_bounds(prefixes) -> dict:
@@ -1639,6 +1626,7 @@ def phase_k8(torch, dev):
     import numpy as np
 
     from attosecondraytracing_tpu_torch.ops import fused_trace as ft
+    from attosecondraytracing_tpu_torch.utils import kernel_ab as ab
 
     chain = _flagship(N_CHECK)[0]
     edge = chain.source_spec.gaussian_edge
@@ -1673,7 +1661,7 @@ def phase_k8(torch, dev):
     spec, elements, det, (opl_ref, inv_dn), chunks, n = _k2_setup(torch, dev, chain, N_TIME)
     table = ft.chain_table(spec, elements)
     _check(len(chunks) == 2, f"K8 timing: expected 2 chunks, got {len(chunks)}")
-    alive = _alive_by_stage(torch, table, spec, chunks, n, dev)
+    alive = ab.alive_by_stage(table, spec, chunks, n, dev)
     out = {}
     for J in K8_TIMED:
         bdet = detector(elements, det, opl_ref, inv_dn, cases[J])
@@ -1762,7 +1750,7 @@ def _deformed_k12(torch, dev, kind, n_rays=N_TIME):
                             opl_ref=opl_ref, inv_dn_chief=inv_dn)
     tables = [(kind, ft.chain_table(spec, elements))]
     if kind == "grid":  # the same geometry, so the same detector
-        rough = _deformed_flagship(16, kind=kind, grid_rms=GRID_EFFECT_RMS)[0].to(dev)
+        rough = _deformed_flagship(16, kind=kind, grid=dict(GRID, RMS=GRID_EFFECT_RMS))[0].to(dev)
         tables.append((f"grid at {GRID_EFFECT_RMS * 1e6:.0f} nm", ft.chain_table(
             spec, rough.device_elements(torch.float64))))
     err1 = err2 = 0.0
@@ -1876,12 +1864,109 @@ def _deformed_k5(torch, dev, kind):
     return spot_err
 
 
+def _k6_rows(problem, tag, dev, ignores=(True, False)):
+    """K6's 18 tangent rows of one launch against stats_params_ref on the
+    fused loss ``problem`` (:func:`_grad_problem`), with each of
+    ``ignores``: ignore_defects True (gradient_align's) and False (the
+    defect slopes in the normals: their tangents are the Hessian's rows and
+    the slope maps' cell derivatives). The sums, each statistic's tangents
+    within 2e-3 of its largest (the delay's within 2e-2), the loss rel 2e-3
+    and the gradient within 2e-2 (phase k67's tolerances). Returns
+    {ignore_defects: (K6's primal, K6's rows, the plain version's rows)}
+    and, under "err", the gradient's largest difference with the first of
+    ``ignores``."""
+    import numpy as np
+
+    from attosecondraytracing_tpu_torch.ops import fused_grad as fg
+    from attosecondraytracing_tpu_torch.ops import fused_trace as ft
+
+    spec, host, geo, params, _ = problem
+    svec = fg.chain_scalars_np(fg._apply_params_np(host, params), *geo)
+    tang = fg.scalar_tangents(host, params, *geo)
+    chunks = fg._ray_chunks(spec, fg.GRAD_CHUNK)
+    out = {}
+    for ignore in ignores:
+        ispec = spec._replace(ignore_defects=ignore)
+        _reset_launches()
+        p_i, t_i = fg.fused_stats_params(ispec, svec, tang, chunks, device=dev)
+        _check(_launches()["K6"] == 1 and tang.shape[0] == 18, f"{tag}: {_launches()}, {tang.shape}")
+        p_ir, t_ir = fg.stats_params_ref(ispec, svec, tang, chunks, device=dev)
+        itag = f"{tag}, ignore_defects {ignore}"
+        _check_grad_sums(f"{itag} (18 tangent rows in one launch)", p_i, p_ir, spec.opl_ref)
+        scale = np.maximum(np.abs(t_ir).max(axis=0), 1e-12)
+        per_stat = (np.abs(t_i - t_ir) / scale).max(axis=0)
+        print(f"{itag}: the 18 tangent rows within " + ", ".join(
+            f"{f} {v:.3g}" for f, v in zip(ft.STATS_FIELDS, per_stat)) + " of each statistic's largest",
+            flush=True)
+        _check(np.all(np.isfinite(t_i)) and per_stat[:5].max() <= 2e-3 and per_stat[5:].max() <= 2e-2,
+               f"{itag}: tangents differ by {per_stat}")
+        loss_k, dloss = fg._loss_from_stats(p_i, ispec, fg._total_weight(ispec))
+        loss_r, dloss_r = fg._loss_from_stats(p_ir, ispec, fg._total_weight(ispec))
+        g_k, g_r = t_i @ dloss, t_ir @ dloss_r
+        print(f"{itag}: loss {loss_k:.9g} vs {loss_r:.9g}, gradient max |diff| "
+              f"{np.abs(g_k - g_r).max():.3g} of max |g| {np.abs(g_r).max():.3g}", flush=True)
+        _check(abs(loss_k - loss_r) <= 2e-3 * abs(loss_r), f"{itag}: loss {loss_k} vs {loss_r}")
+        _check(np.all(np.abs(g_k - g_r) <= 2e-2 * np.abs(g_r).max() + 2e-2 * np.abs(g_r)),
+               f"{itag}: gradient {g_k} vs {g_r}")
+        out[ignore] = (p_i, t_i, t_ir)
+        out.setdefault("err", float(np.abs(g_k - g_r).max()))
+    return out
+
+
+def _k6_effect(torch, dev, kind):
+    """The defects' share of K6's tangent rows against the plain version's:
+    the undeformed flagship at 2^20 rays (its detector placed by the probe
+    trace) and, on the same detector, the flagship deformed at the effect
+    sizes (``kind`` "zernike": :data:`ZERNIKE_K6_EFFECT`; "grid":
+    :data:`GRID_K6_EFFECT`, then both on one mirror, "mixed"), each checked
+    as :func:`_k6_rows` checks. Three differences per deformed chain: its
+    rows with ignore_defects True minus the undeformed rows ("T"), the same
+    with False ("F"), and its rows with False minus those with True
+    ("F-T"). Each statistic's column is divided by the undeformed rows'
+    largest; for each statistic the difference moves, the largest gap
+    between K6's difference and the plain version's over the 18 rows must
+    stay within :data:`K6_EFFECT_REL` of the plain version's largest.
+    Returns {chain: {difference: {"gap": the largest such ratio, "moved":
+    the statistics the difference moves, "size": its largest}}}."""
+    import numpy as np
+
+    from attosecondraytracing_tpu_torch.ops import fused_trace as ft
+
+    base = _grad_problem(torch, dev, _flagship(N_CHECK)[0], N_CHECK, _bench_misalignment)
+    b = _k6_rows(base, "K6 flagship (the effect check's undeformed chain)", dev, ignores=(True,))[True]
+    scale = np.maximum(np.abs(b[2]).max(axis=0), 1e-12)
+    chains = {"zernike": [("zernike", {"zernike": ZERNIKE_K6_EFFECT})],
+              "grid": [("grid", {"grid": GRID_K6_EFFECT}),
+                       ("mixed", {"zernike": ZERNIKE_K6_EFFECT, "grid": GRID_K6_EFFECT})]}[kind]
+    out = {}
+    for name, sizes in chains:
+        chain = _deformed_flagship(N_CHECK, kind=name, **sizes)[0]
+        tag = f"K6 {name} flagship at the effect sizes"
+        r = _k6_rows(_grad_problem(torch, dev, chain, N_CHECK, _bench_misalignment, det=base[4]), tag, dev)
+        diffs = {"T": (r[True][1] - b[1], r[True][2] - b[2]), "F": (r[False][1] - b[1], r[False][2] - b[2]),
+                 "F-T": (r[False][1] - r[True][1], r[False][2] - r[True][2])}
+        out[name] = {}
+        for d, (dk, dr) in diffs.items():
+            size = np.abs(dr / scale).max(axis=0)
+            moved = size > 0
+            rel = np.abs((dk - dr) / scale).max(axis=0)[moved] / size[moved]
+            print(f"{tag}: {d} difference, per statistic the plain version's largest (of the undeformed "
+                  "rows' largest) and K6's largest gap from it (of that): " + ", ".join(
+                      f"{f} {v:.3g} / {e:.3g}" for f, v, e in zip(np.asarray(ft.STATS_FIELDS)[moved],
+                                                                   size[moved], rel)), flush=True)
+            _check(np.all(np.isfinite(dk)) and moved.any() and rel.max() <= K6_EFFECT_REL,
+                   f"{tag}: the {d} difference's gaps {rel} (bound {K6_EFFECT_REL})")
+            out[name][d] = {"gap": float(rel.max()) if moved.any() else None, "moved": int(moved.sum()),
+                            "size": float(size.max())}
+    return out
+
+
 def _deformed_k678(torch, dev, kind):
     """K6's 18 tangent rows of one launch against stats_params_ref with
-    ignore_defects True and False (the loss and gradient they give too), K7
-    against its plain version and equal to K6's primal, and K8 at 20
-    distances against its plain version and against K2's moments, all on
-    the ``kind`` flagship at 2^20 rays (phases k67's and k8's tolerances).
+    ignore_defects True and False (:func:`_k6_rows`), K7 against its plain
+    version and equal to K6's primal, and K8 at 20 distances against its
+    plain version and against K2's moments, all on the ``kind`` flagship at
+    2^20 rays (phases k67's and k8's tolerances).
     Returns the (K6 gradient with ignore_defects True, K7 loss, K8 spot SD)
     differences."""
     import numpy as np
@@ -1890,37 +1975,12 @@ def _deformed_k678(torch, dev, kind):
     from attosecondraytracing_tpu_torch.ops import fused_trace as ft
 
     chain, _ = _deformed_flagship(N_CHECK, kind=kind)
-    spec, host, geo, params, _ = _grad_problem(torch, dev, chain, N_CHECK, _bench_misalignment)
+    problem = _grad_problem(torch, dev, chain, N_CHECK, _bench_misalignment)
+    spec, host, geo, params, _ = problem
     svec = fg.chain_scalars_np(fg._apply_params_np(host, params), *geo)
-    tang = fg.scalar_tangents(host, params, *geo)
     chunks = fg._ray_chunks(spec, fg.GRAD_CHUNK)
-    # K6 with ignore_defects True (gradient_align's) and False (the defect
-    # slopes in the normals: their tangents are the Hessian's rows)
-    for ignore in (True, False):
-        ispec = spec._replace(ignore_defects=ignore)
-        _reset_launches()
-        p_i, t_i = fg.fused_stats_params(ispec, svec, tang, chunks, device=dev)
-        _check(_launches()["K6"] == 1 and tang.shape[0] == 18, f"K6 {kind}: {_launches()}, {tang.shape}")
-        p_ir, t_ir = fg.stats_params_ref(ispec, svec, tang, chunks, device=dev)
-        tag = f"K6 {kind} flagship, ignore_defects {ignore}"
-        _check_grad_sums(f"{tag} (18 tangent rows in one launch)", p_i, p_ir, spec.opl_ref)
-        scale = np.maximum(np.abs(t_ir).max(axis=0), 1e-12)
-        per_stat = (np.abs(t_i - t_ir) / scale).max(axis=0)
-        print(f"{tag}: the 18 tangent rows within " + ", ".join(
-            f"{f} {v:.3g}" for f, v in zip(ft.STATS_FIELDS, per_stat)) + " of each statistic's largest",
-            flush=True)
-        _check(np.all(np.isfinite(t_i)) and per_stat[:5].max() <= 2e-3 and per_stat[5:].max() <= 2e-2,
-               f"{tag}: tangents differ by {per_stat}")
-        loss_k, dloss = fg._loss_from_stats(p_i, ispec, fg._total_weight(ispec))
-        loss_r, dloss_r = fg._loss_from_stats(p_ir, ispec, fg._total_weight(ispec))
-        g_k, g_r = t_i @ dloss, t_ir @ dloss_r
-        print(f"{tag}: loss {loss_k:.9g} vs {loss_r:.9g}, gradient max |diff| "
-              f"{np.abs(g_k - g_r).max():.3g} of max |g| {np.abs(g_r).max():.3g}", flush=True)
-        _check(abs(loss_k - loss_r) <= 2e-3 * abs(loss_r), f"{tag}: loss {loss_k} vs {loss_r}")
-        _check(np.all(np.abs(g_k - g_r) <= 2e-2 * np.abs(g_r).max() + 2e-2 * np.abs(g_r)),
-               f"{tag}: gradient {g_k} vs {g_r}")
-        if ignore:
-            p_k, err6 = p_i, float(np.abs(g_k - g_r).max())
+    rows = _k6_rows(problem, f"K6 {kind} flagship", dev)
+    p_k, err6 = rows[True][0], rows["err"]
     p7, _ = fg.fused_stats_params(spec, svec, None, chunks, device=dev)
     p7_r, _ = fg.stats_params_ref(spec, svec, None, chunks, device=dev)
     _check_grad_sums(f"K7 {kind} flagship", p7, p7_r, spec.opl_ref)
@@ -1959,6 +2019,7 @@ def _kernel_launches(torch, dev, chain):
     from attosecondraytracing_tpu_torch.ops import fused_grad as fg
     from attosecondraytracing_tpu_torch.ops import fused_scan as fs
     from attosecondraytracing_tpu_torch.ops import fused_trace as ft
+    from attosecondraytracing_tpu_torch.utils import kernel_ab as ab
 
     spec, elements, det, (opl_ref, inv_dn), chunks, n = _k2_setup(torch, dev, chain, N_TIME)
     edge = chain.source_spec.gaussian_edge
@@ -1968,7 +2029,7 @@ def _kernel_launches(torch, dev, chain):
     k1()
     n_alive = int(outs.alive.sum())
     trace_ops = _trace_ops(table, True)
-    alive = _alive_by_stage(torch, table, spec, chunks, n, dev)
+    alive = ab.alive_by_stage(table, spec, chunks, n, dev)
     out = {"K1": (k1, _bound(37 * n + grid_bytes, (trace_ops + OPS["store"]) * n))}
     bdet = ft.bake_detector(elements, det.centre, det.normal, det._plane_rotation(), opl_ref=opl_ref,
                             inv_dn_chief=inv_dn)
@@ -1989,7 +2050,7 @@ def _kernel_launches(torch, dev, chain):
     rows, k5 = fs.prepare_scan_moments(sspec, svec, aux, chunks, device=dev)
     table5 = fg.pose_table(sspec.elements, svec)
     out["K5"] = (k5, _bound(rows.numel() * 8 + 4 * (svec.size + aux.size) + grid_bytes,
-                            _ops_where_rays_die(table5, _alive_by_stage(torch, table5, spec, chunks, n, dev),
+                            _ops_where_rays_die(table5, ab.alive_by_stage(table5, spec, chunks, n, dev),
                                                 OPS["weight"] + OPS["moments"])))
     lspec, lhost, geo, params, _ = _grad_problem(torch, dev, chain, n, _bench_misalignment)
     gsvec = fg.chain_scalars_np(fg._apply_params_np(lhost, params), *geo)
@@ -1997,7 +2058,7 @@ def _kernel_launches(torch, dev, chain):
     gchunks = fg._ray_chunks(lspec, fg.GRAD_CHUNK)
     table7 = fg.pose_table(lspec.elements, gsvec)
     per_ray = _trace_ops(table7, True) + OPS["weight"]
-    alive7, warps7 = _alive_by_stage(torch, table7, fg.loss_source(lspec), gchunks, lspec.n_rays, dev,
+    alive7, warps7 = ab.alive_by_stage(table7, fg.loss_source(lspec), gchunks, lspec.n_rays, dev,
                                      warps=True)
     for key, group in (("K6", tang), ("K7", None)):
         rows, launch = fg.prepare_stats_params(lspec, gsvec, group, gchunks, device=dev)
@@ -2005,16 +2066,13 @@ def _kernel_launches(torch, dev, chain):
         if group is not None:
             P = len(group)
             ops = per_ray * n + OPS["stats"] * n_alive
-            ops += (OPS["dual_trace_once"] + P * OPS["dual_trace_tangent"]) * n
+            ops += (OPS["dual_trace_once"] + P * OPS["dual_trace_tangent"]
+                    + _dual_defect_ops(lspec.elements, P)) * n
             ops += (OPS["dual_stats_once"] + P * OPS["dual_stats_tangent"]) * n_alive
             n_in += group.size
-            n_bytes = rows.numel() * 8 + 4 * n_in + 8 * len(gchunks) + grid_bytes
             # K6's warp passes through each stage: every group retraces the primal
             out["K6_stage_warps"] = {k: v * rows.shape[0]
-                                     for k, v in _stage_warps(table7, warps7, rows.shape[1]).items()}
-            out["K6_dual_recurrence_bound"] = _bound(
-                n_bytes, ops + _dual_defect_ops(lspec.elements, P, dual_recurrence=True) * n)
-            ops += _dual_defect_ops(lspec.elements, P) * n
+                                     for k, v in ab.stage_warps(table7, warps7, rows.shape[1]).items()}
         else:
             ops = _ops_where_rays_die(table7, alive7, OPS["weight"] + OPS["stats"])
         out[key] = (launch, _bound(rows.numel() * 8 + 4 * n_in + 8 * len(gchunks) + grid_bytes, ops))
@@ -2097,7 +2155,8 @@ def _deformed_phase(torch, dev, kind):
     path and every kernel: the main path on the deformed flagship
     (:func:`_deformed_main_path`), each kernel against its plain version on
     the deformed chain (:func:`_deformed_k12`, :func:`_deformed_k34`,
-    :func:`_deformed_k5`, :func:`_deformed_k678`), then each kernel's
+    :func:`_deformed_k5`, :func:`_deformed_k678`), the defects' share of
+    K6's rows (:func:`_k6_effect`), then each kernel's
     launch-only time on the deformed flagship at 1e7 rays beside the
     undeformed flagship's, in turns (flagship, deformed, deformed,
     flagship). Returns ({kernel: the phase's numbers, keys prefixed by
@@ -2108,6 +2167,7 @@ def _deformed_phase(torch, dev, kind):
     err3, err4 = _deformed_k34(torch, dev, kind)
     err5 = _deformed_k5(torch, dev, kind)
     err6, err7, err8 = _deformed_k678(torch, dev, kind)
+    effect = _k6_effect(torch, dev, kind)
     errs = {"K1": err1, "K2": err2, "K3": err3, "K4": err4, "K5": err5, "K6": err6, "K7": err7, "K8": err8}
     flat = _kernel_launches(torch, dev, _flagship(N_CHECK)[0])
     deformed = _kernel_launches(torch, dev, _deformed_flagship(N_CHECK, kind=kind)[0])
@@ -2126,9 +2186,7 @@ def _deformed_phase(torch, dev, kind):
               f"on the {kind} chain {errs[key]:.3g}", flush=True)
         out[key] = {f"{kind}_ms": ms, f"{kind}_flat_ms": flat_ms, f"{kind}_bound_ms": bound["bound_ms"],
                     f"{kind}_bound_by": bound["bound_by"], f"{kind}_max_abs_err": errs[key]}
-    dual = deformed["K6_dual_recurrence_bound"]["bound_ms"]
-    print(f"K6 {kind} bound with the defect branch's count on Dual<G> throughout: {dual:.4f} ms", flush=True)
-    out["K6"].update({f"{kind}_dual_recurrence_bound_ms": dual, f"{kind}_grad_align": grad_align},
+    out["K6"].update({f"{kind}_grad_align": grad_align, f"{kind}_effect": effect},
                      **_k6_sass(kind, deformed["K6_stage_warps"]))
     return out, launches
 
@@ -2584,6 +2642,7 @@ def phase_images(torch, dev):
     from attosecondraytracing_tpu_torch.analysis import gigascan as gs
     from attosecondraytracing_tpu_torch.ops import fused_trace as ft
     from attosecondraytracing_tpu_torch.ops.bundle import RayBundle
+    from attosecondraytracing_tpu_torch.utils import kernel_ab as ab
 
     chain, _ = _flagship(N_CHECK)
     chain.rotate_OE(2, "roll", IMAGE_ROLL)
@@ -2628,7 +2687,7 @@ def phase_images(torch, dev):
     ft.prepare_fused_source_image(job.table, job.spec, job.chunks, job.n_total, job.det, job.window, job.bins,
                                   device=dev)(unit)
     n_binned = float(unit[0].sum())
-    alive = _alive_by_stage(torch, job.table, job.spec, job.chunks, job.n_total, dev)
+    alive = ab.alive_by_stage(job.table, job.spec, job.chunks, job.n_total, dev)
     bound = _bound(2 * 8 * IMAGE_BINS[0] * IMAGE_BINS[1] + 8 * n_chunks,
                    _ops_where_rays_die(job.table, alive, OPS["image"]) + OPS["weight"] * n_binned)
     print(f"images bound: rays alive entering / past the masks of each element, then at the end {alive}, "

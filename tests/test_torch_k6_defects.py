@@ -1,8 +1,9 @@
 """The gradient kernel K6 on deformed mirrors: the arithmetic its defect
 branch runs on the primal and the tangents it composes at the hit
-(``csrc/trace_common.cuh``: ``zernike_hit`` / ``deformed_hit`` on
-``Dual<G>``, ``at_hit``, ``grid_cell``, ``zernike_slopes_at``), held on the
-CPU through their plain twins:
+(``csrc/trace_common.cuh``: the ``Dual<G>`` overloads of
+``zernike_height`` / ``zernike_slopes`` / ``grid_height`` / ``grid_slopes``,
+with ``at_hit``, ``grid_cell`` and ``zernike_hessian``), held on the CPU
+through their plain twins:
 
 * ``ops/zernike.zernike_value_grad_hessian``: the Zernike values, gradients
   and Hessians by the recurrence (the slopes' tangents are the Hessian's
@@ -21,7 +22,9 @@ CPU through their plain twins:
   kernel ``_kernel_stats_jvp`` (``jax.linearize`` of ``_stats_of_scalars``,
   the function its ``pallas_call`` differentiates). The JAX package's
   Pallas kernels refuse grid maps (``pallas_trace._bake_defect``), so the
-  body runs outside ``pallas_call``, on the same rays.
+  body runs outside ``pallas_call``, on the same rays;
+* ``chip_smoke._k6_effect``, the card's check of the defects' share of K6's
+  rows, on the CPU: its defect sizes move every difference it holds.
 
 The kernel itself runs only on the card (``chip_smoke.py``, phases zernike
 and grid, both ``ignore_defects``). Tolerances: the twins in float64 within
@@ -364,8 +367,8 @@ def test_k6_sass_stages_on_a_fixed_listing():
     """kernel_ab's SASS accounting of K6 on deformed mirrors: the defect
     branch's height (the recurrence on the primal, composed at the hit) is
     stage "defects"; what runs only where ignore_defects is False (the
-    slope normal's call, the out-of-line slope normals, the generic form's
-    second pass) is stage "slopes"; local-memory loads and stores are
+    slope sums inline or out of line, on Dual<G> or the generic form) is
+    stage "slopes"; local-memory loads and stores are
     counted per stage; a subroutine the compiler outlined from the body
     (a label that names no slow path) keeps its chains, an IEEE slow path
     does not; a launch's warp passes reach "slopes" only with ignore_defects
@@ -376,10 +379,11 @@ def test_k6_sass_stages_on_a_fixed_listing():
 
     tc = "trace_common.cuh"
     zn0 = _csrc_line(tc, "zn[0] = x * z1[0] + y * z1[n - 1];")
-    height = _csrc_line(tc, "dh, hx, hy);")
-    dual_slopes = _csrc_line(tc, "zernike_slope_normal(zk, el.cen[0], el.cen[1], h);")
-    in_slope_normal = _csrc_line(tc, "zernike_slopes_at(zk, h.x, h.y, cx, cy, gx, gy);")
-    generic_slopes = _csrc_line(tc, "zernike_sums<true>(zk, (h.x - el.cen[0]) * zk.inv_r")
+    dual_height = _csrc_line(tc, "zernike_sums<true>(zk, (x.v - cx) * zk.inv_r, (y.v - cy) * zk.inv_r, h, hx, hy);")
+    height = _csrc_line(tc, "const S dh = zernike_height(zk, h.x, h.y, el.cen[0], el.cen[1]);")
+    slopes = _csrc_line(tc, "zernike_slopes(zk, h.x, h.y, el.cen[0], el.cen[1], gx, gy);")
+    in_dual_slopes = _csrc_line(tc, "zernike_hessian(zk, (x.v - cx) * zk.inv_r, (y.v - cy) * zk.inv_r, g);")
+    generic_slopes = _csrc_line(tc, "zernike_sums<true>(zk, (x - cx) * zk.inv_r, (y - cy) * zk.inv_r, h, gx, gy);")
     mirror_zk = _csrc_line(tc, "if (z >= 0) zernike_hit(el, ch.zk[z], ch.ignore_defects != 0")
     maps_mirror = _csrc_line(tc, "mirror_step<WANT_INCIDENCE, DEFECTS>(ch, i, last")
 
@@ -394,14 +398,14 @@ def test_k6_sass_stages_on_a_fixed_listing():
         "        /*0000*/                   CALL.REL.NOINC `($_ZN3art19stats_params_kernelILi6ELi1EEEv$loop) ;",
         "        /*0010*/                   EXIT ;",
         "$_ZN3art19stats_params_kernelILi6ELi1EEEv$loop:",
-        group(zn0, height, *walk),
+        group(zn0, dual_height, height, *walk),
         "        /*0020*/                   FFMA R1, R2, R3, R4 ;",
         "        /*0030*/                   STL [R1], R2 ;",
-        group(dual_slopes, *walk),
+        group(in_dual_slopes, slopes, *walk),
         "        /*0040*/                   LDL R2, [R1] ;",
-        group(zn0, generic_slopes, *walk),
+        group(zn0, generic_slopes, slopes, *walk),
         "        /*0050*/                   FMUL R1, R2, R3 ;",
-        group(in_slope_normal),
+        group(in_dual_slopes),
         "        /*0060*/                   STL [R1], R2 ;",
         "        /*0070*/                   RET.REL.NODEC R2 `(_ZN3art19stats_params_kernelILi6ELi1EEEv) ;",
         "$__internal_12_$__cuda_sm20_rcp_rn_f32_slowpath:",
@@ -463,3 +467,24 @@ def test_ptxas_fields_and_sass_digests():
     assert ab.same_sass_text(a, dict(a)) == "SASS equal to A's in 2 of 2 functions"
     assert ab.same_sass_text(a, {**a, mangled: "3"}) == (
         "SASS equal to A's in 1 of 2 functions; differing: stats_params_kernel<6, grid>")
+
+
+@pytest.mark.parametrize("kind", ["zernike", "grid"])
+def test_effect_check_moves_every_statistic(monkeypatch, kind):
+    """chip_smoke's check of the defects' share of K6's rows (``_k6_effect``)
+    at 4096 rays on the CPU, where K6's wrapper takes its plain version:
+    every gap is 0, and each difference (with ignore_defects True and False
+    against the undeformed flagship, False against True) on each chain
+    ("zernike"; "grid" and "mixed") moves at least five of the statistics,
+    the largest by at least 1e-3 of the undeformed rows' largest, so that
+    the card's check holds the defects' tangents to something."""
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "N_CHECK", N)
+    monkeypatch.setattr(chip_smoke, "_launches", lambda: {"K6": 1})
+    out = chip_smoke._k6_effect(torch, torch.device("cpu"), kind)
+    assert set(out) == ({"zernike"} if kind == "zernike" else {"grid", "mixed"})
+    for name, diffs in out.items():
+        assert set(diffs) == {"T", "F", "F-T"}
+        for d, r in diffs.items():
+            assert r["gap"] == 0.0 and r["moved"] >= 5 and r["size"] >= 1e-3, (name, d, r)

@@ -301,7 +301,7 @@ def test_ops_where_rays_die_follow_the_plain_trace():
     table = fg.pose_table(lspec.elements, svec)
     chunks = fg._ray_chunks(lspec, 1000)
     src = fg.loss_source(lspec)
-    rays, warps = chip_smoke._alive_by_stage(torch, table, src, chunks, lspec.n_rays, "cpu", warps=True)
+    rays, warps = ab.alive_by_stage(table, src, chunks, lspec.n_rays, "cpu", warps=True)
     alive_after, warp_after = [0, 0, 0, 0], [0, 0, 0, 0]
     for n_local, phase, k_frac in chunks:
         k = torch.arange(n_local)
