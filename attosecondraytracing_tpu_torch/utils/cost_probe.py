@@ -12,8 +12,9 @@ bodies compute:
 * **P1** :func:`add_one` — an (8, 128) float32 tile plus 1; measured as the
   seconds from loading a fresh copy of the kernel library to the first
   finished launch (:func:`first_launch_seconds`), the steady launch
-  latency (:func:`launch_latency_us`), and the launch's device time with
-  the host's work hidden behind a busy stream (:func:`queued_us`);
+  latency (:func:`launch_latency_us`), the launch's device time with
+  the host's work hidden behind a busy stream (:func:`queued_us`), and the
+  wrapper's host time taken apart (:func:`add_one_split`);
 * **P2** :func:`op_chain` — ``n_ops`` dependent applications of one of the
   script's nine :data:`OPS` to every element of a (78336, 128) float32
   array, slope-timed over ``n_ops`` (:func:`op_costs`);
@@ -148,6 +149,51 @@ def launch_latency_us(x, reps=5, inner=20):
     """Steady launch latency of P1 [µs]: the median over ``reps`` CUDA-event
     windows of ``inner`` back-to-back launches on ``x``."""
     return time_ms(lambda: add_one(x), reps=reps, inner=inner) * 1e3
+
+
+def add_one_split(x, n=2000) -> dict:
+    """P1's wrapper call on the CUDA tensor ``x`` taken apart: the host
+    time per call [µs] of each of its pieces, each run ``n`` times alone
+    after a warm-up, and of the whole wrapper and of ``x + 1`` (its plain
+    version, one PyTorch call): the tensor checks (``_check_f32``), the
+    output's allocation (``torch.empty_like``), the library lookup, the
+    current stream's handle (``torch.cuda.current_stream(...).cuda_stream``),
+    the device context (``torch.cuda.device``), the pointers' reads
+    (``data_ptr``, ``numel``), the ctypes call into ``art_launch_add_one``
+    with its arguments ready (the CUDA launch's own host work inside it) and
+    the status check."""
+    if x.device.type != "cuda":
+        raise ValueError("add_one_split times the CUDA launch path: give it a CUDA tensor")
+    lib = _lib()
+    out = torch.empty_like(x)
+    args = (x.data_ptr(), out.data_ptr(), x.numel(), _stream(x))
+
+    def device_context():
+        with torch.cuda.device(x.device):
+            pass
+
+    pieces = {
+        "checks": lambda: _check_f32("P1", x),
+        "allocation": lambda: torch.empty_like(x),
+        "library": _lib,
+        "stream": lambda: _stream(x),
+        "device context": device_context,
+        "pointers": lambda: (x.data_ptr(), out.data_ptr(), x.numel()),
+        "ctypes launch": lambda: lib.art_launch_add_one(*args),
+        "status check": lambda: _cuda._check(lib, 0, "add_one launch"),
+        "wrapper": lambda: add_one(x),
+        "x + 1": lambda: add_one_ref(x),
+    }
+    times = {}
+    for name, fn in pieces.items():
+        fn()
+        torch.cuda.synchronize(x.device)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        times[name] = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize(x.device)
+    return times
 
 
 def queued_us(fn, n=200, hold_ms=20.0):

@@ -20,9 +20,17 @@ defects of ``chip_smoke.py``'s phase zernike, and ``grid``, with its grid
 map.
 
 * K1, K3 and K4 have the same C interface in every build: one prepared
-  launch serves each library, picked up through ``ops/_cuda._lib``. K1's
+  launch serves each library, picked up through ``ops/_cuda._lib``. Their
   outputs of the two builds are compared ray by ray: the alive masks, and
-  p, d, opl, opl_c and incidence bit for bit on the alive rays.
+  p, d, opl, opl_c and incidence bit for bit on the alive rays. K3 and K4
+  run on the cases of :data:`K34_CASES` (``--kernels K3`` / ``K4`` name
+  each kernel's): the flagship's source bundle in its spiral order and
+  shuffled, with ignore_defects False on a deformed chain, the bundle past
+  the mask (K3), past the mask and the first toroid (K3, phase streamed's
+  traced bundle) and the byhand CONFIG's PointSource (K4, once); beside
+  each of this build's times its byte bound and its issue-slot bound
+  (:func:`_k34_bounds`: its SASS by stage over the warps' passes, counted
+  where the rays die, :func:`streamed_stage_warps`).
 * K1i (C interface version 6) is prepared per library of version 6: the
   flagship's image of ``--image-rays`` rays (default ``--rays``), 512 x 512
   pixels on the plane 490 mm behind it (the window fitted to a probe), one
@@ -80,7 +88,25 @@ import torch
 
 from ..ops import _cuda
 
-KERNELS = ("K1", "K1i", "K2", "K3", "K4", "K5", "K6", "K7", "K8_J1", "K8_J20", "K8_J128")
+#: K3's and K4's cases (``--kernels K3`` / ``K4`` name all of a kernel's): the
+#: kernel (fresh: K4), the bundle (:func:`_streamed_bundles`) and
+#: ignore_defects. A ``_slopes`` case runs on a deformed chain only; the
+#: byhand bundle runs through the byhand CONFIG's own chain, once (with the
+#: flat flagship's cases)
+K34_CASES = {
+    "K4": (True, "flagship", True),
+    "K4_slopes": (True, "flagship", False),
+    "K4_shuffled": (True, "shuffled", True),
+    "K4_byhand": (True, "byhand", True),
+    "K3": (False, "flagship", True),
+    "K3_slopes": (False, "flagship", False),
+    "K3_shuffled": (False, "shuffled", True),
+    "K3_masked": (False, "masked", False),
+    "K3_traced": (False, "traced", True),
+}
+KERNELS = ("K1", "K1i", "K2", *K34_CASES, "K5", "K6", "K7", "K8_J1", "K8_J20", "K8_J128")
+#: bytes a ray of K3 (every stream in and out) and K4 (p, d in) moves
+K34_BYTES_PER_RAY = {False: 74, True: 61}
 #: the pixels of K1i's image
 K1I_BINS = (512, 512)
 #: distances of the K8 runs (20: scripts/bench_stats_kernel.py's; 128: the most a pass takes)
@@ -582,28 +608,68 @@ def alive_by_stage(table, spec, chunks, n_total, dev, ignore_defects: bool = Tru
     from ..ops import fused_trace as ft
     from ..ops import trace as tr
 
+    def states():
+        for n_local, phase, k_frac in chunks:
+            k = torch.arange(n_local, dtype=torch.int64, device=dev)
+            (px, py, pz), (dx, dy, dz), _rr = ft.synth_spec(spec, k, n_total, phase, k_frac)
+            zeros = torch.zeros_like(px)
+            yield tr.TraceState(px, py, pz, dx, dy, dz, zeros, zeros, torch.ones_like(px, dtype=torch.bool),
+                                zeros)
+
+    rays, warp_counts = _walk_counts(table, states(), dev, ignore_defects)
+    return (rays, warp_counts) if warps else rays
+
+
+def _walk_counts(table, states, dev, ignore_defects: bool) -> tuple:
+    """(rays, warps): :func:`alive_by_stage`'s counts of the chunks of rays
+    ``states`` (``TraceState`` each, warps of 32 consecutive rays of a
+    chunk) through ``table``, on the plain trace."""
+    from ..ops import fused_trace as ft
+    from ..ops import trace as tr
+
     counts = torch.zeros((2, 2 * len(table.elements) + 1), dtype=torch.int64, device=dev)
     elements = ft._grids_on(table.elements, dev)
 
     def add(i, alive):
         counts[0, i] += alive.sum()
-        if warps:
-            lanes = torch.cat([alive, alive.new_zeros((-alive.numel()) % 32)])
-            counts[1, i] += lanes.view(-1, 32).any(dim=1).sum()
+        lanes = torch.cat([alive, alive.new_zeros((-alive.numel()) % 32)])
+        counts[1, i] += lanes.view(-1, 32).any(dim=1).sum()
 
-    for n_local, phase, k_frac in chunks:
-        k = torch.arange(n_local, dtype=torch.int64, device=dev)
-        (px, py, pz), (dx, dy, dz), _rr = ft.synth_spec(spec, k, n_total, phase, k_frac)
-        zeros = torch.zeros_like(px)
-        s = tr.TraceState(px, py, pz, dx, dy, dz, zeros, zeros, torch.ones_like(px, dtype=torch.bool), zeros)
+    for s in states:
         for i, (el, (M, b), pre) in enumerate(zip(elements, table.maps, table.premasks)):
             add(2 * i, s.alive)
             add(2 * i + 1, tr.premask_alive(pre, s)[0] if pre else s.alive)
             s = tr.chained_step(el, M, b, s, want_incidence=False, ignore_defects=ignore_defects,
                                 premasks=pre, freeze_dead=False)
         add(-1, s.alive)
-    rays, warp_counts = ([int(c) for c in row] for row in counts.tolist())
-    return (rays, warp_counts) if warps else rays
+    return tuple([int(c) for c in row] for row in counts.tolist())
+
+
+def streamed_stage_warps(table, bundle, fresh: bool, dev, ignore_defects: bool = True,
+                         chunk: int = 1 << 22) -> dict:
+    """K3's (K4's with ``fresh``) warp passes through each stage of
+    :data:`STAGES` in one launch on ``bundle`` through the lab-frame
+    ``table``: a warp holds 32 consecutive rays (``csrc/
+    streamed_trace.cu``), its loads, to-lab map and stores ("setup") once,
+    the walk's stages as :func:`stage_warps` counts them from the warps with
+    a ray alive (a ray that enters dead walks nothing)."""
+    from ..ops import trace as tr
+
+    n = bundle.n_rays
+
+    def states():
+        for lo in range(0, n, chunk):
+            hi = min(n, lo + chunk)
+            p, d = (x[lo:hi].to(dev, torch.float32) for x in (bundle.p, bundle.d))
+            zeros = torch.zeros_like(p[:, 0])
+            alive = (torch.ones_like(zeros, dtype=torch.bool) if fresh
+                     else bundle.alive[lo:hi].to(dev, torch.bool))
+            yield tr.TraceState(*p.unbind(1), *d.unbind(1), zeros, zeros, alive, zeros)
+
+    _rays, warps = _walk_counts(table, states(), dev, ignore_defects)
+    out = stage_warps(table, warps, 0, ignore_defects)
+    out["setup"] = -(-n // 32)
+    return out
 
 
 def stage_warps(table, warps, n_blocks: int, ignore_defects: bool = True) -> dict:
@@ -940,18 +1006,103 @@ def flagship(n_rays: int = 16, kind: str = "flat"):
     return [e.to_device("cpu", torch.float64) for e in chain.optical_elements], spec
 
 
-def _problems(n_rays: int, device, kind: str = "flat", n_image: int | None = None):
+def shuffle_order(n_rays: int, device, seed: int = 0) -> torch.Tensor:
+    """A seeded random permutation of ``n_rays`` ray indices on ``device``."""
+    return torch.as_tensor(np.random.default_rng(seed).permutation(n_rays), device=device)
+
+
+def permuted(bundle, order):
+    """``bundle``'s rays in the order ``order`` (ray i is ray order[i])."""
+    return bundle._replace(**{f: getattr(bundle, f)[order]
+                              for f in ("p", "d", "opl", "opl_c", "alive", "intensity", "incidence")})
+
+
+def traced_bundle(elements, bundle, device, ignore_defects: bool = True):
+    """``bundle`` (fresh) traced through ``elements`` by K4, as a bundle a
+    user feeds on to K3: dead rays, nonzero optical paths."""
+    from ..ops import fused_trace as ft
+    from ..ops.bundle import RayBundle
+
+    out = ft.streamed_trace(ft.chain_table(None, elements), bundle, device=device, fresh=True,
+                            ignore_defects=ignore_defects)
+    return RayBundle(p=out.p, d=out.d, opl=out.opl, opl_c=out.opl_c, alive=out.alive,
+                     intensity=bundle.intensity.to(device, torch.float32), incidence=out.incidence,
+                     wavelength=bundle.wavelength.to(device, torch.float32))
+
+
+def byhand_problem(n_rays: int, device):
+    """The byhand CONFIG (``examples/CONFIG_toroidal2f-2f_byhand.py``, a
+    toroid at 80 deg in 2f-2f) with its PointSource of ``n_rays`` rays,
+    Gaussian-weighted to exp(-2) at the edge: (host float64 elements, the
+    bundle on ``device``)."""
+    import importlib.util
+
+    from .. import main as art
+    from ..models import sources
+
+    path = Path(__file__).resolve().parents[2] / "examples" / "CONFIG_toroidal2f-2f_byhand.py"
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    module = importlib.util.module_from_spec(spec)
+    with art._config_aliases():
+        spec.loader.exec_module(module)
+    chain, props = module.OpticalChainList, module.SourceProperties
+    bundle = sources.ApplyGaussianIntensityToRayList(
+        sources.PointSource(module.SourcePoint, -module.SourcePoint, props["Divergence"], n_rays,
+                            props["Wavelength"]), float(np.exp(-2.0)))
+    return ([e.to_device("cpu", torch.float64) for e in chain.optical_elements],
+            bundle.to(device, torch.float32))
+
+
+def _streamed_bundles(host, spec, n_rays: int, device, names) -> dict:
+    """K3's and K4's input bundles ``names`` (:data:`K34_CASES`) at
+    ``n_rays`` rays, each with its lab-frame table: ``{name: (table,
+    bundle)}``. "flagship": the cone source's bundle in its spiral order;
+    "shuffled": the same rays in a seeded random order
+    (:func:`shuffle_order`); "masked": the flagship bundle past the mask
+    (ignore_defects False) before the toroids; "traced": past the mask and
+    the first toroid before the second (phase streamed's bundle); "byhand":
+    :func:`byhand_problem`."""
+    from ..ops import fused_trace as ft
+
+    out = {}
+    bundle = ft.source_bundle(spec, n_rays, device=device)
+    for name in names:
+        if name == "flagship":
+            out[name] = (ft.chain_table(None, host), bundle)
+        elif name == "shuffled":
+            out[name] = (ft.chain_table(None, host), permuted(bundle, shuffle_order(n_rays, device)))
+        elif name == "masked":
+            out[name] = (ft.chain_table(None, host[1:]),
+                         traced_bundle(host[:1], bundle, device, ignore_defects=False))
+        elif name == "traced":
+            out[name] = (ft.chain_table(None, host[2:]), traced_bundle(host[:2], bundle, device))
+        else:
+            elements, byhand = byhand_problem(n_rays, device)
+            out[name] = (ft.chain_table(None, elements), byhand)
+    return out
+
+
+def _alive_outputs(outs):
+    """A bundle's alive mask and its p, d, opl, opl_c and incidence on the
+    alive rays (copies)."""
+    alive = outs.alive.clone()
+    return alive, [x[alive].clone() for x in (outs.p, outs.d, outs.opl, outs.opl_c, outs.incidence)]
+
+
+def _problems(n_rays: int, device, kind: str = "flat", n_image: int | None = None, k34=("K3", "K4")):
     """The flagship (round-hole mask and two grazing toroids in f-d-f, 25
     mrad cone source; its first toroid deformed by
     :func:`first_toroid_defects` of ``kind``) at ``n_rays`` rays: prepared
-    launches of K1, K3 and K4 (any build), and ``per_lib(lib, version)``
+    launches of K1 and of K3's and K4's cases ``k34`` (:data:`K34_CASES`;
+    any build), and ``per_lib(lib, version)``
     giving each library's ``{kernel: (launch, result)}`` of K2, K8 (1, 20
     and 128 distances over +-10 mm, per-distance chief-ray delay offsets),
     K5, K6 (the step's 18 tangent rows of scripts/bench_fused_grad.py's
     misalignment, Gaussian edge exp(-2)) and K7, and K1i (version 6) at
     ``n_image`` rays (default ``n_rays``).
-    Returns ``(shared, per_lib, results)``: ``results`` holds K1's outputs
-    as the last launch left them."""
+    Returns ``(shared, per_lib, results)``: ``results`` holds K1's and the
+    K3 and K4 cases' outputs as the last launch left them, and each case's
+    (table, bundle) under ``"K34_inputs"``."""
     from ..analysis import alignment as al
     from ..analysis import gigascan as gs
     from ..models.detector import Detector
@@ -971,10 +1122,15 @@ def _problems(n_rays: int, device, kind: str = "flat", n_image: int | None = Non
                                         dtype=torch.float32)
     bdet = ft.bake_detector(host, det.centre, det.normal, rot, opl_ref=opl_ref, inv_dn_chief=inv_dn)
     chunks = ft.source_chunks("cone", n_rays, n_rays)
-    bundle = ft.source_bundle(spec, n_rays, device=device)
-    lab = ft.chain_table(None, host)
-    _, k4 = ft.prepare_streamed_trace(lab, bundle, fresh=True, device=device)
-    _, k3 = ft.prepare_streamed_trace(lab, bundle, fresh=False, device=device)
+    bundles = _streamed_bundles(host, spec, n_rays, device, {K34_CASES[k][1] for k in k34})
+    shared, results = {"K1": k1}, {"K1": lambda: _alive_outputs(outs), "K34_inputs": {}}
+    for key in k34:
+        fresh, which, ignore = K34_CASES[key]
+        table34, bundle34 = bundles[which]
+        outs34, shared[key] = ft.prepare_streamed_trace(table34, bundle34, fresh=fresh, device=device,
+                                                        ignore_defects=ignore)
+        results[key] = lambda outs34=outs34: _alive_outputs(outs34)
+        results["K34_inputs"][key] = bundles[which]
     dets = {}
     for key, J in K8_DISTANCES.items():
         distances = (0.0,) if J == 1 else tuple(float(d) for d in np.linspace(-10, 10, J))
@@ -1005,10 +1161,6 @@ def _problems(n_rays: int, device, kind: str = "flat", n_image: int | None = Non
                    for _ in range(2))
     n_image = n_image or n_rays
     image_chunks = ft.source_chunks("cone", n_image, n_image)
-
-    def k1_outputs():
-        alive = outs.alive.clone()
-        return alive, [x[alive].clone() for x in (outs.p, outs.d, outs.opl, outs.opl_c, outs.incidence)]
 
     def per_lib(lib, version):
         out = {}
@@ -1074,7 +1226,8 @@ def _problems(n_rays: int, device, kind: str = "flat", n_image: int | None = Non
         return {k: v * groups for k, v in stage_warps(table6, alive6[0], n_blocks,
                                                        lspec.ignore_defects).items()}
 
-    return {"K1": k1, "K3": k3, "K4": k4}, per_lib, {"K1": k1_outputs, "K6_warps": k6_warps}
+    results["K6_warps"] = k6_warps
+    return shared, per_lib, results
 
 
 def _window_ms(launch, inner=5) -> float:
@@ -1199,7 +1352,10 @@ def main(argv=None):
     args = parser.parse_args(argv)
     keys = []
     for k in args.kernels.split(","):
-        keys += list(K8_DISTANCES) if k == "K8" else [k] if k else []
+        if k in ("K3", "K4"):
+            keys += [c for c in K34_CASES if c.split("_")[0] == k]
+        else:
+            keys += list(K8_DISTANCES) if k == "K8" else [k] if k else []
     chains = [c for c in args.chains.split(",") if c]
     if not set(keys) <= set(KERNELS) or not set(chains) <= set(CHAINS):
         raise SystemExit(f"--kernels takes {KERNELS} and K8; --chains {CHAINS}")
@@ -1237,10 +1393,11 @@ def main(argv=None):
             print(f"K6 {chain} ({name}) SASS by stage: {stages}" if isinstance(stages, str)
                   else stages_text(f"K6 {chain} ({name})", *stages), flush=True)
     print(f"{card}; {1 + len(others)} libraries ready in {time.perf_counter() - t0:.1f} s", flush=True)
-    flat, result = None, {}
+    flat, result, k34_sass = None, {}, {}
     for chain in chains:
+        k34 = [k for k in keys if k in K34_CASES and _case_runs(k, chain)]
         shared, per_lib, results = _problems(int(args.rays), device, chain,
-                                             int(args.image_rays or args.rays))
+                                             int(args.image_rays or args.rays), k34)
         own = {"A": per_lib(lib_a, _cuda.ABI_VERSION)}
         for name, _csrc, lib, version in others:
             own[name] = per_lib(lib, version)
@@ -1248,6 +1405,8 @@ def main(argv=None):
         if chain == "flat":
             flat = (shared, own["A"])
         for key in keys:
+            if key in K34_CASES and key not in k34:
+                continue
             for name, csrc, lib, _version in others:
                 if key not in shared and key not in own[name]:
                     print(f"{key} {chain} flagship: {name} has no {key}", flush=True)
@@ -1267,6 +1426,12 @@ def main(argv=None):
                 print(f"{key} {chain} flagship vs {name}: this build {a:.4f} ms, other build {b:.4f} ms "
                       f"(B/A {b / a:.4f}; {2 * args.rounds} windows each of 5 launches at "
                       f"{rays} rays){diff}", flush=True)
+            if key in K34_CASES:
+                bounds = _k34_bounds(key, results["K34_inputs"][key], lib_a._name, k34_sass, device)
+                result.setdefault(chain, {}).setdefault(key, {})["A_bounds"] = bounds
+                print(f"{key} {chain} flagship (A): byte bound {bounds['bytes_ms']:.4f} ms, issue-slot bound "
+                      + ", ".join(f"{p} {v:.4f}" for p, v in bounds["issue_ms"].items())
+                      + f" ms ({bounds['kernel']}; warp passes {bounds['warps']})", flush=True)
     deformed = {}
     for kind in ("zernike", "grid"):
         if getattr(args, kind):
@@ -1276,6 +1441,68 @@ def main(argv=None):
             deformed[kind] = _time_deformed(keys, kind, *flat, args, device)
     print(json.dumps({"card": card, "rays": int(args.rays), "kernels": result, "deformed": deformed}),
           flush=True)
+
+
+def _case_runs(key: str, chain: str) -> bool:
+    """Whether K3's or K4's case ``key`` runs on ``chain``: a ``_slopes``
+    case on a deformed chain only, the byhand bundle once (on "flat")."""
+    _fresh, which, _ignore = K34_CASES[key]
+    return (not key.endswith("_slopes") or chain != "flat") and (which != "byhand" or chain == "flat")
+
+
+def _defect_branch(table) -> int:
+    """The DEFECTS instantiation a launch on ``table`` takes (csrc/
+    trace_common.cuh with_defects): 2 with a grid map, 1 with Zernike
+    defects only, else 0."""
+    from ..ops.defects import GridDefect
+
+    found = [d for el in table.elements for d in getattr(el, "defects", ())]
+    return 2 if any(isinstance(d, GridDefect) for d in found) else 1 if found else 0
+
+
+def grid_bytes(elements, n_rays: int, ignore_defects: bool = True) -> int:
+    """What a kernel must read of the grid maps of ``elements`` for
+    ``n_rays`` rays (the bounds of chip_smoke.py and of K3/K4 here): per
+    map, the smaller of its packed bytes (16 per node) and four 32-byte
+    sectors per ray and lookup (one lookup, two with the slopes)."""
+    from ..ops.defects import GridDefect
+
+    lookups = 1 if ignore_defects else 2
+    return sum(min(16 * d.height.numel(), n_rays * lookups * 4 * 32)
+               for el in elements for d in getattr(el, "defects", ()) if isinstance(d, GridDefect))
+
+
+#: the card's memory rate (NVIDIA's data sheet, H100 SXM)
+HBM_BYTES_PER_S = 3.35e12
+
+
+def _k34_bounds(key, inputs, lib_path, sass_cache, device) -> dict:
+    """This build's K3 or K4 case ``key`` on ``inputs`` (table, bundle): its
+    byte bound (:data:`K34_BYTES_PER_RAY` and the grid maps' bytes) and its
+    issue-slot bound (:func:`issue_bound` of its instantiation's SASS by
+    stage over :func:`streamed_stage_warps`, counted where the rays die)."""
+    fresh, _which, ignore = K34_CASES[key]
+    table, bundle = inputs
+    kernel = (f"{'streamed_trace_fresh_kernel' if fresh else 'streamed_trace_kernel'}"
+              f"ILi{_defect_branch(table)}E")
+    if kernel not in sass_cache:
+        try:
+            sass_cache[kernel] = sass_stages(lib_path, kernel, local=True)
+        except (OSError, RuntimeError, subprocess.CalledProcessError) as exc:
+            sass_cache[kernel] = f"unavailable ({exc})"
+        if not isinstance(sass_cache[kernel], str):
+            print(stages_text(f"{kernel} (A)", *sass_cache[kernel]), flush=True)
+    if "clock" not in sass_cache:
+        sass_cache["clock"] = clock_hz()
+    n = bundle.n_rays
+    out = {"kernel": kernel, "bytes_ms": (K34_BYTES_PER_RAY[fresh] * n + grid_bytes(table.elements, n, ignore))
+           / HBM_BYTES_PER_S * 1e3}
+    warps = streamed_stage_warps(table, bundle, fresh, device, ignore)
+    out["warps"] = warps
+    stages = sass_cache[kernel]
+    out["issue_ms"] = ({"unavailable": float("nan")} if isinstance(stages, str)
+                       else issue_bound(stages[0], warps, sass_cache["clock"]))
+    return out
 
 
 def _k6_issue_bound(k6_stages, name, chain, k6_warps, lib) -> dict | None:
@@ -1297,6 +1524,8 @@ def _time_deformed(keys, kind, shared, own_a, args, device):
     d_own = d_per_lib(_cuda.library(), _cuda.ABI_VERSION)
     out = {}
     for key in keys:
+        if key in K34_CASES and key not in ("K3", "K4"):
+            continue
         launch = {"flat": shared[key] if key in shared else own_a[key][0],
                   "deformed": d_shared[key] if key in d_shared else d_own[key][0]}
         times = {"flat": [], "deformed": []}

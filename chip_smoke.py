@@ -23,7 +23,11 @@ port's paths through the entry points a user calls, and checks the results:
   against the serial K1 + K2 path;
 * user-built bundles: ``main.main`` on ``examples/CONFIG_toroidal2f-2f_byhand.py``
   with a 1e7-ray PointSource (kernel K4) and on a traced bundle fed through a
-  second chain (kernel K3), against the plain streamed trace;
+  second chain (kernel K3), against the plain streamed trace; K3 and K4 on
+  a shuffled copy of their bundles (equal to the ordered run permuted, bit
+  for bit), K3 on a bundle dead on entry (returned as read), and both on
+  stream views off the 16-byte boundary with a tail past the last whole
+  warp of rays, on the flagship and both deformed flagships;
 * alignment by gradient descent: ``gradient_align`` on the flagship at 1e7
   rays through the fused gradient engine (kernel K6), against the autograd
   engine on the card, and ``fused_focus_loss`` (kernel K7, one launch, held
@@ -58,7 +62,8 @@ port's paths through the entry points a user calls, and checks the results:
   an extended source;
 * the cost probes P1-P3 (``utils/cost_probe.py``) against their plain
   versions: P1's first launch from a fresh library load, its steady
-  launch latency and its launch alone on the card beside ``x + 1``'s, P2's cost per operation of the nine ops slope-timed over
+  launch latency and its launch alone on the card beside ``x + 1``'s, its
+  wrapper's host time taken apart, P2's cost per operation of the nine ops slope-timed over
   the op count, P3's copy floor against K4 on four subsets of the flagship;
 * batched scans (``main._batched_final_bundles``): ``main.main`` on
   ``examples/CONFIG_2toroidals_f-x-f.py`` and ``examples/CONFIG_tolerancing.py``
@@ -91,7 +96,9 @@ line ``{"ok": true, "device": {...}}``. A kernel's ``ms`` is its launch alone
 CUDA-event windows of 5 back-to-back calls each (the plain versions of K6,
 K7 and K8: 3 windows of one call), at 1e7 rays: K1, K2, K5, K6, K7 and K8
 (at 20 distances) on the flagship, K4 and K3 on their own paths' chains
-and bundles. The entries of K2, K5, K6 and K1i also carry ``mesh``: their
+and bundles (and on the flagship's bundle in its spiral order and
+shuffled: ``flagship_ms``, ``flagship_shuffled_ms``; the deformed phases'
+``<kind>_shuffled_ms``). The entries of K2, K5, K6 and K1i also carry ``mesh``: their
 launches per sharded call (one per shard), the sharded and unsharded calls'
 walls, the largest difference from the unsharded result and from the
 one-process mesh in the two-process run. The entries of K1, K2 and K1i
@@ -136,7 +143,8 @@ rays/s, setup, copy, the K1 loop's wall, the comparisons); K1's entry
 carries the K1 loop's launches and wall on the same image (``images``). The entries P1-P3
 follow: their launches in the probes' run, the largest error against the
 plain version, the launch alone (P1 on its tile, P2 fma at 40 ops over
-(78336, 128), P3 over 1e7 rays), P1's first-launch seconds, P2's
+(78336, 128), P3 over 1e7 rays), P1's first-launch seconds and
+``split_us`` (cost_probe.add_one_split), P2's
 slope-timed ``ops``, P3's K4 subsets and K4's compute share. P1, P2, P4 and
 P5 (and each P4 form and P5 case) also carry ``device_ms``, the launch alone
 on the card with the host's work hidden (utils/cost_probe.queued_us).
@@ -412,18 +420,6 @@ def _dual_defect_ops(elements, n_tangents: int) -> int:
         elif kind == "grid":
             ops += OPS["dual_grid_once"] + n_tangents * OPS["dual_grid_shift_tangent"]
     return ops
-
-
-def _grid_bytes(elements, n_rays: int, ignore_defects: bool = True) -> int:
-    """What a kernel must read of the grid maps of ``elements`` for
-    ``n_rays`` rays: per map, the smaller of its packed bytes (16 per node)
-    and four 32-byte sectors per ray and lookup (one lookup, two with the
-    slopes)."""
-    from attosecondraytracing_tpu_torch.ops.defects import GridDefect
-
-    lookups = 1 if ignore_defects else 2
-    return sum(min(16 * d.height.numel(), n_rays * lookups * 4 * 32)
-               for el in elements for d in getattr(el, "defects", ()) if isinstance(d, GridDefect))
 
 
 def _flagship(n_rays):
@@ -766,17 +762,109 @@ def _time_streamed(tag, table, bundle, fresh, torch, dev):
     return {"ms": ms, "plain_ms": plain_ms, **bound}
 
 
+#: K3 and K4 on bundles whose streams start off the 16-byte boundary: each
+#: input stream's offset in elements into a larger buffer, each output's,
+#: and the rays past the last whole warp of 32
+K34_IN_OFFSETS = {"p": 1, "d": 2, "opl": 3, "opl_c": 1, "alive": 5, "incidence": 2}
+K34_OUT_OFFSETS = {"p": 3, "d": 1, "opl": 2, "opl_c": 3, "alive": 9, "incidence": 1}
+K34_TAIL = 13
+K34_FIELDS = ("p", "d", "opl", "opl_c", "alive", "incidence")
+
+
+def _offset_view(x, offset):
+    """A copy of ``x`` in a view that starts ``offset`` elements into a
+    larger buffer of its dtype."""
+    flat = x.reshape(-1)
+    view = flat.new_empty(flat.numel() + offset + 7)[offset:offset + flat.numel()]
+    view.copy_(flat)
+    return view.view(x.shape)
+
+
+def _differing_rays(torch, a, b, rays):
+    """How many of the rays ``rays`` (a mask) differ in any bit of p, d,
+    opl, opl_c or incidence between two streamed-trace outputs."""
+    differ = torch.zeros(int(rays.sum()), dtype=torch.bool, device=rays.device)
+    for name in ("p", "d", "opl", "opl_c", "incidence"):
+        x, y = getattr(a, name)[rays].view(torch.int32), getattr(b, name)[rays].view(torch.int32)
+        differ |= (x != y).reshape(len(differ), -1).any(dim=1)
+    return int(differ.sum())
+
+
+def _k34_layouts(tag, torch, dev, runs):
+    """K3 and K4 on what a user's bundle may be, for each ``(kernel, table,
+    bundle on the card, fresh, ignore_defects)`` of ``runs``:
+    - a shuffled copy (utils/kernel_ab.shuffle_order) traces to the ordered
+      run's outputs permuted: alive flags equal, every output bit equal on
+      the alive rays (a ray's arithmetic is its own; the warps only skip);
+    - K3 on the bundle all dead on entry: alive all 0, every output as read;
+    - the bundle's first rays, past a whole number of 32-ray warps by
+      K34_TAIL, with every input stream a view off the 16-byte boundary
+      (K34_IN_OFFSETS) against the plain version (K1's envelopes), and with
+      the outputs such views too (K34_OUT_OFFSETS, a direct launch) equal to
+      the wrapper's outputs bit for bit.
+    Returns {kernel: largest |dp| [mm] of the views against plain}."""
+    from attosecondraytracing_tpu_torch.ops import _cuda
+    from attosecondraytracing_tpu_torch.ops import fused_trace as ft
+    from attosecondraytracing_tpu_torch.utils import kernel_ab as ab
+
+    errs = {}
+    for key, table, bundle, fresh, ignore in runs:
+        kw = dict(device=dev, fresh=fresh, ignore_defects=ignore)
+        order = ab.shuffle_order(bundle.n_rays, dev)
+        ordered = ft.streamed_trace(table, bundle, **kw)
+        shuffled = ft.streamed_trace(table, ab.permuted(bundle, order), **kw)
+        moved = ft.TraceOutputs(*(x[order] for x in ordered))
+        same_alive = bool(torch.equal(shuffled.alive, moved.alive))
+        differ = _differing_rays(torch, shuffled, moved, shuffled.alive) if same_alive else -1
+        print(f"{key} {tag} shuffled ({bundle.n_rays} rays): alive flags {'equal' if same_alive else 'differ'}, "
+              f"{differ} of {int(shuffled.alive.sum())} alive rays differ in a bit from the ordered run's",
+              flush=True)
+        _check(same_alive and differ == 0, f"{key} {tag}: the shuffled bundle's outputs are not the ordered ones")
+        if not fresh:
+            dead = bundle._replace(alive=torch.zeros_like(bundle.alive))
+            out = ft.streamed_trace(table, dead, **kw)
+            as_read = all(bool(torch.equal(getattr(out, f).view(torch.int32), getattr(dead, f).view(torch.int32)))
+                          for f in ("p", "d", "opl", "opl_c", "incidence"))
+            print(f"{key} {tag} all dead on entry: {int(out.alive.sum())} alive out, outputs "
+                  f"{'as read' if as_read else 'not as read'}", flush=True)
+            _check(not bool(out.alive.any()) and as_read, f"{key} {tag}: a bundle dead on entry came back traced")
+        n = bundle.n_rays - bundle.n_rays % 32 - 32 + K34_TAIL
+        head = bundle._replace(**{f: getattr(bundle, f)[:n] for f in K34_FIELDS + ("intensity",)})
+        views = head._replace(**{f: _offset_view(getattr(head, f), K34_IN_OFFSETS[f]) for f in K34_FIELDS})
+        _check(all(getattr(views, f).data_ptr() % 16 for f in K34_FIELDS),
+               f"{key} {tag}: the views must start off the 16-byte boundary")
+        got = ft.streamed_trace(table, views, **kw)
+        errs[key] = _check_bundles(f"{key} {tag} ({n} rays, input views off the 16-byte boundary)", got,
+                                   ft.streamed_trace_ref(table, head, fresh=fresh, device=dev,
+                                                         ignore_defects=ignore), torch)
+        outs = ft.TraceOutputs(*(_offset_view(x, K34_OUT_OFFSETS[f]) for f, x in zip(K34_FIELDS, got)))
+        inputs = [views.p, views.d] + ([None] * 4 if fresh else
+                                       [views.opl, views.opl_c, views.alive, views.incidence])
+        _cuda.launch_streamed_trace(ft.pack_chain(table, ignore, dev), n, fresh, inputs, outs,
+                                    torch.cuda.current_stream(dev).cuda_stream, ft.launch_grids(table.elements, dev))
+        torch.cuda.synchronize()
+        equal = all(bool(torch.equal(x.view(-1).view(torch.uint8), y.view(-1).view(torch.uint8)))
+                    for x, y in zip(outs, got))
+        print(f"{key} {tag}: input and output views off the 16-byte boundary "
+              f"{'equal' if equal else 'differ from'} the wrapper's outputs bit for bit", flush=True)
+        _check(equal, f"{key} {tag}: output views off the 16-byte boundary differ")
+    return errs
+
+
 def phase_k34(torch, dev):
     """K4 on a user-built PointSource bundle through the flagship optics at
     2^20 rays, and K3 on a traced bundle (dead rays, nonzero optical paths)
     fed through the rest of the chain, against their plain versions: alive
-    masks and K1's envelopes. Returns each kernel's largest |dp| [mm]; also
-    prints both kernels' times on the flagship at 1e7 rays, beside K1's."""
+    masks and K1's envelopes; both on a shuffled copy, on views off the
+    16-byte boundary and K3 on the bundle dead on entry (:func:`_k34_layouts`).
+    Returns each kernel's largest |dp| [mm], and both kernels' times on the
+    flagship's bundle at 1e7 rays, in its spiral order and shuffled."""
     import numpy as np
 
     from attosecondraytracing_tpu_torch.models import sources
     from attosecondraytracing_tpu_torch.ops import fused_trace as ft
     from attosecondraytracing_tpu_torch.ops.bundle import RayBundle
+    from attosecondraytracing_tpu_torch.utils import kernel_ab as ab
 
     chain, _ = _flagship(16)
     host = [e.to_device("cpu", torch.float64) for e in chain.optical_elements]
@@ -795,11 +883,17 @@ def phase_k34(torch, dev):
     err3 = _check_bundles("K3 flagship (traced bundle -> second toroid)",
                           ft.streamed_trace(rest, mid, device=dev),
                           ft.streamed_trace_ref(rest, mid, fresh=False, device=dev), torch)
+    views = _k34_layouts("flagship", torch, dev, [("K4", table, bundle.to(dev, torch.float32), True, True),
+                                                  ("K3", rest, mid, False, True)])
 
     big = ft.source_bundle(_flagship_source(N_TIME), N_TIME, device=dev)  # a fresh bundle on the card
+    shuffled = ab.permuted(big, ab.shuffle_order(N_TIME, dev))
+    times = {}
     for name, fresh in (("K4", True), ("K3", False)):
-        _time_streamed(f"{name} flagship", table, big, fresh, torch, dev)
-    return {"K4": err4, "K3": err3}
+        times[name] = {"flagship_ms": _time_streamed(f"{name} flagship", table, big, fresh, torch, dev)["ms"],
+                       "flagship_shuffled_ms": _time_streamed(f"{name} flagship, shuffled", table, shuffled,
+                                                              fresh, torch, dev)["ms"]}
+    return {"K4": max(err4, views["K4"]), "K3": max(err3, views["K3"])}, times
 
 
 def phase_slice(torch, dev):
@@ -1801,8 +1895,9 @@ def _deformed_k34(torch, dev, kind):
     """K4 on a user-built 2^20-ray PointSource bundle through the ``kind``
     flagship, and K3 on that bundle traced through the mask, then through
     the deformed toroid (ignore_defects False) and the second toroid, against
-    their plain versions (K1's envelopes). Returns each kernel's largest
-    |dp| [mm]."""
+    their plain versions (K1's envelopes); both on a shuffled copy, on views
+    off the 16-byte boundary and K3 on the bundle dead on entry
+    (:func:`_k34_layouts`). Returns each kernel's largest |dp| [mm]."""
     import numpy as np
 
     from attosecondraytracing_tpu_torch.models import sources
@@ -1826,7 +1921,9 @@ def _deformed_k34(torch, dev, kind):
                           ft.streamed_trace(rest, mid, device=dev, ignore_defects=False),
                           ft.streamed_trace_ref(rest, mid, fresh=False, device=dev, ignore_defects=False),
                           torch)
-    return err3, err4
+    views = _k34_layouts(f"{kind} flagship", torch, dev, [("K4", table, bundle.to(dev, torch.float32), True, True),
+                                                          ("K3", rest, mid, False, False)])
+    return max(err3, views["K3"]), max(err4, views["K4"])
 
 
 def _deformed_k5(torch, dev, kind):
@@ -2013,7 +2110,8 @@ def _kernel_launches(torch, dev, chain):
     bound)}. K1, K2, K5, K7 and K8 (20 distances) as their phases prepare
     them on the flagship; K6 one gradient step (18 rows); K4 and K3 on a
     fresh 1e7-ray bundle of the flagship's source through the chain's
-    lab-frame table. A grid map's bytes join each bound (:func:`_grid_bytes`)."""
+    lab-frame table, and on a shuffled copy of it ("K4_shuffled",
+    "K3_shuffled"). A grid map's bytes join each bound (utils/kernel_ab.grid_bytes)."""
     import numpy as np
 
     from attosecondraytracing_tpu_torch.ops import fused_grad as fg
@@ -2024,7 +2122,7 @@ def _kernel_launches(torch, dev, chain):
     spec, elements, det, (opl_ref, inv_dn), chunks, n = _k2_setup(torch, dev, chain, N_TIME)
     edge = chain.source_spec.gaussian_edge
     table = ft.chain_table(spec, elements)
-    grid_bytes = _grid_bytes(table.elements, n)
+    grid_bytes = ab.grid_bytes(table.elements, n)
     outs, k1 = ft.prepare_fused_source_trace(table, spec, n, device=dev)
     k1()
     n_alive = int(outs.alive.sum())
@@ -2039,10 +2137,12 @@ def _kernel_launches(torch, dev, chain):
     host = [e.to_device("cpu", torch.float64) for e in chain.optical_elements]
     lab = ft.chain_table(None, host)
     bundle = ft.source_bundle(spec, n, device=dev)
+    shuffled = ab.permuted(bundle, ab.shuffle_order(n, dev))
     for key, fresh in (("K4", True), ("K3", False)):
-        _, launch = ft.prepare_streamed_trace(lab, bundle, fresh=fresh, device=dev)
-        out[key] = (launch, _bound((61 if fresh else 74) * n + grid_bytes,
-                                   (_trace_ops(lab, False) + OPS["store"]) * n))
+        bound = _bound((61 if fresh else 74) * n + grid_bytes, (_trace_ops(lab, False) + OPS["store"]) * n)
+        for tag, rays in ((key, bundle), (f"{key}_shuffled", shuffled)):
+            _, launch = ft.prepare_streamed_trace(lab, rays, fresh=fresh, device=dev)
+            out[tag] = (launch, bound)
     sspec = fs.make_scan_spec(spec.kind, elements, n)
     svec = fs.scan_chain_scalars(elements, spec.rot, spec.origin, det.centre, det.normal,
                                  det._plane_rotation())
@@ -2186,6 +2286,17 @@ def _deformed_phase(torch, dev, kind):
               f"on the {kind} chain {errs[key]:.3g}", flush=True)
         out[key] = {f"{kind}_ms": ms, f"{kind}_flat_ms": flat_ms, f"{kind}_bound_ms": bound["bound_ms"],
                     f"{kind}_bound_by": bound["bound_by"], f"{kind}_max_abs_err": errs[key]}
+    for key in ("K3", "K4"):  # the same bundles shuffled: the warps' rays die apart
+        shuffled = f"{key}_shuffled"
+        t_flat = _time_ms(flat[shuffled][0], torch)
+        t_def = _time_ms(deformed[shuffled][0], torch)
+        t_def2 = _time_ms(deformed[shuffled][0], torch)
+        t_flat2 = _time_ms(flat[shuffled][0], torch)
+        ms, flat_ms = (t_def + t_def2) / 2, (t_flat + t_flat2) / 2
+        print(f"{key} at {N_TIME} rays, shuffled bundle: {kind} flagship {ms:.4f} ms, flagship {flat_ms:.4f} ms "
+              f"(in its spiral order: {out[key][f'{kind}_ms']:.4f} / {out[key][f'{kind}_flat_ms']:.4f} ms)",
+              flush=True)
+        out[key].update({f"{kind}_shuffled_ms": ms, f"{kind}_shuffled_flat_ms": flat_ms})
     out["K6"].update({f"{kind}_grad_align": grad_align, f"{kind}_effect": effect},
                      **_k6_sass(kind, deformed["K6_stage_warps"]))
     return out, launches
@@ -2805,7 +2916,8 @@ def phase_cost(torch, dev):
     output against its plain version (P1 and P3 equal; P2 every op at 8 and
     40 ops within 1e-6 relative, recip_approx 1e-5: the approximate
     reciprocal against the exact one), then P1's first launch from a fresh
-    library load and its steady launch latency, P2 slope-timed over n_ops
+    library load, its steady launch latency and its wrapper's host time
+    taken apart (cost_probe.add_one_split), P2 slope-timed over n_ops
     (the script's 8 and 40, and 0, 200, 400), P3's copy floor against K4 on
     the flagship's four chain subsets. Returns the JSON entries of P1-P3."""
     from attosecondraytracing_tpu_torch.utils import cost_probe as cp
@@ -2840,6 +2952,9 @@ def phase_cost(torch, dev):
     # the launches alone on the card: queued behind a busy stream, the host's work hidden
     p1_device_us = cp.queued_us(lambda: cp.add_one(x))
     plain_device_us = cp.queued_us(lambda: cp.add_one_ref(x))
+    split = cp.add_one_split(x)
+    print("P1 wrapper call taken apart (host us per call): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in split.items()), flush=True)
     print(f"P1: first launch from a fresh library load {seconds:.4f} s; steady launch {p1_ms * 1e3:.2f} us "
           f"(plain {p1_plain * 1e3:.2f} us); on the card alone, queued: {p1_device_us:.2f} us (plain "
           f"{plain_device_us:.2f} us): the {'kernel' if p1_device_us > 1.2 * plain_device_us else 'host binding'} "
@@ -2876,7 +2991,7 @@ def phase_cost(torch, dev):
     p1 = {"name": "P1 add_one", "route": "cuda", "source": CSRC + "cost_probe.cu", "replaces": "bench.py:162",
           "launches": launches["P1"], "max_abs_err": 0.0, "ms": p1_ms, "plain_ms": p1_plain,
           **_bound(8 * n_tile, n_tile), "library_ms": p1_plain, "first_launch_s": seconds,
-          "device_ms": p1_device_us * 1e-3, "library_device_ms": plain_device_us * 1e-3}
+          "device_ms": p1_device_us * 1e-3, "library_device_ms": plain_device_us * 1e-3, "split_us": split}
     p2 = {"name": "P2 op_chain (fma at 40 ops; every op in ops)", "route": "cuda",
           "source": CSRC + "cost_probe.cu", "replaces": "scripts/diag_vpu_ops.py:21", "launches": launches["P2"],
           "max_abs_err": abs2, "ms": p2_ms, "plain_ms": p2_plain,
@@ -3349,7 +3464,7 @@ def main():
     timed["K1"] = phase("k1", lambda: phase_k1(torch, dev))
     timed["K2"] = phase("k2", lambda: phase_k2(torch, dev))
     timed["K5"] = phase("k5", lambda: phase_k5(torch, dev))
-    k34_err = phase("k34", lambda: phase_k34(torch, dev))
+    k34_err, k34_times = phase("k34", lambda: phase_k34(torch, dev))
     slice_launches, slice_chain = phase("slice", lambda: phase_slice(torch, dev))
     plots = phase("plots", lambda: phase_plots(torch, dev, slice_chain))
     del slice_chain
@@ -3371,7 +3486,8 @@ def main():
                     K5=scan_launches["K5"],
                     K6=grad_launches["K6"], K7=k7_launches["K7"], K8=k8_launches)
     for key in ("K3", "K4"):
-        timed[key] = dict(streamed[key], max_abs_err=max(streamed[key]["max_abs_err"], k34_err[key]))
+        timed[key] = dict(streamed[key], max_abs_err=max(streamed[key]["max_abs_err"], k34_err[key]),
+                          **k34_times[key])
     _check("jax" not in sys.modules, "jax was imported")
     print(f"all phases: {time.perf_counter() - t_start:.1f} s", flush=True)
 

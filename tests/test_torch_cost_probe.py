@@ -212,3 +212,29 @@ def test_slope_time_is_the_bench_law(monkeypatch):
     monkeypatch.setattr(bench, "time", Clock)
     assert cp._slope_time(step, None) == pytest.approx(0.5)
     assert bench._slope_time(step, None, verbose=False) == pytest.approx(0.5)
+
+
+def test_add_one_split_takes_the_launch_path_apart(monkeypatch):
+    """P1's wrapper taken apart (cost_probe.add_one_split): on a CPU tensor
+    it refuses (it times the CUDA launch path); with the card's pieces
+    stood in for, it times each piece, the whole wrapper and x + 1, in µs
+    per call on the host clock."""
+    x = torch.zeros(cp.TILE, dtype=torch.float32)
+    with pytest.raises(ValueError):
+        cp.add_one_split(x)
+
+    class Lib:
+        def art_launch_add_one(self, *args):
+            return 0
+
+    fake = torch.zeros(cp.TILE, dtype=torch.float32)
+    monkeypatch.setattr(type(fake), "device", property(lambda self: torch.device("cuda", 0)))
+    monkeypatch.setattr(cp, "_lib", lambda: Lib())
+    monkeypatch.setattr(cp, "_stream", lambda t: 0)
+    monkeypatch.setattr(cp.torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(cp.torch.cuda, "device", lambda d: __import__("contextlib").nullcontext())
+    monkeypatch.setattr(cp, "add_one", lambda t: t)
+    times = cp.add_one_split(fake, n=3)
+    assert list(times) == ["checks", "allocation", "library", "stream", "device context", "pointers",
+                           "ctypes launch", "status check", "wrapper", "x + 1"]
+    assert all(v >= 0 for v in times.values())
