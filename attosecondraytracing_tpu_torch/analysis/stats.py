@@ -56,11 +56,12 @@ def central_point(bundle: RayBundle):
     return masked_mean(bundle.p, _alive_w(bundle)[:, None], dim=0)
 
 
-def energy_transmission(source: RayBundle, out: RayBundle) -> float:
-    """Energy transmission in percent (surviving intensity over source
-    intensity; the two bundles may live on different devices)."""
+def energy_transmission(source: RayBundle | float, out: RayBundle) -> float:
+    """Energy transmission in percent: surviving intensity over the
+    source's, given as its bundle or its total weight (the two bundles may
+    live on different devices)."""
     num = float(out.weights().double().sum())
-    den = float(source.weights().double().sum())
+    den = float(source) if isinstance(source, (int, float)) else float(source.weights().double().sum())
     return 100.0 * num / max(den, 1e-30)
 
 

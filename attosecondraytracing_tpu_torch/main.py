@@ -337,7 +337,7 @@ def run_ART(
     else:
         bundle = chain.get_output_rays()[DetectorOptions["ReflectionNumber"]]
 
-    etransmission = stats.energy_transmission(chain.source_rays, bundle)
+    etransmission = stats.energy_transmission(chain.source_weight(), bundle)
     if AnalysisOptions["verbose"]:
         print(niceline[:-1], flush=True)
         if isinstance(chain.description, str) and chain.description:

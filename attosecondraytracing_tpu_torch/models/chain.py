@@ -4,7 +4,11 @@ misalignment methods, and scan ("loop list") generators. Counterpart of the
 JAX package's ``models/chain.py``.
 
 Scene construction is host-side (CPU tensors, float64); :meth:`OpticalChain.to`
-names the device the chain traces on. :meth:`OpticalChain.trace_final` picks
+names the device the chain traces on. A factory source is carried as its
+description (:class:`FusedSourceInfo`) and its bundle built on its first read
+(:attr:`OpticalChain.source_rays`): the fused engine synthesizes the rays
+from the ray index and the intensity on the device, so a design traced there
+builds no bundle. :meth:`OpticalChain.trace_final` picks
 the engine: at production size the fused-source kernel K1 for factory
 sources and the streamed kernels K3/K4 for bundles the user built, the plain
 streamed trace below it.
@@ -32,7 +36,8 @@ class FusedSourceInfo(NamedTuple):
     """Host-side description of a factory source that the fused engine can
     synthesize in-kernel (BakedSource inputs + the Gaussian intensity edge).
     Attached by OEPlacement; kept in sync by shift_source/tilt_source;
-    cleared when the user replaces the bundle."""
+    cleared when the user replaces the bundle. ``n_rays`` is the count the
+    source emits (``models.sources.emitted_rays``)."""
 
     kind: str            # 'cone' | 'disk' | 'extended' | 'square'
     origin: tuple        # lab-frame source point / disk centre
@@ -90,7 +95,7 @@ class OpticalChain:
 
     def __init__(
         self,
-        source_rays: RayBundle,
+        source_rays: RayBundle | None,
         optical_elements: list,
         description: str = "",
         loop_variable_name: str | None = None,
@@ -98,11 +103,14 @@ class OpticalChain:
         source_spec: FusedSourceInfo | None = None,
         device=None,
     ):
+        # ``source_rays`` None with a ``source_spec`` defers the factory
+        # bundle to its first read (:attr:`source_rays`)
+        if source_rays is None and source_spec is None:
+            raise ValueError("an OpticalChain needs source rays or a factory source description "
+                             "(source_spec)")
+        self._set_source(source_rays, source_spec)
         # deepcopy so later mutation of the caller's objects does not change
         # this chain (the reference does the same)
-        self._source_spec = None
-        self.source_rays = source_rays
-        self._source_spec = source_spec
         self.optical_elements = copy.deepcopy(list(optical_elements))
         self.description = description
         self.loop_variable_name = loop_variable_name
@@ -138,18 +146,47 @@ class OpticalChain:
     # ------------------------------------------------------------------
     @property
     def source_rays(self) -> RayBundle:
+        """The source bundle, CPU tensors. A factory source's bundle is
+        built on its first read, on the chain's device where that is a card
+        (then copied to the host once), and kept."""
+        if self._source_rays is None:
+            self._source_rays = msource.factory_bundle(self._source_spec,
+                                                      device=self._source_device())
         return self._source_rays
 
     @source_rays.setter
     def source_rays(self, bundle: RayBundle):
         # a user-supplied bundle invalidates the fused-source description —
         # internal mutations that preserve it go through _set_source instead
-        self._source_rays = bundle
-        self._source_spec = None
+        self._set_source(bundle, None)
 
-    def _set_source(self, bundle: RayBundle, spec: FusedSourceInfo | None):
+    def _set_source(self, bundle: RayBundle | None, spec: FusedSourceInfo | None):
         self._source_rays = bundle
         self._source_spec = spec
+        #: float64 total of the intensity :meth:`_trace_final_fused` last
+        #: synthesized for an unread factory bundle (a 0-d device tensor)
+        self._source_total = None
+
+    def _source_device(self) -> torch.device:
+        """Where a factory source is built: the chain's card, else the CPU."""
+        if self.device is not None and self.device.type == "cuda":
+            return self.device
+        return torch.device("cpu")
+
+    def source_weight(self) -> float:
+        """The source's total weight, the float64 sum of its intensity (the
+        energy transmission's denominator). For a factory bundle nobody has
+        read, the sum of the intensity synthesized on the chain's device."""
+        if self._source_rays is not None:
+            return float(self._source_rays.weights().double().sum())
+        if self._source_total is None:
+            self._source_total = msource.factory_intensity(
+                self._source_spec, device=self._source_device()).double().sum()
+        return float(self._source_total)
+
+    def _n_rays(self) -> int:
+        spec = self._source_spec
+        return spec.n_rays if spec is not None else self._source_rays.n_rays
 
     @property
     def source_spec(self) -> FusedSourceInfo | None:
@@ -158,8 +195,8 @@ class OpticalChain:
         return self._source_spec
 
     def resize_source(self, n_rays: int) -> None:
-        """Regenerate the source bundle at a different ray count from the
-        fused-source description (CLI ``--rays``); raises ValueError for
+        """Describe the source at a different ray count (CLI ``--rays``); its
+        bundle is built on its next read. Raises ValueError for
         user-supplied bundles."""
         spec = self._source_spec
         if spec is None:
@@ -167,31 +204,14 @@ class OpticalChain:
                 "resize_source needs a synthesizable source (source_spec is "
                 "None — the bundle was user-supplied or already consumed)"
             )
-        n_rays = int(n_rays)
-        origin = np.asarray(spec.origin, dtype=float)
-        axis = np.asarray(spec.axis, dtype=float)
-        if spec.kind == "cone":
-            bundle = msource.PointSource(origin, axis, spec.param, n_rays,
-                                         Wavelength=spec.wavelength)
-        elif spec.kind == "extended":
-            bundle = msource.ExtendedSource(origin, axis, spec.diameter,
-                                            spec.param, n_rays,
-                                            Wavelength=spec.wavelength)
-        elif spec.kind == "square":
-            bundle = msource.PlaneWaveSquare(origin, axis, spec.param, n_rays,
-                                             Wavelength=spec.wavelength)
-        else:
-            bundle = msource.PlaneWaveDisk(origin, axis, spec.param, n_rays,
-                                           Wavelength=spec.wavelength)
-        if spec.gaussian_edge is not None:
-            bundle = msource.ApplyGaussianIntensityToRayList(bundle, spec.gaussian_edge)
-        # 'extended' emits n_sources * n_each rays, not the requested count
-        self._set_source(bundle, spec._replace(n_rays=bundle.n_rays))
+        # 'extended' and 'square' emit another count than the one asked for
+        n_rays = msource.emitted_rays(spec.kind, int(n_rays), spec.diameter)
+        self._set_source(None, spec._replace(n_rays=n_rays))
         self._output_rays = None
 
     # ------------------------------------------------------------------
     def copy_chain(self) -> "OpticalChain":
-        return OpticalChain(self.source_rays, self.optical_elements, self.description,
+        return OpticalChain(self._source_rays, self.optical_elements, self.description,
                             source_spec=self._source_spec, device=self.device)
 
     def device_elements(self, dtype=None):
@@ -220,7 +240,7 @@ class OpticalChain:
         the caps of ``ops/fused_trace.pack_chain``) raises
         NotImplementedError from their wrappers instead of falling back to
         another engine."""
-        return self._source_spec is not None and self.source_rays.n_rays >= PALLAS_MIN_RAYS
+        return self._source_spec is not None and self._n_rays() >= PALLAS_MIN_RAYS
 
     def takes_plain_trace(self, engine: str | None = None) -> bool:
         """True when :meth:`trace_final` with this ``engine`` runs the plain
@@ -230,7 +250,7 @@ class OpticalChain:
         if engine not in ENGINES:
             raise ValueError(f"engine must be one of {ENGINES} or {tuple(ENGINE_ALIASES)}, "
                              f"got {engine!r}")
-        return engine == "trace" or (engine == "auto" and self.source_rays.n_rays < PALLAS_MIN_RAYS)
+        return engine == "trace" or (engine == "auto" and self._n_rays() < PALLAS_MIN_RAYS)
 
     def trace_final(self, ignore_defects: bool = True, engine: str | None = None) -> RayBundle:
         """Only the bundle after the last element — the production path.
@@ -286,10 +306,17 @@ class OpticalChain:
                                  ignore_defects=ignore_defects)
         self.last_trace_engine = "cuda-source" if device.type == "cuda" else "torch-source"
         # ray i of the in-kernel spiral is ray i of the factory bundle, so the
-        # source intensity profile rides along by index
+        # source intensity profile rides along by index; a bundle nobody has
+        # read is not built: its intensity is synthesized on the device, and
+        # its total kept for the transmission (:meth:`source_weight`)
+        if self._source_rays is None:
+            intensity = msource.factory_intensity(info, device=device)
+            self._source_total = intensity.double().sum()
+        else:
+            intensity = self._source_rays.intensity
         return RayBundle(
             p=out.p, d=out.d, opl=out.opl, opl_c=out.opl_c, alive=out.alive,
-            intensity=self.source_rays.intensity.to(device, torch.float32),
+            intensity=intensity.to(device, torch.float32),
             incidence=out.incidence,
             wavelength=torch.tensor(info.wavelength, dtype=torch.float32, device=device),
         )
@@ -407,6 +434,7 @@ class OpticalChain:
         }
         if axis not in names:
             raise ValueError(f"axis must be one of {sorted(names)}")
+        source = self.source_rays  # built once, then shared by the copies
         chains = []
         for x in loop_variable_values:
             mod = self.copy_chain()
@@ -417,7 +445,7 @@ class OpticalChain:
             elif axis.startswith("shift"):
                 mod.shift_source(axis[6:], float(x))
             else:  # divergence: rebuild a point source with the same axis
-                pts = self.source_rays.p.detach().cpu().double().numpy()
+                pts = source.p.detach().cpu().double().numpy()
                 if not np.allclose(pts, pts[0], atol=1e-12):
                     raise ValueError(
                         "get_source_loop_list('divergence', ...) requires a point "
@@ -427,22 +455,15 @@ class OpticalChain:
                         "PointSource instead."
                     )
                 p0 = pts[0]
-                d0 = self.source_rays.d[0].detach().cpu().double().numpy()
-                edge_int = float(self.source_rays.intensity[-1])
-                src = msource.PointSource(
-                    p0, d0, float(x), self.source_rays.n_rays, float(self.source_rays.wavelength)
-                )
-                src_axis = np.asarray(d0, dtype=float)  # spiral ray 0 IS the axis
-                mod._set_source(
-                    msource.ApplyGaussianIntensityToRayList(src, edge_int),
-                    FusedSourceInfo(
-                        kind="cone", origin=tuple(np.asarray(p0, float)),
-                        axis=tuple(src_axis / np.linalg.norm(src_axis)),
-                        param=float(x), gaussian_edge=edge_int,
-                        n_rays=self.source_rays.n_rays,
-                        wavelength=float(self.source_rays.wavelength),
-                    ),
-                )
+                d0 = source.d[0].detach().cpu().double().numpy()
+                # spiral ray 0 IS the axis; the cone's bundle is built on
+                # its first read
+                mod._set_source(None, FusedSourceInfo(
+                    kind="cone", origin=tuple(np.asarray(p0, float)),
+                    axis=tuple(d0 / np.linalg.norm(d0)),
+                    param=float(x), gaussian_edge=float(source.intensity[-1]),
+                    n_rays=source.n_rays, wavelength=float(source.wavelength),
+                ))
             chains.append(mod)
         return chains
 

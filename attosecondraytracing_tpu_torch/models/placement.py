@@ -27,23 +27,19 @@ from .masks import Mask
 from .supports import SupportRoundHole
 
 
-def _build_source(SourceProperties: dict, optics_list):
-    """(source bundle, FusedSourceInfo) per the reference's rules
+def _source_spec(SourceProperties: dict, optics_list):
+    """The source's FusedSourceInfo per the reference's rules
     (ART/ModuleProcessing.py:55-79): plane wave / point / extended source +
-    Gaussian intensity to 1/e^2. Every kind gets a fused-source description,
-    which the fused engine synthesizes from the ray index
-    (ops/fused_trace.synth_source)."""
+    Gaussian intensity to 1/e^2. The chain builds the bundle on its first
+    read (``OpticalChain.source_rays``); the fused engine synthesizes the
+    rays from the ray index (ops/fused_trace.synth_source)."""
     from .chain import FusedSourceInfo
 
     divergence = SourceProperties["Divergence"]
     source_size = SourceProperties["SourceSize"]
     n_rays = SourceProperties["NumberRays"]
-    wavelength = SourceProperties["Wavelength"]
-    edge = 1 / np.e**2
-
-    origin = np.zeros(3)
-    direction = np.array([1.0, 0.0, 0.0])
-    spec = None
+    common = dict(origin=(0.0, 0.0, 0.0), axis=(1.0, 0.0, 0.0), gaussian_edge=1 / np.e**2,
+                  wavelength=float(SourceProperties["Wavelength"]))
     if divergence == 0:
         if source_size == 0:
             support = optics_list[0].support
@@ -53,25 +49,12 @@ def _build_source(SourceProperties: dict, optics_list):
                 radius = support.radius
         else:
             radius = source_size / 2
-        bundle = msource.PlaneWaveDisk(origin, direction, radius, n_rays, Wavelength=wavelength)
-        spec = FusedSourceInfo(kind="disk", origin=(0.0, 0.0, 0.0),
-                               axis=(1.0, 0.0, 0.0), param=float(radius),
-                               gaussian_edge=edge, n_rays=n_rays,
-                               wavelength=float(wavelength))
-    elif source_size == 0:
-        bundle = msource.PointSource(origin, direction, divergence, n_rays, Wavelength=wavelength)
-        spec = FusedSourceInfo(kind="cone", origin=(0.0, 0.0, 0.0),
-                               axis=(1.0, 0.0, 0.0), param=float(divergence),
-                               gaussian_edge=edge, n_rays=n_rays,
-                               wavelength=float(wavelength))
-    else:
-        bundle = msource.ExtendedSource(origin, direction, source_size, divergence, n_rays, Wavelength=wavelength)
-        spec = FusedSourceInfo(kind="extended", origin=(0.0, 0.0, 0.0),
-                               axis=(1.0, 0.0, 0.0), param=float(divergence),
-                               gaussian_edge=edge, n_rays=bundle.n_rays,
-                               wavelength=float(wavelength),
-                               diameter=float(source_size))
-    return msource.ApplyGaussianIntensityToRayList(bundle, edge), spec
+        return FusedSourceInfo(kind="disk", param=float(radius), n_rays=int(n_rays), **common)
+    if source_size == 0:
+        return FusedSourceInfo(kind="cone", param=float(divergence), n_rays=int(n_rays), **common)
+    return FusedSourceInfo(kind="extended", param=float(divergence),
+                           n_rays=msource.emitted_rays("extended", int(n_rays), source_size),
+                           diameter=float(source_size), **common)
 
 
 def _single_placement(
@@ -85,7 +68,7 @@ def _single_placement(
     incidence = [np.deg2rad(i % 360) for i in IncidenceAngleList]
     inc_plane = [np.deg2rad(i % 360) for i in IncidencePlaneAngleList]
 
-    bundle, source_spec = _build_source(SourceProperties, OpticsList)
+    source_spec = _source_spec(SourceProperties, OpticsList)
 
     centre = np.zeros(3)
     central_vec = np.array([1.0, 0.0, 0.0])
@@ -130,7 +113,7 @@ def _single_placement(
                 )
             central_vec = out[-1].vector
 
-    return OpticalChain(bundle, elements, Description, source_spec=source_spec)
+    return OpticalChain(None, elements, Description, source_spec=source_spec)
 
 
 def _which_indices(lst):

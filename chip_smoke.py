@@ -163,7 +163,7 @@ ROOT = Path(__file__).resolve().parent
 N_CHECK = 1 << 20        # rays per kernel-vs-plain comparison
 N_TIME = 10_000_000      # rays per timed call (the main path's size)
 N_SLICE = 10_000_000     # rays of the main-path run
-N_SCAN = 2_500_000       # rays per chain of the scan run (its host sources set its wall)
+N_SCAN = 2_500_000       # rays per chain of the scan run
 N_STREAMED = 10_000_000  # rays of the user-built bundles
 N_CLI = 1_000_000        # rays of the CLI run
 N_GRAD = 10_000_000      # rays of the gradient-descent run
@@ -1621,7 +1621,7 @@ def phase_grad(torch, dev):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _launches()
-    print(f"grad: host source of {N_GRAD} rays built in {t_build:.3f} s; gradient_align engine "
+    print(f"grad: chain of {N_GRAD} rays placed in {t_build:.3f} s; gradient_align engine "
           f"{al.gradient_align.last_engine}, launches {launches}, {GRAD_ITERS} steps in {wall:.3f} s "
           f"({wall / GRAD_ITERS * 1e3:.3f} ms per step), loss {history[0]:.6g} -> {history[-1]:.6g}",
           flush=True)
