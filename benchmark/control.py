@@ -4,13 +4,14 @@
     python3 benchmark/control.py --workload fxf.design --seeds 1-12 --control-seeds 1-3
 
 For each of ``--seeds``: the seed's first request served by the program
-through the cell's timed path at the cell's own size, and the numbers of
-``benchmark/reference/compare.py`` against the float64 reference (the lower
-readings). For each of ``--control-seeds``: the control, the reference put
-in the program's place and computed one precision below the configuration's
-(its rays in bfloat16, its host scene and statistics in float32), held the
-same way (the upper readings). Prints one JSON line per reading, and the largest program reading
-and smallest control reading of every number with the cell's limit."""
+through the cell's timed path at the cell's own size, and the numbers of its
+kind's ``compare`` (``benchmark/kinds/<kind>.py``) against the float64
+reference (the lower readings). For each of ``--control-seeds``: the
+control, the reference put in the program's place and computed one
+precision below the configuration's (its rays in bfloat16, its host scene
+and statistics in float32), held the same way (the upper readings). Prints
+one JSON line per reading, and the largest program reading and smallest
+control reading of every number with the cell's limit."""
 
 from __future__ import annotations
 
@@ -26,7 +27,6 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from benchmark import harness  # noqa: E402
-from benchmark.reference import compare  # noqa: E402
 
 #: the control's precisions, one step below the configurations' own: the
 #: rays' trace in bfloat16 (the program traces in float32), the host scene,
@@ -56,7 +56,7 @@ def readings(bench, cell_name, seeds, control_seeds, *, device="cuda", overrides
     """``{"program": [numbers per seed], "control": [numbers per seed]}``."""
     cell = harness.load_cell(bench, cell_name, overrides)
     cfg, traffic = cell.cfg, cell.traffic
-    judge = compare.KINDS[traffic["kind"]]
+    judge = harness.load_kind(traffic["kind"]).compare
     dev = torch.device(device)
     rng = np.random.default_rng(np.random.SeedSequence(int(seeds[0])).spawn(3)[2])
     kind = harness.start_kind(cell, dev, rng)
@@ -64,7 +64,7 @@ def readings(bench, cell_name, seeds, control_seeds, *, device="cuda", overrides
     for seed in seeds:
         req = first_request(traffic, cfg, seed)
         t0 = time.perf_counter()
-        answer = kind.answer(req, kind.serve(req, None))
+        answer = kind.answer(req, kind.keep(req, kind.serve(req, None)))
         t1 = time.perf_counter()
         numbers = judge(answer, kind.reference(req, answer, dtype=torch.float64,
                                                host_dtype=torch.float64, device=dev))

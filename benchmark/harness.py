@@ -8,7 +8,12 @@ in a file of its own, found by the name ``BENCHMARK.json`` gives it:
   parameters, the draws the generator makes from the seed, and optionally
   the warm-up request's parameters (``warm``) and the host's thread count
   (``host_threads``);
-* ``benchmark/kinds/<kind>.py``: the program's side of a kind of request;
+* ``benchmark/kinds/<kind>.py``: the program's side of a kind of request
+  (``Kind``) and the numbers its check compares (``compare``);
+* ``benchmark/optics/<kind>.py``, ``benchmark/defects/<kind>.py``,
+  ``benchmark/sources/<kind>.py``: what one kind of optic, defect or source
+  that a configuration names brings to the port's chain, the reference and
+  the work model;
 * ``benchmark/metrics/<metric>.py``: one reader per metric, ``read(run)``
   returning a number, or None where it finds nothing to read;
 * ``benchmark/limits/<cell>.json``: the limit of every number that decides
@@ -16,11 +21,13 @@ in a file of its own, found by the name ``BENCHMARK.json`` gives it:
 
 A run: set-up (the program loaded, the chain placed, every shape warmed up
 by one request), then a closed loop of one request in flight for
-``--seconds``, each request drawn from the seed; then the memory peak, the
-check of a sample of the finished requests (drawn from the seed) against
-the plain reference, and one JSON line. ``--trace 1`` records the device's
-activity over the window with ``torch.profiler`` and reports the per-layer
-metrics instead of the end-to-end ones.
+``--seconds``, each request drawn from the seed, of which a sample drawn
+from the seed is kept (``Kind.keep``); then the memory peak, each kept
+request's answer (``Kind.answer``: what needs no timing, such as a read of
+the source, is deferred to here), its check against the plain reference,
+and one JSON line. ``--trace 1`` records the device's activity over the
+window with ``torch.profiler`` and reports the per-layer metrics instead of
+the end-to-end ones.
 """
 
 from __future__ import annotations
@@ -43,6 +50,8 @@ FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "attosecondraytracing_tpu", "matpl
 #: a share of a roofline or of a peak above this is a fault of the count
 PEAK_SHARE_LIMIT = 105.0
 MARKER = "spin_kernel"
+#: marker kernels at each end of a traced window
+MARKS_PER_END = 3
 
 
 class Benchmark(NamedTuple):
@@ -83,9 +92,11 @@ def load_module(path: Path, name: str):
 
 
 def load_kind(kind: str):
-    """``benchmark/kinds/<kind>.py``'s Kind class (the kinds import the
-    reference relative to the ``benchmark`` package)."""
-    return importlib.import_module(f"benchmark.kinds.{kind}").Kind
+    """``benchmark/kinds/<kind>.py`` (the kinds import the reference relative
+    to the ``benchmark`` package): its ``Kind`` class and ``compare``."""
+    from . import kinds
+
+    return kinds.kind(kind)
 
 
 # ---------------------------------------------------------------------------
@@ -195,11 +206,28 @@ class DeviceWindow(NamedTuple):
         return out
 
 
+def clock_offset(host_marks, device_marks, inside: float) -> tuple:
+    """(offset, drift) [s] that put device times on the host's clock.
+    ``host_marks``: the host times of the marker kernels launched at the
+    window's start and at its end (two lists); ``device_marks``: the start
+    times of the marker kernels the trace holds; ``inside``: a device time
+    between the two ends. The markers found before ``inside`` belong to the
+    start, the others to the end, each end's last found matched with its
+    last launched. The offset is the start's, else the end's; the drift the
+    end's less the start's, 0 where only one end holds a marker."""
+    if not device_marks:
+        raise RuntimeError("the device trace holds no marker kernel")
+    ends = ([d for d in device_marks if d < inside], [d for d in device_marks if d >= inside])
+    offsets = [host[-1] - max(found) for host, found in zip(host_marks, ends) if found]
+    return offsets[0], offsets[-1] - offsets[0]
+
+
 class DeviceTrace:
     """``torch.profiler`` over the window with the card's activity only
     (the host's op events would cost the host-bound paths more than they
-    measure). Its timestamps are put on the host's clock by two marker
-    kernels launched on an idle device at known host times."""
+    measure). Its timestamps are put on the host's clock by marker kernels
+    launched on an idle device at known host times, ``MARKS_PER_END`` at
+    each end of the window: the trace has been seen to lose one."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -209,10 +237,12 @@ class DeviceTrace:
     def _mark(self):
         torch = self.torch
         torch.cuda.synchronize()
-        t = time.perf_counter()
-        torch.cuda._sleep(1000)
-        torch.cuda.synchronize()
-        self.marks.append(t)
+        times = []
+        for _ in range(MARKS_PER_END):
+            times.append(time.perf_counter())
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        self.marks.append(times)
 
     def __enter__(self):
         from torch.profiler import ProfilerActivity, profile
@@ -241,13 +271,14 @@ class DeviceTrace:
                 marks.append(start)
             else:
                 events.append((e.name(), start, end))
-        if len(marks) != 2:
-            raise RuntimeError(f"the device trace holds {len(marks)} marker kernels, not 2")
-        marks.sort()
-        offset = self.marks[0] - marks[0]
-        drift = (self.marks[1] - marks[1]) - offset
-        print(f"[bench] device trace: {len(events)} device events, clock offset drift "
-              f"{drift * 1e6:.1f} us over the window", file=sys.stderr, flush=True)
+        # every kernel of the window runs after the start's markers and
+        # before the end's: each end synchronizes around its own
+        inside = events[0][1] if events else 0.5 * (min(marks, default=0.0)
+                                                    + max(marks, default=0.0))
+        offset, drift = clock_offset(self.marks, marks, inside)
+        print(f"[bench] device trace: {len(events)} device events, {len(marks)} of "
+              f"{2 * MARKS_PER_END} marker kernels, clock offset drift {drift * 1e6:.1f} us "
+              "over the window", file=sys.stderr, flush=True)
         return DeviceWindow([(n, s + offset, e + offset) for n, s, e in events], (t0, t1))
 
 
@@ -357,7 +388,7 @@ def start_kind(cell: Cell, device, rng):
     """The traffic's kind set up on ``device`` and warmed up by one request
     drawn from ``rng``, with the traffic's ``warm`` parameters (the same
     shapes, fewer repeats) over it."""
-    kind = load_kind(cell.traffic["kind"])(cell.cfg, cell.traffic, device=device, rng=rng)
+    kind = load_kind(cell.traffic["kind"]).Kind(cell.cfg, cell.traffic, device=device, rng=rng)
     warm = dict(next(draw_requests(cell.traffic, cell.cfg, rng)), **cell.traffic.get("warm", {}))
     kind.serve(warm, None)
     return kind
@@ -434,7 +465,7 @@ def run_cell(bench: Benchmark, cell_name: str, seed: int, seconds: float, trace:
             done.append(Request(start, end, kind.units(raw)))
             slot = kept.wants()
             if slot is not None:
-                kept.put(slot, (len(done) - 1, req, kind.answer(req, raw)))
+                kept.put(slot, (len(done) - 1, req, kind.keep(req, raw)))
             del raw
         t1 = time.perf_counter()
     gc.callbacks.remove(pauses)
@@ -454,9 +485,9 @@ def run_cell(bench: Benchmark, cell_name: str, seed: int, seconds: float, trace:
     least = least_seconds(kind, traffic, cfg, seed, len(done)) if trace else None
 
     checks, failed = {}, 0
-    from .reference import compare
-
-    for index, req, answer in kept.items:
+    judge = load_kind(traffic["kind"]).compare
+    for index, req, item in kept.items:
+        answer = kind.answer(req, item)
         expect = traffic.get("expect_engine")
         if on_card and expect is not None and answer.get("engine") != expect:
             checks[f"r{index}.engine_is_{expect}"] = {"value": 1.0, "limit": 0.0}
@@ -464,7 +495,7 @@ def run_cell(bench: Benchmark, cell_name: str, seed: int, seconds: float, trace:
             continue
         ref = kind.reference(req, answer, dtype=torch.float64, host_dtype=torch.float64,
                              device=dev)
-        numbers = compare.KINDS[traffic["kind"]](answer, ref)
+        numbers = judge(answer, ref)
         bad = False
         for key, value in numbers.items():
             limit = float(limits[key])

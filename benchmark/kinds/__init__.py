@@ -1,51 +1,94 @@
 """The program's side of each kind of request: set-up, one request served
-through the port's entry point, and the answer in the form
-``benchmark/reference/compare.py`` judges. A traffic file names its kind
-(``"kind"``); the harness loads ``benchmark/kinds/<kind>.py``, whose
-``Kind`` class it drives.
+through the port's entry point, what the harness keeps of it inside the
+window and the answer it judges after. A traffic file names its kind
+(``"kind"``); the harness loads ``benchmark/kinds/<kind>.py``, whose ``Kind``
+class (a :class:`RequestKind`) it drives and whose ``compare(got, ref)``
+gives the numbers that decide ``correct``.
 
-Shared here: the port's chain built from a configuration file, and its
-poses saved and restored between requests."""
+Shared here: the port's chain built from a configuration file (each optic
+and defect by its kind's module), and its poses saved and restored between
+requests."""
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
+
+from .. import defects, optics, route, sources
+
+
+def kind(name: str):
+    """``benchmark/kinds/<name>.py``."""
+    return route.module("kinds", name)
+
+
+class RequestKind:
+    """What the harness calls on every kind: ``serve(request, spans)``
+    inside the window, returning what the program produced; ``units(raw)``;
+    ``keep(request, raw)`` for a request the check samples, still inside the
+    window; ``answer(request, kept)`` once the window has closed and the
+    memory peak is read, the answer ``compare`` judges; ``reference(request,
+    answer, *, dtype, host_dtype, device)``; ``least_seconds(request)``. A
+    kind with nothing to defer keeps its answer (these defaults)."""
+
+    span = "request"
+
+    def keep(self, request, raw):
+        return raw
+
+    def answer(self, request, kept):
+        return kept
+
+
+def host_span(spans, name):
+    return spans.span(name) if spans is not None else contextlib.nullcontext()
+
+
+def port_support(spec):
+    from attosecondraytracing_tpu_torch.models import supports
+
+    if spec["kind"] == "round_hole":
+        return supports.SupportRoundHole(Radius=spec["Radius"], RadiusHole=spec["RadiusHole"],
+                                         CenterHoleX=spec["CenterHoleX"],
+                                         CenterHoleY=spec["CenterHoleY"])
+    return supports.SupportRectangle(spec["dimX"], spec["dimY"])
 
 
 def port_optics(cfg: dict) -> list:
-    """The configuration's optics as the port's optic objects."""
-    from attosecondraytracing_tpu_torch.models import defects, masks, mirrors, supports
-
-    def support(spec):
-        if spec["kind"] == "round_hole":
-            return supports.SupportRoundHole(Radius=spec["Radius"], RadiusHole=spec["RadiusHole"],
-                                             CenterHoleX=spec["CenterHoleX"],
-                                             CenterHoleY=spec["CenterHoleY"])
-        return supports.SupportRectangle(spec["dimX"], spec["dimY"])
+    """The configuration's optics as the port's optic objects, each made by
+    its kind's module, a mirror with defects wrapped in ``DeformedMirror``."""
+    from attosecondraytracing_tpu_torch.models import mirrors
 
     out = []
     for spec in cfg["optics"]:
-        if spec["kind"] == "mask":
-            out.append(masks.Mask(support(spec["support"])))
-            continue
-        radii = mirrors.ReturnOptimalToroidalRadii(spec["focal"], spec["incidence"])
-        optic = mirrors.MirrorToroidal(*radii, support(spec["support"]))
-        if spec.get("zernike"):
-            terms = {(int(n), int(m)): float(c) for n, m, c in spec["zernike"]}
-            zernike = defects.Zernike(support(spec["support"]), terms)
-            optic = mirrors.DeformedMirror(optic, [zernike])
-        out.append(optic)
+        optic = optics.kind(spec["kind"]).port(spec, port_support(spec["support"]))
+        found = [defects.kind(d["kind"]).port(d, port_support(spec["support"]))
+                 for d in defects.specs(spec)]
+        out.append(mirrors.DeformedMirror(optic, found) if found else optic)
     return out
 
 
-def place(cfg: dict, optics: list, second_distance: float):
-    """The port's chain (``OEPlacement``) with the last distance given."""
+def place(cfg: dict, optics_list: list, second_distance):
+    """The port's chain (``OEPlacement``) with the last distance given, or
+    the list of chains of a scan where it is a list."""
     from attosecondraytracing_tpu_torch.models.placement import OEPlacement
 
     props = dict(cfg["source"])
-    distances = list(cfg["distances_mm"][:-1]) + [float(second_distance)]
-    return OEPlacement(props, optics, distances, list(cfg["incidence_deg"]),
+    if isinstance(second_distance, (list, tuple)):
+        last = [float(x) for x in second_distance]
+    else:
+        last = float(second_distance)
+    distances = list(cfg["distances_mm"][:-1]) + [last]
+    return OEPlacement(props, optics_list, distances, list(cfg["incidence_deg"]),
                        list(cfg["incidence_plane_deg"]), cfg["name"])
+
+
+def detector_options(cfg: dict) -> dict:
+    """``main.main``'s detector options from the configuration's detector."""
+    det = cfg["detector"]
+    return {k: det[k] for k in ("ReflectionNumber", "ManualDetector", "DistanceDetector",
+                                "AutoDetectorDistance", "OptFor")}
 
 
 def save_poses(chain) -> list:
@@ -86,18 +129,20 @@ def autoplaced_detector(chain, distance: float):
 
 
 def alive_by_stage(cfg: dict, request: dict, n_total: int, device):
-    """(optics, rays alive per stage) of the request's chain for the work
-    model: the reference optics placed with the request's second distance,
-    its optic misaligned as the request says, an ``n_total``-ray cone."""
+    """(source, optics, rays alive per stage) of the request's chain for the
+    work model: the reference optics placed with the request's second
+    distance, its optic misaligned as the request says, an ``n_total``-ray
+    source."""
     import torch
 
     from ..reference import optics as op
     from ..work import model
 
-    optics = op.optics_from_config(cfg)
+    source = sources.of(cfg)
+    ref_optics = op.optics_from_config(cfg)
     distances = list(cfg["distances_mm"][:-1]) + [request["second_distance_mm"]]
-    poses = op.place(optics, distances, cfg["incidence_deg"], cfg["incidence_plane_deg"],
+    poses = op.place(ref_optics, distances, cfg["incidence_deg"], cfg["incidence_plane_deg"],
                      dtype=torch.float64, device=device)
     poses = op.misaligned(poses, request)
-    return optics, model.alive_by_stage(optics, poses, n_total, float(cfg["source"]["Divergence"]),
-                                        device=device)
+    return source, ref_optics, model.alive_by_stage(source, ref_optics, poses, n_total,
+                                                    device=device)

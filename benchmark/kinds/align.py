@@ -5,14 +5,18 @@ launch per Adam step on the card)."""
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
 
-from . import alive_by_stage, autoplaced_detector, misalign, place, port_optics, save_poses
+from ..reference import compare as judge
+from . import (RequestKind, alive_by_stage, autoplaced_detector, host_span, misalign, place,
+               port_optics, save_poses)
 
 
-class Kind:
+def compare(got, ref) -> dict:
+    return judge.align(got, ref)
+
+
+class Kind(RequestKind):
     span = "align"
 
     def __init__(self, cfg, traffic, *, device, rng):
@@ -29,8 +33,7 @@ class Kind:
         """One alignment; returns the parameters, the loss history and the
         engine that ran."""
         misalign(self.chain, self.saved, request)
-        span = spans.span("gradient_align") if spans is not None else contextlib.nullcontext()
-        with span:
+        with host_span(spans, "gradient_align"):
             params, history = self.alignment.gradient_align(
                 self.chain, self.detector, iters=int(request["iters"]), lr=float(request["lr"]),
                 survival_weight=float(request["survival_weight"]), engine=request["engine"])
@@ -42,7 +45,7 @@ class Kind:
     def units(self, raw) -> int:
         return len(raw["history"])
 
-    def answer(self, request, raw) -> dict:
+    def keep(self, request, raw) -> dict:
         return {"params": raw["params"].double().cpu().numpy(), "history": list(raw["history"]),
                 "engine": raw["engine"]}
 
@@ -58,6 +61,6 @@ class Kind:
         from ..work import model
 
         n = int(self.cfg["source"]["NumberRays"])
-        optics, alive = alive_by_stage(self.cfg, request, n, self.device)
-        step = model.align_step_seconds(optics, alive, n, model.tangent_rows(len(optics)))
+        source, optics, alive = alive_by_stage(self.cfg, request, n, self.device)
+        step = model.align_step_seconds(source, optics, alive, n, model.tangent_rows(len(optics)))
         return int(request["iters"]) * step

@@ -11,10 +11,17 @@ import sys
 import numpy as np
 import torch
 
-from . import alive_by_stage, place, port_optics, pose_rows
+from .. import sources
+from ..reference import compare as judge
+from . import (RequestKind, alive_by_stage, detector_options, place, port_optics, pose_rows,
+               host_span)
 
 
-class Kind:
+def compare(got, ref) -> dict:
+    return judge.design(got, ref)
+
+
+class Kind(RequestKind):
     span = "design"
 
     def __init__(self, cfg, traffic, *, device, rng):
@@ -24,10 +31,8 @@ class Kind:
         self.main = art.main
         self.optics = port_optics(cfg)
         self.props = dict(cfg["source"])
-        det = cfg["detector"]
-        self.detector_options = {k: det[k] for k in ("ReflectionNumber", "ManualDetector",
-                                                     "DistanceDetector", "AutoDetectorDistance",
-                                                     "OptFor")}
+        self.source = sources.of(cfg)
+        self.detector_options = detector_options(cfg)
         self.analysis_options = {"verbose": False, "save_results": False}
         n = int(self.props["NumberRays"])
         sample = rng.choice(n, size=min(int(traffic["checked_rays"]), n), replace=False)
@@ -37,7 +42,7 @@ class Kind:
         """One design; returns what the program produced: the kept data and
         the bundle ``main.main`` traced, held by the one change to the timed
         path, a wrapper of ``trace_final`` that keeps a reference to it."""
-        with _span(spans, "placement"):
+        with host_span(spans, "placement"):
             chain = place(self.cfg, self.optics, request["second_distance_mm"])
         traced = []
         trace_final = chain.trace_final
@@ -48,7 +53,7 @@ class Kind:
             return out
 
         chain.trace_final = keep
-        with _span(spans, "driver"), contextlib.redirect_stdout(sys.stderr):
+        with host_span(spans, "driver"), contextlib.redirect_stdout(sys.stderr):
             kept = self.main(chain, self.props, self.detector_options, self.analysis_options,
                              device=self.device)
             if self.device.type == "cuda":
@@ -61,17 +66,18 @@ class Kind:
     def units(self, raw) -> int:
         return 1
 
-    def answer(self, request, raw) -> dict:
+    def keep(self, request, raw) -> dict:
+        """Inside the window: the sampled rays of the traced bundle, the
+        results, the poses and the chain, whose source is read only after
+        the window (a read builds the whole factory bundle)."""
         chain, kept = raw["chain"], raw["kept"]
-        src = chain.source_rays
         idx = torch.as_tensor(self.sample)
         out = raw["bundle"]
         p, d, opl, opl_c, alive = (x.index_select(0, idx.to(x.device)).cpu()
                                    for x in (out.p, out.d, out.opl, out.opl_c, out.alive))
         return {
+            "chain": chain,
             "poses": pose_rows(chain),
-            "source": {"d": src.d[idx].double().numpy(),
-                       "intensity": src.intensity[idx].double().numpy()},
             "bundle": {"p": p.double().numpy(), "d": d.double().numpy(),
                        "opl": (opl.double() - opl_c.double()).numpy(),
                        "alive": alive.numpy().astype(bool)},
@@ -81,6 +87,13 @@ class Kind:
             "duration": float(kept["DurationSD"][0]),
             "engine": chain.last_trace_engine,
         }
+
+    def answer(self, request, kept) -> dict:
+        """After the window: the sampled source read from the kept chain."""
+        out = dict(kept)
+        chain = out.pop("chain")
+        out["source"] = self.source.program_sample(chain.source_rays, self.sample)
+        return out
 
     def reference(self, request, answer, *, dtype, host_dtype, device):
         from ..reference import requests
@@ -95,10 +108,5 @@ class Kind:
         from ..work import model
 
         n = int(self.props["NumberRays"])
-        optics, alive = alive_by_stage(self.cfg, request, n, self.device)
-        return model.design_seconds(optics, alive, n)
-
-
-def _span(spans, name):
-    return spans.span(name) if spans is not None else contextlib.nullcontext()
-
+        source, optics, alive = alive_by_stage(self.cfg, request, n, self.device)
+        return model.design_seconds(source, optics, alive, n)

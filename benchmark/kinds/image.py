@@ -5,15 +5,19 @@ card)."""
 
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
 
-from . import alive_by_stage, autoplaced_detector, misalign, place, port_optics, save_poses
+from ..reference import compare as judge
+from . import (RequestKind, alive_by_stage, autoplaced_detector, host_span, misalign, place,
+               port_optics, save_poses)
 
 
-class Kind:
+def compare(got, ref) -> dict:
+    return judge.image(got, ref)
+
+
+class Kind(RequestKind):
     span = "image"
 
     def __init__(self, cfg, traffic, *, device, rng):
@@ -29,8 +33,7 @@ class Kind:
     def serve(self, request, spans):
         """One image; returns ``fused_source_images``' result."""
         misalign(self.chain, self.saved, request)
-        span = spans.span("fused_source_images") if spans is not None else contextlib.nullcontext()
-        with span:
+        with host_span(spans, "fused_source_images"):
             res = self.images(self.chain.source_spec, self.chain.device_elements(torch.float32),
                               self.detector, n_total=int(request["n_total"]),
                               bins=tuple(int(b) for b in request["bins"]))
@@ -41,7 +44,7 @@ class Kind:
     def units(self, raw) -> int:
         return 1
 
-    def answer(self, request, raw) -> dict:
+    def keep(self, request, raw) -> dict:
         lo, hi = raw["extent"]
         return {"image": np.asarray(raw["image"], np.float64),
                 "mean_delay": np.asarray(raw["mean_delay"], np.float64),
@@ -60,5 +63,6 @@ class Kind:
     def least_seconds(self, request) -> float:
         from ..work import model
 
-        optics, alive = alive_by_stage(self.cfg, request, int(request["n_total"]), self.device)
-        return model.image_seconds(optics, alive, int(np.prod(request["bins"])))
+        source, optics, alive = alive_by_stage(self.cfg, request, int(request["n_total"]),
+                                               self.device)
+        return model.image_seconds(source, optics, alive, int(np.prod(request["bins"])))

@@ -1,6 +1,7 @@
 """The numbers that decide ``correct``: each kind's answer held against the
-reference's, one number per property, larger meaning further apart. The
-checks and the control (``benchmark/control.py``) both read them, so the
+reference's, one number per property, larger meaning further apart. Each
+kind's module (``benchmark/kinds/<kind>.py``) judges by its ``compare``,
+which the checks and the control (``benchmark/control.py``) both call, so the
 lower and the upper readings of every limit come from the same code."""
 
 from __future__ import annotations
@@ -32,18 +33,41 @@ def on_plane(bundle: dict, plane: dict):
     return np.stack([hit @ plane["e1"], hit @ plane["e2"]], -1), np.asarray(bundle["opl"]) + t
 
 
+def source_gap(got: dict, ref: dict) -> float:
+    """Largest gap of a sampled source field the reference gives: of the
+    intensity relative to the reference's, of the others (directions,
+    points) absolute."""
+    gaps = []
+    for key, value in ref.items():
+        if key == "intensity":
+            gaps.append(_max(np.abs(got[key] / value - 1.0)))
+        else:
+            gaps.append(_max(np.abs(got[key] - value)))
+    return max(gaps)
+
+
+def design_results(got: dict, ref: dict) -> dict:
+    """transmission: gap [percentage points]; distance: gap of the reported
+    optimal detector distance to the reference's optimum [mm]; spot:
+    relative gap of the spot SD at the reported distance; duration: gap of
+    the duration SD there [fs]."""
+    out = {
+        "transmission": abs(_finite(got["transmission"]) - ref["transmission"]),
+        "distance": abs(_finite(got["distance"]) - ref["distance"]),
+        "spot": abs(_finite(got["spot"]) / ref["spot"] - 1.0),
+        "duration": abs(_finite(got["duration"]) - ref["duration"]),
+    }
+    return {k: _finite(v) for k, v in out.items()}
+
+
 def design(got: dict, ref: dict) -> dict:
     """placement: largest gap of a position [mm] or unit vector; source:
-    largest gap of a sampled source direction, or of its intensity relative
-    to the reference's; rays_alive: share of sampled rays alive on one side
+    :func:`source_gap`; rays_alive: share of sampled rays alive on one side
     only; over sampled rays alive on both sides, the largest gap of
     rays_position [mm] and rays_path [fs] on the reference's detector plane
     at its optimum (where the rays leave the last mirror, a ray's hit slides
     along the ray with its grazing angle, which says nothing of the ray),
-    and of rays_direction; transmission: gap [percentage points]; distance:
-    gap of the reported optimal detector distance to the reference's
-    optimum [mm]; spot: relative gap of the spot SD at the reported
-    distance; duration: gap of the duration SD there [fs]."""
+    and of rays_direction; then :func:`design_results`."""
     gb, rb = got["bundle"], ref["bundle"]
     both = gb["alive"] & rb["alive"]
     xy_got, path_got = on_plane(gb, ref["plane"])
@@ -53,18 +77,15 @@ def design(got: dict, ref: dict) -> dict:
     lost = float("inf") if rb["alive"].any() and not both.any() else 0.0
     out = {
         "placement": _max(np.abs(got["poses"] - ref["poses"])),
-        "source": max(_max(np.abs(got["source"]["d"] - ref["source"]["d"])),
-                      _max(np.abs(got["source"]["intensity"] / ref["source"]["intensity"] - 1.0))),
+        "source": source_gap(got["source"], ref["source"]),
         "rays_alive": float(np.mean(gb["alive"] != rb["alive"])),
         "rays_position": max(lost, _max(np.abs(xy_got[both] - xy_ref[both]))),
         "rays_direction": max(lost, _max(np.abs(gb["d"][both] - rb["d"][both]))),
         "rays_path": max(lost, _max(np.abs(path_got[both] - path_ref[both])) * FS_PER_MM),
-        "transmission": abs(_finite(got["transmission"]) - ref["transmission"]),
-        "distance": abs(_finite(got["distance"]) - ref["distance"]),
-        "spot": abs(_finite(got["spot"]) / ref["spot"] - 1.0),
-        "duration": abs(_finite(got["duration"]) - ref["duration"]),
     }
-    return {k: _finite(v) for k, v in out.items()}
+    out = {k: _finite(v) for k, v in out.items()}
+    out.update(design_results(got, ref))
+    return out
 
 
 def kept_parameters(first_grad, floor=1e-3) -> np.ndarray:
@@ -156,5 +177,3 @@ def image(got: dict, ref: dict, min_block_share=1e-4) -> dict:
         "delay": _finite(_max(np.where(np.isfinite(delay_gap), delay_gap, np.inf))),
     }
 
-
-KINDS = {"design": design, "align": align, "image": image}

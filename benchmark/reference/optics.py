@@ -2,11 +2,13 @@
 
 The yardstick's own physics, written from the semantics of upstream ART
 (github.com/mightymightys/AttosecondRaytracing: ModuleProcessing's
-placement, ModuleSource's Vogel cone and Gaussian profile, ModuleMirror's
-toroid and deformed mirror, ModuleMask, ModuleDefects' Zernike sum) and
-frozen here. It imports nothing of the program under test, and takes none
-of its numbers: every pose, ray, weight and plane is worked out again from
-the configuration file and the request.
+placement, ModuleMirror's deformed mirror, ModuleMask) and frozen here. What
+is specific to one kind of optic, defect or source lies in its module,
+``benchmark/optics/<kind>.py``, ``benchmark/defects/<kind>.py`` or
+``benchmark/sources/<kind>.py``, which the functions here find by name. It
+imports nothing of the program under test, and takes none of its numbers:
+every pose, ray, weight and plane is worked out again from the configuration
+file and the request.
 
 Every function takes the dtype and device to compute in: float64 for the
 reference, a lower precision for the control that stands in the program's
@@ -17,7 +19,6 @@ tensor per coordinate.
 from __future__ import annotations
 
 import math
-from decimal import Decimal, getcontext
 from typing import NamedTuple
 
 import torch
@@ -26,37 +27,25 @@ LIGHT_SPEED_MM_S = 299792458000.0
 FS_PER_MM = 1e15 / LIGHT_SPEED_MM_S
 #: a hit must lie this far [mm] ahead of the ray
 T_MIN = 1e-9
-#: a Newton root is a hit when its distance-like residual is below this [mm]
-HIT_TOL = 1e-3
-NEWTON_STEPS = 8
 
 
-def _golden_parts():
-    """frac(g) and frac(2^16 g) of the golden turn fraction g = (3 - sqrt 5)/2,
-    to 40 digits, so frac(k g) splits into two float64 products that stay
-    exact to ~1e-11 turns for k < 2^32."""
-    getcontext().prec = 40
-    g = (Decimal(3) - Decimal(5).sqrt()) / 2
-    return float(g), float((g * 65536) % 1)
+class Defect(NamedTuple):
+    """A height error of a mirror: its kind (``benchmark/defects/<kind>.py``)
+    and that module's numbers."""
 
-
-GOLDEN, GOLDEN_HI = _golden_parts()
+    kind: str
+    params: dict
 
 
 class Optic(NamedTuple):
-    """One optic of a chain: a mask or a toroidal mirror in its own frame,
-    whose origin is the vertex (toroid (sqrt(x^2 + (z - major - minor)^2) -
-    major)^2 + y^2 = minor^2, the patch on z < minor, the support centred at
-    the origin), with Zernike height
-    errors ``((n, m, coefficient [mm]), ...)`` over the circle of
-    ``zernike_radius``."""
+    """One optic of a chain in its own frame, whose origin is the vertex,
+    the support centred there: its kind (``benchmark/optics/<kind>.py``),
+    its support, that module's numbers of its surface, and its defects."""
 
     kind: str
     support: tuple
-    major: float = 0.0
-    minor: float = 0.0
-    zernike: tuple = ()
-    zernike_radius: float = 1.0
+    shape: dict | None = None
+    defects: tuple = ()
 
 
 class Pose(NamedTuple):
@@ -65,12 +54,6 @@ class Pose(NamedTuple):
     position: torch.Tensor
     normal: torch.Tensor
     major: torch.Tensor
-
-
-def toroid_radii(focal, incidence_deg):
-    """The astigmatism-free toroid for a focal length and incidence angle."""
-    i = math.radians(incidence_deg)
-    return 2.0 * focal * (1.0 / math.cos(i) - math.cos(i)), 2.0 * focal * math.cos(i)
 
 
 def _support(spec: dict) -> tuple:
@@ -83,22 +66,17 @@ def _support(spec: dict) -> tuple:
 
 
 def optics_from_config(cfg: dict) -> list:
-    """The optics of a configuration file's ``optics`` list."""
+    """The optics of a configuration file's ``optics`` list, each built by
+    its kind's module, with the defects its entry lists."""
+    from .. import defects, optics
+
     out = []
     for spec in cfg["optics"]:
         support = _support(spec["support"])
-        if spec["kind"] == "mask":
-            out.append(Optic("mask", support))
-            continue
-        if spec["kind"] != "toroidal":
-            raise ValueError(f"optic kind {spec['kind']!r} is not in the reference")
-        major, minor = toroid_radii(spec["focal"], spec["incidence"])
-        zernike, radius = (), 1.0
-        if spec.get("zernike"):
-            zernike = tuple((int(n), int(m), float(c)) for n, m, c in spec["zernike"])
-            # the support's circumscribed circle
-            radius = math.hypot(support[1] / 2.0, support[2] / 2.0)
-        out.append(Optic("toroid", support, major, minor, zernike, radius))
+        optic = optics.kind(spec["kind"]).reference(spec, support)
+        found = tuple(defects.kind(d["kind"]).reference(d, support)
+                      for d in defects.specs(spec))
+        out.append(optic._replace(defects=found) if found else optic)
     return out
 
 
@@ -201,118 +179,50 @@ class Rays(NamedTuple):
     alive: torch.Tensor
 
 
-def _apply(R, v):
+def apply(R, v):
     return tuple(R[i, 0] * v[0] + R[i, 1] * v[1] + R[i, 2] * v[2] for i in range(3))
 
 
-def _apply_t(R, v):
+def apply_t(R, v):
     return tuple(R[0, i] * v[0] + R[1, i] * v[1] + R[2, i] * v[2] for i in range(3))
 
 
-def zernike_height(terms, x, y):
-    """Sum of c Z_n^m(x, y) over ``terms`` on the unit disk: Z_n^m =
-    R_n^|l|(rho) times cos(l theta) (l > 0), sin(|l| theta) (l < 0) or 1,
-    with l = 2m - n and the unnormalized radial polynomial R."""
-    rho = torch.sqrt(x * x + y * y)
-    theta = torch.atan2(y, x)
-    h = torch.zeros_like(x)
-    for n, m, c in terms:
-        l = 2 * m - n
-        k = abs(l)
-        radial = torch.zeros_like(x)
-        for s in range((n - k) // 2 + 1):
-            coef = ((-1) ** s * math.factorial(n - s)
-                    / (math.factorial(s) * math.factorial((n + k) // 2 - s)
-                       * math.factorial((n - k) // 2 - s)))
-            radial = radial + coef * rho ** (n - 2 * s)
-        if l > 0:
-            radial = radial * torch.cos(l * theta)
-        elif l < 0:
-            radial = radial * torch.sin(k * theta)
-        h = h + c * radial
-    return h
+def surface_hit(optic: Optic, q, u):
+    """(t, valid, point, normal) of the rays (vertex frame) on the optic: the
+    bare surface's hit by its kind's module, then the defects' summed height
+    shifted along the ray, the normal the bare surface's at the moved point
+    (the port's ``ignore_defects`` True); ``normal`` None where the rays
+    pass through."""
+    from .. import defects, optics
 
-
-def hit_tolerance(dtype, optic) -> float:
-    """The residual [mm] under which a Newton root is a hit: ``HIT_TOL``, or
-    four rounding units of the tube radius where the dtype is coarser."""
-    return max(HIT_TOL, 4.0 * torch.finfo(dtype).eps * optic.minor)
-
-
-def _toroid_residual(optic, x, y, z, ux, uy, uz):
-    """Distance-like residual g of a point to the toroid and its derivative
-    along the ray, in the vertex frame (the vertex at the origin, z along
-    the normal there): every term is a small difference written without
-    cancellation, so a low precision keeps its digits. With a = major +
-    minor - z and rho = sqrt(x^2 + a^2), w = rho - major = minor - z +
-    x^2 / (rho + a) and g = sqrt(w^2 + y^2) - minor."""
-    a = (optic.major + optic.minor) - z
-    rho = a * torch.sqrt(1.0 + (x / a) ** 2)
-    w_m = x * x / (rho + a) - z
-    w = w_m + optic.minor
-    s = torch.sqrt(w * w + y * y)
-    g = (w_m * (w + optic.minor) + y * y) / (s + optic.minor)
-    gp = (w * (x * ux - a * uz) / rho + y * uy) / s
-    return g, gp
-
-
-def _toroid_normal(optic, x, y, z):
-    a = (optic.major + optic.minor) - z
-    rho = a * torch.sqrt(1.0 + (x / a) ** 2)
-    w = (x * x / (rho + a) - z + optic.minor) / rho
-    nx, ny, nz = -w * x, -y, w * a
-    inv = 1.0 / torch.sqrt(nx * nx + ny * ny + nz * nz)
-    return nx * inv, ny * inv, nz * inv
-
-
-def _toroid_hit(optic, q, u):
-    """(t, valid, point, normal) of the rays (vertex frame) on the toroid:
-    Newton from the vertex plane z = 0, then the Zernike height shift along
-    the ray."""
-    qx, qy, qz = q
-    ux, uy, uz = u
-    # the root's derivatives by the implicit function theorem: Newton runs
-    # untaped to the root, and one last step on the tape, whose derivative
-    # there is -(dg/dparameters) / (dg/dt)
-    with torch.no_grad():
-        t = -qz / uz
-        for _ in range(NEWTON_STEPS - 1):
-            g, gp = _toroid_residual(optic, qx + t * ux, qy + t * uy, qz + t * uz, ux, uy, uz)
-            t = t - g / gp
-    g, gp = _toroid_residual(optic, qx + t * ux, qy + t * uy, qz + t * uz, ux, uy, uz)
-    t = t - g / gp
-    x, y, z = qx + t * ux, qy + t * uy, qz + t * uz
-    g, _ = _toroid_residual(optic, x, y, z, ux, uy, uz)
-    valid = ((t > T_MIN) & (torch.abs(g) < hit_tolerance(qx.dtype, optic)) & (z < optic.minor)
-             & on_support(optic.support, x, y))
-    normal = _toroid_normal(optic, x, y, z)
-    if optic.zernike:
-        h = zernike_height(optic.zernike, x / optic.zernike_radius, y / optic.zernike_radius)
-        cos_alpha = torch.clamp(-(ux * normal[0] + uy * normal[1] + uz * normal[2]), min=1e-6)
+    surface = optics.kind(optic.kind)
+    t, valid, point, normal = surface.hit(optic, q, u)
+    if optic.defects:
+        h = None
+        for defect in optic.defects:
+            dh = defects.kind(defect.kind).height(defect, point[0], point[1])
+            h = dh if h is None else h + dh
+        cos_alpha = torch.clamp(-(u[0] * normal[0] + u[1] * normal[1] + u[2] * normal[2]),
+                                min=1e-6)
         t = t - h / cos_alpha
-        x, y, z = qx + t * ux, qy + t * uy, qz + t * uz
-        normal = _toroid_normal(optic, x, y, z)
-    return t, valid, (x, y, z), normal
+        point = tuple(q[i] + t * u[i] for i in range(3))
+        normal = surface.normal(optic, point)
+    return t, valid, point, normal
 
 
 def step(optic: Optic, pose: Pose, rays: Rays) -> Rays:
     """The rays after one optic; rays it loses keep their state, dead."""
     R = frame(pose)
     rel = tuple(rays.p[i] - pose.position[i] for i in range(3))
-    q = _apply(R, rel)
-    u = _apply(R, rays.d)
-    if optic.kind == "mask":
-        t = -q[2] / u[2]
-        x, y = q[0] + t * u[0], q[1] + t * u[1]
-        ok = (t > T_MIN) & ~on_support(optic.support, x, y)
-        point, d_out = (x, y, torch.zeros_like(x)), rays.d
-        p_out = tuple(v + pose.position[i] for i, v in enumerate(_apply_t(R, point)))
+    q = apply(R, rel)
+    u = apply(R, rays.d)
+    t, ok, point, n = surface_hit(optic, q, u)
+    p_out = tuple(v + pose.position[i] for i, v in enumerate(apply_t(R, point)))
+    if n is None:
+        d_out = rays.d
     else:
-        t, ok, (x, y, z), n = _toroid_hit(optic, q, u)
         dn = u[0] * n[0] + u[1] * n[1] + u[2] * n[2]
-        r = tuple(u[i] - 2.0 * dn * n[i] for i in range(3))
-        p_out = tuple(v + pose.position[i] for i, v in enumerate(_apply_t(R, (x, y, z))))
-        d_out = _apply_t(R, r)
+        d_out = apply_t(R, tuple(u[i] - 2.0 * dn * n[i] for i in range(3)))
     alive = rays.alive & ok
     keep = lambda new, old: torch.where(alive, new, old)  # noqa: E731
     return Rays(p=tuple(keep(a, b) for a, b in zip(p_out, rays.p)),
@@ -378,67 +288,6 @@ def place(optics, distances, incidences_deg, planes_deg, *, dtype, device) -> li
             raise RuntimeError(f"the alignment ray misses optic {len(poses) - 1}")
         central = torch.stack([c[0] for c in ray.d])
     return poses
-
-
-# ---------------------------------------------------------------------------
-# the cone source and its weights
-# ---------------------------------------------------------------------------
-
-
-def cone_axis_rotation(dtype, device):
-    """The rotation taking the canonical +z beam onto the lab's +x."""
-    return rotation_from_to(vec((0, 0, 1), dtype, device), vec((1, 0, 0), dtype, device))
-
-
-def cone_rays(k0: int, n: int, n_total: int, divergence: float, *, dtype, device) -> Rays:
-    """Rays ``k0 .. k0 + n - 1`` of the Vogel cone of ``n_total`` rays and
-    half-angle ``divergence`` from the origin along +x (:func:`cone_rays_at`)."""
-    k = torch.arange(k0, k0 + n, dtype=torch.int64, device=device)
-    return cone_rays_at(k, n_total, divergence, dtype=dtype)
-
-
-def cone_rays_at(k, n_total: int, divergence: float, *, dtype) -> Rays:
-    """Rays of indices ``k`` (int64) of the Vogel cone of ``n_total`` rays:
-    ray k at radius tan(divergence) sqrt(k / n_total) and azimuth 2 pi
-    frac(k g), g the golden turn fraction."""
-    device, n = k.device, k.shape[0]
-    # a ray's index is its identity: its turn and radius fraction are worked
-    # out in float64 at every dtype, the geometry from there in ``dtype``
-    f64 = torch.float64
-    hi, lo = torch.div(k, 65536, rounding_mode="floor"), torch.remainder(k, 65536)
-    turns = torch.frac(hi.to(f64) * GOLDEN_HI + lo.to(f64) * GOLDEN).to(dtype)
-    theta = 2.0 * math.pi * turns
-    r = torch.sqrt((k.to(f64) / n_total).to(dtype)) * math.tan(divergence)
-    cx, cy = r * torch.cos(theta), r * torch.sin(theta)
-    inv = 1.0 / torch.sqrt(cx * cx + cy * cy + 1.0)
-    d = _apply(cone_axis_rotation(dtype, device), (cx * inv, cy * inv, inv))
-    zero = torch.zeros(n, dtype=dtype, device=device)
-    return Rays((zero, zero.clone(), zero.clone()), d, zero.clone(),
-                torch.ones(n, dtype=torch.bool, device=device))
-
-
-def index_weights(k0: int, n: int, n_total: int, edge: float, *, dtype, device):
-    """Gaussian weights of the radial law edge^(r^2 / r_max^2) = edge^(k / n)."""
-    k = torch.arange(k0, k0 + n, dtype=torch.int64, device=device).to(torch.float64)
-    return torch.exp((math.log(edge) * k / n_total).to(dtype))
-
-
-def index_weight_total(n_total: int, edge: float) -> float:
-    """Sum of :func:`index_weights` over the whole cone (a geometric sum)."""
-    q = math.exp(math.log(edge) / n_total)
-    return (1.0 - q ** n_total) / (1.0 - q)
-
-
-def angle_weights(d, edge: float):
-    """ART's ApplyGaussianIntensityToRayList on a diverging bundle: edge^(
-    (tan a / a_max)^2), a the angle (Kahan's formula) of each ray to the
-    bundle's mean direction and a_max the largest."""
-    mean = torch.stack([c.mean() for c in d])
-    mean = mean / torch.linalg.vector_norm(mean)
-    a = (tuple(mean[i] - d[i] for i in range(3)), tuple(mean[i] + d[i] for i in range(3)))
-    norm = [torch.sqrt(v[0] * v[0] + v[1] * v[1] + v[2] * v[2]) for v in a]
-    angle = 2.0 * torch.atan2(norm[0], norm[1])
-    return torch.exp((torch.tan(angle) / angle.max()) ** 2 * math.log(edge))
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,8 @@
 of :mod:`.optics` (float64 for the reference; the control passes a lower
 dtype). Each function takes the configuration file's dict and the request
 as the traffic generator drew it, and returns the answer in the form the
-kind's program side reports it (``benchmark/kinds/*.py``)."""
+kind's program side reports it (``benchmark/kinds/*.py``). The source's
+rays and weights come from its kind's module (``benchmark/sources``)."""
 
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ import math
 import numpy as np
 import torch
 
+from .. import sources
 from . import optics as op
 
 
@@ -32,19 +34,15 @@ def _n_rays(cfg):
     return int(cfg["source"]["NumberRays"])
 
 
-def _divergence(cfg):
-    return float(cfg["source"]["Divergence"])
-
-
 def _detector(cfg, optics, poses, distance, *, dtype, host_dtype, device, chunk):
     """The detector autoplaced ``distance`` from the chain's traced source
     (ART's Detector.autoplace on the whole bundle, alive-weighted means)."""
-    n = _n_rays(cfg)
+    n, source = _n_rays(cfg), sources.of(cfg)
     sums = torch.zeros(7, dtype=host_dtype, device=device)
     for k0 in range(0, n, chunk):
         m = min(chunk, n - k0)
-        rays, _ = op.trace_survivors(op.cone_rays(k0, m, n, _divergence(cfg), dtype=dtype,
-                                                  device=device), optics, poses)
+        rays, _ = op.trace_survivors(source.rays(k0, m, n, dtype=dtype, device=device), optics,
+                                     poses)
         sums += torch.stack([torch.tensor(float(rays.opl.shape[0]), device=device)]
                             + [c.sum() for c in rays.d + rays.p]).to(host_dtype)
     cv = sums[1:4] / sums[0]
@@ -111,9 +109,9 @@ def _optimal_shift(q, half_width):
 
 
 def design(cfg, request, sample, *, dtype=torch.float64, host_dtype=torch.float64,
-           device="cuda"):
+           device="cuda", weights="bundle"):
     """One design: the chain placed with the request's second distance, the
-    whole cone traced, the transmission of ART's Gaussian profile, the
+    whole source traced, the transmission of ART's Gaussian profile, the
     detector autoplaced at the configured distance and moved to the
     distance minimizing spot^2 x duration (intensity-weighted), and the
     spot and duration SDs there, at the distance the program reports.
@@ -121,17 +119,21 @@ def design(cfg, request, sample, *, dtype=torch.float64, host_dtype=torch.float6
     ``request["reported_distance_mm"]`` (the program's answer), where
     given, is where the spot and duration are read, to judge the program's;
     else they are read at the optimum found here. ``plane``: the detector
-    plane at that optimum, on which the sampled rays are compared."""
+    plane at that optimum, on which the sampled rays are compared.
+    ``weights``: the rays' intensity law, ``"bundle"`` the one ART applies
+    to the source bundle (what a design reads), ``"index"`` the one the
+    fused kernels give ray k (what the scan engine sums)."""
     optics, placed = _setup(cfg, request["second_distance_mm"], dtype=host_dtype,
                             host_dtype=host_dtype, device=device)
     poses = [op.Pose(*(t.to(dtype) for t in p)) for p in placed]
-    n = _n_rays(cfg)
-    edge = math.exp(-2.0)
-    src = op.cone_rays(0, n, n, _divergence(cfg), dtype=dtype, device=device)
-    w = op.angle_weights(src.d, edge)
+    n, source = _n_rays(cfg), sources.of(cfg)
+    src = source.rays(0, n, n, dtype=dtype, device=device)
+    if weights == "index":
+        w = source.index_weights(0, n, n, dtype=dtype, device=device)
+    else:
+        w = source.bundle_weights(src)
     idx = torch.as_tensor(sample, device=device)
-    source = {"d": torch.stack([c[idx] for c in src.d], -1).double().cpu().numpy(),
-              "intensity": w[idx].double().cpu().numpy()}
+    sampled = source.sampled(src, w, idx)
     out = op.trace(src, optics, poses)
     bundle = {"p": torch.stack([c[idx] for c in out.p], -1).double().cpu().numpy(),
               "d": torch.stack([c[idx] for c in out.d], -1).double().cpu().numpy(),
@@ -152,7 +154,7 @@ def design(cfg, request, sample, *, dtype=torch.float64, host_dtype=torch.float6
     spot, duration = _spot_duration(q, float(reported) - base)
     at = pl.shifted(s_opt)
     plane = {k: getattr(at, k).double().cpu().numpy() for k in ("centre", "normal", "e1", "e2")}
-    return {"poses": _pose_rows(placed), "source": source, "bundle": bundle,
+    return {"poses": _pose_rows(placed), "source": sampled, "bundle": bundle,
             "transmission": transmission, "distance": base + s_opt, "spot": spot,
             "duration": duration, "plane": plane}
 
@@ -162,14 +164,14 @@ def design(cfg, request, sample, *, dtype=torch.float64, host_dtype=torch.float6
 # ---------------------------------------------------------------------------
 
 
-def _focus_sums(params, optics, poses, pl, k0, m, n, div, edge, *, dtype, host_dtype, device):
-    """(w, wx, wy, wxx, wyy) over rays k0 .. k0 + m - 1 of the cone for the
+def _focus_sums(params, optics, poses, pl, k0, m, n, source, *, dtype, host_dtype, device):
+    """(w, wx, wy, wxx, wyy) over rays k0 .. k0 + m - 1 of the source for the
     chain perturbed by ``params`` ((K, 6): pitch, roll, yaw, then shifts
     along normal, major, normal x major), summed in ``host_dtype``."""
     moved = [op.perturb(p, params[i, :3], params[i, 3:]) for i, p in enumerate(poses)]
-    rays, index = op.trace_survivors(op.cone_rays(k0, m, n, div, dtype=dtype, device=device),
-                                     optics, moved)
-    w = op.index_weights(k0, m, n, edge, dtype=dtype, device=device)[index]
+    rays, index = op.trace_survivors(source.rays(k0, m, n, dtype=dtype, device=device), optics,
+                                     moved)
+    w = source.index_weights(k0, m, n, dtype=dtype, device=device)[index]
     x, y, _ = op.on_plane(rays, pl)
     w, x, y = w.to(host_dtype), x.to(host_dtype), y.to(host_dtype)
     return torch.stack([w.sum(), (w * x).sum(), (w * y).sum(), (w * x * x).sum(),
@@ -188,18 +190,18 @@ def align(cfg, request, *, iters, lr, survival_weight, dtype=torch.float64,
     its detector autoplaced there on the unperturbed chain, the request's
     optic rolled, then ``iters`` Adam steps (b1 0.9, b2 0.999, eps 1e-8,
     bias-corrected) from zero pose parameters on the loss spot variance +
-    survival_weight (1 - transmission) over the Gaussian-weighted cone
-    (edge^(k/n)) on that fixed plane. Each gradient is exact autograd over
-    every ray, the chunks' tapes held together for one backward pass.
-    Returns the parameters (K, 6), the
-    loss of every step and the first step's gradient."""
+    survival_weight (1 - transmission) over the source weighted by its
+    kernels' law (the cone's edge^(k/n)) on that fixed plane. Each gradient
+    is exact autograd over every ray, the chunks' tapes held together for
+    one backward pass. Returns the parameters (K, 6), the loss of every step
+    and the first step's gradient."""
     optics, poses = _setup(cfg, request["second_distance_mm"], dtype=dtype, host_dtype=host_dtype,
                            device=device)
-    n, div, edge = _n_rays(cfg), _divergence(cfg), math.exp(-2.0)
+    n, source = _n_rays(cfg), sources.of(cfg)
     pl = _detector(cfg, optics, poses, float(cfg["detector"]["DistanceDetector"]),
                    dtype=dtype, host_dtype=host_dtype, device=device, chunk=chunk)
     poses = op.misaligned(poses, request)
-    total = op.index_weight_total(n, edge)
+    total = source.index_weight_total(n)
     K = len(poses)
     params = torch.zeros((K, 6), dtype=host_dtype, device=device)
     mu = torch.zeros_like(params)
@@ -207,7 +209,7 @@ def align(cfg, request, *, iters, lr, survival_weight, dtype=torch.float64,
     history, first_grad = [], None
     for i in range(iters):
         q = params.to(dtype).detach().requires_grad_(True)
-        sums = sum(_focus_sums(q, optics, poses, pl, k0, min(chunk, n - k0), n, div, edge,
+        sums = sum(_focus_sums(q, optics, poses, pl, k0, min(chunk, n - k0), n, source,
                                dtype=dtype, host_dtype=host_dtype, device=device)
                    for k0 in range(0, n, chunk))
         loss = _focus_loss(sums, total, survival_weight)
@@ -225,7 +227,7 @@ def align(cfg, request, *, iters, lr, survival_weight, dtype=torch.float64,
 
 
 # ---------------------------------------------------------------------------
-# image: the intensity image and delay map of a giga-ray cone
+# image: the intensity image and delay map of a giga-ray source
 # ---------------------------------------------------------------------------
 
 
@@ -233,12 +235,12 @@ def image(cfg, request, *, n_total, bins, probe_rays, dtype=torch.float64,
           host_dtype=torch.float64, device="cuda", chunk=1 << 24):
     """One image: the chain placed at the request's second distance, its
     detector autoplaced on the unperturbed chain, the request's optic
-    rolled; the window the bounding box of a ``probe_rays``-ray cone's
+    rolled; the window the bounding box of a ``probe_rays``-ray source's
     impact points padded 5 % about its middle; then every ray of the
-    ``n_total``-ray cone binned by truncation (counted where 0 <= f <=
-    bins, the last pixel taking its upper edge) with its Gaussian weight
-    edge^(k/n) and its delay [fs] against the first surviving ray of an
-    8-ray probe. ``request["window"]`` ((lo, hi), the program's answer),
+    ``n_total``-ray source binned by truncation (counted where 0 <= f <=
+    bins, the last pixel taking its upper edge) with its kernels' weight
+    (the cone's edge^(k/n)) and its delay [fs] against the first surviving
+    ray of an 8-ray probe. ``request["window"]`` ((lo, hi), the program's answer),
     where given, is the window binned into, so that the images are held
     pixel for pixel; the window found here is returned all the same.
     Returns the weight image, the mean-delay map (re-centred to the global
@@ -246,13 +248,13 @@ def image(cfg, request, *, n_total, bins, probe_rays, dtype=torch.float64,
     weight."""
     optics, poses = _setup(cfg, request["second_distance_mm"], dtype=dtype, host_dtype=host_dtype,
                            device=device)
-    div, edge = _divergence(cfg), math.exp(-2.0)
+    source = sources.of(cfg)
     pl = _detector(cfg, optics, poses, float(cfg["detector"]["DistanceDetector"]),
                    dtype=dtype, host_dtype=host_dtype, device=device, chunk=chunk)
     poses = op.misaligned(poses, request)
 
-    probe, _ = op.trace_survivors(op.cone_rays(0, probe_rays, probe_rays, div, dtype=dtype,
-                                               device=device), optics, poses)
+    probe, _ = op.trace_survivors(source.rays(0, probe_rays, probe_rays, dtype=dtype,
+                                              device=device), optics, poses)
     px, py, _ = op.on_plane(probe, pl)
     if px.numel():
         lo = torch.stack([px.min(), py.min()]).to(host_dtype)
@@ -265,8 +267,8 @@ def image(cfg, request, *, n_total, bins, probe_rays, dtype=torch.float64,
     if "window" in request:
         lo, hi = (torch.as_tensor(np.asarray(v, np.float64), device=device).to(host_dtype)
                   for v in request["window"])
-    chief, _ = op.trace_survivors(op.cone_rays(0, 8, 8, div, dtype=dtype, device=device),
-                                  optics, poses)
+    chief, _ = op.trace_survivors(source.rays(0, 8, 8, dtype=dtype, device=device), optics,
+                                  poses)
     _, _, t_chief = op.on_plane(chief, pl)
     opl_ref = float(chief.opl[0] + t_chief[0]) if chief.opl.numel() else 0.0
 
@@ -277,9 +279,9 @@ def image(cfg, request, *, n_total, bins, probe_rays, dtype=torch.float64,
     lo_d, scale_d = lo.to(dtype), scale.to(dtype)
     for k0 in range(0, n_total, chunk):
         m = min(chunk, n_total - k0)
-        rays, index = op.trace_survivors(op.cone_rays(k0, m, n_total, div, dtype=dtype,
-                                                      device=device), optics, poses)
-        w = op.index_weights(k0, m, n_total, edge, dtype=dtype, device=device)[index]
+        rays, index = op.trace_survivors(source.rays(k0, m, n_total, dtype=dtype,
+                                                     device=device), optics, poses)
+        w = source.index_weights(k0, m, n_total, dtype=dtype, device=device)[index]
         x, y, t = op.on_plane(rays, pl)
         delay = ((rays.opl - opl_ref) + t) * op.FS_PER_MM
         fx = (x - lo_d[0]) * scale_d[0]

@@ -5,6 +5,7 @@ engines taken on the CPU (their plain versions) as they are on the card."""
 from __future__ import annotations
 
 import contextlib
+import json
 import sys
 from pathlib import Path
 
@@ -17,11 +18,29 @@ OVERRIDES = {
     "align": {"source": {"NumberRays": 20000}, "fixed": {"iters": 3}},
     "image": {"source": {"NumberRays": 20000},
               "fixed": {"n_total": 1 << 17, "bins": [16, 16], "probe_rays": 1 << 17}},
+    "scan": {"source": {"NumberRays": 20000}},
 }
 
 
 def overrides(cell: dict) -> dict:
     return OVERRIDES[cell["traffic"]]
+
+
+def bench():
+    """``BENCHMARK.json`` with the parked cells' entries
+    (``benchmark/parked/<cell>.json``: a cell whose files are in place and
+    tested, left out of ``BENCHMARK.json`` until its runs are steady) added
+    to it, so that the tests drive those cells too."""
+    from benchmark import harness
+
+    loaded = harness.load_benchmark(ROOT)
+    spec = json.loads(json.dumps(loaded.spec))
+    for path in sorted((ROOT / "benchmark" / "parked").glob("*.json")):
+        parked = json.loads(path.read_text())
+        for section, entries in parked.items():
+            names = {e["name"] for e in spec[section]}
+            spec[section] += [e for e in entries if e["name"] not in names]
+    return harness.Benchmark(loaded.root, spec)
 
 
 @contextlib.contextmanager

@@ -7,13 +7,13 @@ import json
 
 import pytest
 
-from cells_small import ROOT, kernel_engines, overrides
+from cells_small import ROOT, bench as load_bench, kernel_engines, overrides
 from benchmark import control, harness
 
 
-@pytest.mark.parametrize("cell", ["fxf.design", "fxf.align", "fxf.image"])
+@pytest.mark.parametrize("cell", ["fxf.design", "fxf.align", "fxf.image", "fxf.scan"])
 def test_control_fails_the_check(cell):
-    bench = harness.load_benchmark(ROOT)
+    bench = load_bench()
     limits = json.loads((ROOT / "benchmark" / "limits" / f"{cell}.json").read_text())
     with kernel_engines():
         got = control.readings(bench, cell, [7], [7, 8], device="cpu",

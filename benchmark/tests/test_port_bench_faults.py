@@ -8,12 +8,12 @@ The exchange between cards has no cell here (every cell takes one card)."""
 import numpy as np
 import pytest
 
-from cells_small import ROOT, kernel_engines, overrides
+from cells_small import ROOT, bench as load_bench, kernel_engines, overrides
 from benchmark import harness
 
 
 def _run(cell, seed=5, seconds=0.5):
-    bench = harness.load_benchmark(ROOT)
+    bench = load_bench()
     with kernel_engines():
         return harness.run_cell(bench, cell, seed, seconds, False, device="cpu",
                                 overrides=overrides(bench.cell(cell)))
@@ -21,9 +21,11 @@ def _run(cell, seed=5, seconds=0.5):
 
 def _half_the_rays(monkeypatch):
     """The fused trace returns every other ray dead (the outer half of the
-    cone dies at the mask anyway), and the images trace half of the rays
-    they were asked for."""
+    cone dies at the mask anyway), the images trace half of the rays they
+    were asked for, and the scan's moment passes sum only the rays from the
+    middle of the source on."""
     from attosecondraytracing_tpu_torch.analysis import gigascan
+    from attosecondraytracing_tpu_torch.ops import fused_scan as fs
     from attosecondraytracing_tpu_torch.ops import fused_trace as ft
 
     trace = ft.fused_source_trace
@@ -42,11 +44,20 @@ def _half_the_rays(monkeypatch):
         return dict(res, n_total=n_total)
 
     monkeypatch.setattr(gigascan, "fused_source_images", half_images)
+    def second_half(spec, n_rays, phase=0.0, k_frac=0.0):
+        off = n_rays // 2
+        return ft.source_chunks(spec.source_kind, n_rays - off, spec.n_total, ft.CHUNK,
+                                float(np.mod(phase + off * ft._PHI_FRAC, 1.0)),
+                                k_frac + off / spec.n_total, n_each=spec.n_each,
+                                n_sources=spec.n_sources)
+
+    monkeypatch.setattr(fs, "scan_chunks", second_half)
 
 
 def _altered_answers(monkeypatch):
-    """The optimizer reports its detector 1 mm off, the alignment's loss
-    history 1 % high, the delay map 10 fs off."""
+    """The optimizer reports its detector 1 mm off (a design's and each
+    chain's of a scan), the alignment's loss history 1 % high, the delay map
+    10 fs off."""
     from attosecondraytracing_tpu_torch.analysis import alignment, gigascan, optimizer
 
     find = optimizer.FindOptimalDistanceFused
@@ -94,6 +105,7 @@ FAULTS = {
     "fxf.design": [_half_the_rays, _altered_answers],
     "fxf.align": [_altered_answers, _state_unchanged],
     "fxf.image": [_half_the_rays, _altered_answers],
+    "fxf.scan": [_half_the_rays, _altered_answers],
 }
 
 

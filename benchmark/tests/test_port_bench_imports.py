@@ -14,9 +14,9 @@ from cells_small import ROOT, OVERRIDES
 SCRIPT = """
 import json, sys
 sys.path.insert(0, {root!r}); sys.path.insert(0, {tests!r})
-from cells_small import kernel_engines
+from cells_small import bench as load_bench, kernel_engines
 from benchmark import harness
-bench = harness.load_benchmark({root!r})
+bench = load_bench()
 with kernel_engines():
     res = harness.run_cell(bench, {cell!r}, 9, 0.3, False, device="cpu", overrides={ov!r})
 print(json.dumps({{"correct": res["correct"], "found": harness.forbidden_modules(),
@@ -25,7 +25,7 @@ print(json.dumps({{"correct": res["correct"], "found": harness.forbidden_modules
 
 
 @pytest.mark.parametrize("cell,mix", [("fxf.design", "design"), ("fxf.align", "align"),
-                                      ("fxf.image", "image")])
+                                      ("fxf.image", "image"), ("fxf.scan", "scan")])
 def test_run_imports_no_jax(cell, mix):
     code = SCRIPT.format(root=str(ROOT), tests=str(ROOT / "benchmark" / "tests"), cell=cell,
                          ov=OVERRIDES[mix])

@@ -45,6 +45,24 @@ def test_read_metrics_reports_the_cells_per_layer_metrics():
     assert got["roofline.image"] == {"value": pytest.approx(100.0 / 3.5), "unit": "%"}
 
 
+@pytest.mark.parametrize("lost", [(), (0,), (2,), (3,), (0, 1, 2), (3, 4, 5), (0, 4)])
+def test_clock_offset_from_the_markers_the_trace_holds(lost):
+    """Device clock 100 s behind the host's, drifting 20 us over a 50 s
+    window; three markers at each end, 40 us apart, any of them lost."""
+    host = [[1.0, 1.00004, 1.00008], [51.0, 51.00004, 51.00008]]
+    device = [t - 100.0 - (2e-5 if t > 50 else 0.0) for end in host for t in end]
+    found = [d for i, d in enumerate(device) if i not in lost]
+    offset, drift = harness.clock_offset(host, found, inside=-75.0)
+    start_whole, end_whole = not {0, 1, 2} <= set(lost), not {3, 4, 5} <= set(lost)
+    assert offset == pytest.approx(100.0 if start_whole else 100.00002, abs=4.1e-5)
+    assert drift == pytest.approx(2e-5 if start_whole and end_whole else 0.0, abs=4.1e-5)
+
+
+def test_clock_offset_needs_a_marker():
+    with pytest.raises(RuntimeError, match="no marker"):
+        harness.clock_offset([[1.0], [51.0]], [], inside=0.0)
+
+
 def test_roofline_share_above_105_percent_is_refused():
     bench = harness.load_benchmark(ROOT)
     with pytest.raises(ValueError, match="roofline.image"):

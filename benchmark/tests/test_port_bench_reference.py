@@ -5,7 +5,6 @@ on its first toroid; and its Zernike sum against the JAX package's
 recurrence."""
 
 import json
-import math
 
 import jax
 import numpy as np
@@ -20,6 +19,8 @@ jax.config.update("jax_enable_x64", True)
 import attosecondraytracing_tpu as jart  # noqa: E402
 from attosecondraytracing_tpu.ops import zernike as jzernike  # noqa: E402
 
+from benchmark import sources  # noqa: E402
+from benchmark.defects import zernike  # noqa: E402
 from benchmark.reference import optics as op  # noqa: E402
 
 N_RAYS = 8192
@@ -82,10 +83,11 @@ def test_reference_matches_jax_package(name, second, monkeypatch):
         np.testing.assert_allclose(pose.normal.numpy(), el.normal, atol=1e-12)
         np.testing.assert_allclose(pose.major.numpy(), el.majoraxis, atol=1e-12)
 
-    src = op.cone_rays(0, N_RAYS, N_RAYS, cfg["source"]["Divergence"], **f64)
+    source = sources.of(cfg)
+    src = source.rays(0, N_RAYS, N_RAYS, **f64)
     d0 = np.stack([c.numpy() for c in src.d], -1)
     np.testing.assert_allclose(d0, np.asarray(chain.source_rays.d), atol=1e-12)
-    w = op.angle_weights(src.d, math.exp(-2.0)).numpy()
+    w = source.bundle_weights(src).numpy()
     np.testing.assert_allclose(w, np.asarray(chain.source_rays.intensity), rtol=1e-9)
 
     ref = op.trace(src, optics, poses)
@@ -108,6 +110,6 @@ def test_zernike_sum_matches_jax_recurrence():
     Z, _, _ = jzernike.zernike_value_and_grad(x, y, 8)
     for n in range(2, 9):
         for m in range(n + 1):
-            got = op.zernike_height(((n, m, 1.0),), torch.as_tensor(x), torch.as_tensor(y))
+            got = zernike.zernike_height(((n, m, 1.0),), torch.as_tensor(x), torch.as_tensor(y))
             np.testing.assert_allclose(got.numpy(), np.asarray(Z[(n, m)]), atol=1e-12,
                                        err_msg=f"Z({n},{m})")

@@ -9,9 +9,11 @@ epilogue for the rays that survive. Bytes are each output byte written
 once. The counts are a frozen copy of the port's own work model of
 ``chip_smoke.py`` (``OPS``, ``_stage_ops``, ``_ops_where_rays_die``,
 ``_dual_defect_ops``), kept here so that a later change to the program
-cannot change the yardstick. The rays alive at each stage come from the
+cannot change the yardstick; the counts of one kind of optic, defect or
+source lie in its module (``benchmark/optics``, ``benchmark/defects``,
+``benchmark/sources``). The rays alive at each stage come from the
 reference optics (:mod:`benchmark.reference.optics`) on rays spread evenly
-through the request's cone, so the work is the same whatever implements
+through the request's source, so the work is the same whatever implements
 it.
 """
 
@@ -19,17 +21,16 @@ from __future__ import annotations
 
 import torch
 
+from .. import defects as defect_kinds
+from .. import optics as optic_kinds
+
 #: NVIDIA H100 SXM data sheet: float32 rate outside the tensor cores and
 #: HBM3 rate, at the full 700 W power limit
 PEAK_FP32_OPS_PER_S = 67e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
 
 OPS = {
-    "cone_source": 55,   # golden angle, sin/cos polynomials, radius law, direction
     "affine": 33,        # the composed map of a step or a folded mask
-    "premask": 15,       # a folded mask's plane crossing and round-hole test
-    "mask": 19,          # an unfolded mask step
-    "toroid": 121,       # seed, one Newton step, validity, normal, reflection, Kahan path
     "store": 34,         # the to-lab map of p and d, the incidence arccos
     "weight": 2,         # exp(ln edge * rr)
     "image": 78,         # an image ray's plane crossing, coordinates, delay, pixel
@@ -39,42 +40,28 @@ OPS = {
     "dual_trace_tangent": 658,
     "dual_stats_once": 1,
     "dual_stats_tangent": 106,
-    "zernike_shift": 55,
-    "zernike_term": 9,
-    "dual_zernike_once": 14,
-    "dual_zernike_gradient_term": 10,
-    "dual_zernike_shift_tangent": 112,
 }
 #: bytes a traced ray's outputs take: point and direction (24), the path
 #: pair (8), the alive flag (1), the incidence (4)
 RAY_OUTPUT_BYTES = 37
 
 
-def zernike_terms(optic) -> int:
-    """(n, m) rows of the Zernike recurrence up to the optic's highest order."""
-    order = max([2] + [n for n, _m, _c in optic.zernike])
-    return sum(n + 1 for n in range(2, order + 1))
-
-
 def _step_ops(optic) -> int:
-    if optic.kind == "mask":
-        return OPS["affine"] + OPS["mask"]
-    ops = OPS["affine"] + OPS["toroid"]
-    if optic.zernike:
-        ops += OPS["zernike_shift"] + zernike_terms(optic) * OPS["zernike_term"]
-    return ops
+    return optic_kinds.kind(optic.kind).step_ops(optic) + sum(
+        defect_kinds.kind(d.kind).ops(d) for d in optic.defects)
 
 
-def alive_by_stage(optics, poses, n_total, divergence, *, device, n_probe=1 << 18):
-    """Rays of an ``n_total``-ray cone entering each optic and alive at the
-    end, ``[entering 0, entering 1, ..., at the end]``, scaled from
-    ``n_probe`` rays spread evenly through the cone's indices."""
+def alive_by_stage(source, optics, poses, n_total, *, device, n_probe=1 << 18):
+    """Rays of an ``n_total``-ray source (:class:`benchmark.sources.Source`)
+    entering each optic and alive at the end, ``[entering 0, entering 1,
+    ..., at the end]``, scaled from ``n_probe`` rays spread evenly through
+    the source's indices."""
     from ..reference import optics as op
 
     n_probe = min(n_probe, n_total)
     k = torch.div(torch.arange(n_probe, dtype=torch.int64, device=device) * n_total, n_probe,
                   rounding_mode="floor")
-    rays = op.cone_rays_at(k, n_total, divergence, dtype=torch.float64)
+    rays = source.rays_at(k, n_total, dtype=torch.float64)
     counts = [n_probe]
     for optic, pose in zip(optics, poses):
         rays = op.step(optic, pose, rays)
@@ -82,15 +69,17 @@ def alive_by_stage(optics, poses, n_total, divergence, *, device, n_probe=1 << 1
     return [c * n_total / n_probe for c in counts]
 
 
-def trace_ops(optics, alive, folded: bool) -> float:
+def trace_ops(source, optics, alive, folded: bool) -> float:
     """Operations of a source synthesized in the kernel and walked through
-    ``optics``, charged where the rays die. ``folded``: a mask that is not
-    the last optic is a test on the rays entering the next step, as the
-    forward kernels fold it; else a step of its own."""
-    ops = OPS["cone_source"] * alive[0]
+    ``optics``, charged where the rays die. ``folded``: an optic that is
+    not the last and whose kind can be folded (a mask) is a test on the rays
+    entering the next step, as the forward kernels fold it; else a step of
+    its own."""
+    ops = source.ops_per_ray() * alive[0]
     for i, optic in enumerate(optics):
-        if folded and optic.kind == "mask" and i < len(optics) - 1:
-            ops += (OPS["affine"] + OPS["premask"]) * alive[i]
+        fold = getattr(optic_kinds.kind(optic.kind), "folded_ops", None)
+        if folded and fold is not None and i < len(optics) - 1:
+            ops += fold(optic) * alive[i]
         else:
             ops += _step_ops(optic) * alive[i]
     return ops
@@ -102,37 +91,36 @@ def least_seconds(ops: float, n_bytes: float) -> float:
     return max(ops / PEAK_FP32_OPS_PER_S, n_bytes / PEAK_HBM_BYTES_PER_S)
 
 
-def design_seconds(optics, alive, n_rays) -> float:
+def design_seconds(source, optics, alive, n_rays) -> float:
     """A design: the trace of every ray with its outputs stored (K1's work),
     and one pass of source, trace, weight and moments for the detector's
     optimizer (K2's); the optimizer's float64 refinement on 20,000 host
     rays is left out."""
-    trace = trace_ops(optics, alive, folded=True)
+    trace = trace_ops(source, optics, alive, folded=True)
     ops = trace + OPS["store"] * n_rays + trace + (OPS["weight"] + OPS["moments"]) * alive[-1]
     return least_seconds(ops, RAY_OUTPUT_BYTES * n_rays)
 
 
-def align_step_seconds(optics, alive, n_rays, n_tangents) -> float:
+def align_step_seconds(source, optics, alive, n_rays, n_tangents) -> float:
     """One gradient step: the primal trace (masks as steps), weight and
     stats where the rays die, and what the dual numbers add: once per ray
     and per tangent row for every ray, per tangent row for the stats of the
     surviving rays."""
-    ops = trace_ops(optics, alive, folded=False) + (OPS["weight"] + OPS["stats"]) * alive[-1]
+    ops = (trace_ops(source, optics, alive, folded=False)
+           + (OPS["weight"] + OPS["stats"]) * alive[-1])
     dual = OPS["dual_trace_once"] + n_tangents * OPS["dual_trace_tangent"]
     for optic in optics:
-        if optic.zernike:
-            dual += (OPS["dual_zernike_once"]
-                     + zernike_terms(optic) * OPS["dual_zernike_gradient_term"]
-                     + n_tangents * OPS["dual_zernike_shift_tangent"])
+        for d in optic.defects:
+            dual += defect_kinds.kind(d.kind).dual_ops(d, n_tangents)
     ops += dual * n_rays
     ops += (OPS["dual_stats_once"] + n_tangents * OPS["dual_stats_tangent"]) * alive[-1]
     return least_seconds(ops, 0.0)
 
 
-def image_seconds(optics, alive, n_pixels) -> float:
+def image_seconds(source, optics, alive, n_pixels) -> float:
     """One image: the source, trace, weight and binning of every ray where
     the rays die; the two float64 images written once."""
-    ops = trace_ops(optics, alive, folded=True) + (OPS["weight"] + OPS["image"]) * alive[-1]
+    ops = trace_ops(source, optics, alive, folded=True) + (OPS["weight"] + OPS["image"]) * alive[-1]
     return least_seconds(ops, 2 * 8 * n_pixels)
 
 
