@@ -132,17 +132,29 @@ def _bilinear_multi_cells(grids, x0, y0, dx, dy, x, y):
 
 #: what is made from a grid's maps, per height map: id(height) -> {key: value}
 _DERIVED: dict = {}
+#: the key under which a grid's entry lists the ids of its copies' maps
+_COPIES = "copies"
+
+
+def _forget(key) -> None:
+    """Drop a collected map's entry and its copies' (which the entry held)."""
+    per = _DERIVED.pop(key, None) or {}
+    for copy_key in per.get(_COPIES, ()):
+        _DERIVED.pop(copy_key, None)
 
 
 def derived(defect: GridDefect, key, make):
     """``make()`` for the grid ``defect`` and ``key``, made once while its
     height map lives (the map's identity names the grid; the entry goes
-    when the map is collected). ``make``'s value must not hold the map."""
+    when the map is collected). ``make``'s value must not hold the map. A
+    copy made by :func:`grid_to` shares its grid's entry, so what is made
+    from the copy (the kernels' rows) is made once per grid, whichever of
+    its copies an element record holds."""
     h = defect.height
     per = _DERIVED.get(id(h))
     if per is None:
         per = _DERIVED[id(h)] = {}
-        weakref.finalize(h, _DERIVED.pop, id(h), None)
+        weakref.finalize(h, _forget, id(h))
     if key not in per:
         per[key] = make()
     return per[key]
@@ -158,7 +170,9 @@ def indexed_device(device) -> torch.device:
 
 def grid_to(defect: GridDefect, device, dtype) -> GridDefect:
     """The grid with its maps as tensors on ``device`` in ``dtype``: itself
-    when they are, else a copy made once per (map, device, dtype)."""
+    when they are, else a copy made once per (map, device, dtype), counted
+    in ``grid_to.copies`` and its three maps' bytes in
+    ``grid_to.copied_bytes``."""
     device = indexed_device(device)
     maps = (defect.height, defect.slope_x, defect.slope_y)
     if all(torch.is_tensor(m) and m.device == device and m.dtype == dtype for m in maps):
@@ -166,9 +180,24 @@ def grid_to(defect: GridDefect, device, dtype) -> GridDefect:
 
     def make():  # copies, so the entry never holds the map it is keyed by
         h, gx, gy = (torch.as_tensor(m).to(device=device, dtype=dtype, copy=True) for m in maps)
+        grid_to.copies += 1
+        grid_to.copied_bytes += sum(m.numel() * m.element_size() for m in (h, gx, gy))
         return defect._replace(height=h, slope_x=gx, slope_y=gy)
 
-    return derived(defect, ("maps", str(device), dtype), make)
+    copy = derived(defect, ("maps", str(device), dtype), make)
+    per = _DERIVED[id(defect.height)]
+    if id(copy.height) not in _DERIVED:
+        # the copy lives in the grid's entry, so its map's id stays its own
+        # until the grid is collected and the entry dropped
+        _DERIVED[id(copy.height)] = per
+        per.setdefault(_COPIES, []).append(id(copy.height))
+    return copy
+
+
+#: copies of a grid's maps made by :func:`grid_to`, on any device
+grid_to.copies = 0
+#: the bytes of those copies
+grid_to.copied_bytes = 0
 
 
 def _bilinear(grid, x0, y0, dx, dy, x, y):

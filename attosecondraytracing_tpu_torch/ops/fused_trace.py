@@ -480,11 +480,14 @@ def _pack_zernike(rec, defects):
 
 def _node_rows(defect: GridDefect, device) -> torch.Tensor:
     """(nx ny, 4) float32 rows {h, dh/dx, dh/dy, 0} of a grid's maps on
-    ``device``, node (ix, iy) at row ix ny + iy."""
+    ``device``, node (ix, iy) at row ix ny + iy; counted in
+    ``grid_rows.packed`` and ``grid_rows.packed_bytes``."""
     nx, ny = defect.height.shape
     rows = torch.zeros((nx * ny, 4), dtype=torch.float32, device=device)
     for k, m in enumerate((defect.height, defect.slope_x, defect.slope_y)):
         rows[:, k] = torch.as_tensor(m).to(device=device, dtype=torch.float32).reshape(-1)
+    grid_rows.packed += 1
+    grid_rows.packed_bytes += rows.numel() * rows.element_size()
     return rows
 
 
@@ -494,6 +497,12 @@ def grid_rows(defect: GridDefect, device) -> torch.Tensor:
     while the map lives (:func:`~.defects.derived`)."""
     device = indexed_device(device)
     return derived(defect, ("rows", str(device)), lambda: _node_rows(defect, device))
+
+
+#: grid maps packed into rows (:func:`_node_rows`), on any device
+grid_rows.packed = 0
+#: the bytes of those rows, 16 a node
+grid_rows.packed_bytes = 0
 
 
 def launch_grids(elements, device) -> list:
