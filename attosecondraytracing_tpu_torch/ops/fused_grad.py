@@ -19,13 +19,14 @@ in), then the detector plane in the final element's frame.
   the 7 sums alone, its pose written into its launch record
   (:func:`pack_primal_records`).
 
-The tangent rows are the Jacobian of ``params -> svec``
-(:func:`chain_scalars`, float64, ``torch.func.jacfwd``), rounded to float32
-once; the loss gradient is one host contraction. The primal ``svec`` is
-composed in host float64 and rounded to float32 once: the JAX package
-records why (``pallas_grad.py:101-107``): a float32 (there: bfloat16-pass)
-composition displaced the traced geometry by ~0.5 mm and corrupted the
-moments by tens of percent.
+The tangent rows are the Jacobian of ``params -> svec``, written in closed
+form in host float64 (:func:`scalar_jacobian`; the tests hold it against
+``torch.func.jacfwd`` of the differentiable :func:`chain_scalars`), rounded
+to float32 once; the loss gradient is one host contraction. The primal
+``svec`` is composed in host float64 and rounded to float32 once: the JAX
+package records why (``pallas_grad.py:101-107``): a float32 (there:
+bfloat16-pass) composition displaced the traced geometry by ~0.5 mm and
+corrupted the moments by tens of percent.
 
 :func:`fused_stats_params` takes the plain version :func:`stats_params_ref`
 only for a CPU device; for a CUDA device it launches K6 or K7 or raises,
@@ -40,7 +41,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .trace import MaskElement, TraceState, chained_step, compose_chain, fold_source
+from .trace import MaskElement, TraceState, _host64, chained_step, compose_chain, fold_source
 
 #: scalars of the detector plane at the end of the vector: centre, normal,
 #: e1, e2 in the final element's frame
@@ -128,24 +129,49 @@ def _unpack_scalars(scal, n_elements: int):
     return maps, det
 
 
-def _apply_params_np(elements, params):
+def _perturbed_poses(elements, params):
     """Float64 host twin of :func:`..analysis.alignment.apply_params` (pose
-    perturbation by AlignmentParams): elements with host-array poses, for
-    :func:`chain_scalars_np`."""
-    from .host_geometry import rotation_around_axis as rot_axis
-    from .trace import _host64
+    perturbation by AlignmentParams) with its forward-mode tangents: the
+    perturbed rotations (K, 3, 3) and positions (K, 3), and their partials in
+    the 6K flat parameters (angles row-major, then shifts: the JAX package's
+    ``ravel_pytree`` order), ``d_rot`` (6K, K, 3, 3) and ``d_pos`` (6K, K, 3).
 
+    Element k's pose is ``rot R_delta^T`` and ``position + s0 n + s1 m + s2
+    c``, with ``R_delta = A_c(pitch) A_m(roll) A_n(yaw)`` Rodrigues rotations
+    about its unperturbed axes (rows m, c, n of ``rot``, held constant as
+    ``_perturb_one`` detaches them). So it moves with its own six parameters
+    only: ``d A_u(a) / da = [u]x A_u(a)``, and a shift's partial is its
+    axis."""
     angles = _host64(params.angles)
     shifts = _host64(params.shifts)
-    out = []
-    for k, el in enumerate(elements):
-        rot = _host64(el.rot)
-        m, c, n = rot[0], rot[1], rot[2]
-        R_delta = (rot_axis(c, angles[k, 0]) @ rot_axis(m, angles[k, 1])
-                   @ rot_axis(n, angles[k, 2]))
-        new_pos = _host64(el.position) + shifts[k, 0] * n + shifts[k, 1] * m + shifts[k, 2] * c
-        out.append(el._replace(rot=rot @ R_delta.T, position=new_pos))
-    return out
+    K = len(elements)
+    rot = np.stack([_host64(el.rot) for el in elements])
+    u = rot[:, [1, 0, 2]]                       # the rotation axes c, m, n
+    u = u / np.linalg.norm(u, axis=-1, keepdims=True)
+    X = np.zeros((K, 3, 3, 3))                  # their cross-product matrices [u]x
+    X[..., 0, 1], X[..., 0, 2], X[..., 1, 2] = -u[..., 2], u[..., 1], -u[..., 0]
+    X[..., 1, 0], X[..., 2, 0], X[..., 2, 1] = u[..., 2], -u[..., 1], u[..., 0]
+    sin, cos = np.sin(angles)[..., None, None], np.cos(angles)[..., None, None]
+    A = np.eye(3) + sin * X + (1.0 - cos) * (X @ X)
+    dA = X @ A
+    Ac, Am, An = A[:, 0], A[:, 1], A[:, 2]
+    d_delta = np.stack([dA[:, 0] @ Am @ An, Ac @ dA[:, 1] @ An, Ac @ Am @ dA[:, 2]], axis=1)
+    shift_axes = rot[:, [2, 0, 1]]              # n, m, c
+    rots = rot @ (Ac @ Am @ An).swapaxes(1, 2)
+    pos = np.stack([_host64(el.position) for el in elements])
+    poss = pos + np.einsum("kj,kji->ki", shifts, shift_axes)
+    i = np.arange(3 * K)
+    d_rot, d_pos = np.zeros((6 * K, K, 3, 3)), np.zeros((6 * K, K, 3))
+    d_rot[i, i // 3] = (rot[:, None] @ d_delta.swapaxes(2, 3)).reshape(3 * K, 3, 3)
+    d_pos[3 * K + i, i // 3] = shift_axes.reshape(3 * K, 3)
+    return rots, poss, d_rot, d_pos
+
+
+def _apply_params_np(elements, params):
+    """Float64 host twin of :func:`..analysis.alignment.apply_params`:
+    elements with host-array poses, for :func:`chain_scalars_np`."""
+    rots, poss, _, _ = _perturbed_poses(elements, params)
+    return [el._replace(rot=r, position=p) for el, r, p in zip(elements, rots, poss)]
 
 
 # ---------------------------------------------------------------------------
@@ -504,33 +530,46 @@ def _loss_from_stats(stats, spec: FusedLossSpec, total_weight: float):
     return float(loss.detach()), st.grad.numpy()
 
 
-def _flat_params(params) -> torch.Tensor:
-    """Flat float64 (6K,) host vector: angles row-major, then shifts (the
-    JAX package's ``ravel_pytree`` order)."""
-    from .trace import _host64
-
-    return torch.as_tensor(np.concatenate([_host64(params.angles).reshape(-1),
-                                           _host64(params.shifts).reshape(-1)]))
+def scalar_jacobian(elements, params, source_rot, source_origin, det_centre, det_normal,
+                    det_rot) -> np.ndarray:
+    """(6K, n_scalars) float64 Jacobian d svec / d param of
+    ``params -> chain_scalars(apply_params(elements, params), ...)`` in
+    closed form (forward mode on the host, batched over the parameters):
+    :func:`_perturbed_poses`' tangents pushed through :func:`chain_scalars`'
+    algebra. The element centres are constants and drop out."""
+    R, pos, dR, dpos = _perturbed_poses(elements, params)
+    P, K = dR.shape[:2]
+    src_rot, src_origin, det_c, det_n, det_rot = (
+        _host64(x) for x in (source_rot, source_origin, det_centre, det_normal, det_rot))
+    dM, db = np.empty((P, K, 3, 3)), np.empty((P, K, 3))
+    # element 0 with the source frame folded in: (R_0 src_rot, R_0 (src_origin - pos_0) + cen_0)
+    dM[:, 0] = dR[:, 0] @ src_rot
+    db[:, 0] = dR[:, 0] @ (src_origin - pos[0]) - dpos[:, 0] @ R[0].T
+    # M_k = R_k R_{k-1}^T, b_k = R_k (pos_{k-1} - pos_k) + cen_k
+    dM[:, 1:] = dR[:, 1:] @ R[:-1].swapaxes(1, 2) + R[1:] @ dR[:, :-1].swapaxes(2, 3)
+    db[:, 1:] = (np.einsum("pkij,kj->pki", dR[:, 1:], pos[:-1] - pos[1:])
+                 + np.einsum("kij,pkj->pki", R[1:], dpos[:, :-1] - dpos[:, 1:]))
+    # the detector rows: R_K (det_centre - pos_K), R_K det_normal, R_K e1, R_K e2
+    det_vecs = np.stack([det_c - pos[-1], det_n, det_rot[0], det_rot[1]])
+    d_det = np.einsum("pij,gj->pgi", dR[:, -1], det_vecs)
+    d_det[:, 0] -= dpos[:, -1] @ R[-1].T
+    return np.concatenate([np.concatenate([dM.reshape(P, K, 9), db], axis=2).reshape(P, -1),
+                           d_det.reshape(P, -1)], axis=1)
 
 
 def scalar_tangents(elements, params, source_rot, source_origin, det_centre, det_normal,
                     det_rot) -> np.ndarray:
-    """(P, n_scalars) float32 Jacobian rows d svec / d param: the float64
-    ``torch.func.jacfwd`` of ``params -> chain_scalars(apply_params(...))``
-    on the host, rounded to float32 once."""
-    from ..analysis.alignment import AlignmentParams, apply_params
-    from . import fused_trace as ft
+    """(P, n_scalars) float32 Jacobian rows d svec / d param: the closed
+    form :func:`scalar_jacobian` (held against ``torch.func.jacfwd`` of
+    :func:`chain_scalars` in the tests), rounded to float32 once. Counted in
+    ``scalar_tangents.calls``."""
+    scalar_tangents.calls += 1
+    return scalar_jacobian(elements, params, source_rot, source_origin, det_centre, det_normal,
+                           det_rot).astype(np.float32)
 
-    host = ft.elements_to(elements, "cpu", torch.float64)
-    flat = _flat_params(params)
-    K = len(host)
 
-    def scal(fp):
-        p = AlignmentParams(angles=fp[:3 * K].reshape(K, 3), shifts=fp[3 * K:].reshape(K, 3))
-        return chain_scalars(apply_params(host, p), source_rot, source_origin, det_centre,
-                             det_normal, det_rot)
-
-    return torch.func.jacfwd(scal)(flat).T.contiguous().numpy().astype(np.float32)
+#: closed-form Jacobian evaluations (one per fused gradient step)
+scalar_tangents.calls = 0
 
 
 def fused_focus_value_and_grad(params, spec: FusedLossSpec, elements, source_rot, source_origin,

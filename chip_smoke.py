@@ -1651,7 +1651,7 @@ def phase_grad(torch, dev):
 
     # a step's parts, and K7 on its own counted run
     walls = {}
-    for key, fn in (("tangents (host jacfwd)", lambda: fg.scalar_tangents(host, params, *geo)),
+    for key, fn in (("tangents (closed form)", lambda: fg.scalar_tangents(host, params, *geo)),
                     ("value_and_grad", lambda: fg.fused_focus_value_and_grad(params, spec, host, *geo,
                                                                              device=dev)),
                     ("fused_focus_loss (K7)", lambda: fg.fused_focus_loss(params, spec, host, *geo,
@@ -1669,6 +1669,23 @@ def phase_grad(torch, dev):
     print("grad step parts (ms, mean of 5 warm calls): " + ", ".join(f"{k} {v:.3f}" for k, v in walls.items())
           + f"; fused_focus_loss {loss7:.6g} with launches {k7}", flush=True)
     _check(k7["K7"] == 1 and all(v == 0 for k, v in k7.items() if k != "K7"), f"K7 launches {k7}")
+
+    # the closed-form tangent rows against torch.func.jacfwd of chain_scalars
+    K = len(host)
+
+    def scal(fp):
+        p = al.AlignmentParams(angles=fp[:3 * K].reshape(K, 3), shifts=fp[3 * K:].reshape(K, 3))
+        return fg.chain_scalars(al.apply_params(host, p), *geo)
+
+    flat = torch.cat([params.angles.reshape(-1), params.shifts.reshape(-1)]).to(torch.float64)
+    ref = torch.func.jacfwd(scal)(flat).T.numpy()
+    closed = fg.scalar_jacobian(host, params, *geo)
+    gap = float(np.abs(closed - ref).max() / np.abs(ref).max())
+    print(f"grad tangents: closed form vs torch.func.jacfwd, largest gap {gap:.3g} of the largest "
+          "entry", flush=True)
+    _check(gap <= 1e-12 and np.array_equal(fg.scalar_tangents(host, params, *geo),
+                                           closed.astype(np.float32)),
+           f"closed-form tangent rows vs torch.func.jacfwd: gap {gap:.3g} of the largest entry")
 
     # one step against the autograd engine on the card
     def misalign(p):
