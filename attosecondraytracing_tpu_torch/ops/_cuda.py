@@ -120,37 +120,32 @@ def library() -> ctypes.CDLL:
 
 
 def load(path) -> ctypes.CDLL:
-    """Load a kernel library built from ``csrc/``, bind its C interface and
-    check its record layouts against the numpy records."""
-    from .fused_trace import CHAIN_T
-
+    """Load a kernel library built from ``csrc/``, refuse it unless it has
+    this C interface's version, and bind it (:func:`bind`)."""
     lib = ctypes.CDLL(str(path))
-    if not hasattr(lib, "art_abi_version") or lib.art_abi_version() != ABI_VERSION:
-        raise RuntimeError(f"{path}: not a kernel library of C interface version {ABI_VERSION}")
-    return bind(lib, CHAIN_T.itemsize, ABI_VERSION)
+    version = lib.art_abi_version() if hasattr(lib, "art_abi_version") else None
+    if version != ABI_VERSION:
+        raise RuntimeError(f"{path}: C interface version {version}: this checkout takes "
+                           f"version {ABI_VERSION} only")
+    return bind(lib)
 
 
-def bind(lib, chain_bytes: int, version: int) -> ctypes.CDLL:
-    """Bind the kernels' C interface of versions 3 to 7 (the same entry
-    points; version 6 adds the image kernel K1i, version 7 K7's own entry
-    ``art_launch_stats_primal``, where version 6 and older launch K7 through
-    ``art_launch_stats_params`` with no tangent rows) to a loaded library of
-    ``version`` and check its record sizes: the chain record must be
-    ``chain_bytes`` long (this version's; an older version's is a prefix of
-    this version's record, which such a library reads: 4's before the grid
-    maps, 3's before the Zernike tables), the others as the numpy records.
-    The gather probes of versions 5 to 7 are bound by
+def bind(lib) -> ctypes.CDLL:
+    """Bind the entry points of C interface version 7 (K1, K1i, K2, K3/K4,
+    K5, K6, K7 and K8) to a loaded library and check its record sizes
+    against the numpy records. The gather probes are bound by
     ``utils/gather_probe.py``, the cost probes by ``utils/cost_probe.py``."""
     from .fused_scan import N_AUX
-    from .fused_trace import DETECTOR_T, IMAGE_T, SOURCE_T
+    from .fused_trace import CHAIN_T, DETECTOR_T, IMAGE_T, SOURCE_T
 
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for name in ("art_chain_params_size", "art_source_params_size",
-                 "art_detector_params_size"):
+                 "art_detector_params_size", "art_image_params_size"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_size_t
     for name in ("art_abi_version", "art_moment_rays_per_block",
                  "art_source_moments_rays_per_block", "art_source_stats_rays_per_block",
+                 "art_source_image_rays_per_block", "art_stats_primal_rays_per_block",
                  "art_scan_aux_size", "art_tangent_batch"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ci
@@ -159,6 +154,9 @@ def bind(lib, chain_bytes: int, version: int) -> ctypes.CDLL:
     lib.art_launch_fused_source_trace.argtypes = [
         vp, vp, ci, cf, cf, vp, vp, vp, vp, vp, vp, vp]
     lib.art_launch_fused_source_trace.restype = ci
+    lib.art_launch_fused_source_image.argtypes = [
+        vp, vp, vp, ci, ci, ci, ci, vp, vp, vp, ci, ci, vp, vp, vp, vp]
+    lib.art_launch_fused_source_image.restype = ci
     lib.art_launch_fused_source_moments.argtypes = [
         vp, vp, vp, ci, ci, ci, ci, vp, vp, vp]
     lib.art_launch_fused_source_moments.restype = ci
@@ -170,23 +168,12 @@ def bind(lib, chain_bytes: int, version: int) -> ctypes.CDLL:
     lib.art_launch_fused_source_stats.restype = ci
     lib.art_launch_stats_params.argtypes = [vp, vp, cf, ci, ci, ci, ci, ci, vp, ci, vp, vp, vp, vp]
     lib.art_launch_stats_params.restype = ci
-    sizes = [("art_chain_params_size", chain_bytes), ("art_source_params_size", SOURCE_T.itemsize),
-             ("art_detector_params_size", DETECTOR_T.itemsize)]
-    if version >= 7:
-        lib.art_stats_primal_rays_per_block.argtypes = []
-        lib.art_stats_primal_rays_per_block.restype = ci
-        lib.art_launch_stats_primal.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp, vp, vp]
-        lib.art_launch_stats_primal.restype = ci
-    if version >= 6:
-        lib.art_image_params_size.argtypes = []
-        lib.art_image_params_size.restype = ctypes.c_size_t
-        lib.art_source_image_rays_per_block.argtypes = []
-        lib.art_source_image_rays_per_block.restype = ci
-        lib.art_launch_fused_source_image.argtypes = [
-            vp, vp, vp, ci, ci, ci, ci, vp, vp, vp, ci, ci, vp, vp, vp, vp]
-        lib.art_launch_fused_source_image.restype = ci
-        sizes.append(("art_image_params_size", IMAGE_T.itemsize))
-    for name, size in sizes:
+    lib.art_launch_stats_primal.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp, vp, vp]
+    lib.art_launch_stats_primal.restype = ci
+    for name, size in (("art_chain_params_size", CHAIN_T.itemsize),
+                       ("art_source_params_size", SOURCE_T.itemsize),
+                       ("art_detector_params_size", DETECTOR_T.itemsize),
+                       ("art_image_params_size", IMAGE_T.itemsize)):
         got = getattr(lib, name)()
         if got != size:
             raise RuntimeError(f"{name}: C struct is {got} B, numpy record is "

@@ -20,9 +20,10 @@ in), then the detector plane in the final element's frame.
   (:func:`pack_primal_records`).
 
 The tangent rows are the Jacobian of ``params -> svec``, written in closed
-form in host float64 (:func:`scalar_jacobian`; the tests hold it against
-``torch.func.jacfwd`` of the differentiable :func:`chain_scalars`), rounded
-to float32 once; the loss gradient is one host contraction. The primal
+form in host float64 (:func:`scalar_jacobian`; the tests and
+``chip_smoke.py`` hold it against ``torch.func.jacfwd`` of
+:func:`chain_scalars_np` written in torch, ``tests/torch_pose_oracle.py``),
+rounded to float32 once; the loss gradient is one host contraction. The primal
 ``svec`` is composed in host float64 and rounded to float32 once: the JAX
 package records why (``pallas_grad.py:101-107``): a float32 (there:
 bfloat16-pass) composition displaced the traced geometry by ~0.5 mm and
@@ -41,7 +42,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .trace import MaskElement, TraceState, _host64, chained_step, compose_chain, fold_source
+from .trace import TraceState, _host64, chained_step, compose_chain, fold_source
 
 #: scalars of the detector plane at the end of the vector: centre, normal,
 #: e1, e2 in the final element's frame
@@ -80,38 +81,6 @@ def chain_scalars_np(elements, source_rot, source_origin, det_centre, det_normal
     parts += [R_K @ (np.asarray(det_centre, np.float64) - pos_K),
               R_K @ np.asarray(det_normal, np.float64), R_K @ rot[0], R_K @ rot[1]]
     return np.concatenate(parts).astype(np.float32)
-
-
-def chain_scalars(elements, source_rot, source_origin, det_centre, det_normal, det_rot):
-    """:func:`chain_scalars_np` as a differentiable float64 torch function
-    of the elements' ``rot``/``position`` tensors (same layout, not
-    rounded): the function whose Jacobian gives K6 its tangent rows."""
-    f64 = torch.float64
-
-    def t(x):
-        return torch.as_tensor(x, dtype=f64) if not torch.is_tensor(x) else x.to(dtype=f64)
-
-    rots = [t(el.rot) for el in elements]
-    poss = [t(el.position) for el in elements]
-    dev = rots[0].device
-    cens = [torch.zeros(3, dtype=f64, device=dev) if isinstance(el, MaskElement)
-            else t(el.centre).to(dev) for el in elements]
-    maps = []
-    for k, (R, pos, cen) in enumerate(zip(rots, poss, cens)):
-        if k == 0:
-            maps.append((R, -R @ pos + cen))
-        else:
-            maps.append((R @ rots[k - 1].T, R @ (poss[k - 1] - pos) + cen))
-    M0 = maps[0][0]
-    maps[0] = (M0 @ t(source_rot).to(dev), M0 @ (t(source_origin).to(dev) - poss[0]) + cens[0])
-    parts = []
-    for M, b in maps:
-        parts += [M.reshape(-1), b]
-    R_K, pos_K = rots[-1], poss[-1]
-    rot = t(det_rot).to(dev)
-    parts += [R_K @ (t(det_centre).to(dev) - pos_K), R_K @ t(det_normal).to(dev),
-              R_K @ rot[0], R_K @ rot[1]]
-    return torch.cat(parts)
 
 
 def _unpack_scalars(scal, n_elements: int):
@@ -533,10 +502,11 @@ def _loss_from_stats(stats, spec: FusedLossSpec, total_weight: float):
 def scalar_jacobian(elements, params, source_rot, source_origin, det_centre, det_normal,
                     det_rot) -> np.ndarray:
     """(6K, n_scalars) float64 Jacobian d svec / d param of
-    ``params -> chain_scalars(apply_params(elements, params), ...)`` in
-    closed form (forward mode on the host, batched over the parameters):
-    :func:`_perturbed_poses`' tangents pushed through :func:`chain_scalars`'
-    algebra. The element centres are constants and drop out."""
+    ``params -> chain_scalars_np(apply_params(elements, params), ...)``
+    before its float32 rounding, in closed form (forward mode on the host,
+    batched over the parameters): :func:`_perturbed_poses`' tangents pushed
+    through :func:`chain_scalars_np`' algebra. The element centres are
+    constants and drop out."""
     R, pos, dR, dpos = _perturbed_poses(elements, params)
     P, K = dR.shape[:2]
     src_rot, src_origin, det_c, det_n, det_rot = (
@@ -561,8 +531,8 @@ def scalar_tangents(elements, params, source_rot, source_origin, det_centre, det
                     det_rot) -> np.ndarray:
     """(P, n_scalars) float32 Jacobian rows d svec / d param: the closed
     form :func:`scalar_jacobian` (held against ``torch.func.jacfwd`` of
-    :func:`chain_scalars` in the tests), rounded to float32 once. Counted in
-    ``scalar_tangents.calls``."""
+    ``tests/torch_pose_oracle.chain_scalars``), rounded to float32 once.
+    Counted in ``scalar_tangents.calls``."""
     scalar_tangents.calls += 1
     return scalar_jacobian(elements, params, source_rot, source_origin, det_centre, det_normal,
                            det_rot).astype(np.float32)

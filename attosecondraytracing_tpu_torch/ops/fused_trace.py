@@ -381,14 +381,11 @@ CHAIN_T = np.dtype([
     ("RK", "<f4", (9,)), ("posK", "<f4", (3,)),
     ("ignore_defects", "<i4"), ("n_zernike", "<i4"), ("zk_of", "<i4", (MAX_ELEMENTS,)),
     ("zk", _ZERNIKE_T, (MAX_ZERNIKE,)),
-    # C interface version 5: the grid maps, after version 4's fields (the
-    # pad aligns GridP's pointer to 8 bytes, as the C struct does)
+    # the grid maps (the pad aligns GridP's pointer to 8 bytes, as the C
+    # struct does)
     ("n_grids", "<i4"), ("grid_begin", "<i4", (MAX_ELEMENTS,)),
     ("grid_end", "<i4", (MAX_ELEMENTS,)), ("_pad", "<i4"), ("grid", _GRID_T, (MAX_GRIDS,)),
 ])
-#: the chain record of C interface version 4 (without the grids): the prefix
-#: a version-4 library reads
-CHAIN_V4_BYTES = CHAIN_T.fields["n_grids"][1]
 SOURCE_T = np.dtype([
     ("kind", "<i4"), ("radius", "<f4"), ("inv_n_total", "<f4"), ("rad2", "<f4"),
     ("ln_edge", "<f4"), ("weighted", "<i4"), ("g", "<f4", (3,)),

@@ -4,9 +4,10 @@
         [--rays N] [--image-rays N] [--rounds R] [--kernels K1,K6,...] [--chains flat,zernike,grid]
         [--zernike] [--grid]
 
-Each ``OTHER_CSRC`` holds another version's ``csrc/`` sources: the parent
+Each ``OTHER_CSRC`` holds another ``csrc/`` tree of C interface version 7
+(``art_abi_version``; :func:`bind` refuses any other version): the parent
 commit's (unpacked with ``git archive`` into a directory that ``.gitignore``
-lists) or a design variant (:mod:`.kernel_variants`). Each is compiled with
+lists) or a design written as a tree of its own. Each is compiled with
 this checkout's flags, one ``nvcc`` per source (two trees at a time), into
 ``build/kernels_ab/<i>/`` and linked into a library beside this checkout's
 own. For every build the ptxas lines of each kernel (registers, spills,
@@ -19,8 +20,8 @@ each chain of ``--chains``: ``flat``, the flagship (the default),
 defects of ``chip_smoke.py``'s phase zernike, and ``grid``, with its grid
 map.
 
-* K1, K3 and K4 have the same C interface in every build: one prepared
-  launch serves each library, picked up through ``ops/_cuda._lib``. Their
+* K1, K3 and K4: one prepared launch serves each library, picked up
+  through ``ops/_cuda._lib``. Their
   outputs of the two builds are compared ray by ray: the alive masks, and
   p, d, opl, opl_c and incidence bit for bit on the alive rays. K3 and K4
   run on the cases of :data:`K34_CASES` (``--kernels K3`` / ``K4`` name
@@ -31,24 +32,16 @@ map.
   each of this build's times its byte bound and its issue-slot bound
   (:func:`_k34_bounds`: its SASS by stage over the warps' passes, counted
   where the rays die, :func:`streamed_stage_warps`).
-* K1i (C interface version 6) is prepared per library of version 6: the
-  flagship's image of ``--image-rays`` rays (default ``--rays``), 512 x 512
-  pixels on the plane 490 mm behind it (the window fitted to a probe), one
-  launch for all its chunks; the two builds'
-  images are compared (sums of weights, summed pixel differences).
+* K1i is prepared per library: the flagship's image of ``--image-rays``
+  rays (default ``--rays``), 512 x 512 pixels on the plane 490 mm behind it
+  (the window fitted to a probe), one launch for all its chunks; the two
+  builds' images are compared (sums of weights, summed pixel differences).
 * K2, K5-K7 and K8 (at 1, 20 and 128 distances: ``K8_J1``, ``K8_J20``,
-  ``K8_J128``; ``K8`` names all three) are prepared per library. A build of
-  this C interface (version 4, ``art_abi_version``) or of version 3 (the same
-  entry points; its chain record is version 4's without the defect fields
-  at its end, so it reads the prefix of this version's records) goes through
-  the wrappers' own ``prepare_*``; a build of version 2 (K2 and K8 on a
-  (blocks per chunk, chunks) grid, K8 retracing each group of 8 distances)
-  or of version 1 (no ``art_abi_version``: besides, K5-K7 on that grid and
-  K6 with 6 tangent rows per launch) through the adapters below. K6 is one
-  gradient step's work: all 18 tangent rows of the flagship's pose vector.
-  Each build's sums are compared with A's, relative to each statistic's
-  scale. A build of version 4 (before the grid maps: its chain record is a
-  prefix of this version's) is bound as version 3 is.
+  ``K8_J128``; ``K8`` names all three) are prepared per library through the
+  wrappers' own ``prepare_*`` (rows follow each library's rays per block
+  and tangent batch). K6 is one gradient step's work: all 18 tangent rows
+  of the flagship's pose vector. Each build's sums are compared with A's,
+  relative to each statistic's scale.
 * ``--zernike`` also times this checkout's K1-K8 on the Zernike-deformed
   flagship, and ``--grid`` on the grid flagship (its first toroid carrying
   a ``Fourrier`` map of chip_smoke.py's phase grid: a 1 nm map of 3000 x 640
@@ -165,8 +158,7 @@ def ptxas_fields(log: str) -> dict:
     return out
 
 
-#: the kernels' DEFECTS instantiations (csrc/trace_common.cuh DefectBranch);
-#: C interface versions 4 and older had a bool: false, true (Zernike)
+#: the kernels' DEFECTS instantiations (csrc/trace_common.cuh DefectBranch)
 DEFECT_BRANCHES = {"0": "", "1": "zernike", "2": "grid"}
 
 
@@ -740,226 +732,25 @@ def _k6_stages(lib_path, tangent_batch: int, csrc, chains) -> dict:
     return out
 
 
-def _k7_stages_text(lib_path, version: int, csrc) -> str:
+def _k7_stages_text(lib_path, csrc) -> str:
     """K7's SASS by stage (:func:`sass_stages`; a walk of the tree's own,
     not trace_chain_maps, reads as "ray loop"), one line per stage."""
-    kernel = "stats_primal_kernelILi0E" if version >= 7 else "stats_params_kernelILi0ELi0E"
     try:
-        stages = sass_stages(lib_path, kernel, csrc)
+        stages = sass_stages(lib_path, "stats_primal_kernelILi0E", csrc)
     except (OSError, RuntimeError, subprocess.CalledProcessError) as exc:
         return f"K7 SASS by stage unavailable ({exc})"
     return "\n".join(f"K7 SASS {stage}: {c['total']:g} ({_pipes_text(c)})" for stage, c in stages.items())
 
 
-def bind(path):
-    """``(library, version)``: a library of this C interface through
-    ``_cuda.load`` (version 7), or an older one (version 6, 5, 4, 3 or 2, or
-    1 without ``art_abi_version``) through :func:`bind_old`."""
+def bind(path) -> ctypes.CDLL:
+    """The library at ``path`` bound through ``_cuda.load``: a build of C
+    interface version 7; a build of any other version is refused."""
     probe = ctypes.CDLL(str(path))
-    version = 1
-    if hasattr(probe, "art_abi_version"):
-        probe.art_abi_version.restype = ctypes.c_int
-        version = probe.art_abi_version()
-    if version == _cuda.ABI_VERSION:
-        return _cuda.load(path), version
-    if version not in (1, 2, 3, 4, 5, 6):
-        raise RuntimeError(f"{path}: C interface version {version} has no adapter here")
-    return bind_old(path, version), version
-
-
-def _chain_prefix_bytes() -> int:
-    """Bytes of the chain record of C interface versions 1-3: this version's
-    record up to its defect fields (appended at its end in version 4)."""
-    from ..ops.fused_trace import CHAIN_T
-
-    return CHAIN_T.fields["ignore_defects"][1]
-
-
-def bind_old(path, version: int) -> ctypes.CDLL:
-    """Bind a library of C interface version 1 to 6: version 6 as this
-    version without K7's own entry (K7 goes through :func:`_old_stats_primal`);
-    version 5 so, without K1i (:func:`.._cuda.bind`); version 4 so, reading the
-    prefix of this version's
-    chain record before the grid maps (a chain without grid maps); version 3
-    so, reading the prefix before the defect fields (:func:`_chain_prefix_bytes`:
-    an undeformed chain); versions 1 and 2 with K1, K3 and K4 as now, K2 and
-    K8 on a (blocks per chunk, chunks) grid, K5 and K6/K7 with the version's
-    signatures (version 1: that grid too, and K6 6 tangent rows per launch;
-    version 2: as now), reading version 3's prefix. Record sizes checked."""
-    from ..ops.fused_trace import CHAIN_T, CHAIN_V4_BYTES, DETECTOR_T, SOURCE_T
-
-    lib = ctypes.CDLL(str(path))
-    if version in (5, 6):
-        return _cuda.bind(lib, CHAIN_T.itemsize, version)
-    if version == 4:
-        return _cuda.bind(lib, CHAIN_V4_BYTES, version)
-    if version == 3:
-        return _cuda.bind(lib, _chain_prefix_bytes(), version)
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for name, size in (("art_chain_params_size", _chain_prefix_bytes()),
-                       ("art_source_params_size", SOURCE_T.itemsize),
-                       ("art_detector_params_size", DETECTOR_T.itemsize)):
-        getattr(lib, name).restype = ctypes.c_size_t
-        if getattr(lib, name)() != size:
-            raise RuntimeError(f"{path}: {name} disagrees with this checkout's records")
-    lib.art_moment_rays_per_block.restype = ci
-    lib.art_error_string.argtypes = [ci]
-    lib.art_error_string.restype = ctypes.c_char_p
-    lib.art_launch_fused_source_trace.argtypes = [vp, vp, ci, cf, cf, vp, vp, vp, vp, vp, vp, vp]
-    lib.art_launch_fused_source_moments.argtypes = [vp, vp, vp, ci, ci, ci, vp, vp, ci, vp]
-    lib.art_launch_streamed_trace.argtypes = [vp, ci, ci] + [vp] * 13
-    lib.art_launch_fused_source_stats.argtypes = [vp, vp, vp, ci, ci, ci, vp, vp, ci, vp, ci, vp]
-    if version == 1:
-        lib.art_launch_scan_moments.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp, ci, vp]
-        lib.art_launch_stats_params.argtypes = [vp, vp, cf, ci, ci, ci, ci, vp, vp, vp, vp, ci, ci, vp]
-    else:
-        lib.art_tangent_batch.restype = ci
-        lib.art_launch_scan_moments.argtypes = [vp, vp, ci, ci, ci, ci, vp, vp, vp, vp]
-        lib.art_launch_stats_params.argtypes = [vp, vp, cf, ci, ci, ci, ci, ci, vp, ci, vp, vp, vp, vp]
-    for name in ("art_launch_fused_source_trace", "art_launch_fused_source_moments",
-                 "art_launch_streamed_trace", "art_launch_fused_source_stats",
-                 "art_launch_scan_moments", "art_launch_stats_params"):
-        getattr(lib, name).restype = ci
-    return lib
-
-
-def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def _old_source_moments(lib, table, spec, det, chunks, n_total, edge, device):
-    """(launch, result) of K2 through C interface versions 1 and 2: a
-    (blocks per chunk, chunks) grid, one row of 16 per block."""
-    from ..ops import fused_trace as ft
-
-    chain_rec, src_rec = ft.pack_chain(table), ft.pack_source(spec, n_total, edge)
-    det_rec = ft.pack_detector(det)
-    sizes = [c[0] for c in chunks]
-    bpc = -(-sizes[0] // lib.art_moment_rays_per_block())
-    params = torch.tensor([[c[1], c[2]] for c in chunks], dtype=torch.float32, device=device)
-    rows = torch.empty((len(chunks) * bpc, len(ft.MOMENT_FIELDS)), dtype=torch.float64, device=device)
-
-    def launch():
-        status = lib.art_launch_fused_source_moments(
-            chain_rec.ctypes.data, src_rec.ctypes.data, det_rec.ctypes.data, sum(sizes), sizes[0],
-            len(chunks), params.data_ptr(), rows.data_ptr(), bpc, _stream(device))
-        _cuda._check(lib, status, "older-interface fused_source_moments launch")
-
-    return launch, lambda: rows.sum(dim=0).cpu().numpy()
-
-
-def _old_source_stats(lib, table, spec, det, chunks, n_total, edge, device):
-    """(launch, result) of K8 through C interface versions 1 and 2: a (blocks
-    per chunk, chunks, groups of 8 distances) grid, each group retracing its
-    rays; one row of 8 x 7 per block and group. Result (7, J)."""
-    from ..ops import fused_trace as ft
-
-    chain_rec, src_rec = ft.pack_chain(table), ft.pack_source(spec, n_total, edge)
-    det_rec = ft.pack_detector(det)
-    sizes = [c[0] for c in chunks]
-    n_dist = len(det.distances)
-    bpc = -(-sizes[0] // lib.art_moment_rays_per_block())
-    params = torch.tensor([[c[1], c[2]] for c in chunks], dtype=torch.float32, device=device)
-    dists = torch.tensor(list(zip(det.distances, det.delay_offsets)), dtype=torch.float32, device=device)
-    rows = torch.empty((len(chunks) * bpc, -(-n_dist // 8) * 8 * 7), dtype=torch.float64, device=device)
-
-    def launch():
-        status = lib.art_launch_fused_source_stats(
-            chain_rec.ctypes.data, src_rec.ctypes.data, det_rec.ctypes.data, sum(sizes), sizes[0],
-            len(chunks), params.data_ptr(), dists.data_ptr(), n_dist, rows.data_ptr(), bpc,
-            _stream(device))
-        _cuda._check(lib, status, "older-interface fused_source_stats launch")
-
-    return launch, lambda: rows.sum(dim=0).view(-1, 7)[:n_dist].t().cpu().numpy()
-
-
-def _v1_scan_moments(lib, sspec, svec, aux, chunks, device):
-    """(launch, result) of K5 through C interface version 1."""
-    from ..ops import fused_scan as fs
-    from ..ops import fused_trace as ft
-
-    chain_rec = fs.pack_scan_chain(sspec)
-    src_rec = ft.pack_source(fs._source_record(sspec), sspec.n_total)
-    sizes = [c[0] for c in chunks]
-    bpc = -(-sizes[0] // lib.art_moment_rays_per_block())
-    svec_t = torch.as_tensor(np.asarray(svec, np.float32)).to(device)
-    aux_t = torch.as_tensor(np.asarray(aux, np.float32)).to(device)
-    rows = torch.empty((len(chunks) * bpc, len(ft.MOMENT_FIELDS)), dtype=torch.float64, device=device)
-
-    def launch():
-        status = lib.art_launch_scan_moments(
-            chain_rec.ctypes.data, src_rec.ctypes.data, sum(sizes), sizes[0], len(chunks),
-            svec_t.data_ptr(), aux_t.data_ptr(), rows.data_ptr(), bpc, _stream(device))
-        _cuda._check(lib, status, "version-1 scan_moments launch")
-
-    return launch, lambda: rows.sum(dim=0).cpu().numpy()
-
-
-def _old_stats_primal(lib, spec, svec, chunks, device):
-    """(launch, result) of K7 through C interface versions 2 to 6: the
-    runtime-pose kernel of K6 without tangent rows (``stats_params_kernel<0>``,
-    ``art_launch_stats_params`` with none), the pose vector on the device,
-    on a grid sized to the rays at ``art_moment_rays_per_block``."""
-    from ..ops import fused_grad as fg
-    from ..ops import fused_trace as ft
-
-    chain_rec, src_rec = fg.pack_stats_records(spec, device)
-    grids = ft.launch_grids(spec.elements, device)  # the rows the record points into, held by launch
-    sizes = [c[0] for c in chunks]
-    bpc, n_blocks = ft.ray_grid(sizes, lib.art_moment_rays_per_block())
-    svec_t = torch.as_tensor(np.asarray(svec, np.float32)).to(device)
-    params = torch.tensor([[c[1], c[2]] for c in chunks], dtype=torch.float32, device=device)
-    rows = torch.empty((n_blocks, 7), dtype=torch.float64, device=device)
-
-    def launch():
-        _cuda._check_grids(grids, rows)
-        status = lib.art_launch_stats_params(
-            chain_rec.ctypes.data, src_rec.ctypes.data, float(spec.opl_ref), sum(sizes), sizes[0], bpc,
-            n_blocks, len(svec), svec_t.data_ptr(), 0, None, params.data_ptr(), rows.data_ptr(),
-            _stream(device))
-        _cuda._check(lib, status, "older-interface stats_params (K7) launch")
-
-    return launch, lambda: rows.sum(dim=0).cpu().numpy()
-
-
-def _v1_stats_params(lib, spec, svec, tang, chunks, device):
-    """(launch, result) of one gradient step (K6: 6 tangent rows per launch,
-    ceil(P / 6) launches) or of K7 (``tang`` None) through C interface
-    version 1."""
-    from ..ops import fused_grad as fg
-
-    chain_rec, src_rec = fg.pack_stats_records(spec)
-    sizes = [c[0] for c in chunks]
-    bpc = -(-sizes[0] // lib.art_moment_rays_per_block())
-    n = len(svec)
-    svec_t = torch.as_tensor(np.asarray(svec, np.float32)).to(device)
-    params = torch.tensor([[c[1], c[2]] for c in chunks], dtype=torch.float32, device=device)
-    groups = []
-    P = 0 if tang is None else len(tang)
-    for g0 in range(0, P, 6) if P else (0,):
-        t = None
-        if P:
-            padded = np.zeros((6, n), np.float32)
-            padded[:min(6, P - g0)] = tang[g0:g0 + 6]
-            t = torch.as_tensor(padded).to(device)
-        rows = torch.empty((len(chunks) * bpc, 7 * (1 + (6 if P else 0))), dtype=torch.float64,
-                           device=device)
-        groups.append((t, rows))
-
-    def launch():
-        for t, rows in groups:
-            status = lib.art_launch_stats_params(
-                chain_rec.ctypes.data, src_rec.ctypes.data, float(spec.opl_ref), sum(sizes),
-                sizes[0], len(chunks), n, svec_t.data_ptr(), None if t is None else t.data_ptr(),
-                params.data_ptr(), rows.data_ptr(), bpc, 0 if t is None else 6, _stream(device))
-            _cuda._check(lib, status, "version-1 stats_params launch")
-
-    def result():
-        sums = [rows.sum(dim=0).cpu().numpy() for _t, rows in groups]
-        tangents = np.concatenate([s[7:].reshape(-1, 7) for s in sums])[:P]
-        return np.concatenate([sums[0][:7], tangents.reshape(-1)])
-
-    return launch, result
+    version = probe.art_abi_version() if hasattr(probe, "art_abi_version") else None
+    if version != _cuda.ABI_VERSION:
+        raise RuntimeError(f"{path}: C interface version {version}: A/B takes version "
+                           f"{_cuda.ABI_VERSION} only")
+    return _cuda.load(path)
 
 
 #: the Zernike defects of the deformed flagship's first toroid (chip_smoke.py's
@@ -1094,12 +885,12 @@ def _problems(n_rays: int, device, kind: str = "flat", n_image: int | None = Non
     mrad cone source; its first toroid deformed by
     :func:`first_toroid_defects` of ``kind``) at ``n_rays`` rays: prepared
     launches of K1 and of K3's and K4's cases ``k34`` (:data:`K34_CASES`;
-    any build), and ``per_lib(lib, version)``
+    any build), and ``per_lib(lib)``
     giving each library's ``{kernel: (launch, result)}`` of K2, K8 (1, 20
     and 128 distances over +-10 mm, per-distance chief-ray delay offsets),
     K5, K6 (the step's 18 tangent rows of scripts/bench_fused_grad.py's
-    misalignment, Gaussian edge exp(-2)) and K7, and K1i (version 6) at
-    ``n_image`` rays (default ``n_rays``).
+    misalignment, Gaussian edge exp(-2)) and K7, and K1i at ``n_image`` rays
+    (default ``n_rays``).
     Returns ``(shared, per_lib, results)``: ``results`` holds K1's and the
     K3 and K4 cases' outputs as the last launch left them, and each case's
     (table, bundle) under ``"K34_inputs"``."""
@@ -1162,26 +953,16 @@ def _problems(n_rays: int, device, kind: str = "flat", n_image: int | None = Non
     n_image = n_image or n_rays
     image_chunks = ft.source_chunks("cone", n_image, n_image)
 
-    def per_lib(lib, version):
+    def per_lib(lib):
         out = {}
-        if version < 3:
-            out["K2"] = _old_source_moments(lib, table, spec, bdet, chunks, n_rays, edge, device)
-            for key, kdet in dets.items():
-                out[key] = _old_source_stats(lib, table, spec, kdet, chunks, n_rays, edge, device)
-        if version == 1:
-            out.update({"K5": _v1_scan_moments(lib, sspec, svec, aux, chunks, device),
-                        "K6": _v1_stats_params(lib, lspec, gsvec, tang, gchunks, device),
-                        "K7": _v1_stats_params(lib, lspec, gsvec, None, gchunks, device)})
-            return out
         _cuda._lib = lib  # rows follow this library's rays per block and tangent batch
-        if version >= 3:
-            rows2, k2 = ft.prepare_fused_source_moments(table, spec, bdet, chunks, n_rays,
-                                                        device=device, gaussian_edge=edge)
-            out["K2"] = (k2, lambda: rows2.sum(dim=0).cpu().numpy())
-            for key, kdet in dets.items():
-                rows8, k8 = ft.prepare_fused_source_stats(table, spec, kdet, chunks, n_rays,
-                                                          device=device, gaussian_edge=edge)
-                out[key] = (k8, lambda rows8=rows8: ft.stats_from_rows(rows8))
+        rows2, k2 = ft.prepare_fused_source_moments(table, spec, bdet, chunks, n_rays,
+                                                    device=device, gaussian_edge=edge)
+        out["K2"] = (k2, lambda: rows2.sum(dim=0).cpu().numpy())
+        for key, kdet in dets.items():
+            rows8, k8 = ft.prepare_fused_source_stats(table, spec, kdet, chunks, n_rays,
+                                                      device=device, gaussian_edge=edge)
+            out[key] = (k8, lambda rows8=rows8: ft.stats_from_rows(rows8))
         rows5, k5 = fs.prepare_scan_moments(sspec, svec, aux, chunks, device=device)
         rows6, k6 = fg.prepare_stats_params(lspec, gsvec, tang, gchunks, device=device)
 
@@ -1189,26 +970,22 @@ def _problems(n_rays: int, device, kind: str = "flat", n_image: int | None = Non
             p, t = fg.params_from_rows(rows, P)
             return np.concatenate([p, t.reshape(-1)])
 
+        rows7, k7 = fg.prepare_stats_params(lspec, gsvec, None, gchunks, device=device)
+        k1i = ft.prepare_fused_source_image(table, spec, image_chunks, n_image, idet, window,
+                                            K1I_BINS, device=device, gaussian_edge=edge)
+
+        def image_result():
+            kept, _cuda._lib = _cuda._lib, lib  # the launch binds the current library
+            for img in images:
+                img.zero_()
+            k1i(images)
+            _cuda._lib = kept
+            return np.concatenate([img.cpu().numpy() for img in images])
+
         out.update({"K5": (k5, lambda: rows5.sum(dim=0).cpu().numpy()),
-                    "K6": (k6, lambda: grad_result(rows6, len(tang)))})
-        if version >= 7:
-            rows7, k7 = fg.prepare_stats_params(lspec, gsvec, None, gchunks, device=device)
-            out["K7"] = (k7, lambda: grad_result(rows7, 0))
-        else:
-            out["K7"] = _old_stats_primal(lib, lspec, gsvec, gchunks, device)
-        if version >= 6:
-            k1i = ft.prepare_fused_source_image(table, spec, image_chunks, n_image, idet, window,
-                                                K1I_BINS, device=device, gaussian_edge=edge)
-
-            def image_result(k1i=k1i, lib=lib):
-                kept, _cuda._lib = _cuda._lib, lib  # the launch binds the current library
-                for img in images:
-                    img.zero_()
-                k1i(images)
-                _cuda._lib = kept
-                return np.concatenate([img.cpu().numpy() for img in images])
-
-            out["K1i"] = (lambda k1i=k1i: k1i(images), image_result)
+                    "K6": (k6, lambda: grad_result(rows6, len(tang))),
+                    "K7": (k7, lambda: grad_result(rows7, 0)),
+                    "K1i": (lambda: k1i(images), image_result)})
         return out
 
     table6 = fg.pose_table(lspec.elements, gsvec)
@@ -1373,21 +1150,21 @@ def main(argv=None):
         print(f"A = this checkout\n{ptxas_summary(_cuda.build_log_path().read_text())}\n"
               f"{sass_summary(lib_a._name)}", flush=True)
         if "K7" in keys:
-            print(_k7_stages_text(lib_a._name, _cuda.ABI_VERSION, _cuda.CSRC), flush=True)
+            print(_k7_stages_text(lib_a._name, _cuda.CSRC), flush=True)
         k6_stages = {}
         if "K6" in keys:
             k6_stages["A"] = _k6_stages(lib_a._name, _cuda.tangent_batch(), _cuda.CSRC, chains)
         others = []
         for i, (csrc, build) in enumerate(zip(args.other_csrc, builds)):
             path, regs = build.result()
-            lib, version = bind(path)
-            print(f"B{i} = {csrc} (C interface version {version})\n{regs}\n{sass_summary(path)}\n"
+            lib = bind(path)
+            print(f"B{i} = {csrc}\n{regs}\n{sass_summary(path)}\n"
                   f"{same_sass_text(sass_digests(lib_a._name), sass_digests(path))}", flush=True)
             if "K7" in keys:
-                print(_k7_stages_text(path, version, csrc), flush=True)
-            if "K6" in keys and version >= 7:
+                print(_k7_stages_text(path, csrc), flush=True)
+            if "K6" in keys:
                 k6_stages[f"B{i}"] = _k6_stages(path, lib.art_tangent_batch(), csrc, chains)
-            others.append((f"B{i}", str(csrc), lib, version))
+            others.append((f"B{i}", str(csrc), lib))
     for name, per_chain in k6_stages.items():
         for chain, stages in per_chain.items():
             print(f"K6 {chain} ({name}) SASS by stage: {stages}" if isinstance(stages, str)
@@ -1398,19 +1175,16 @@ def main(argv=None):
         k34 = [k for k in keys if k in K34_CASES and _case_runs(k, chain)]
         shared, per_lib, results = _problems(int(args.rays), device, chain,
                                              int(args.image_rays or args.rays), k34)
-        own = {"A": per_lib(lib_a, _cuda.ABI_VERSION)}
-        for name, _csrc, lib, version in others:
-            own[name] = per_lib(lib, version)
+        own = {"A": per_lib(lib_a)}
+        for name, _csrc, lib in others:
+            own[name] = per_lib(lib)
         _cuda._lib = lib_a
         if chain == "flat":
             flat = (shared, own["A"])
         for key in keys:
             if key in K34_CASES and key not in k34:
                 continue
-            for name, csrc, lib, _version in others:
-                if key not in shared and key not in own[name]:
-                    print(f"{key} {chain} flagship: {name} has no {key}", flush=True)
-                    continue
+            for name, csrc, lib in others:
                 a, b, diff = _ab(key, shared, own, name, lib_a, lib, args.rounds, results)
                 result.setdefault(chain, {}).setdefault(key, {})[name] = {
                     "other": csrc, "A_ms": a, "B_ms": b, "B_over_A": b / a}
@@ -1437,7 +1211,7 @@ def main(argv=None):
         if getattr(args, kind):
             if flat is None:
                 shared, per_lib, _results = _problems(int(args.rays), device, "flat")
-                flat = (shared, per_lib(lib_a, _cuda.ABI_VERSION))
+                flat = (shared, per_lib(lib_a))
             deformed[kind] = _time_deformed(keys, kind, *flat, args, device)
     print(json.dumps({"card": card, "rays": int(args.rays), "kernels": result, "deformed": deformed}),
           flush=True)
@@ -1521,7 +1295,7 @@ def _time_deformed(keys, kind, shared, own_a, args, device):
     (undeformed, deformed, deformed, undeformed) per round: ``{kernel:
     {"ms", "undeformed_ms", "ratio"}}``."""
     d_shared, d_per_lib, _results = _problems(int(args.rays), device, kind)
-    d_own = d_per_lib(_cuda.library(), _cuda.ABI_VERSION)
+    d_own = d_per_lib(_cuda.library())
     out = {}
     for key in keys:
         if key in K34_CASES and key not in ("K3", "K4"):

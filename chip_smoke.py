@@ -1670,12 +1670,16 @@ def phase_grad(torch, dev):
           + f"; fused_focus_loss {loss7:.6g} with launches {k7}", flush=True)
     _check(k7["K7"] == 1 and all(v == 0 for k, v in k7.items() if k != "K7"), f"K7 launches {k7}")
 
-    # the closed-form tangent rows against torch.func.jacfwd of chain_scalars
+    # the closed-form tangent rows against torch.func.jacfwd of the tests'
+    # differentiable pose vector
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_pose_oracle import chain_scalars
+
     K = len(host)
 
     def scal(fp):
         p = al.AlignmentParams(angles=fp[:3 * K].reshape(K, 3), shifts=fp[3 * K:].reshape(K, 3))
-        return fg.chain_scalars(al.apply_params(host, p), *geo)
+        return chain_scalars(al.apply_params(host, p), *geo)
 
     flat = torch.cat([params.angles.reshape(-1), params.shifts.reshape(-1)]).to(torch.float64)
     ref = torch.func.jacfwd(scal)(flat).T.numpy()

@@ -1,8 +1,8 @@
 """PyTorch port vs the JAX package: the fused alignment-gradient engine and
 the per-distance stats pass.
 
-* The pose vector's tangents (``chain_scalars`` and its ``jacfwd``) against
-  JAX's ``chain_scalars`` / ``jax.jacfwd`` under x64.
+* The pose vector (``chain_scalars`` of tests/torch_pose_oracle.py) and its
+  tangent rows against JAX's ``chain_scalars`` / ``jax.jacfwd`` under x64.
 * The plain version of kernels K6/K7 (``stats_params_ref``) against the
   Pallas kernels ``_kernel_stats_jvp`` / ``_kernel_stats_primal`` in
   interpret mode, and ``fused_focus_value_and_grad`` against JAX's, on the
@@ -52,6 +52,7 @@ from attosecondraytracing_tpu_torch import interop  # noqa: E402
 from attosecondraytracing_tpu_torch.ops import fused_grad as fg  # noqa: E402
 from attosecondraytracing_tpu_torch.ops import fused_trace as ft  # noqa: E402
 from test_gradients import _grad_setup  # noqa: E402
+from torch_pose_oracle import chain_scalars  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -140,7 +141,7 @@ def test_chain_scalars_and_tangents_match_jax(jax_grad):
 
     from attosecondraytracing_tpu_torch.analysis.alignment import apply_params
 
-    got = fg.chain_scalars(apply_params(tels, tparams), *geo).numpy()
+    got = chain_scalars(apply_params(tels, tparams), *geo).numpy()
     ref = np.concatenate([np.ravel(m) for m in _jax_scalars64(el64, p64, geo)])
     np.testing.assert_allclose(got, ref, rtol=1e-12, atol=1e-12)
     # its float32 rounding is the primal pose vector of the kernels

@@ -3,9 +3,9 @@ on the CPU: their plain version (``ops/fused_trace.streamed_trace_ref``) on
 a shuffled bundle whose dead rays sit among the live ones, against the
 ordered bundle's outputs permuted and against the JAX package's streamed
 trace of the same shuffled bundle; the wrapper on views off the 16-byte
-boundary with a tail past the last whole warp of rays; the design variants of
-``utils/kernel_variants.py``; and ``utils/kernel_ab.py``'s accounting of
-the kernels (SASS by stage on a fixed listing, warp passes by tile).
+boundary with a tail past the last whole warp of rays; and
+``utils/kernel_ab.py``'s accounting of the kernels (SASS by stage on a
+fixed listing, warp passes by tile).
 
 The JAX side is ``pallas_trace`` (``_kernel`` / ``_kernel_fresh``) in
 interpret mode for the flat and Zernike flagships; the JAX package takes
@@ -172,29 +172,6 @@ def test_views_off_the_boundary_with_a_tail_tile(fresh):
     for x, y in zip(got, ref):
         assert torch.equal(x, y) or torch.equal(x.view(torch.int32), y.view(torch.int32))
     assert 0 < int(got.alive.sum()) < n
-
-
-def test_kernel_variants_write_the_k34_alternatives(tmp_path):
-    """Every K3/K4 variant of utils/kernel_variants.py applies its edits to
-    streamed_trace.cu exactly once and touches no other source: the walk
-    without the warp exit, the three designs with the streams through
-    shared memory (a thread's next ray, warps' tiles, the block's tile by
-    bulk copies), 128-thread blocks."""
-    from attosecondraytracing_tpu_torch.ops import _cuda
-    from attosecondraytracing_tpu_torch.utils import kernel_variants as kv
-
-    names = kv.select(["k34*"])
-    assert set(names) == {"k34_no_warp_exit", "k34_prefetch", "k34_tiles", "k34_bulk", "k34_t128"}
-    shipped = {p.name: p.read_text() for p in _cuda.CSRC.iterdir()}
-    for name in names:
-        tree = kv.write(tmp_path, name)
-        changed = [p.name for p in tree.iterdir() if p.read_text() != shipped[p.name]]
-        assert changed == ["streamed_trace.cu"], (name, changed)
-    assert "cp.async.ca.shared.global [%0], [%1], 4;" in (tmp_path / "k34_prefetch" / "streamed_trace.cu").read_text()
-    assert "cp.async.cg.shared.global [%0], [%1], 16;" in (tmp_path / "k34_tiles" / "streamed_trace.cu").read_text()
-    bulk = (tmp_path / "k34_bulk" / "streamed_trace.cu").read_text()
-    assert "mbarrier.try_wait.parity" in bulk and "#include <cstdint>" in bulk
-    assert "NO_EXIT" in (tmp_path / "k34_no_warp_exit" / "streamed_trace.cu").read_text()
 
 
 def _csrc_line(name, text):

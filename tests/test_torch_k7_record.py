@@ -3,7 +3,8 @@ prepare_stats_params`` with no tangent rows), on the CPU: its launch record
 (the pose written into the chain record's maps and a detector record, as
 ``csrc/fused_grad.cu`` ``stats_primal_kernel`` reads them), the wrapper's
 route to the kernel's entry point on a CUDA device (the card stubbed), the
-SASS accounting of ``utils/kernel_ab.py`` on fixed listings, and
+binding of C interface version 7 alone (stand-in libraries), the SASS
+accounting of ``utils/kernel_ab.py`` on fixed listings, and
 ``chip_smoke.py``'s operation count where the rays die against the plain
 trace's alive counts. The kernel itself runs only on the card
 (``chip_smoke.py``, phases k67, zernike and grid)."""
@@ -112,6 +113,62 @@ def test_primal_record_layout_matches_the_kernel():
     assert "  int kind;\n  int pre_begin, pre_end;  // premasks" in common
     element = ft.CHAIN_T.fields["el"][0].base
     assert element.fields["M"][1] == 12 and element.fields["b"][1] == 48
+
+
+class _Entry:
+    """A stand-in entry point of a kernel library: returns ``value``."""
+
+    def __init__(self, value):
+        self.value, self.argtypes, self.restype = value, None, None
+
+    def __call__(self, *args):
+        return self.value
+
+
+class _StandInLibrary:
+    """A stand-in for ``ctypes.CDLL`` of a kernel library of this checkout's
+    records: every ``art_*`` entry returns 0 but the record sizes, the
+    version and those of ``changes``; an entry changed to None is absent."""
+
+    def __init__(self, **changes):
+        from attosecondraytracing_tpu_torch.ops.fused_scan import N_AUX
+
+        self._entries = {}
+        self._values = {"art_abi_version": _cuda.ABI_VERSION, "art_scan_aux_size": N_AUX,
+                        "art_chain_params_size": ft.CHAIN_T.itemsize,
+                        "art_source_params_size": ft.SOURCE_T.itemsize,
+                        "art_detector_params_size": ft.DETECTOR_T.itemsize,
+                        "art_image_params_size": ft.IMAGE_T.itemsize, **changes}
+
+    def __getattr__(self, name):
+        if not name.startswith("art_") or self._values.get(name, 0) is None:
+            raise AttributeError(name)
+        return self._entries.setdefault(name, _Entry(self._values.get(name, 0)))
+
+
+def test_binding_takes_c_interface_version_7_only(monkeypatch):
+    """``_cuda.load`` and ``kernel_ab.bind`` refuse a library of another C
+    interface version (6, or none at all) with one message; ``_cuda.bind``
+    binds every entry point of version 7, K1i's and K7's among them, and
+    raises where the library's chain record disagrees with CHAIN_T."""
+    import ctypes
+
+    for version in (6, None):
+        monkeypatch.setattr(ctypes, "CDLL", lambda path, v=version: _StandInLibrary(art_abi_version=v))
+        with pytest.raises(RuntimeError, match=f"C interface version {version}: this checkout takes "
+                                               "version 7 only"):
+            _cuda.load("libkernels_old.so")
+        with pytest.raises(RuntimeError, match=f"C interface version {version}: A/B takes version 7 only"):
+            ab.bind("libkernels_old.so")
+    monkeypatch.setattr(ctypes, "CDLL", lambda path: _StandInLibrary())
+    lib = ab.bind("libkernels_other.so")
+    for name in ("art_launch_fused_source_image", "art_launch_stats_primal", "art_launch_stats_params"):
+        assert getattr(lib, name).argtypes and getattr(lib, name).restype is ctypes.c_int, name
+    assert lib.art_launch_stats_primal.argtypes[:3] == [ctypes.c_void_p] * 3
+    short = _StandInLibrary(art_chain_params_size=ft.CHAIN_T.fields["n_grids"][1])
+    with pytest.raises(RuntimeError, match="art_chain_params_size: C struct is 2512 B, numpy record is "
+                                           "2744 B"):
+        _cuda.bind(short)
 
 
 @pytest.mark.parametrize("tangents", [0, 18])

@@ -56,7 +56,7 @@ sums = ft.fused_source_stats(ft.chain_table(spec, els), spec, bdet, [(4096, 0.0,
 assert sums.shape == (7, 3) and sums[0, 0] == sums[0, 2] > 1000
 # the streamed kernels' and the scan kernel's plain versions
 from attosecondraytracing_tpu_torch.ops import fused_grad, fused_scan  # noqa: F401
-from attosecondraytracing_tpu_torch.utils import kernel_ab, kernel_variants  # noqa: F401
+from attosecondraytracing_tpu_torch.utils import kernel_ab  # noqa: F401
 chain.source_rays = chain.source_rays  # a user bundle
 user = chain.trace_final(engine="fused")
 assert chain.last_trace_engine == "torch-streamed" and abs(int(user.alive.sum()) - a) <= 2

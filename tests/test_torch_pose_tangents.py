@@ -3,7 +3,8 @@ scalar_jacobian`` / ``scalar_tangents``), the rows kernel K6 takes in every
 fused alignment step.
 
 * The closed form against ``torch.func.jacfwd`` of the differentiable
-  ``chain_scalars(apply_params(...))`` in float64, before the float32
+  ``chain_scalars(apply_params(...))`` (tests/torch_pose_oracle.py) in
+  float64, before the float32
   rounding: within 1e-12 of each parameter's largest entry, on the f-x-f
   flagship, its Zernike- and grid-deformed twins, the one-element deformed
   parabola of ``CONFIG_deformed.py`` and a five-element chain with a mask
@@ -33,6 +34,7 @@ import pytest  # noqa: E402
 from attosecondraytracing_tpu_torch.analysis import alignment as al  # noqa: E402
 from attosecondraytracing_tpu_torch.ops import fused_grad as fg  # noqa: E402
 from attosecondraytracing_tpu_torch.utils import kernel_ab as ab  # noqa: E402
+from torch_pose_oracle import chain_scalars  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -120,7 +122,7 @@ def _jacfwd_rows(host, params, *geo):
 
     def scal(fp):
         p = al.AlignmentParams(angles=fp[:3 * K].reshape(K, 3), shifts=fp[3 * K:].reshape(K, 3))
-        return fg.chain_scalars(al.apply_params(host, p), *geo)
+        return chain_scalars(al.apply_params(host, p), *geo)
 
     return torch.func.jacfwd(scal)(flat).T.numpy()
 
